@@ -1,11 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources in ``csrc/`` have a plain C interface and include no PyTorch
-header, so ``nvcc`` compiles all of them into one shared library in
-seconds::
+header, so ``nvcc`` compiles each in seconds, all at once, one process per
+source, and links them into one shared library::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \\
-         -Xcompiler -fPIC -o libapt_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <source>.o csrc/<source>.cu
+    nvcc -shared -o libapt_torch_kernels.so *.o
 
 The library is built at first use, never at import, into
 ``build/apt_torch_kernels/<hash of sources and flags>/`` under the
@@ -34,7 +35,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "apt_torch_kerne
 LIB_NAME = "libapt_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: launches per kernel since the last :func:`reset_launches`
@@ -48,7 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "apt_spectrogram_power": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "apt_spectrogram_power": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "apt_noise_psd_track": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F,
                             _I, _F, _F, _F, _F, _F, _F, _F, _P),
     "apt_causal_low_quantile_baseline": (_P, _P, _I, _I, _F, _F, _F, _F, _F,
@@ -111,17 +112,30 @@ def build() -> KernelLibrary:
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+        objs = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        r = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True,
-        )
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, p.returncode, out)
+                  for src, p, out in zip(sources, procs, logs) if p.returncode != 0]
+        if not failed:
+            r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                               capture_output=True, text=True)
+            logs.append(r.stdout + r.stderr)
+            if r.returncode != 0:
+                failed.append(("link", r.returncode, r.stdout + r.stderr))
         seconds = time.perf_counter() - t0
-        log_path.write_text(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {r.returncode}:\n{r.stderr[-4000:]}"
-            )
+        log_path.write_text("".join(logs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            name, code, out = failed[0]
+            raise RuntimeError(f"nvcc failed on {name} with exit code {code}:\n{out[-4000:]}")
         os.replace(tmp, lib_path)
     log = log_path.read_text() if log_path.exists() else ""
     _LIBRARY = KernelLibrary(lib_path, seconds, log)

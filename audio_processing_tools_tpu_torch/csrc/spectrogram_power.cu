@@ -1,166 +1,380 @@
-// K1: fused Hann window + real DFT + power spectrogram, hand-written for
+// K1: fused Hann window + real FFT + power spectrogram, hand-written for
 // Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `_power_kernel`
 // (audio_processing_tools_tpu/ops/spectrogram.py:77-96, launched by
 // `_pallas_power`, pallas_call at :126) behind `spectrogram_power`.
 //
-//   P[b, f, t] = (sum_k Wcos[f, k] x_t[k])^2 + (sum_k Wsin[f, k] x_t[k])^2
+//   P[b, f, t] = |sum_k w[k] x_t[k] e^{-2 pi i f k / n_fft}|^2,  f <= n_fft/2
 //   x_t[k]     = x[b, t*hop + k - pad], zero outside [0, N)
 //
-// with pad = n_fft/2 for the centered, zero-padded STFT framing (0 when not
-// centered).  Wcos/Wsin are the rows of the window+DFT matrix
-// (`_dft_matrix_t`), window folded in.
+// with pad = n_fft/2 for the centred, zero-padded STFT framing (0 when not
+// centred) and w the periodic Hann window.
 //
 // What bounds it on this card: at the production batch (B = 128 clips of
-// N = 111,620 samples, T = 873 frames, F = 129 bins, n_fft = 256) the product
-// is 2 * 258 * 256 FLOP per frame, 14.8 GFLOP per batch, against ~57 MB read
-// and ~58 MB written: ~128 FLOP/B, so fp32 FMA issue and shared-memory
-// bandwidth bound it, not HBM.  The whole (2F, n_fft) matrix is 264 KB
-// (278,528 B in the TPU kernel's 8-padded layout), more than the 227 KB a
-// block may use, so a block holds only its tile of bins.
+// N = 111,620 samples, T = 873 frames, F = 129 bins, n_fft = 256) the kernel
+// must read 57.1 MB of samples and write 57.7 MB of power: 34 us at the
+// H100's 3.35 TB/s.  The TPU kernel's DFT-as-matrix-product costs
+// 2 * 258 * 256 FLOP per frame (14.8 GFLOP per batch), which on Hopper's
+// fp32 FMA units (no full-fp32 tensor-core mode) is far above that floor.
+// An FFT costs ~6 kFLOP per frame (~0.7 GFLOP per batch, ~6 FLOP per byte),
+// so the design is a single pass through device memory.
 //
-// Design (simple first):
-//  * grid (frame tiles of 64, bin tiles of 32, clips); 256 threads = 8 warps.
-//    Lane = bin within the tile, warp = frame group; a thread accumulates the
-//    cos and sin sums of its bin for 8 frames (warp + 8j).
-//  * The block stages its (64 - 1) * hop + n_fft samples in shared memory
-//    once, with the centre zero padding folded into masked loads, so no
-//    padded copy is ever written to device memory; and its 32 cos and sin
-//    rows in a [k/4][bin] float4 layout (64 KB at n_fft = 256).
-//  * Inner loop, per 4 taps: each lane reads one float4 of cos and one of sin
-//    (consecutive lanes, conflict-free) and each of its frames' 4 samples as
-//    one float4 that the whole warp shares (a broadcast): 64 FMAs for 10
-//    shared loads.
-//  * The power tile goes back through shared memory so that the store to
-//    P[b, f, t], t fastest, is coalesced.
-// No library call: the product is this kernel's own FMA loop.
+// Design:
+//  * Real input as a half-length complex FFT: z[m] = w[2m] x[2m] +
+//    i w[2m+1] x[2m+1], Z = FFT_M(z) with M = n_fft/2, then
+//      X[k] = 1/2 (Z[k] + conj Z[M-k]) - i/2 e^{-2 pi i k / n_fft} (Z[k] - conj Z[M-k])
+//    for k = 0..M (Z[M] = Z[0]).  One frame per transform: packing two
+//    frames into one complex FFT would tie a quiet frame's error to a loud
+//    neighbour's energy.
+//  * The FFT is a Stockham auto-sort transform by a group of G = M/8
+//    threads, 8 points per thread in registers: a radix-8 pass, a second
+//    radix-8 (radix-4 at M = 32) pass and, for M > 64, a third pass of
+//    radix M/64.  Passes exchange through a per-frame buffer in shared
+//    memory, XOR-swizzled so the strided Stockham writes hit distinct
+//    banks; groups of <= 32 threads synchronise with __syncwarp only.
+//    Window, pass and split twiddles stay in registers for the whole
+//    kernel (each thread always works the same indices).  Twiddles and
+//    window are host tables built in float64 and rounded to float32: no
+//    fast-math sines anywhere.
+//  * Persistent blocks (as many as fit on the card) walk over work items
+//    (clip, tile of `frame_tile` frames).  The samples of the next item,
+//    (frame_tile - 1) * hop + n_fft of them, are copied into the second of
+//    two shared buffers with cp.async while the current item is
+//    transformed: 16-byte copies where the source is 16-byte aligned and
+//    inside the clip, 4-byte copies with zero fill elsewhere, so the
+//    centre padding is a masked load and no padded copy exists.
+//  * The (F, frame_tile) power tile goes back through shared memory and is
+//    stored with t fastest (coalesced); (B, F, T) rows of T floats are not
+//    16-byte multiples in general, so there is no bulk store.
+// No library call: the transform is this kernel's own code.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBinTile = 32;
-constexpr int kFramesPerThread = 8;
-constexpr int kFrameTile = kWarps * kFramesPerThread;  // 64
-constexpr int kOutStride = kFrameTile + 1;              // padded: no bank conflicts
+constexpr int kThreads = 256;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 
-__host__ __device__ inline int samples_per_block(int n_fft, int hop) {
-  return (kFrameTile - 1) * hop + n_fft;
+// The launch plan (mirrored by ops/spectrogram.py::launch_plan).
+__host__ __device__ constexpr int exch_stride(int M) { return M + 8; }  // float2 per frame
+__host__ __device__ constexpr int tile_stride(int frame_tile, int G) {
+  return ((frame_tile + 31) & ~31) + (G < 32 ? 32 / G : 1);
+}
+__host__ __device__ constexpr int slab_floats(int n_fft, int hop, int frame_tile) {
+  return (frame_tile - 1) * hop + n_fft;
+}
+size_t smem_bytes_for(int n_fft, int hop, int frame_tile) {
+  const int M = n_fft / 2, G = M / 8, fpr = kThreads / G;
+  return 4 * 2 * (size_t)slab_floats(n_fft, hop, frame_tile) +
+         8 * (size_t)fpr * exch_stride(M) +
+         4 * (size_t)(M + 1) * tile_stride(frame_tile, G);
 }
 
-__global__ void __launch_bounds__(kThreads)
-spectrogram_power_kernel(const float* __restrict__ x,
-                         const float* __restrict__ wcos,
-                         const float* __restrict__ wsin,
-                         float* __restrict__ out,
-                         int N, int F, int T, int n_fft, int hop, int pad) {
-  extern __shared__ float4 smem4[];
-  const int k4n = n_fft / 4;
-  float4* wc_s = smem4;                       // [k4n][kBinTile]
-  float4* ws_s = smem4 + k4n * kBinTile;      // [k4n][kBinTile]
-  float* xs = reinterpret_cast<float*>(smem4 + 2 * k4n * kBinTile);
-  const int xs_len = samples_per_block(n_fft, hop);
-  float* tile = xs + ((xs_len + 3) & ~3);     // [kBinTile][kOutStride]
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 3) & 15); }
 
-  const int t0 = blockIdx.x * kFrameTile;
-  const int f0 = blockIdx.y * kBinTile;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ void bfly(float2& a, float2& b) {
+  const float2 t = a;
+  a = make_float2(t.x + b.x, t.y + b.y);
+  b = make_float2(t.x - b.x, t.y - b.y);
+}
+__device__ __forceinline__ float2 mul_neg_i(float2 a) { return make_float2(a.y, -a.x); }
 
-  // window+DFT rows of this bin tile; bins past F read as zero
-  const float4* wcos4 = reinterpret_cast<const float4*>(wcos);
-  const float4* wsin4 = reinterpret_cast<const float4*>(wsin);
-  for (int i = threadIdx.x; i < kBinTile * k4n; i += kThreads) {
-    const int bin = i % kBinTile;
-    const int k4 = i / kBinTile;
-    const int f = f0 + bin;
-    float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 s = c;
-    if (f < F) {
-      c = wcos4[(size_t)f * k4n + k4];
-      s = wsin4[(size_t)f * k4n + k4];
-    }
-    wc_s[k4 * kBinTile + bin] = c;
-    ws_s[k4 * kBinTile + bin] = s;
+// In-register DFTs, natural order in and out.
+template <int R>
+__device__ __forceinline__ void dft(float2* a);
+
+template <>
+__device__ __forceinline__ void dft<2>(float2* a) {
+  bfly(a[0], a[1]);
+}
+
+template <>
+__device__ __forceinline__ void dft<4>(float2* a) {
+  bfly(a[0], a[2]);
+  bfly(a[1], a[3]);
+  a[3] = mul_neg_i(a[3]);
+  bfly(a[0], a[1]);
+  bfly(a[2], a[3]);
+  const float2 t = a[1];  // a = X0, X2, X1, X3
+  a[1] = a[2];
+  a[2] = t;
+}
+
+template <>
+__device__ __forceinline__ void dft<8>(float2* a) {
+  constexpr float h = 0.70710678118654752440f;
+  bfly(a[0], a[4]);
+  bfly(a[1], a[5]);
+  bfly(a[2], a[6]);
+  bfly(a[3], a[7]);
+  a[5] = make_float2(h * (a[5].x + a[5].y), h * (a[5].y - a[5].x));   // * e^{-i pi/4}
+  a[6] = mul_neg_i(a[6]);                                             // * e^{-i pi/2}
+  a[7] = make_float2(h * (a[7].y - a[7].x), -h * (a[7].x + a[7].y));  // * e^{-3i pi/4}
+  dft<4>(a);      // X0, X2, X4, X6
+  dft<4>(a + 4);  // X1, X3, X5, X7
+  const float2 u1 = a[1], u2 = a[2], u3 = a[3];
+  a[1] = a[4];
+  a[2] = u1;
+  a[4] = u2;
+  a[3] = a[5];
+  a[5] = a[6];
+  a[6] = u3;
+}
+
+template <int G>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (G <= 32) {
+    __syncwarp();
+  } else {
+    __syncthreads();
   }
-  // the block's samples; the zero padding is a masked load
-  const float* xb = x + (size_t)b * N;
+}
+
+// Per-thread twiddles of a Stockham pass of radix R after NS points:
+// value q*R + r multiplies input r of butterfly j = t + q*G by
+// e^{-2 pi i (j % NS) r / (NS R)} = table[2 (j % NS) r M / (NS R)].
+template <int M, int R, int NS>
+__device__ __forceinline__ void pass_twiddles(const float2* __restrict__ table, int t,
+                                              float2 (&tw)[8]) {
+  constexpr int G = M / 8;
+#pragma unroll
+  for (int q = 0; q < 8 / R; ++q) {
+    const int j = t + q * G;
+#pragma unroll
+    for (int r = 0; r < R; ++r) tw[q * R + r] = __ldg(table + 2 * ((j % NS) * r * (M / (NS * R))));
+  }
+}
+
+// Pass 1 (radix 8, NS = 1): windowed, packed samples of one frame.
+template <int M>
+__device__ __forceinline__ void first_pass(const float* frame, float2* buf, int t,
+                                           const float2 (&win)[8]) {
+  constexpr int G = M / 8;
+  float2 v[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float2 s = *reinterpret_cast<const float2*>(frame + 2 * (t + r * G));
+    v[r] = make_float2(s.x * win[r].x, s.y * win[r].y);
+  }
+  dft<8>(v);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) buf[swz(8 * t + r)] = v[r];
+  group_sync<G>();
+}
+
+template <int M, int R, int NS>
+__device__ __forceinline__ void stockham_pass(float2* buf, int t, const float2 (&tw)[8]) {
+  constexpr int G = M / 8;
+  constexpr int Q = 8 / R;
+  float2 v[8];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[q * R + r] = buf[swz(t + q * G + r * (M / R))];
+  }
+  group_sync<G>();
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[q * R + r] = cmul(v[q * R + r], tw[q * R + r]);
+    dft<R>(v + q * R);
+    const int j = t + q * G;
+    const int dst = (j / NS) * NS * R + j % NS;
+#pragma unroll
+    for (int r = 0; r < R; ++r) buf[swz(dst + r * NS)] = v[q * R + r];
+  }
+  group_sync<G>();
+}
+
+// Power of bins k = t + q*G (and k = M by thread 0) from Z in `buf`.
+template <int M>
+__device__ __forceinline__ void split_power(const float2* buf, int t, const float2 (&tws)[8],
+                                            float* col, int os, bool live) {
+  constexpr int G = M / 8;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int k = t + q * G;
+    const float2 zk = buf[swz(k)];
+    const float2 zm = buf[swz((M - k) & (M - 1))];
+    const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
+    const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
+    const float2 w = tws[q];
+    const float xr = ar + (w.x * di + w.y * dr);
+    const float xi = ai - (w.x * dr - w.y * di);
+    if (live) col[k * os] = xr * xr + xi * xi;
+  }
+  if (t == 0) {
+    const float2 z0 = buf[swz(0)];
+    const float d = z0.x - z0.y;
+    if (live) col[M * os] = d * d;
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying the samples of work item `item` into `dst` (shared).
+__device__ __forceinline__ void load_slab(const float* __restrict__ x, float* dst, int item,
+                                          int N, int hop, int pad, int frame_tile,
+                                          int n_tiles, int S) {
+  const int b = item / n_tiles;
+  const int t0 = (item - b * n_tiles) * frame_tile;
   const long long g0 = (long long)t0 * hop - pad;
-  for (int i = threadIdx.x; i < xs_len; i += kThreads) {
-    const long long g = g0 + i;
-    xs[i] = (g >= 0 && g < N) ? xb[g] : 0.f;
-  }
-  __syncthreads();
-
-  float ac[kFramesPerThread];
-  float as[kFramesPerThread];
+  const float* xb = x + (size_t)b * N;
+  const bool aligned = (((reinterpret_cast<uintptr_t>(xb) >> 2) + (uintptr_t)g0) & 3) == 0;
+  const uint32_t sdst = (uint32_t)__cvta_generic_to_shared(dst);
+  for (int c = threadIdx.x; c < S / 4; c += kThreads) {
+    const long long s = g0 + 4LL * c;
+    if (aligned && s >= 0 && s + 4 <= N) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sdst + 16 * c),
+                   "l"(xb + s));
+    } else {
 #pragma unroll
-  for (int j = 0; j < kFramesPerThread; ++j) {
-    ac[j] = 0.f;
-    as[j] = 0.f;
-  }
-  const float4* xs4 = reinterpret_cast<const float4*>(xs);
-  const int hop4 = hop / 4;
-  for (int k4 = 0; k4 < k4n; ++k4) {
-    const float4 c = wc_s[k4 * kBinTile + lane];
-    const float4 s = ws_s[k4 * kBinTile + lane];
-#pragma unroll
-    for (int j = 0; j < kFramesPerThread; ++j) {
-      const float4 v = xs4[(warp + kWarps * j) * hop4 + k4];
-      ac[j] = fmaf(c.x, v.x, ac[j]);
-      ac[j] = fmaf(c.y, v.y, ac[j]);
-      ac[j] = fmaf(c.z, v.z, ac[j]);
-      ac[j] = fmaf(c.w, v.w, ac[j]);
-      as[j] = fmaf(s.x, v.x, as[j]);
-      as[j] = fmaf(s.y, v.y, as[j]);
-      as[j] = fmaf(s.z, v.z, as[j]);
-      as[j] = fmaf(s.w, v.w, as[j]);
+      for (int e = 0; e < 4; ++e) {
+        const long long g = s + e;
+        const bool in = g >= 0 && g < N;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sdst + 16 * c + 4 * e),
+                     "l"(in ? xb + g : xb), "r"(in ? 4 : 0));
+      }
     }
   }
-#pragma unroll
-  for (int j = 0; j < kFramesPerThread; ++j) {
-    tile[lane * kOutStride + warp + kWarps * j] = ac[j] * ac[j] + as[j] * as[j];
-  }
-  __syncthreads();
+}
 
-  for (int i = threadIdx.x; i < kBinTile * kFrameTile; i += kThreads) {
-    const int bin = i / kFrameTile;
-    const int tt = i - bin * kFrameTile;
-    const int f = f0 + bin;
-    const int t = t0 + tt;
-    if (f < F && t < T) {
-      out[((size_t)b * F + f) * T + t] = tile[bin * kOutStride + tt];
-    }
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+spectrogram_power_fft(const float* __restrict__ x, const float* __restrict__ window,
+                      const float2* __restrict__ twiddle, float* __restrict__ out, int N,
+                      int T, int hop, int pad, int frame_tile, int lg_tile, int n_tiles,
+                      int n_items) {
+  constexpr int n_fft = 2 * M, F = M + 1, G = M / 8, FPR = kThreads / G;
+  constexpr int R2 = M / 8 < 8 ? M / 8 : 8;
+  constexpr int R3 = M > 64 ? M / 64 : 1;
+  extern __shared__ float4 smem4[];
+  const int S = slab_floats(n_fft, hop, frame_tile);
+  float* const slab0 = reinterpret_cast<float*>(smem4);
+  float2* const exch = reinterpret_cast<float2*>(slab0 + 2 * S);
+  float* const tile = reinterpret_cast<float*>(exch + FPR * exch_stride(M));
+  const int os = tile_stride(frame_tile, G);
+  const int t = threadIdx.x % G;
+  const int slot = threadIdx.x / G;
+  float2* const buf = exch + slot * exch_stride(M);
+
+  float2 win[8], tw2[8], tw3[8], tws[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int m = t + r * G;
+    win[r] = make_float2(__ldg(window + 2 * m), __ldg(window + 2 * m + 1));
+    tws[r] = __ldg(twiddle + t + r * G);
   }
+  pass_twiddles<M, R2, 8>(twiddle, t, tw2);
+  if constexpr (M > 64) pass_twiddles<M, R3, 64>(twiddle, t, tw3);
+
+  int item = blockIdx.x;
+  int cur = 0;
+  if (item < n_items) load_slab(x, slab0, item, N, hop, pad, frame_tile, n_tiles, S);
+  cp_async_commit();
+  for (; item < n_items; item += gridDim.x) {
+    const int next = item + gridDim.x;
+    if (next < n_items)
+      load_slab(x, slab0 + (cur ^ 1) * S, next, N, hop, pad, frame_tile, n_tiles, S);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this item's samples have landed; the tile is free
+
+    const float* sl = slab0 + cur * S;
+    for (int r0 = 0; r0 < frame_tile; r0 += FPR) {
+      const int tt = r0 + slot;
+      const bool live = tt < frame_tile;
+      first_pass<M>(sl + (live ? tt : 0) * hop, buf, t, win);
+      stockham_pass<M, R2, 8>(buf, t, tw2);
+      if constexpr (M > 64) stockham_pass<M, R3, 64>(buf, t, tw3);
+      split_power<M>(buf, t, tws, tile + tt, os, live);
+      group_sync<G>();
+    }
+    __syncthreads();  // the tile is complete; this slab may be refilled
+
+    const int b = item / n_tiles;
+    const int t0 = (item - b * n_tiles) * frame_tile;
+    const int nt = min(frame_tile, T - t0);
+    float* ob = out + (size_t)b * F * T + t0;
+    const int tc = threadIdx.x & (frame_tile - 1);
+    if (tc < nt) {
+      for (int f = threadIdx.x >> lg_tile; f < F; f += kThreads >> lg_tile)
+        ob[(size_t)f * T + tc] = tile[f * os + tc];
+    }
+    cur ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+template <int M>
+cudaError_t launch(const float* x, const float* window, const float* twiddle, float* out,
+                   int B, int N, int T, int hop, int pad, int frame_tile, size_t smem,
+                   cudaStream_t stream) {
+  // blocks that fit on one SM, cached per (device, shared-memory size)
+  static int cached_dev = -1, cached_blocks = 0;
+  static size_t cached_smem = 0;
+  auto kernel = spectrogram_power_fft<M>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != cached_dev || smem != cached_smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached_dev = dev;
+    cached_smem = smem;
+    cached_blocks = per_sm * sms;
+  }
+  int lg_tile = 0;
+  while ((1 << lg_tile) < frame_tile) ++lg_tile;
+  const int n_tiles = (T + frame_tile - 1) / frame_tile;
+  const long long n_items = (long long)B * n_tiles;
+  if (n_items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = (int)(n_items < cached_blocks ? n_items : cached_blocks);
+  kernel<<<grid, kThreads, smem, stream>>>(x, window, reinterpret_cast<const float2*>(twiddle),
+                                           out, N, T, hop, pad, frame_tile, lg_tile, n_tiles,
+                                           (int)n_items);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int apt_spectrogram_power(const float* x, const float* wcos,
-                                     const float* wsin, float* out, int B,
-                                     int N, int F, int T, int n_fft, int hop,
-                                     int pad, void* stream) {
-  if (n_fft % 4 != 0 || hop % 4 != 0 || B <= 0 || T <= 0 || F <= 0 ||
-      B > 65535) {
+// window: n_fft floats; twiddle: n_fft (re, im) pairs, e^{-2 pi i k / n_fft};
+// frame_tile and smem_bytes: the plan of ops/spectrogram.py::launch_plan,
+// which must equal this file's own.
+extern "C" int apt_spectrogram_power(const float* x, const float* window, const float* twiddle,
+                                     float* out, int B, int N, int T, int n_fft, int hop,
+                                     int pad, int frame_tile, int smem_bytes, void* stream) {
+  const bool pow2_tile = frame_tile >= 1 && frame_tile <= kThreads && (frame_tile & (frame_tile - 1)) == 0;
+  if (hop < 4 || hop % 4 != 0 || !pow2_tile || B <= 0 || T <= 0 || N < 0 || pad < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int xs_len = samples_per_block(n_fft, hop);
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * n_fft * kBinTile + ((xs_len + 3) & ~3) +
-                       (size_t)kBinTile * kOutStride);
-  cudaError_t err = cudaFuncSetAttribute(
-      spectrogram_power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kFrameTile - 1) / kFrameTile,
-                  (F + kBinTile - 1) / kBinTile, B);
-  spectrogram_power_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, wcos, wsin, out, N, F, T, n_fft, hop, pad);
-  return (int)cudaGetLastError();
+  if (n_fft < 64 || n_fft > 1024 || (n_fft & (n_fft - 1)) != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes_for(n_fft, hop, frame_tile);
+  if (smem != (size_t)smem_bytes || smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (n_fft) {
+    case 64: return (int)launch<32>(x, window, twiddle, out, B, N, T, hop, pad, frame_tile, smem, s);
+    case 128: return (int)launch<64>(x, window, twiddle, out, B, N, T, hop, pad, frame_tile, smem, s);
+    case 256: return (int)launch<128>(x, window, twiddle, out, B, N, T, hop, pad, frame_tile, smem, s);
+    case 512: return (int)launch<256>(x, window, twiddle, out, B, N, T, hop, pad, frame_tile, smem, s);
+    default: return (int)launch<512>(x, window, twiddle, out, B, N, T, hop, pad, frame_tile, smem, s);
+  }
 }
 
 extern "C" const char* apt_error_string(int err) {

@@ -3,14 +3,17 @@
 Counterpart of ``audio_processing_tools_tpu/ops/spectrogram.py:155-224``,
 whose Pallas kernel ``_power_kernel`` (``:77-96``) fuses framing, the Hann
 window, the real DFT and the power into one pass.  Here that kernel is
-``csrc/spectrogram_power.cu``; its plain version is
-:func:`~audio_processing_tools_tpu_torch.ops.stft.stft_power`.
+``csrc/spectrogram_power.cu``, a fused shared-memory FFT; its plain version
+is :func:`~audio_processing_tools_tpu_torch.ops.stft.stft_power`.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the kernel or
-raises: there is no fallback.
+raises: there is no fallback.  The kernel takes a power-of-two ``n_fft``
+from 64 to 1024 and any ``hop`` that is a multiple of 4.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -20,40 +23,56 @@ from audio_processing_tools_tpu_torch.ops._device import device_constant
 from audio_processing_tools_tpu_torch.ops.stft import stft_power
 from audio_processing_tools_tpu_torch.ops.windows import hann_window
 
+#: threads per block of the kernel
+THREADS = 256
+#: dynamic shared memory one block may use on Hopper
+SMEM_LIMIT = 232_448
+#: n_fft the kernel supports
+N_FFTS = (64, 128, 256, 512, 1024)
 
-def _rbins_pad(n_fft: int) -> int:
-    """rFFT bin count padded to a multiple of 8 (the TPU kernel's layout)."""
-    return (1 + n_fft // 2 + 7) // 8 * 8
+
+class LaunchPlan(NamedTuple):
+    frame_tile: int  # frames per work item
+    smem_bytes: int  # dynamic shared memory per block
 
 
-def _dft_matrix_t(n_fft: int) -> np.ndarray:
-    """(2*FP, n_fft) window+DFT matrix, rFFT bins only (``:57-74``).
+def _smem_bytes(n_fft: int, hop: int, frame_tile: int) -> int:
+    """Shared memory of one block, as ``smem_bytes_for`` in the kernel's source:
+    two sample slabs, one FFT exchange buffer per frame in flight, the
+    (F, frame_tile) power tile."""
+    M = n_fft // 2
+    G = M // 8  # threads per frame
+    frames_in_flight = THREADS // G
+    slab = (frame_tile - 1) * hop + n_fft
+    tile_stride = (frame_tile + 31) // 32 * 32 + (32 // G if G < 32 else 1)
+    return 4 * 2 * slab + 8 * frames_in_flight * (M + 8) + 4 * (M + 1) * tile_stride
 
-    Row ``r < F`` is ``w * cos`` of bin ``r``; row ``FP + r`` is ``w * sin``
-    of bin ``r``.  Built in float64 on the host, cast to float32.
+
+def launch_plan(n_fft: int, hop: int) -> LaunchPlan:
+    """The kernel's frame tile and shared memory for this geometry.
+
+    The tile is the largest power of two up to 32 frames (32 was the fastest
+    at the main shape on an H100) whose block fits in :data:`SMEM_LIMIT`;
+    one frame always fits.  Raises ``ValueError`` for a geometry the kernel
+    does not take.
     """
-    FP = _rbins_pad(n_fft)
-    F = 1 + n_fft // 2
-    r = np.arange(F)[:, None].astype(np.float64)
-    k = np.arange(n_fft)[None, :].astype(np.float64)
-    ang = -2.0 * np.pi * r * k / n_fft
-    w = hann_window(n_fft, dtype=np.float64)[None, :]
-    out = np.zeros((2 * FP, n_fft))
-    out[:F] = w * np.cos(ang)
-    out[FP : FP + F] = w * np.sin(ang)
-    return out.astype(np.float32)
+    if n_fft not in N_FFTS:
+        raise ValueError(f"the CUDA spectrogram kernel needs n_fft in {N_FFTS}; got {n_fft}")
+    if hop < 4 or hop % 4:
+        raise ValueError(f"the CUDA spectrogram kernel needs hop a positive multiple of 4; got {hop}")
+    ft = 32
+    while ft > 1 and _smem_bytes(n_fft, hop, ft) > SMEM_LIMIT:
+        ft //= 2
+    return LaunchPlan(ft, _smem_bytes(n_fft, hop, ft))
 
 
-def _dft_rows(n_fft: int, device: torch.device):
-    """The kernel's (F, n_fft) cos and sin rows, resident on ``device``."""
-    F = 1 + n_fft // 2
-    FP = _rbins_pad(n_fft)
-
-    def make():
-        W = _dft_matrix_t(n_fft)
-        return (np.ascontiguousarray(W[:F]), np.ascontiguousarray(W[FP : FP + F]))
-
-    return device_constant(("dft_rows", n_fft), device, make)
+def kernel_tables(n_fft: int):
+    """The kernel's host tables, built in float64 and rounded to float32:
+    the periodic Hann window (n_fft,) and the twiddles
+    ``e^{-2 pi i k / n_fft}``, k < n_fft, as (n_fft, 2) (re, im) pairs."""
+    ang = -2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return hann_window(n_fft), twiddle
 
 
 def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
@@ -66,11 +85,8 @@ def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
     """
     if x.device.type == "cpu":
         return stft_power(x, n_fft=n_fft, hop=hop, center=center)
-    if n_fft % 4 or hop % 4:
-        raise ValueError(
-            f"the CUDA spectrogram kernel needs n_fft and hop divisible by 4; "
-            f"got n_fft={n_fft}, hop={hop}"
-        )
+    plan = launch_plan(n_fft, hop)
+    x = x.to(torch.float32).contiguous()
     lead = x.shape[:-1]
     n = x.shape[-1]
     xb = x.reshape(-1, n)
@@ -81,12 +97,14 @@ def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
     out = torch.empty((xb.shape[0], F, T), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out.reshape(lead + (F, T))
-    wcos, wsin = _dft_rows(n_fft, x.device)
+    window, twiddle = device_constant(("spectrogram_tables", n_fft), x.device,
+                                      lambda: kernel_tables(n_fft))
     lib = _kernels.build()
     with torch.cuda.device(x.device):
         err = lib.lib.apt_spectrogram_power(
-            xb.data_ptr(), wcos.data_ptr(), wsin.data_ptr(), out.data_ptr(),
-            xb.shape[0], n, F, T, n_fft, hop, pad, _kernels.stream_of(xb),
+            xb.data_ptr(), window.data_ptr(), twiddle.data_ptr(), out.data_ptr(),
+            xb.shape[0], n, T, n_fft, hop, pad, plan.frame_tile, plan.smem_bytes,
+            _kernels.stream_of(xb),
         )
     lib.check(err, "spectrogram_power")
     _kernels.count("spectrogram_power")

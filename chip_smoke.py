@@ -8,7 +8,8 @@ Phases, one line each:
   1. card and build: the card's name and power limit (nvidia-smi), then the
      hand-written kernels compiled from ``audio_processing_tools_tpu_torch/csrc``;
   2. K1 (spectrogram) against its plain version at the production batch,
-     128 clips x 10 s at 11,162 Hz;
+     128 clips x 10 s at 11,162 Hz, at the other geometries it takes, and on
+     float64 and strided inputs;
   3. K2 (noise PSD tracker) and K3 (flux baseline) against their plain loops
      at the shapes the main path gives them;
   4. the main path: 128 synthetic clips (half noise, half sharp damped pings)
@@ -173,17 +174,32 @@ def main() -> int:
     check(k1_rel < 1e-5, f"K1 max|d|/max {k1_rel:.3e} >= 1e-5")
     print(f"phase 2 K1 spectrogram_power {tuple(x.shape)} -> {tuple(P_kernel.shape)}: "
           f"max|d|/max = {k1_rel:.3e} (bound 1e-5), max|d| = {k1_abs:.3e}")
-    # other geometries the wrapper accepts: a 1-D clip of odd length, a longer
-    # window, a shorter hop, no centering
+    # other geometries the wrapper accepts: a 1-D clip of odd length, rows
+    # of odd length (every other row is not 16-byte aligned), every n_fft
+    # from 64 to 1024, a shorter hop, no centering, clips shorter than n_fft,
+    # and a batch of 4 work items (fewer than the SMs) whose T = 40 is not a
+    # multiple of the frame tile
+    flat = x.reshape(-1)
     for shape, n_fft, hop, center in (((FS + 37,), 256, 128, True), ((3, 5001), 512, 128, True),
-                                      ((3, 5001), 256, 64, False)):
-        xs = x.reshape(-1)[: int(np.prod(shape))].reshape(shape)
+                                      ((3, 5001), 256, 64, False), ((4, 20001), 1024, 128, True),
+                                      ((3, 5001), 64, 32, True), ((3, 5001), 128, 64, False),
+                                      ((3, 100), 256, 128, True), ((2, 700), 1024, 256, True),
+                                      ((2, 5001), 256, 128, True)):
+        xs = flat[: int(np.prod(shape))].reshape(shape)
         got = spectrogram_power(xs, n_fft=n_fft, hop=hop, center=center)
         ref = stft_power(xs, n_fft=n_fft, hop=hop, center=center)
         rel = float((got - ref).abs().max()) / float(ref.abs().max())
         check(got.shape == ref.shape and rel < 1e-5,
               f"K1 at {shape} n_fft={n_fft} hop={hop} center={center}: {rel:.3e}")
         print(f"  K1 {shape} n_fft={n_fft} hop={hop} center={center} -> {tuple(got.shape)}: "
+              f"max|d|/max = {rel:.3e}")
+    # inputs the wrapper must make float32 and contiguous first
+    for label, xs in (("float64 copy", x[:4].double()), ("strided view x[:, ::2]", x[:4, ::2])):
+        got = spectrogram_power(xs)
+        ref = stft_power(xs)
+        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        check(got.shape == ref.shape and rel < 1e-5, f"K1 on a {label}: {rel:.3e}")
+        print(f"  K1 {label} {tuple(xs.shape)} {xs.dtype} -> {tuple(got.shape)}: "
               f"max|d|/max = {rel:.3e}")
 
     # ---- 3. K2 and K3 against their plain loops ----------------------------
@@ -283,8 +299,11 @@ def main() -> int:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / 30 * 1e3
     audio_s = BATCH * CLIP_SEC
-    print(f"phase 6 timings on {smi}, medians: K1 {k1_ms:.3f} ms (plain {k1_plain:.3f}, "
-          f"n=40/40), K2 {k2_ms:.3f} ms (plain {k2_plain:.3f}, n=40/4), K3 {k3_ms:.3f} ms "
+    # K1 reads each sample and writes each power value once
+    k1_gbs = 4 * (x.numel() + P_kernel.numel()) / k1_ms / 1e6
+    print(f"phase 6 timings on {smi}, medians: K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}, "
+          f"n=40/40) = {k1_gbs:.0f} GB/s, {k1_gbs / 3350:.1%} of 3.35 TB/s; K2 {k2_ms:.3f} ms "
+          f"(plain {k2_plain:.3f}, n=40/4), K3 {k3_ms:.3f} ms "
           f"(plain {k3_plain:.3f}, n=40/4); main path {step_ms:.3f} ms per {BATCH} x "
           f"{CLIP_SEC:.0f} s batch (min {min(steps):.3f}, max {max(steps):.3f}, n=30) = "
           f"{audio_s / (step_ms / 1e3):.1f} audio-s/s, int16 on the card -> frame classes; "

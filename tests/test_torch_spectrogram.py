@@ -50,10 +50,89 @@ def test_cpu_tensor_launches_no_kernel():
     assert _kernels.LAUNCHES["spectrogram_power"] == 0
 
 
-def test_dft_matrix_t_is_the_jax_constant():
-    for n_fft in (256, 512):
-        np.testing.assert_array_equal(tspec._dft_matrix_t(n_fft),
-                                      jspec._dft_matrix_t(n_fft))
+@pytest.mark.parametrize("n_fft", tspec.N_FFTS)
+def test_kernel_tables_are_float64_rounded_to_float32(n_fft):
+    window, twiddle = tspec.kernel_tables(n_fft)
+    k = np.arange(n_fft, dtype=np.float64)
+    assert window.dtype == twiddle.dtype == np.float32
+    np.testing.assert_array_equal(window, (0.5 - 0.5 * np.cos(2 * np.pi * k / n_fft)).astype(np.float32))
+    np.testing.assert_array_equal(window, np.asarray(jhann(n_fft)))
+    e = np.exp(-2j * np.pi * k / n_fft)
+    np.testing.assert_array_equal(twiddle, np.stack([e.real, e.imag], -1).astype(np.float32))
+
+
+@pytest.mark.parametrize("n_fft", tspec.N_FFTS)
+def test_launch_plan_fits_shared_memory(n_fft):
+    for hop in [*range(4, 4 * n_fft + 1, 4), 65536]:
+        plan = tspec.launch_plan(n_fft, hop)
+        assert plan.smem_bytes <= tspec.SMEM_LIMIT == 232_448
+        assert plan.frame_tile in (1, 2, 4, 8, 16, 32)
+        assert plan.smem_bytes == tspec._smem_bytes(n_fft, hop, plan.frame_tile)
+        if plan.frame_tile < 32:  # the tile is the largest that fits
+            assert tspec._smem_bytes(n_fft, hop, 2 * plan.frame_tile) > tspec.SMEM_LIMIT
+    if n_fft == 256:
+        assert tspec.launch_plan(256, 128) == (32, 68_744)
+
+
+@pytest.mark.parametrize("n_fft, hop", [(260, 128), (256, 6), (2048, 128), (32, 16), (256, 0)])
+def test_launch_plan_refuses_unsupported_geometry(n_fft, hop):
+    with pytest.raises(ValueError):
+        tspec.launch_plan(n_fft, hop)
+
+
+def _kernel_fft(z, tw):
+    """The kernel's Stockham passes over the last axis of ``z`` (M points):
+    its radix plan, its butterfly and output indices and its twiddle-table
+    indices; each radix-R butterfly is a plain DFT."""
+    M = z.shape[-1]
+    radices = [8, min(8, M // 8)] + ([M // 64] if M > 64 else [])
+    ns = 1
+    for R in radices:
+        j = np.arange(M // R)[:, None]
+        r = np.arange(R)[None, :]
+        v = z[..., j + r * (M // R)] * tw[2 * ((j % ns) * r * (M // (ns * R)))]
+        out = np.empty_like(z)
+        out[..., (j // ns) * ns * R + j % ns + r * ns] = np.fft.fft(v, axis=-1)
+        z = out
+        ns *= R
+    assert ns == M
+    return z
+
+
+@pytest.mark.parametrize("n_fft", tspec.N_FFTS)
+def test_kernel_fft_plan_is_the_dft(n_fft):
+    M = n_fft // 2
+    _, twiddle = tspec.kernel_tables(n_fft)
+    tw = twiddle[:, 0].astype(np.float64) + 1j * twiddle[:, 1]
+    rng = np.random.default_rng(n_fft)
+    z = rng.standard_normal((3, M)) + 1j * rng.standard_normal((3, M))
+    ref = np.fft.fft(z, axis=-1)
+    assert np.abs(_kernel_fft(z, tw) - ref).max() / np.abs(ref).max() < 1e-6
+    # the exchange buffer's XOR swizzle permutes each frame's M slots
+    i = np.arange(M)
+    assert sorted(i ^ ((i >> 3) & 15)) == list(i)
+
+
+@pytest.mark.parametrize("n_fft, hop, center", [(256, 128, True), (64, 32, True),
+                                                (1024, 128, False), (512, 256, True)])
+def test_half_length_split_matches_jax_stft_power(n_fft, hop, center):
+    x = _input((2, 3001))
+    window, twiddle = tspec.kernel_tables(n_fft)
+    tw = twiddle[:, 0].astype(np.float64) + 1j * twiddle[:, 1]
+    pad = n_fft // 2 if center else 0
+    xp = np.pad(x, ((0, 0), (pad, pad)))
+    T = 1 + (xp.shape[-1] - n_fft) // hop
+    frames = np.stack([xp[:, t * hop : t * hop + n_fft] for t in range(T)], axis=1) * window
+    M = n_fft // 2
+    Z = _kernel_fft(frames[..., 0::2] + 1j * frames[..., 1::2].astype(np.float64), tw)
+    k = np.arange(M + 1)
+    zk, zm = Z[..., k % M], np.conj(Z[..., (M - k) % M])
+    w = np.append(tw[:M], -1.0)  # e^{-2 pi i k / n_fft}, k = 0..M
+    X = 0.5 * (zk + zm) - 0.5j * w * (zk - zm)
+    got = np.swapaxes(np.abs(X) ** 2, -1, -2)
+    ref = np.asarray(jstft.stft_power(jnp.asarray(x), n_fft=n_fft, hop=hop, center=center))
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() / ref.max() < 1e-6
 
 
 def test_stft_and_helpers_match_jax():
