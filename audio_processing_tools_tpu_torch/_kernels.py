@@ -43,6 +43,7 @@ LAUNCHES: Dict[str, int] = {
     "spectrogram_power": 0,
     "noise_psd_track": 0,
     "causal_low_quantile_baseline": 0,
+    "gain_time_smooth": 0,
 }
 
 _P = ctypes.c_void_p
@@ -54,6 +55,7 @@ _SIGNATURES = {
                             _I, _F, _F, _F, _F, _F, _F, _F, _P),
     "apt_causal_low_quantile_baseline": (_P, _P, _I, _I, _F, _F, _F, _F, _F,
                                          _F, _P),
+    "apt_gain_time_smooth": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
 }
 
 

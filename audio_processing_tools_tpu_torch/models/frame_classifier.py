@@ -3,21 +3,23 @@
 Counterpart of ``audio_processing_tools_tpu/models/frame_classifier.py``:
 ``FrameClass`` (``:49-54``), ``build_prefilter_sos`` (``:57-65``),
 ``_align_to_frames`` (``:68-75``), ``_mode_flux`` (``:78-103``),
-``rain_frame_decision`` (``:173-191``), ``assign_td_soft_label``
-(``:194-208``) and ``detect_rain_over_time`` (``:211-606``) without the peak
-gate:
+``_peak_gate`` (``:106-170``), ``rain_frame_decision`` (``:173-191``),
+``assign_td_soft_label`` (``:194-208``) and ``detect_rain_over_time``
+(``:211-606``):
 
   * t-vs-(t-2) positive spectral flux per mode band,
   * the causal low-quantile normalization of the combined and per-mode flux
     as one stacked (1 + n_modes)-row tracker (kernel K3 on the card),
-  * the time-domain crest gate and the fixed-band log1p decision.
+  * the time-domain crest gate and the fixed-band log1p decision,
+  * the peak-structure gate, the TD envelope features and the clip spectral
+    occupancy for the detector debug output, and the dense, sparse and
+    clip-summary tiers of the feature dump.
 
 Eager PyTorch computes whatever it is given, so the work that XLA dropped
-as dead code is skipped here by design: the block-energy and raw spectral
-features are computed only for the debug outputs or feature dump that carry
-them, and kurtosis only when ``td_kurtosis_upper_threshold`` reads it.
-Configurations outside the ported slice raise ``NotImplementedError``
-naming their ROADMAP item.
+as dead code is skipped here by design: the peak gate, the envelope and
+the block-energy and raw spectral features are computed only for the debug
+outputs or feature dump that carry them, and kurtosis only when a consumer
+reads it.
 """
 
 from __future__ import annotations
@@ -33,13 +35,22 @@ from audio_processing_tools_tpu_torch.config import NoiseConfig
 from audio_processing_tools_tpu_torch.ops._device import device_constant
 from audio_processing_tools_tpu_torch.ops.features_spec import (
     RAW_SPECTRAL_FEATURE_NAMES,
+    clip_spectral_occupancy,
     extract_raw_spectral_features,
 )
-from audio_processing_tools_tpu_torch.ops.features_td import extract_td_features
+from audio_processing_tools_tpu_torch.ops.features_td import (
+    TD_ENVELOPE_FEATURE_NAMES,
+    extract_td_features,
+)
 from audio_processing_tools_tpu_torch.ops.filters import (
     design_bandpass,
     design_highpass,
     sosfiltfilt,
+)
+from audio_processing_tools_tpu_torch.ops.peaks import (
+    local_maxima,
+    peak_prominences,
+    peak_widths_rel,
 )
 from audio_processing_tools_tpu_torch.ops.stats import nan_to_num, quantile_linear
 from audio_processing_tools_tpu_torch.ops.stft import fft_frequencies
@@ -75,26 +86,6 @@ def td_prefilter_sos(cfg: NoiseConfig) -> Optional[np.ndarray]:
     return build_prefilter_sos(cfg, fs, mode)
 
 
-def check_detector_slice(cfg: NoiseConfig) -> None:
-    """Raise ``NotImplementedError`` for detector options not ported yet."""
-    todo = {
-        "peak_features_enable": "the peak-structure gate (ROADMAP P9)",
-        "td_envelope_features_enable": "TD envelope-shape features (ROADMAP P9)",
-        "clip_spectral_occupancy_enable": "clip spectral occupancy (ROADMAP P9)",
-    }
-    for flag, what in todo.items():
-        if cfg.dflag(flag, False):
-            raise NotImplementedError(f"{flag}: {what} is not ported yet")
-    mode = str(cfg.dget("td_input_mode", "default")).lower()
-    if mode != "default":
-        raise NotImplementedError(
-            f"td_input_mode={mode!r}: only the default TD front end is ported (ROADMAP P9)")
-    if (cfg.dump_features and int(cfg.dget("feature_dump_level", 0)) > 0
-            and cfg.dflag("feature_dump_sparse_enable", False)):
-        raise NotImplementedError(
-            "feature_dump_sparse_enable: the sparse feature-dump tier is not ported yet (ROADMAP P9)")
-
-
 def _align_to_frames(arr: torch.Tensor, T: int) -> torch.Tensor:
     """Truncate / zero-fill a per-frame feature to T frames."""
     n = arr.shape[-1]
@@ -124,6 +115,74 @@ def _mode_flux(P_band: torch.Tensor, mode_masks: np.ndarray,
     else:
         flux_modes = torch.sum(mode_flux_by_mode, dim=-2)
     return flux, flux_primary, flux_modes, mode_flux_by_mode
+
+
+def _peak_gate_block(spec: torch.Tensor, mode_masks: np.ndarray, primary_mask: np.ndarray,
+                     df_hz: float, *, top_p: int, top_m: int, prominence_db: float,
+                     min_db_above_floor: float, ratio_min: float, valid_prom_min: float,
+                     valid_prom_max: float) -> Dict[str, torch.Tensor]:
+    """The peak gate on ``spec`` (..., K, T); see :func:`_peak_gate`."""
+    K = spec.shape[-2]
+    dev = spec.device
+    sT = spec.transpose(-1, -2)  # (..., T, K)
+    height = quantile_linear(sT, 0.5, dim=-1) + min_db_above_floor  # per-frame median
+
+    is_max = local_maxima(sT)
+    prom = peak_prominences(sT, is_max)
+    found = is_max & (prom >= prominence_db) & (sT >= height[..., None])
+    bw_hz = peak_widths_rel(sT, found, prom, 0.5) * df_hz
+
+    valid = found & (prom >= valid_prom_min) & (prom <= valid_prom_max)
+    valid_count = valid.sum(-1, dtype=torch.int32)  # (..., T)
+    masks = device_constant(
+        ("peak_gate_masks", mode_masks.tobytes(), mode_masks.shape, primary_mask.tobytes()),
+        dev, lambda: (mode_masks, primary_mask, mode_masks.any(axis=0)))
+    mode_sel, prim, any_mode = (m > 0.5 for m in masks)
+    count_by_mode = (valid[..., None, :, :] & mode_sel[:, None, :]).sum(-1, dtype=torch.int32)
+
+    # top-P valid peaks by height; a stable sort, as jnp.argsort is, so equal
+    # heights keep their bin order
+    hts = torch.where(valid, sT, -torch.inf)
+    order = torch.argsort(-hts, dim=-1, stable=True)
+    rank = torch.arange(K, device=dev)
+    sel_n = torch.clamp(valid_count, max=top_p)
+    sel_mask = rank < sel_n[..., None]
+    in_primary_sorted = prim[order]
+    in_any_sorted = any_mode[order]
+    ratio = (in_any_sorted & sel_mask).sum(-1) / torch.clamp(sel_n, min=1)
+    top_m_eff = torch.clamp(sel_n, max=top_m)
+    primary_ok = (in_primary_sorted & (rank < top_m_eff[..., None])).any(-1)
+    mode_ok = ratio >= ratio_min
+    has_valid = valid_count > 0
+    gate_score = torch.where(
+        has_valid,
+        torch.minimum(primary_ok.to(torch.float32), mode_ok.to(torch.float32)), 0.0)
+    return {
+        "peak_ratio": torch.where(has_valid, ratio.to(torch.float32), 0.0),
+        "peak_gate_score": gate_score,
+        "peak_valid_count": valid_count,
+        "peak_count_by_mode": count_by_mode,
+        "peak_bw_hz": bw_hz,
+    }
+
+
+_PEAK_GATE_CLIPS = 16  # clips per block: bounds the (clips, T, K, K) planes
+
+
+def _peak_gate(spec: torch.Tensor, mode_masks: np.ndarray, primary_mask: np.ndarray,
+               freqs_band: np.ndarray, **kw) -> Dict[str, torch.Tensor]:
+    """Peak-structure gate over ``spec`` (..., K, T) detector-input dB
+    (``frame_classifier.py:106-170``), in the JAX package's masked
+    (..., T, K, K) form.  At 128 clips x 873 frames x 71 bins one such
+    float32 plane is 2.25 GB, so a batch runs in blocks of 16 clips."""
+    df_hz = float(freqs_band[1] - freqs_band[0]) if freqs_band.size > 1 else 0.0
+    lead = spec.shape[:-2]
+    flat = spec.reshape((-1,) + spec.shape[-2:])
+    parts = [_peak_gate_block(flat[i : i + _PEAK_GATE_CLIPS], mode_masks, primary_mask,
+                              df_hz, **kw)
+             for i in range(0, flat.shape[0], _PEAK_GATE_CLIPS)]
+    return {k: torch.cat([p[k] for p in parts]).reshape(lead + parts[0][k].shape[1:])
+            for k in parts[0]}
 
 
 def rain_frame_decision(primary, s1, s2, s3, *, primary_flux_min: float,
@@ -184,7 +243,7 @@ class BandGeometry:
         if not band_mask.any():
             raise ValueError("operating_band does not overlap the frequency grid")
         self.band_rows = np.flatnonzero(band_mask)
-        freqs_band = freqs[band_mask]
+        freqs_band = self.freqs_band = freqs[band_mask]
         p_lo, p_hi = self.mode_bands[0]
         self.primary_mask = (freqs_band >= p_lo) & (freqs_band <= p_hi)
         if not self.primary_mask.any():
@@ -222,7 +281,6 @@ def detect_from_band(
     of the detector input and the TD-prefiltered waveform ``x_td``.
     ``debug=False`` leaves out of ``det_debug`` everything but
     ``noise_conf``, and skips the features only the debug output reads."""
-    check_detector_slice(cfg)
     eps = float(cfg.dget("eps", 1e-9))
     T = P_band.shape[-1]
     dev = P_band.device
@@ -231,24 +289,40 @@ def detect_from_band(
     dump = cfg.dump_features and int(cfg.dget("feature_dump_level", 0)) > 0
     dense = dump and cfg.dflag("feature_dump_dense_enable", True)
     dump_td_soft = dense and cfg.dflag("feature_dump_include_td_soft", False)
+    sparse = dump and cfg.dflag("feature_dump_sparse_enable", False)
+    sparse_gate = str(cfg.dget("feature_dump_sparse_gate_feature",
+                               "td_block_energy_crest")).strip().lower()
+    sparse_names = _sparse_raw_names(cfg) if sparse else ()
     td_kurt_upper = cfg.dget("td_kurtosis_upper_threshold", None)
     td_soft_enable = cfg.dflag("td_soft_enable", False)
+    envelope = debug and cfg.dflag("td_envelope_features_enable", False)
+    occupancy = (cfg.dflag("clip_spectral_occupancy_enable", False) and raw_power is not None
+                 and (debug or (dump and cfg.dflag("feature_dump_clip_summary_enable", False))))
 
     # ---------------- TD features: only what a consumer reads ----------------
     td_names = {"td_crest_factor"}
     if debug or dump_td_soft or td_soft_enable or td_kurt_upper is not None:
         td_names.add("td_kurtosis")
-    if debug or dense:
+    if debug or dense or (sparse and sparse_gate != "td_crest_factor"):
         td_names.update(("td_block_energy_crest", "td_block_peak_width_50",
                          "td_block_post_pre_energy_ratio"))
+    if envelope:
+        td_names.update(TD_ENVELOPE_FEATURE_NAMES)
     hop_blk = cfg.dget("td_block_energy_hop", None)
+    td_band = cfg.dget("td_input_band", None)
     td = extract_td_features(
         x_td, fs=geo.fs, frame_len=geo.n_fft, hop=geo.hop,
-        td_input_mode=str(cfg.dget("td_input_mode", "default")),
+        operating_band=geo.op_band, mode_bands=geo.mode_bands,
+        td_input_mode=str(cfg.dget("td_input_mode", "default")).lower(),
+        td_input_band=None if td_band is None else (float(td_band[0]), float(td_band[1])),
+        bp_order=int(cfg.dget("td_soft_bp_order", 4)),
+        subframe_len=int(cfg.dget("td_soft_subframe_len", 128)),
+        subframe_hop=int(cfg.dget("td_soft_subframe_hop", 128)),
         block_energy_len=int(cfg.dget("td_block_energy_len", 8)),
         block_energy_hop=None if hop_blk is None else int(hop_blk),
         block_energy_post_pre_blocks=int(cfg.dget("td_block_energy_post_pre_blocks", 4)),
         block_energy_smooth_enable=cfg.dflag("td_block_energy_smooth_enable", True),
+        envelope_features_enable=envelope,
         eps=eps, names=td_names,
     )
     aligned_td = {k: nan_to_num(_align_to_frames(v, T)) for k, v in td.items()
@@ -339,7 +413,24 @@ def detect_from_band(
 
     s4 = (nan_to_num(normalized_mode_flux[..., 4, :])
           if normalized_mode_flux.shape[-2] > 4 else torch.zeros_like(primary_flux))
-    det_debug: Dict[str, Any] = {"noise_conf": noise_conf, "peak_features_enable": False}
+
+    raw = {name: zeros_f for name in RAW_SPECTRAL_FEATURE_NAMES}
+    if ((debug or sparse_names) and cfg.dflag("raw_spectral_shape_enable", True)
+            and raw_power is not None):
+        rb = cfg.dget("raw_spectral_rain_band", (400.0, 800.0))
+        lb = cfg.dget("raw_spectral_low_band", (50.0, 200.0))
+        raw = extract_raw_spectral_features(
+            raw_power, fs=geo.fs, n_fft=geo.n_fft, operating_band=geo.op_band,
+            rain_band=(float(rb[0]), float(rb[1])),
+            low_band=(float(lb[0]), float(lb[1])),
+            mode_bands=geo.mode_bands,
+            rolloff_fraction=float(cfg.dget("raw_spectral_rolloff_fraction", 0.85)),
+            eps=eps,
+        )
+        raw = {k: _align_to_frames(v, T) for k, v in raw.items()}
+
+    peak_enable = cfg.dflag("peak_features_enable", False)
+    det_debug: Dict[str, Any] = {"noise_conf": noise_conf, "peak_features_enable": peak_enable}
     if debug:
         det_debug.update({
             "mode_flux_score": mode_flux_score,
@@ -367,20 +458,16 @@ def detect_from_band(
             "flux_primary_raw": flux_primary,
             "flux_modes_raw": flux_modes,
         })
-        raw = {name: zeros_f for name in RAW_SPECTRAL_FEATURE_NAMES}
-        if cfg.dflag("raw_spectral_shape_enable", True) and raw_power is not None:
-            rb = cfg.dget("raw_spectral_rain_band", (400.0, 800.0))
-            lb = cfg.dget("raw_spectral_low_band", (50.0, 200.0))
-            raw = extract_raw_spectral_features(
-                raw_power, fs=geo.fs, n_fft=geo.n_fft, operating_band=geo.op_band,
-                rain_band=(float(rb[0]), float(rb[1])),
-                low_band=(float(lb[0]), float(lb[1])),
-                mode_bands=geo.mode_bands,
-                rolloff_fraction=float(cfg.dget("raw_spectral_rolloff_fraction", 0.85)),
-                eps=eps,
-            )
-            raw = {k: _align_to_frames(v, T) for k, v in raw.items()}
         det_debug.update(raw)
+        if envelope:
+            det_debug.update({k: aligned_td[k] for k in TD_ENVELOPE_FEATURE_NAMES})
+        if peak_enable:
+            det_debug.update(_frame_peak_gate(cfg, geo, P_band))
+    if occupancy:
+        det_debug["clip_spectral_occupancy"] = clip_spectral_occupancy(
+            raw_power, frame_class == int(FrameClass.RAIN), fs=geo.fs, n_fft=geo.n_fft,
+            bands=cfg.dget("clip_spectral_occupancy_bands", None), eps=eps,
+        )
 
     feature_dump: Dict[str, Any] = {}
     if dense:
@@ -404,4 +491,81 @@ def detect_from_band(
                 "td_vote_count": soft["td_vote_count"],
                 "td_soft_score": soft["td_soft_score"],
             })
+    if sparse:
+        src = td_crest if sparse_gate == "td_crest_factor" else aligned_td["td_block_energy_crest"]
+        feature_dump.update(_sparse_dump(cfg, src, raw, sparse_names))
+    if occupancy and dump and cfg.dflag("feature_dump_clip_summary_enable", False):
+        feature_dump["clip_spectral_occupancy"] = det_debug["clip_spectral_occupancy"]
     return frame_class, rain_conf, det_debug, feature_dump
+
+
+def _frame_peak_gate(cfg: NoiseConfig, geo: BandGeometry,
+                     P_band: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The peak gate's debug keys with frame 0 zeroed as the reference
+    warms up (``frame_classifier.py:384-409, 496-502``)."""
+    valid_min = float(cfg.dget("peak_valid_prom_min_db", 3.0))
+    pg = _peak_gate(
+        P_band, geo.mode_masks, geo.primary_mask, geo.freqs_band,
+        top_p=max(1, int(cfg.dget("peak_top_p", 6))),
+        top_m=max(1, int(cfg.dget("primary_top_m", 3))),
+        prominence_db=float(cfg.dget("peak_prominence_db", 3.0)),
+        min_db_above_floor=float(cfg.dget("peak_min_db_above_floor", 6.0)),
+        ratio_min=float(np.clip(float(cfg.dget("peak_ratio_min", 0.50)), 0, 1)),
+        valid_prom_min=valid_min,
+        valid_prom_max=max(valid_min, float(cfg.dget("peak_valid_prom_max_db", 6.0))),
+    )
+    out = {}
+    for k in ("peak_ratio", "peak_gate_score", "peak_valid_count", "peak_count_by_mode"):
+        v = pg[k].clone()
+        v[..., 0] = 0
+        out[k] = v
+    return out
+
+
+_RAW_BASIC = ("raw_spectral_centroid_hz", "raw_rain_band_ratio", "raw_spectral_rolloff_hz")
+
+
+def _sparse_raw_names(cfg: NoiseConfig) -> Tuple[str, ...]:
+    """Raw spectral features the sparse tier gathers
+    (``frame_classifier.py:574-593``): the full list skips the basic trio
+    unless the basic flag is also on; basic-only mode gathers the trio."""
+    include_full = cfg.dflag("feature_dump_include_raw_spectral_frame_features", True)
+    include_basic = cfg.dflag("feature_dump_include_raw_spectral_basic", False)
+    if include_full:
+        return tuple(n for n in RAW_SPECTRAL_FEATURE_NAMES
+                     if include_basic or n not in _RAW_BASIC)
+    return _RAW_BASIC if include_basic else ()
+
+
+def _sparse_dump(cfg: NoiseConfig, src: torch.Tensor, raw: Dict[str, torch.Tensor],
+                 names: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+    """Sparse feature-dump tier (``frame_classifier.py:538-596``): up to K
+    gated frames (the first K in time, or the K with the largest gate value)
+    in a fixed K-slot layout, time-ordered, indices padded with -1.  Sorts
+    are stable, as ``jnp.sort``/``jnp.argsort`` are, so ties keep frame
+    order."""
+    T = src.shape[-1]
+    dev = src.device
+    mask = nan_to_num(src) > float(cfg.dget("feature_dump_sparse_gate_threshold", 3.5))
+    K = min(int(cfg.dget("feature_dump_sparse_max_frames", 64)), T)
+    select = str(cfg.dget("feature_dump_sparse_select", "first")).strip().lower()
+    idxs = torch.arange(T, dtype=torch.int32, device=dev)
+    if select == "top":
+        score = torch.where(mask, src, -torch.inf)
+        cand = torch.argsort(-score, dim=-1, stable=True)[..., :K].to(torch.int32)
+        cand = torch.where(torch.gather(mask, -1, cand.to(torch.int64)), cand, T)
+    else:
+        cand = torch.sort(torch.where(mask, idxs, T), dim=-1, stable=True).values[..., :K]
+    sel = torch.sort(cand, dim=-1, stable=True).values
+    valid = sel < T
+    gather_idx = torch.where(valid, sel, 0).to(torch.int64)
+    out = {
+        "sparse_frame_mask": mask,
+        "sparse_frame_idx": torch.where(valid, sel, -1),
+        "sparse_valid_count": mask.sum(-1, dtype=torch.int32),
+        "sparse_captured_count": valid.sum(-1, dtype=torch.int32),
+    }
+    for name in names:
+        vals = torch.gather(raw[name], -1, gather_idx)
+        out[f"sparse_{name}"] = torch.where(valid, vals, 0.0)
+    return out

@@ -1,35 +1,44 @@
-"""Spectral-noise rain detector engine, classifier-only path, batched.
+"""Spectral-noise rain detector and suppressor engine, batched.
 
 Counterpart of ``audio_processing_tools_tpu/models/spectral_noise.py``:
-``SpectralNoiseEngine._trace_single`` with ``classifier_only_mode=True``
-(``:205-344``), ``process`` / ``process_batch`` (``:444-461``),
-``clip_aggregate`` (``:469-493``) and ``RainDetectorProcessor.run`` /
-``run_batch`` (``:496-650``).
+``_mode_union_mask`` (``:48-62``), ``gain_freq_stage`` (``:68-124``),
+``gain_time_step`` / ``compute_gain`` (``:127-178``),
+``SpectralNoiseEngine._trace_single`` (``:205-429``), ``process`` /
+``process_batch`` (``:444-461``), ``clip_aggregate`` (``:469-493``) and
+``RainDetectorProcessor.run`` / ``run_batch`` (``:496-650``).
 
 The JAX engine vmaps a one-clip program; this one runs the batch ``(B, N)``
 as tensors with a leading clip axis, on the device of its input:
 
   1. TD prefilter ``sosfiltfilt`` (high-pass 350 Hz, order 4), computed
      once and reused as the engine's ``x_proc`` when the designs agree;
-  2. the power spectrogram (kernel K1 on the card);
+  2. the power spectrogram (kernel K1 on the card), or the complex STFT
+     when spectra or audio leave the engine;
   3. the detector's noise PSD on the operating band (kernel K2);
   4. the normalized-dB detector input, band rows only;
-  5. the frame classifier (kernel K3 inside).
+  5. the frame classifier (kernel K3 inside);
+  6. unless ``classifier_only_mode``: the suppressor's noise PSD, tracked
+     only on noise frames (K2 again), the noise-floor metrics and, when
+     ``S_hat``, ``y`` or ``debug["G"]`` leaves the engine, the gain (its
+     temporal smoothing is kernel K5), ``S_hat = G * S`` and the ISTFT.
 
-``x_proc`` is computed only for audio outputs, the complex STFT only for
-spectra or audio outputs.  The suppressor path (``classifier_only_mode=False``)
-raises ``NotImplementedError`` (ROADMAP P10).
+XLA drops what no output reads; eager PyTorch computes whatever it is
+given, so this engine skips that work by design: ``x_proc`` only for audio
+outputs, the complex STFT only for spectra or audio, the gain only for the
+outputs that carry it.
 """
 
 from __future__ import annotations
 
 import json
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as tnf
 
+from audio_processing_tools_tpu_torch import _kernels
 from audio_processing_tools_tpu_torch.config import NoiseConfig, build_noise_config
 from audio_processing_tools_tpu_torch.models.frame_classifier import (
     BandGeometry,
@@ -38,9 +47,11 @@ from audio_processing_tools_tpu_torch.models.frame_classifier import (
     detect_from_band,
     td_prefilter_sos,
 )
+from audio_processing_tools_tpu_torch.ops._device import device_constant
 from audio_processing_tools_tpu_torch.ops.filters import sosfiltfilt
 from audio_processing_tools_tpu_torch.ops.spectrogram import spectrogram_power
-from audio_processing_tools_tpu_torch.ops.stft import fft_frequencies, stft
+from audio_processing_tools_tpu_torch.ops.stats import quantile_linear
+from audio_processing_tools_tpu_torch.ops.stft import fft_frequencies, istft, stft
 from audio_processing_tools_tpu_torch.ops.trackers import (
     causal_time_mean,
     causal_time_median,
@@ -49,8 +60,197 @@ from audio_processing_tools_tpu_torch.ops.trackers import (
 )
 
 
+def _mode_union_mask(freqs_band: np.ndarray, mode_bands) -> np.ndarray:
+    """Union of mode bands over band bins (``spectral_noise.py:48-62``)."""
+    mask = np.zeros(freqs_band.shape[0], dtype=bool)
+    if not isinstance(mode_bands, (list, tuple)):
+        return mask
+    for bb in mode_bands:
+        try:
+            lo, hi = float(bb[0]), float(bb[1])
+        except Exception:
+            continue
+        if not (np.isfinite(lo) and np.isfinite(hi)) or hi <= lo:
+            continue
+        mask |= (freqs_band >= lo) & (freqs_band <= hi)
+    return mask
+
+
+_GAIN_NOISE_TH = 0.7  # noise-conf knee for adaptive oversubtraction
+
+
+def gain_freq_stage(cfg: NoiseConfig, P_band: torch.Tensor, N_band: torch.Tensor,
+                    noise_conf: torch.Tensor,
+                    snr_gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-frame part of the suppression gain (``spectral_noise.py:68-124``):
+    oversubtraction, the sqrt-sub or Wiener gain, and the frequency smoothing
+    on noise-like frames.  ``P_band``, ``N_band`` (..., K, T); ``noise_conf``
+    and ``snr_gate`` (..., T)."""
+    eps = cfg.eps
+    K = P_band.shape[-2]
+    noise_conf = torch.clamp(noise_conf, 0.0, 1.0)
+    adaptive = bool(cfg.adaptive_gain_enable)
+    th = _GAIN_NOISE_TH
+    denom = max(1e-9, 1.0 - th)
+
+    if adaptive:
+        eff_noise = torch.clamp((noise_conf - th) / denom, 0.0, 1.0)
+        oversub = cfg.oversub_base + eff_noise * (cfg.oversub_max - cfg.oversub_base)
+        if snr_gate is not None:
+            oversub = oversub * (1.0 - torch.clamp(snr_gate, 0.0, 1.0))
+    else:
+        oversub = torch.full(noise_conf.shape, float(cfg.oversub_base),
+                             dtype=P_band.dtype, device=P_band.device)
+    oversub = oversub[..., None, :]
+
+    if cfg.gain_mode.lower() == "wiener":
+        G_raw = torch.clamp(P_band - oversub * N_band, min=0.0) / (P_band + eps)
+    else:
+        ratio = torch.clamp(N_band / (P_band + eps), 0.0, 1.0)
+        G_raw = 1.0 - oversub * torch.sqrt(ratio)
+    G_raw = torch.clamp(G_raw, cfg.gain_floor, cfg.gain_ceil)
+
+    kernel = np.asarray(cfg.gain_freq_kernel, np.float32).reshape(-1)
+    if kernel.size < 1:
+        kernel = np.array([1.0], np.float32)
+    kernel = kernel / (kernel.sum() + 1e-12)
+    if not (bool(cfg.gain_freq_smooth_enable) and kernel.size > 1):
+        return G_raw
+    pad = kernel.size // 2
+    Gp = tnf.pad(G_raw, (0, 0, pad, pad))
+    G_conv = torch.zeros_like(G_raw)
+    for i, kv in enumerate(kernel):
+        G_conv = G_conv + float(kv) * Gp[..., i : i + K, :]
+    if adaptive:
+        return torch.where((noise_conf >= th)[..., None, :], G_conv, G_raw)
+    return G_conv
+
+
+class _GainConsts(NamedTuple):
+    adaptive: bool
+    th: float
+    denom: float
+    alpha_base: float
+    floor: float
+    ceil: float
+
+
+def _gain_consts(cfg: NoiseConfig) -> _GainConsts:
+    """The constants of ``gain_time_step`` (``spectral_noise.py:131-134``)."""
+    return _GainConsts(
+        adaptive=bool(cfg.adaptive_gain_enable), th=_GAIN_NOISE_TH,
+        denom=max(1e-9, 1.0 - _GAIN_NOISE_TH),
+        alpha_base=float(np.clip(cfg.gain_smooth_alpha, 0.0, 1.0)),
+        floor=float(cfg.gain_floor), ceil=float(cfg.gain_ceil),
+    )
+
+
+def gain_time_step(cfg: NoiseConfig):
+    """The causal temporal-smoothing EMA step, rain-frame protected when
+    adaptive (``spectral_noise.py:127-147``): ``step(G_prev, G_f_t, nc_t)``
+    with ``G_prev``, ``G_f_t`` (..., K) and ``nc_t`` (...,) returns ``G_t``.
+
+    The division by ``denom`` takes it as a 0-dim tensor on the device of
+    ``nc_t``: PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal, which is not the JAX program's (or the kernel's) rounding.
+    """
+    c = _gain_consts(cfg)
+
+    def step(G_prev, G_f_t, nc_t):
+        if c.adaptive:
+            below = nc_t < c.th
+            eff_nc = (nc_t - c.th) / nc_t.new_full((), c.denom)
+            alpha_t = torch.where(below, 0.0, c.alpha_base * eff_nc)[..., None]
+            G_t = alpha_t * G_prev + (1.0 - alpha_t) * G_f_t
+            return torch.where(below[..., None], torch.maximum(G_t, G_f_t), G_t)
+        return c.alpha_base * G_prev + (1.0 - c.alpha_base) * G_f_t
+
+    return step
+
+
+def _gain_time_smooth_plain(G_freq: torch.Tensor, noise_conf: torch.Tensor,
+                            cfg: NoiseConfig) -> torch.Tensor:
+    """The scan of ``spectral_noise.py:168-178`` as a loop over frames."""
+    c = _gain_consts(cfg)
+    step = gain_time_step(cfg)
+    G = G_freq[..., 0]
+    outs = [G]
+    for t in range(1, G_freq.shape[-1]):
+        G = step(G, G_freq[..., t], noise_conf[..., t])
+        outs.append(G)
+    return torch.clamp(torch.stack(outs, dim=-1), c.floor, c.ceil)
+
+
+def _gain_time_smooth_cuda(G_freq: torch.Tensor, noise_conf: torch.Tensor,
+                           cfg: NoiseConfig) -> torch.Tensor:
+    K, T = G_freq.shape[-2:]
+    G3 = G_freq.reshape(-1, K, T)
+    nc = noise_conf.reshape(-1, T)
+    _kernels.require_cuda("gain_time_smooth", G3, torch.float32, 3)
+    _kernels.require_cuda("gain_time_smooth(noise_conf)", nc, torch.float32, 2)
+    if nc.shape[0] != G3.shape[0] or nc.device != G3.device:
+        raise ValueError("gain_time_smooth: noise_conf must be (..., T) beside G_freq (..., K, T)")
+    c = _gain_consts(cfg)
+    out = torch.empty_like(G3)
+    lib = _kernels.build()
+    with torch.cuda.device(G3.device):
+        err = lib.lib.apt_gain_time_smooth(
+            G3.data_ptr(), nc.data_ptr(), out.data_ptr(), G3.shape[0], K, T,
+            int(c.adaptive), c.th, c.denom, c.alpha_base, 1.0 - c.alpha_base,
+            c.floor, c.ceil, _kernels.stream_of(G3),
+        )
+    lib.check(err, "gain_time_smooth")
+    _kernels.count("gain_time_smooth")
+    return out.reshape(G_freq.shape)
+
+
+def gain_time_smooth(G_freq: torch.Tensor, noise_conf: torch.Tensor,
+                     cfg: NoiseConfig) -> torch.Tensor:
+    """Temporal smoothing of the gain over the last axis, clipped to
+    ``[gain_floor, gain_ceil]``: kernel K5 on a CUDA tensor, the plain loop
+    on a CPU tensor.  ``G_freq`` (..., K, T); ``noise_conf`` (..., T),
+    already clipped to [0, 1]."""
+    G_freq = G_freq.to(torch.float32)
+    noise_conf = noise_conf.to(torch.float32)
+    if G_freq.shape[-1] == 0:
+        return G_freq.clone()
+    if G_freq.device.type == "cpu":
+        return _gain_time_smooth_plain(G_freq, noise_conf, cfg)
+    return _gain_time_smooth_cuda(G_freq.contiguous(), noise_conf.contiguous(), cfg)
+
+
+def compute_gain(cfg: NoiseConfig, P_band: torch.Tensor, N_band: torch.Tensor,
+                 noise_conf: torch.Tensor,
+                 snr_gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Adaptive suppression gain (``spectral_noise.py:150-178``)."""
+    noise_conf = torch.clamp(noise_conf, 0.0, 1.0)
+    G_freq = gain_freq_stage(cfg, P_band, N_band, noise_conf, snr_gate)
+    return gain_time_smooth(G_freq, noise_conf, cfg)
+
+
+def _lagged(N: torch.Tensor) -> torch.Tensor:
+    """``N`` one frame late along the last axis, frame 0 repeated."""
+    lag = torch.roll(N, 1, dims=-1)
+    if N.shape[-1] > 1:
+        lag[..., 0] = N[..., 0]
+    return lag
+
+
+def _max_ratio(cfg: NoiseConfig) -> float:
+    """``noise_psd_max_ratio`` clipped to [0, 1], 1 when not finite."""
+    maxr = float(cfg.noise_psd_max_ratio)
+    return 1.0 if not np.isfinite(maxr) else float(np.clip(maxr, 0.0, 1.0))
+
+
+def _full_rows(band: torch.Tensor, F: int, rows: slice) -> torch.Tensor:
+    """Band rows ``(..., K, T)`` scattered into zeros ``(..., F, T)``."""
+    full = band.new_zeros(band.shape[:-2] + (F, band.shape[-1]))
+    full[..., rows, :] = band
+    return full
+
+
 class SpectralNoiseEngine:
-    """Config-bound detector engine on one device.
+    """Config-bound engine on one device.
 
     ``process(x, sr)`` returns the one-clip output dict as NumPy arrays;
     ``process_batch(xb, sr)`` runs a ``(B, N)`` batch and returns tensors on
@@ -76,12 +276,8 @@ class SpectralNoiseEngine:
 
     # ------------------------------------------------------------------
     def _run(self, x: torch.Tensor, sr: int) -> Dict[str, Any]:
-        """The classifier-only engine on a float ``(B, N)`` batch."""
+        """The engine on a float ``(B, N)`` batch."""
         cfg = self.cfg
-        if not cfg.classifier_only_mode:
-            raise NotImplementedError(
-                "classifier_only_mode=False: the suppressor path is not ported "
-                "yet (ROADMAP P10)")
         x = x.to(torch.float32)
         B = x.shape[0]
 
@@ -118,9 +314,11 @@ class SpectralNoiseEngine:
                 f"sample rate {sr} puts the operating band on other bins than "
                 f"the configured fs={cfg.fs}")
         # the operating band is one run of rows, so this is a view
-        P_band = P[:, band_rows[0] : band_rows[-1] + 1, :]
+        rows = slice(int(band_rows[0]), int(band_rows[-1]) + 1)
+        P_band = P[:, rows, :]
 
         keep_det_debug = bool(cfg.return_detector_debug or cfg.debug_enable)
+        det_noise = (None, None)
         if cfg.dflag("bypass_classifier", False):
             frame_class = torch.zeros((B, T), dtype=torch.int8, device=x.device)
             rain_conf = torch.zeros((B, T), dtype=torch.float32, device=x.device)
@@ -129,7 +327,7 @@ class SpectralNoiseEngine:
                          "noise_conf": noise_conf}
             feature_dump: Dict[str, Any] = {}
         else:
-            P_det = self._detector_input(P_band, sr)
+            P_det, det_noise = self._detector_input(P_band, sr)
             frame_class, rain_conf, det_debug, feature_dump = detect_from_band(
                 cfg, geo, P_det, x_td, P,
                 debug=keep_det_debug)
@@ -155,24 +353,85 @@ class SpectralNoiseEngine:
             }
         if keep_det_debug:
             out["det_debug"] = det_debug
-        if needs_audio:
-            out["x_filt"] = x_proc
-            out["y"] = x_proc
+        if cfg.classifier_only_mode:
+            if needs_audio:
+                out["x_filt"] = x_proc
+                out["y"] = x_proc
+            if cfg.return_spectra:
+                out["S"] = S
+                out["S_hat"] = S
+            return out
+
+        # ---------------- suppressor path (``spectral_noise.py:346-429``) ----------------
+        eps = cfg.eps
+        F = P.shape[-2]
+        is_noise = frame_class == int(FrameClass.NOISE)
+        is_rain_for_psd = ~is_noise
+        want_debug = bool(cfg.return_debug or cfg.debug_enable)
+        # G is computed only for the outputs that carry it: S_hat, y, debug
+        needs_gain = bool(cfg.return_spectra or cfg.compute_output_audio or want_debug)
+        G = snr_gate = snr_mode = None
+        y = None
+        if cfg.suppressor_bypass:
+            N_band = torch.zeros_like(P_band)
+            if needs_gain:
+                G = torch.ones_like(P)
+            S_hat = S  # None when the complex STFT was skipped
+            if cfg.compute_output_audio:
+                y = x_proc
+        else:
+            N_band = self._noise_psd_band(P_band, is_rain_for_psd, sr)
+            S_hat = None
+            if needs_gain:
+                N_lag = _lagged(N_band) if bool(cfg.use_lagged_noise_psd) and T > 1 else N_band
+                N_eff = torch.minimum(N_lag, _max_ratio(cfg) * P_band)
+                if bool(cfg.snr_gating_enable):
+                    snr_mode, snr_gate = self._snr_gate(P_band, N_eff, freqs[band_rows])
+                G = torch.ones_like(P)
+                G[:, rows, :] = compute_gain(cfg, P_band, N_eff, noise_conf, snr_gate)
+                if S is not None:
+                    S_hat = G * S
+                if cfg.compute_output_audio:
+                    y = istft(S_hat, n_fft=cfg.n_fft, hop=cfg.hop, length=x.shape[-1],
+                              center=True)
+
+        noise_db = 10.0 * torch.log10(N_band + eps)
+        out["mean_noise_floor_db"] = torch.mean(noise_db, dim=(-2, -1))
+        out["median_noise_floor_db"] = quantile_linear(noise_db.reshape(B, -1), 0.5)
+
+        if cfg.return_noise_psd or cfg.debug_enable or want_debug:
+            noise_psd = _full_rows(N_band, F, rows)
+        if cfg.return_noise_psd or cfg.debug_enable:
+            out["noise_psd"] = noise_psd
+        if want_debug:
+            det_N, det_lag = det_noise
+            freqs_band = freqs[band_rows]
+            out["debug"] = {
+                "use_for_noise_psd": is_noise,
+                "is_rain_for_psd": is_rain_for_psd,
+                "G": G,
+                "noise_psd": noise_psd,
+                "snr_mode": snr_mode,
+                "snr_gate": snr_gate,
+                "detector_noise_psd": None if det_N is None else _full_rows(det_N, F, rows),
+                "detector_noise_psd_lag": None if det_lag is None else _full_rows(det_lag, F, rows),
+                "P_band_all": P_band,
+                "N_band_all": N_band,
+                "freqs_band": device_constant(("freqs_band", freqs_band.tobytes()), x.device,
+                                              lambda: freqs_band).expand(B, -1),
+            }
         if cfg.return_spectra:
             out["S"] = S
-            out["S_hat"] = S
+            out["S_hat"] = S_hat
+        if needs_audio:
+            out["x_filt"] = x_proc
+            out["y"] = y
+            out["y_suppressed"] = y
         return out
 
-    def _detector_input(self, P_band: torch.Tensor, sr: int) -> torch.Tensor:
-        """Normalized-dB detector input on the band rows
-        (``spectral_noise.py:250-302``): the noise PSD tracked with no rain
-        exclusion, lagged one frame and clamped to ``maxr * P``."""
+    def _psd_params(self, sr: int):
         cfg = self.cfg
-        eps = cfg.eps
-        if not cfg.dflag("detector_use_noise_norm", True):
-            return 10.0 * torch.log10(P_band + eps)
-        B, K, T = P_band.shape
-        params = make_psd_params(
+        return make_psd_params(
             cfg_q=cfg.q, win_sec=cfg.win_sec, frames_per_sec=float(sr) / float(cfg.hop),
             ema_up=cfg.ema_up, ema_down=cfg.ema_down, eps=cfg.eps,
             noise_psd_max_ratio=cfg.noise_psd_max_ratio,
@@ -180,24 +439,65 @@ class SpectralNoiseEngine:
             adaptive_q_min=cfg.adaptive_q_min,
             adaptive_q_alpha=cfg.adaptive_q_alpha,
         )
+
+    def _noise_psd_band(self, P_band: torch.Tensor, is_rain: torch.Tensor,
+                        sr: int) -> torch.Tensor:
+        """The noise PSD on the band rows (``spectral_noise.py:250-263``):
+        optional causal pre-smoothing, the tracker (kernel K2 on the card)
+        with ``is_rain`` frames excluded, optional causal median."""
+        cfg = self.cfg
         P_track = P_band
         L = int(cfg.pre_smooth_frames)
         if L and L > 1:
             P_track = causal_time_mean(P_track, L)
-        no_rain = torch.zeros((B, T), dtype=torch.bool, device=P_band.device)
-        N_band = noise_psd_track(P_track, no_rain, params)
+        N_band = noise_psd_track(P_track, is_rain, self._psd_params(sr))
         m = int(cfg.median_frames)
         if m and m > 1:
             N_band = causal_time_median(N_band, m)
-        lag = torch.roll(N_band, 1, dims=-1)
-        if T > 1:
-            lag[..., 0] = N_band[..., 0]
-        maxr = float(cfg.noise_psd_max_ratio)
-        maxr = 1.0 if not np.isfinite(maxr) else float(np.clip(maxr, 0.0, 1.0))
-        lag = torch.minimum(lag, maxr * P_band)
+        return N_band
+
+    def _detector_input(self, P_band: torch.Tensor, sr: int):
+        """Normalized-dB detector input on the band rows
+        (``spectral_noise.py:285-302``): the noise PSD tracked with no rain
+        exclusion, lagged one frame and clamped to ``maxr * P``.  Returns
+        ``(P_det, (N_band, lag))``, the pair ``(None, None)`` without the
+        normalization."""
+        cfg = self.cfg
+        eps = cfg.eps
+        if not cfg.dflag("detector_use_noise_norm", True):
+            return 10.0 * torch.log10(P_band + eps), (None, None)
+        B, K, T = P_band.shape
+        no_rain = torch.zeros((B, T), dtype=torch.bool, device=P_band.device)
+        N_band = self._noise_psd_band(P_band, no_rain, sr)
+        lag = torch.minimum(_lagged(N_band), _max_ratio(cfg) * P_band)
         if str(cfg.detector_noise_norm_mode).lower() == "ratio_db":
-            return 10.0 * torch.log10(P_band / (lag + eps) + eps)
-        return 10.0 * torch.log10(P_band + eps) - 10.0 * torch.log10(lag + eps)
+            P_det = 10.0 * torch.log10(P_band / (lag + eps) + eps)
+        else:
+            P_det = 10.0 * torch.log10(P_band + eps) - 10.0 * torch.log10(lag + eps)
+        return P_det, (N_band, lag)
+
+    def _snr_gate(self, P_band: torch.Tensor, N_eff: torch.Tensor,
+                  freqs_band: np.ndarray):
+        """Mode-band SNR and the gate it gives (``spectral_noise.py:369-386``);
+        the band sums are float32 matrix products with a 0/1 row."""
+        cfg = self.cfg
+        mode_bands = ((cfg.detector or {}).get("mode_bands", None)
+                      if bool(cfg.snr_gating_use_mode_bands) else None)
+        K = freqs_band.shape[0]
+        mm = (_mode_union_mask(freqs_band, mode_bands) if mode_bands is not None
+              else np.ones(K, bool))
+        if not mm.any():
+            mm = np.ones(K, bool)
+        row = device_constant(("snr_mode_mask", mm.tobytes()), P_band.device,
+                              lambda: mm[None, :])
+        Pm = torch.matmul(row, P_band)[..., 0, :]
+        Nm = torch.matmul(row, N_eff)[..., 0, :]
+        snr_mode = Pm / (Nm + cfg.eps)
+        gate = snr_mode / (snr_mode + max(1e-9, float(cfg.snr_gating_snr1)))
+        pwr = float(cfg.snr_gating_power)
+        if pwr != 1.0 and np.isfinite(pwr) and pwr > 0.0:
+            gate = torch.pow(torch.clamp(gate, 0.0, 1.0), pwr)
+        return snr_mode, torch.clamp(gate, 0.0, 1.0)
 
     # ------------------------------------------------------------------
     def _sr(self, sr: Optional[int]) -> int:
@@ -277,7 +577,10 @@ class RainDetectorProcessor:
 
     @staticmethod
     def _key(params: Dict[str, Any]) -> str:
-        return json.dumps(params, sort_keys=True, default=str)
+        try:
+            return json.dumps(params, sort_keys=True, default=str)
+        except (TypeError, ValueError):  # e.g. tuple keys, or keys that do not sort
+            return repr(sorted(params.items(), key=lambda kv: kv[0]))
 
     def _engine(self, params: Dict[str, Any]) -> SpectralNoiseEngine:
         key = self._key(params)
@@ -326,6 +629,9 @@ class RainDetectorProcessor:
             int(p.get("clip_rain_min_frames", 1)),
         )
         metrics: Dict[str, Any] = {**agg, "latency_s": latency}
+        if "mean_noise_floor_db" in out:
+            metrics["mean_noise_floor_db"] = float(out["mean_noise_floor_db"])
+            metrics["median_noise_floor_db"] = float(out["median_noise_floor_db"])
         state: Dict[str, Any] = {
             "frame_class": out.get("frame_class"),
             "times": out.get("times"),
@@ -337,8 +643,10 @@ class RainDetectorProcessor:
         }
         if keep_features:
             state["features"] = out.get("features")
-        if keep_debug and "det_debug" in out:
-            state["det_debug"] = out["det_debug"]
+        if keep_debug:
+            for k in ("debug", "det_debug", "noise_psd"):
+                if k in out:
+                    state[k] = out[k]
         if keep_spectra:
             state["S"] = out.get("S")
             state["S_hat"] = out.get("S_hat")
@@ -374,8 +682,9 @@ class RainDetectorProcessor:
         eng = self._engine(p)
         t0 = time.perf_counter()
         out = eng.process_batch(audio_matrix, sr=sample_rate)
-        host = _to_numpy({k: out[k] for k in ("frame_class", "rain_conf", "noise_conf",
-                                              "times", "features") if k in out})
+        host = _to_numpy({k: out[k] for k in (
+            "frame_class", "rain_conf", "noise_conf", "times", "features",
+            "mean_noise_floor_db", "median_noise_floor_db") if k in out})
         latency = (time.perf_counter() - t0) / max(B, 1)
 
         cmin = int(p.get("clip_rain_min_frames", 1))
@@ -385,6 +694,9 @@ class RainDetectorProcessor:
             rc = host["rain_conf"][i]
             agg = clip_aggregate(fc, rc, cmin)
             metrics: Dict[str, Any] = {**agg, "latency_s": latency}
+            if "mean_noise_floor_db" in host:
+                metrics["mean_noise_floor_db"] = float(host["mean_noise_floor_db"][i])
+                metrics["median_noise_floor_db"] = float(host["median_noise_floor_db"][i])
             state: Dict[str, Any] = {
                 "frame_class": fc,
                 "times": host["times"][i],

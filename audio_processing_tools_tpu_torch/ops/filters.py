@@ -10,13 +10,15 @@ Counterpart of ``audio_processing_tools_tpu/ops/filters.py``.
 * **Run**: :func:`_sosfilt_cascade_matmul` (``:518-635``) in its
   ``boundary="logdepth"`` form, forward and ``reverse=True``, and
   :func:`sosfiltfilt` (``:715-762``) with scipy's odd extension and padlen
-  rule.  The whole cascade is two constant matrix products per 128-sample
+  rule; :func:`sosfilt` from zero state (``:669-702``) on inputs of one
+  block, where the ``scan`` boundary has no step.  The whole cascade is two constant matrix products per 128-sample
   block plus a log-depth prefix over block-boundary states; the products are
   plain float32 ``torch.matmul`` (the JAX package ran them outside any
   Pallas kernel), with TF32 disabled at package import.
 
-The sequential ``scan`` boundary form, ``zi``/``zf`` streaming and
-``_sosfilt_section_pscan`` belong to the streaming path (ROADMAP P13).
+The sequential ``scan`` boundary over more than one block, ``zi``/``zf``
+streaming and ``_sosfilt_section_pscan`` belong to the streaming path
+(ROADMAP P13).
 """
 
 from __future__ import annotations
@@ -398,17 +400,19 @@ def _sosfilt_cascade_matmul(sos: np.ndarray, x: torch.Tensor,
     materializing a flip: the in-block constants are rotated by 180 degrees
     and the prefix runs right to left.
     """
-    if boundary != "logdepth":
+    T = x.shape[-1]
+    nb = -(-T // block)
+    # one block has no boundary step: the scan and the log-depth prefix are
+    # then the same computation
+    if boundary != "logdepth" and nb > 1:
         raise NotImplementedError(
-            f"boundary={boundary!r}: the sequential block-boundary scan belongs "
-            "to the streaming path (ROADMAP P13)"
+            f"boundary={boundary!r} over {nb} blocks: the sequential block-boundary "
+            "scan belongs to the streaming path (ROADMAP P13)"
         )
     sos = np.asarray(sos, dtype=np.float64)
     S = sos.shape[0]
     dev = x.device
-    T = x.shape[-1]
     lead = x.shape[:-1]
-    nb = -(-T // block)
     pad = nb * block - T
 
     def make():
@@ -445,6 +449,16 @@ def _sosfilt_cascade_matmul(sos: np.ndarray, x: torch.Tensor,
     y = torch.matmul(xb, Lt) + torch.matmul(zstarts, Zt)
     y = y.reshape(lead + (nb * block,))
     return y[..., pad:] if reverse else y[..., :T]
+
+
+def sosfilt(sos: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """Causal cascade filter from zero state over the last axis, scipy
+    ``sosfilt`` semantics (``filters.py:669-702`` without ``zi``): the
+    JAX package's ``boundary="scan"`` cascade, which the port runs for
+    inputs of one 128-sample block (ROADMAP P13 for longer ones)."""
+    sos = np.asarray(sos, dtype=np.float64)
+    zi = x.new_zeros((sos.shape[0], 2))
+    return _sosfilt_cascade_matmul(sos, x.to(torch.float32), zi, boundary="scan")
 
 
 def sosfiltfilt(sos: np.ndarray, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,14 @@
-"""STFT with librosa-parity semantics, batched over leading axes.
+"""STFT / ISTFT with librosa-parity semantics, batched over leading axes.
 
-Counterpart of ``audio_processing_tools_tpu/ops/stft.py:36-88``:
+Counterpart of ``audio_processing_tools_tpu/ops/stft.py:36-148``:
 
   * periodic Hann window,
   * ``center=True`` pads ``n_fft // 2`` zeros on both sides
     (``pad_mode="constant"``, ``:46-53``),
   * ``T = 1 + n // hop`` frames when centered,
-  * output layout ``(..., F, T)`` with ``F = 1 + n_fft // 2``.
+  * output layout ``(..., F, T)`` with ``F = 1 + n_fft // 2``,
+  * :func:`istft` is windowed overlap-add normalized by the summed squared
+    window, trimmed by ``n_fft // 2`` and cut or padded to ``length``.
 
 :func:`stft_power` is the plain version of the hand-written spectrogram
 kernel (``ops/spectrogram.py``).
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
+from audio_processing_tools_tpu_torch.ops._device import device_constant
 from audio_processing_tools_tpu_torch.ops.framing import frame_signal
 from audio_processing_tools_tpu_torch.ops.windows import hann_window
 
@@ -46,7 +49,7 @@ def stft(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
     if center:
         x = _pad_center(x, n_fft, pad_mode)
     frames = frame_signal(x, n_fft, hop)  # (..., T, n_fft)
-    w = torch.as_tensor(hann_window(n_fft), device=x.device)
+    w = device_constant(("hann", n_fft), x.device, lambda: hann_window(n_fft))
     spec = torch.fft.rfft(frames * w, dim=-1)  # (..., T, F)
     return spec.transpose(-1, -2)
 
@@ -56,3 +59,55 @@ def stft_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
     """``|STFT|^2`` as float32 ``(..., F, T)``, contiguous."""
     s = stft(x, n_fft=n_fft, hop=hop, center=center, pad_mode=pad_mode)
     return (s.real * s.real + s.imag * s.imag).contiguous()
+
+
+def _istft_wsq(n_fft: int, hop: int, T: int) -> np.ndarray:
+    """Summed squared window of the overlap-add, in float64 on the host, with
+    near-zero sums set to 1 (``stft.py:133-137``)."""
+    w = hann_window(n_fft).astype(np.float64)
+    idx = (np.arange(T)[:, None] * hop + np.arange(n_fft)[None, :]).reshape(-1)
+    wsq = np.zeros((T - 1) * hop + n_fft, dtype=np.float64)
+    np.add.at(wsq, idx, np.tile(w ** 2, T))
+    return np.where(wsq > 1e-10, wsq, 1.0)
+
+
+def istft(S: torch.Tensor, n_fft: int = 256, hop: int = 128,
+          length: int | None = None, center: bool = True) -> torch.Tensor:
+    """Inverse STFT by windowed overlap-add (``stft.py:91-148``).
+
+    ``S`` is ``(..., F, T)`` complex; returns ``(..., length)`` float32.
+    When ``hop`` divides ``n_fft`` the overlap-add is ``n_fft // hop``
+    shifted chunk adds, in the JAX package's order; otherwise one
+    ``index_add_``.  The squared-window normalization is a float64 host
+    constant rounded to float32, kept on the device.
+    """
+    F, T = S.shape[-2], S.shape[-1]
+    if F != 1 + n_fft // 2:
+        raise ValueError(f"S has {F} bins; expected {1 + n_fft // 2}")
+    dev = S.device
+    w = device_constant(("hann", n_fft), dev, lambda: hann_window(n_fft))
+    frames = torch.fft.irfft(S.transpose(-1, -2), n=n_fft, dim=-1) * w  # (..., T, n_fft)
+
+    total = (T - 1) * hop + n_fft
+    lead = frames.shape[:-2]
+    if n_fft % hop == 0:
+        # frame t's k-th hop chunk lands on output block t + k
+        m = n_fft // hop
+        chunks = frames.reshape(lead + (T, m, hop))
+        y = frames.new_zeros(lead + (T - 1 + m, hop))
+        for k in range(m):
+            y[..., k : k + T, :] += chunks[..., :, k, :]
+        y = y.reshape(lead + (total,))
+    else:
+        idx = (torch.arange(T, device=dev)[:, None] * hop
+               + torch.arange(n_fft, device=dev)[None, :]).reshape(-1)
+        y = frames.new_zeros(lead + (total,))
+        y.index_add_(-1, idx, frames.reshape(lead + (T * n_fft,)))
+
+    y = y / device_constant(("istft_wsq", n_fft, hop, T), dev,
+                            lambda: _istft_wsq(n_fft, hop, T))
+    if center:
+        y = y[..., n_fft // 2 :]
+    if length is not None:
+        y = y[..., :length] if length <= y.shape[-1] else tnf.pad(y, (0, length - y.shape[-1]))
+    return y.to(torch.float32)

@@ -280,13 +280,39 @@ def causal_time_median(X: torch.Tensor, L: int) -> torch.Tensor:
     return 0.5 * (v_lo + v_hi)
 
 
+_CUMSUM_BASE = 16
+
+
+def _cumsum_xla_order(x: torch.Tensor) -> torch.Tensor:
+    """Float32 cumulative sum over the last axis, with the additions of the
+    JAX package's compiled ``jnp.cumsum`` in their order: blocks of 16 summed
+    in sequence, the block totals scanned the same way (recursively), and
+    each block offset by the sum of the blocks before it.  Each step is an
+    elementwise addition, so any device gives the same bits."""
+    n = x.shape[-1]
+    if n <= _CUMSUM_BASE:
+        out = [x[..., 0]]
+        for k in range(1, n):
+            out.append(out[-1] + x[..., k])
+        return torch.stack(out, dim=-1)
+    m = -(-n // _CUMSUM_BASE)
+    blocks = tnf.pad(x, (0, m * _CUMSUM_BASE - n)).reshape(x.shape[:-1] + (m, _CUMSUM_BASE))
+    inner = _cumsum_xla_order(blocks)
+    before = tnf.pad(_cumsum_xla_order(inner[..., -1]), (1, 0))[..., :m]
+    return (inner + before[..., None]).reshape(x.shape[:-1] + (m * _CUMSUM_BASE,))[..., :n]
+
+
 def causal_time_mean(X: torch.Tensor, L: int) -> torch.Tensor:
     """Causal moving average over the last axis, window ``[t-L+1, t]``
-    (``trackers.py:235-248``)."""
+    (``trackers.py:235-248``): a difference of two float32 running sums.
+
+    That difference cancels badly where quiet frames follow loud ones, and
+    the JAX package's result there is its rounding, not the mean; so the
+    running sum adds in the JAX program's order and gives its bits."""
     if L <= 1:
         return X
     T = X.shape[-1]
-    csum = torch.cumsum(X, dim=-1)
+    csum = _cumsum_xla_order(X)
     shifted = tnf.pad(csum[..., :-L], (L, 0))[..., :T]
     count = torch.as_tensor(np.minimum(np.arange(T) + 1, L), dtype=X.dtype,
                             device=X.device)

@@ -18,7 +18,19 @@ Phases, one line each:
      with the launch count of every kernel read around it;
   5. agreement of the card with the port's plain path on the CPU, 16 clips;
   6. timings with CUDA events: each kernel beside its plain version, and the
-     main-path batch.
+     main-path batch;
+  7. K5 (gain smoothing) against its plain loop at the suppressor's shape,
+     adaptive and not, on the gain the suppressor makes from the phase-4 clips;
+  8. the engine's default configuration (the suppressor, no outputs beyond
+     the decisions and noise-floor metrics) through ``run_batch`` on the same
+     128 clips, with launch counts, and 16 clips against the CPU path;
+  9. the suppressor with audio out (``compute_output_audio``) through
+     ``SpectralNoiseEngine.process_batch``, with launch counts, and ``y`` of
+     16 clips against the CPU path;
+ 10. the detector variants (peak gate, comb-filter and band-pass TD input,
+     envelope features, clip occupancy, sparse dump) on 16 clips, card
+     against CPU;
+ 11. timings of K5 beside its plain loop and of the two suppressor batches.
 
 Then one JSON line with the kernels' numbers, and last the device line
 ``{"ok": true, "device": {...}}``.  Any failed check, a missing card or a
@@ -50,6 +62,13 @@ PARAMS = {
                                 (2350.0, 2550.0), (3150.0, 3350.0)]},
     "classifier_only_mode": True,
 }
+# the engine's default configuration: the suppressor path
+DEFAULT_PARAMS = {k: v for k, v in PARAMS.items() if k != "classifier_only_mode"}
+# the suppressor with audio out, as the JAX bench measures it
+AUDIO_PARAMS = {**DEFAULT_PARAMS, "compute_output_audio": True}
+# outputs taken at an argmax, which a near tie may move to a neighbour
+PICKS = ("_dominant_freq_hz", "_rolloff_hz", "td_block_peak_width_50",
+         "td_block_post_pre_energy_ratio")
 PING_MODES = ((520.0, 1.0), (900.0, 0.5), (1600.0, 0.35), (2450.0, 0.25))
 
 
@@ -95,6 +114,33 @@ def cuda_times(fn, iters: int) -> list:
         stop.record()
     torch.cuda.synchronize()
     return [start.elapsed_time(stop) for start, stop in events]
+
+
+def rel_err(got, ref) -> float:
+    """max|got - ref| / max|ref|, on the host in float64."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30)) if ref.size else 0.0
+
+
+def to_host(tree):
+    """Tensors of a nested output dict as NumPy arrays."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy() if hasattr(tree, "detach") else tree
+
+
+def agreement(fc_card, fc_cpu, pairs_card, pairs_cpu, label: str) -> float:
+    """Frame agreement of the card with the CPU path; clip decisions and
+    rain_frame_count must be identical and frames agree on >= 0.9999."""
+    frac = float((fc_card == fc_cpu).mean())
+    same_dec = all(a[0]["clip_is_rain"] == b[0]["clip_is_rain"] for a, b in zip(pairs_card, pairs_cpu))
+    same_cnt = all(a[0]["rain_frame_count"] == b[0]["rain_frame_count"]
+                   for a, b in zip(pairs_card, pairs_cpu))
+    check(same_dec and same_cnt and frac >= 0.9999,
+          f"{label}: card and CPU disagree (frames {frac:.6f}, decisions {same_dec}, "
+          f"counts {same_cnt})")
+    return frac
 
 
 def in_turns(plain, kernel, iters_plain: int, iters_kernel: int):
@@ -224,7 +270,7 @@ def main() -> int:
     check(k2_rel <= 1e-6, f"K2 max|d|/max {k2_rel:.3e} > 1e-6")
 
     eng = SpectralNoiseEngine(cfg, device=dev)
-    P_det = eng._detector_input(P_band, FS)
+    P_det, _ = eng._detector_input(P_band, FS)
     _, _, flux_modes, by_mode = _mode_flux(P_det, geo.mode_masks, geo.primary_mask, None)
     stacked = torch.cat([flux_modes[:, None, :], by_mode], dim=1).contiguous()
     bc = ttr._baseline_consts(20.0, FS / cfg.hop, 0.5, 0.0, 1.0)
@@ -249,7 +295,9 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
-    check(all(v > 0 for v in launches.values()), f"a kernel did not run: {launches}")
+    check(launches == {**launches, "spectrogram_power": 1, "noise_psd_track": 1,
+                       "causal_low_quantile_baseline": 1, "gain_time_smooth": 0},
+          f"classifier-only launches {launches}")
     fc = np.stack([s["frame_class"] for _, s in pairs])
     rc = np.stack([s["rain_conf"] for _, s in pairs])
     check(fc.shape == (BATCH, T) and rc.shape == (BATCH, T), f"outputs {fc.shape}")
@@ -310,20 +358,222 @@ def main() -> int:
           f"host clock over 30 back-to-back batches {host_ms:.3f} ms per batch = "
           f"{audio_s / (host_ms / 1e3):.1f} audio-s/s")
 
+    # ---- 7. K5 against its plain loop ----------------------------------------
+    from audio_processing_tools_tpu_torch.models import spectral_noise as tsn
+
+    cfg_sup = build_noise_config(FS, DEFAULT_PARAMS)
+    dbg = SpectralNoiseEngine(build_noise_config(FS, {**DEFAULT_PARAMS, "return_debug": True}),
+                              device=dev).process_batch(x)
+    G_freq = tsn.gain_freq_stage(
+        cfg_sup, dbg["debug"]["P_band_all"],
+        torch.minimum(dbg["debug"]["N_band_all"], dbg["debug"]["P_band_all"]),
+        dbg["noise_conf"]).contiguous()
+    del dbg
+    nc_rand = torch.rand((BATCH, T), generator=gen, device=dev)
+    cfg_fixed = build_noise_config(FS, {**DEFAULT_PARAMS, "adaptive_gain_enable": False})
+    k5_abs = k5_rel = 0.0
+    for label, c in (("adaptive", cfg_sup), ("non-adaptive", cfg_fixed)):
+        got = tsn._gain_time_smooth_cuda(G_freq, nc_rand, c)
+        ref = tsn._gain_time_smooth_plain(G_freq, nc_rand, c)
+        torch.cuda.synchronize()
+        d = float((got - ref).abs().max())
+        r = d / max(float(ref.abs().max()), 1e-30)
+        print(f"  K5 {label}: max|d| = {d:.3e}, max|d|/max = {r:.3e}")
+        k5_abs, k5_rel = max(k5_abs, d), max(k5_rel, r)
+    check(k5_rel <= 1e-6, f"K5 max|d|/max {k5_rel:.3e} > 1e-6")
+    print(f"phase 7 K5 gain_time_smooth {tuple(G_freq.shape)}: max|d|/max = {k5_rel:.3e} "
+          f"(bound 1e-6)")
+
+    # ---- 8. default configuration: the suppressor ---------------------------
+    proc.run_batch(x[:2], DEFAULT_PARAMS)  # warm the engine cache
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    pairs_def = proc.run_batch(torch.from_numpy(pcm).to(dev).to(torch.float32) / 32767.0,
+                               DEFAULT_PARAMS)
+    torch.cuda.synchronize()
+    wall_def = time.perf_counter() - t0
+    launches_def = dict(_kernels.LAUNCHES)
+    check(launches_def == {"spectrogram_power": 1, "noise_psd_track": 2,
+                           "causal_low_quantile_baseline": 1, "gain_time_smooth": 0},
+          f"default-configuration launches {launches_def}")
+    fc_def = np.stack([st["frame_class"] for _, st in pairs_def])
+    floors = np.array([[m["mean_noise_floor_db"], m["median_noise_floor_db"]] for m, _ in pairs_def])
+    check(fc_def.shape == (BATCH, T) and np.isfinite(floors).all(), "default-configuration outputs")
+    dec_def = np.array([m["clip_is_rain"] for m, _ in pairs_def])
+    check(float((dec_def == labels).mean()) == 1.0, "default-configuration clip decisions")
+    cpu_def = RainDetectorProcessor(device="cpu").run_batch(x_cpu, DEFAULT_PARAMS)
+    frac_def = agreement(fc_def[pick], np.stack([st["frame_class"] for _, st in cpu_def]),
+                     [pairs_def[i] for i in pick], cpu_def, "default configuration")
+    floor_rel = max(abs(pairs_def[i][0][k] - cpu_def[j][0][k]) / abs(cpu_def[j][0][k])
+                    for j, i in enumerate(pick)
+                    for k in ("mean_noise_floor_db", "median_noise_floor_db"))
+    check(floor_rel <= 1e-5, f"noise-floor metrics differ by {floor_rel:.3e} relative")
+    print(f"phase 8 default configuration {BATCH} x {CLIP_SEC:.0f} s via run_batch: launches "
+          f"{launches_def}; rain clips {int(dec_def.sum())}/{BATCH}; mean noise floor "
+          f"{floors[:, 0].mean():.3f} dB, median {floors[:, 1].mean():.3f} dB; wall "
+          f"{wall_def * 1e3:.1f} ms; against the CPU path on {N_AGREE} clips: frame agreement "
+          f"{frac_def:.6f}, decisions and counts identical, noise floors within "
+          f"{floor_rel:.3e} relative (bound 1e-5)")
+
+    # ---- 9. the suppressor with audio out ------------------------------------
+    eng_audio = SpectralNoiseEngine(build_noise_config(FS, AUDIO_PARAMS), device=dev)
+    eng_audio.process_batch(x[:2])  # warm
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    out_audio = eng_audio.process_batch(torch.from_numpy(pcm).to(dev).to(torch.float32) / 32767.0)
+    y_rms = torch.sqrt(torch.mean(out_audio["y"] ** 2, dim=-1)).cpu().numpy()
+    wall_audio = time.perf_counter() - t0
+    launches_audio = dict(_kernels.LAUNCHES)
+    check(launches_audio == {"spectrogram_power": 0, "noise_psd_track": 2,
+                             "causal_low_quantile_baseline": 1, "gain_time_smooth": 1},
+          f"audio-out launches {launches_audio}")
+    y_card = out_audio["y"]
+    check(tuple(y_card.shape) == (BATCH, N) and bool(torch.isfinite(y_card).all()), "y")
+    fc_audio = out_audio["frame_class"].cpu().numpy()
+    # the complex STFT's power takes K1's place here: frames may differ in ulps
+    frac_paths = float((fc_audio == fc_def).mean())
+    check(frac_paths >= 0.9999, f"audio-out and default frame classes agree on {frac_paths:.6f}")
+    cpu_audio = SpectralNoiseEngine(build_noise_config(FS, AUDIO_PARAMS),
+                                    device="cpu").process_batch(x_cpu)
+    y_rel = rel_err(y_card[pick].cpu().numpy(), cpu_audio["y"].numpy())
+    frac_audio = float((fc_audio[pick] == cpu_audio["frame_class"].numpy()).mean())
+    check(y_rel <= 1e-4 and frac_audio >= 0.9999,
+          f"audio out: y max|d|/max {y_rel:.3e} (bound 1e-4), frames {frac_audio:.6f}")
+    x_rms = torch.sqrt(torch.mean(out_audio["x_filt"] ** 2, dim=-1)).cpu().numpy()
+    del out_audio, y_card
+    print(f"phase 9 suppressor with audio out {BATCH} x {CLIP_SEC:.0f} s via process_batch: "
+          f"launches {launches_audio}; y_rms noise clips {y_rms[~labels].mean():.6f} "
+          f"(x_filt {x_rms[~labels].mean():.6f}), ping clips {y_rms[labels].mean():.6f} "
+          f"(x_filt {x_rms[labels].mean():.6f}); frames agree with phase 8 on {frac_paths:.6f}; "
+          f"wall {wall_audio * 1e3:.1f} ms; against the "
+          f"CPU path on {N_AGREE} clips: y max|d|/max {y_rel:.3e} (bound 1e-4), frame "
+          f"agreement {frac_audio:.6f}")
+
+    # ---- 10. detector variants, card against CPU ------------------------------
+    det = PARAMS["detector"]
+    variants = {
+        "peak gate": ({"return_detector_debug": True, "detector": {**det, "peak_features_enable": True}},
+                      ("det_debug/peak_",)),
+        "comb_filter TD input": ({"return_detector_debug": True,
+                                  "detector": {**det, "td_input_mode": "comb_filter"}},
+                                 ("det_debug/td_crest", "det_debug/td_kurt", "det_debug/td_block")),
+        "bandpass TD input": ({"return_detector_debug": True,
+                               "detector": {**det, "td_input_mode": "bandpass"}},
+                              ("det_debug/td_crest", "det_debug/td_kurt", "det_debug/td_block")),
+        "envelope features": ({"return_detector_debug": True,
+                               "detector": {**det, "td_envelope_features_enable": True}},
+                              ("det_debug/td_rise", "det_debug/td_fall", "det_debug/td_energy",
+                               "det_debug/td_peak")),
+        "clip occupancy": ({"return_detector_debug": True, "dump_features": True,
+                            "detector": {**det, "clip_spectral_occupancy_enable": True,
+                                         "feature_dump_level": 1,
+                                         "feature_dump_clip_summary_enable": True}},
+                           ("det_debug/clip_spectral_occupancy", "features/clip_spectral_occupancy")),
+        "sparse dump top": ({"dump_features": True,
+                             "detector": {**det, "feature_dump_level": 1,
+                                          "feature_dump_sparse_enable": True,
+                                          "feature_dump_sparse_select": "top"}},
+                            ("features/sparse_",)),
+        "sparse dump first": ({"dump_features": True,
+                               "detector": {**det, "feature_dump_level": 1,
+                                            "feature_dump_sparse_enable": True}},
+                              ("features/sparse_",)),
+    }
+    x16 = x[torch.as_tensor(pick, device=dev)]
+    for label, (extra, prefixes) in variants.items():
+        params = {**PARAMS, **extra}
+        card = to_host(SpectralNoiseEngine(build_noise_config(FS, params), device=dev)
+                       .process_batch(x16))
+        cpu = to_host(SpectralNoiseEngine(build_noise_config(FS, params), device="cpu")
+                      .process_batch(x_cpu))
+        check(np.array_equal(card["frame_class"], cpu["frame_class"]), f"{label}: frame classes")
+        worst, n_keys, picks = 0.0, 0, []
+
+        def walk(a, b, path):
+            nonlocal worst, n_keys
+            if isinstance(b, dict):
+                for k in b:
+                    walk(a[k], b[k], f"{path}/{k}" if path else k)
+                return
+            if not path.startswith(prefixes):
+                return
+            n_keys += 1
+            a, b = np.asarray(a), np.asarray(b)
+            check(a.shape == b.shape, f"{label}: {path} shape {a.shape} != {b.shape}")
+            if b.dtype.kind in "biu":
+                check(np.array_equal(a, b), f"{label}: {path} differs")
+                return
+            bound = 1e-4 if any(t in path for t in ("/td_", "flux", "cepstrum")) else 1e-5
+            if path.endswith(PICKS):
+                # a value at an argmax over bins or blocks: where two are
+                # within rounding of each other the card and the CPU may pick
+                # neighbours, so each value is held to the bound and all but
+                # one in a thousand must meet it
+                ok = float((np.abs(a - b) <= bound * max(np.abs(b).max(), 1e-30)).mean())
+                check(ok >= 0.999, f"{label}: {path} within {bound:.0e} on {ok:.6f} < 0.999")
+                picks.append(f"{path.rsplit('/', 1)[-1]} {ok:.6f}")
+                return
+            r = rel_err(a, b)
+            check(r <= bound, f"{label}: {path} max|d|/max {r:.3e} > {bound:.0e}")
+            worst = max(worst, r)
+
+        walk(card, cpu, "")
+        check(n_keys > 0, f"{label}: no outputs compared")
+        print(f"  {label}: frame classes identical, {n_keys} outputs compared, integers "
+              f"identical, floats max|d|/max {worst:.3e}"
+              + (f"; argmax picks within bound on {', '.join(picks)}" if picks else ""))
+    print(f"phase 10 detector variants on {N_AGREE} clips: card and CPU agree")
+
+    # ---- 11. K5 and suppressor timings ----------------------------------------
+    k5_ms, k5_plain = in_turns(lambda: tsn._gain_time_smooth_plain(G_freq, nc_rand, cfg_sup),
+                               lambda: tsn._gain_time_smooth_cuda(G_freq, nc_rand, cfg_sup), 2, 20)
+    eng_def = proc._engine({**DEFAULT_PARAMS, **{k: False for k in (
+        "compute_output_audio", "return_filtered_audio", "return_spectra", "return_debug",
+        "return_detector_debug", "return_noise_psd")}})
+    batch_times = {}
+    for label, e in (("default configuration", eng_def), ("audio out", eng_audio)):
+        def batch(e=e):
+            return e.process_batch(pcm_dev.to(torch.float32) / 32767.0)
+
+        times = cuda_times(batch, 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            batch()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / 20 * 1e3
+        med = float(np.median(times))
+        batch_times[label] = (med, min(times), max(times), host)
+    print(f"phase 11 timings on {smi}, medians: K5 {k5_ms:.4f} ms (plain {k5_plain:.3f}, "
+          f"n=40/4); " + "; ".join(
+              f"{label} {med:.3f} ms per {BATCH} x {CLIP_SEC:.0f} s batch (min {lo:.3f}, max "
+              f"{hi:.3f}, n=20) = {audio_s / (med / 1e3):.1f} audio-s/s, host clock {host:.3f} "
+              f"ms per batch = {audio_s / (host / 1e3):.1f} audio-s/s"
+              for label, (med, lo, hi, host) in batch_times.items()))
+
+    launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] for k in launches}
+    print(f"launches per driven path: classifier-only {launches}, default {launches_def}, "
+          f"audio out {launches_audio}")
     pkg = "audio_processing_tools_tpu_torch/csrc/"
     kernels = [
         {"name": "spectrogram_power", "route": "cuda", "source": pkg + "spectrogram_power.cu",
          "replaces": "audio_processing_tools_tpu/ops/spectrogram.py:77",
-         "launches": launches["spectrogram_power"], "max_abs_err": k1_abs,
+         "launches": launches_all["spectrogram_power"], "max_abs_err": k1_abs,
          "ms": k1_ms, "plain_ms": k1_plain},
         {"name": "noise_psd_track", "route": "cuda", "source": pkg + "trackers.cu",
          "replaces": "audio_processing_tools_tpu/ops/trackers.py:121",
-         "launches": launches["noise_psd_track"], "max_abs_err": k2_abs,
+         "launches": launches_all["noise_psd_track"], "max_abs_err": k2_abs,
          "ms": k2_ms, "plain_ms": k2_plain},
         {"name": "causal_low_quantile_baseline", "route": "cuda", "source": pkg + "trackers.cu",
          "replaces": "audio_processing_tools_tpu/ops/trackers.py:30",
-         "launches": launches["causal_low_quantile_baseline"], "max_abs_err": k3_abs,
+         "launches": launches_all["causal_low_quantile_baseline"], "max_abs_err": k3_abs,
          "ms": k3_ms, "plain_ms": k3_plain},
+        {"name": "gain_time_smooth", "route": "cuda", "source": pkg + "gain.cu",
+         "replaces": "audio_processing_tools_tpu/models/spectral_noise.py:127",
+         "launches": launches_all["gain_time_smooth"], "max_abs_err": k5_abs,
+         "ms": k5_ms, "plain_ms": k5_plain},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

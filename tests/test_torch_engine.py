@@ -1,7 +1,7 @@
 """The ported slice as a whole against the JAX engine: classifier-only
 ``SpectralNoiseEngine`` and ``RainDetectorProcessor`` on the labeled corpus,
-config hand-over, MARK parsing, the configurations outside the slice, and
-import hygiene."""
+config hand-over, MARK parsing, the configurations once outside the slice,
+what is still outside it, and import hygiene."""
 
 import dataclasses
 import subprocess
@@ -130,13 +130,30 @@ _OUT_OF_SLICE = {
 
 
 @pytest.mark.parametrize("case", sorted(_OUT_OF_SLICE))
-def test_configs_outside_the_slice_raise(case):
-    extra, item = _OUT_OF_SLICE[case]
-    params = {**PARAMS, **extra,
+def test_configs_outside_the_slice_raise(corpus, case):
+    """The configurations that raised ``NotImplementedError`` until their
+    ROADMAP item (P9, P10) was ported now run, and give the JAX engine's
+    frame classes; what is still outside the slice raises in
+    ``test_unported_paths_raise``."""
+    extra, _item = _OUT_OF_SLICE[case]
+    params = {**PARAMS, "return_detector_debug": True, **extra,
               "detector": {**PARAMS["detector"], **extra.get("detector", {})}}
-    eng = SpectralNoiseEngine(build_noise_config(FS, params), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        eng.process_batch(np.zeros((1, 3000), np.float32))
+    clips = corpus[0][::6]
+    got = SpectralNoiseEngine(build_noise_config(FS, params), device="cpu").process_batch(clips)
+    ref = JEngine(jbuild(FS, params)).process_batch(clips)
+    np.testing.assert_array_equal(got["frame_class"].numpy(), np.asarray(ref["frame_class"]))
+    assert set(got["det_debug"]) == set(ref["det_debug"])
+
+
+def test_unported_paths_raise():
+    """The sequential block-boundary scan beyond one 128-sample block
+    (ROADMAP P13) still raises; one block has no boundary step and runs."""
+    from audio_processing_tools_tpu_torch.ops.filters import design_bandpass, sosfilt
+
+    sos = design_bandpass(FS, 500.0, 3000.0, 4)
+    assert sosfilt(sos, torch.ones(2, 128)).shape == (2, 128)
+    with pytest.raises(NotImplementedError, match="P13"):
+        sosfilt(sos, torch.ones(2, 129))
 
 
 def test_alac_payload_raises_not_implemented():

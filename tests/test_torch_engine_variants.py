@@ -1,7 +1,10 @@
 """Config variants of the ported classifier-only engine against the JAX
 engine: detector debug and feature dump, TD soft labels, winsorized and
 weighted flux, ratio-dB normalization with adaptive q, causal smoothing of
-the noise PSD, a band-pass prefilter, spectra and filtered audio."""
+the noise PSD, a band-pass prefilter, spectra and filtered audio, the peak
+gate, the comb-filter and band-pass TD front ends, TD envelope features,
+clip spectral occupancy with the clip-summary tier, and the sparse feature
+dump in its "first" and "top" selections."""
 
 import numpy as np
 import pytest
@@ -34,6 +37,30 @@ VARIANTS = {
                          "detector": DET},
     "spectra_and_audio": {"return_spectra": True, "return_filtered_audio": True,
                           "detector": DET},
+    "peak_gate": {"return_detector_debug": True,
+                  "detector": {**DET, "peak_features_enable": True}},
+    "td_comb_filter": {"return_detector_debug": True,
+                       "detector": {**DET, "td_input_mode": "comb_filter"}},
+    "td_bandpass": {"return_detector_debug": True,
+                    "detector": {**DET, "td_input_mode": "bandpass",
+                                 "td_input_band": [500.0, 3000.0]}},
+    "td_envelope": {"return_detector_debug": True,
+                    "detector": {**DET, "td_envelope_features_enable": True}},
+    "occupancy_clip_summary": {"return_detector_debug": True, "dump_features": True,
+                               "detector": {**DET, "clip_spectral_occupancy_enable": True,
+                                            "feature_dump_level": 1,
+                                            "feature_dump_clip_summary_enable": True}},
+    "sparse_dump_first": {"dump_features": True,
+                          "detector": {**DET, "feature_dump_level": 1,
+                                       "feature_dump_sparse_enable": True,
+                                       "feature_dump_sparse_max_frames": 8}},
+    "sparse_dump_top": {"dump_features": True,
+                        "detector": {**DET, "feature_dump_level": 1,
+                                     "feature_dump_sparse_enable": True,
+                                     "feature_dump_sparse_select": "top",
+                                     "feature_dump_sparse_gate_feature": "td_crest_factor",
+                                     "feature_dump_sparse_gate_threshold": 3.0,
+                                     "feature_dump_include_raw_spectral_basic": True}},
 }
 
 
