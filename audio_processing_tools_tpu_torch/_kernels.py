@@ -48,12 +48,14 @@ LAUNCHES: Dict[str, int] = {
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
+_PLAN = (_I,) * 6  # ops/trackers.py::TrackerPlan
 _SIGNATURES = {
     "apt_spectrogram_power": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "apt_noise_psd_track": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F,
-                            _I, _F, _F, _F, _F, _F, _F, _F, _P),
-    "apt_causal_low_quantile_baseline": (_P, _P, _I, _I, _F, _F, _F, _F, _F,
+    "apt_noise_psd_track": (_P, _P, _P, _I, _I, _I, _L, _L, *_PLAN, _F, _F, _F, _F, _I,
+                            _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, _P),
+    "apt_causal_low_quantile_baseline": (_P, _P, _I, _I, *_PLAN, _F, _F, _F, _F, _F,
                                          _F, _P),
     "apt_gain_time_smooth": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
 }

@@ -18,6 +18,11 @@ operation for operation, including which constants are rounded to float32
 in double precision and which are computed in float32; the kernels mirror
 the loops the same way, so the two give the same bits.  A CPU tensor takes
 the plain loop; a CUDA tensor launches the kernel or raises.
+
+Both kernels stage tiles of frames in shared memory; their launch plan is
+:func:`tracker_launch_plan`, which the C launchers check against their own,
+so the two change together.  K2 reads its input in place through a clip
+and a row stride, so the engine's band view ``P[:, rows, :]`` needs no copy.
 """
 
 from __future__ import annotations
@@ -29,6 +34,55 @@ import torch
 import torch.nn.functional as tnf
 
 from audio_processing_tools_tpu_torch import _kernels
+
+#: threads per block of K2 and K3: one warp walks the lanes, three load and store
+TRACKER_THREADS = 128
+#: lanes per block at most: one walker warp
+TRACKER_MAX_LANES = 32
+#: blocks the plan aims for, one per SM of an H100
+TRACKER_TARGET_BLOCKS = 132
+#: frames per staged tile
+TRACKER_FRAME_TILE = 64
+#: dynamic shared memory one block may use on Hopper
+SMEM_LIMIT = 232_448
+_INT_MAX = 2**31 - 1
+#: the kernels the plan is for, and whether each stages a rain mask
+_TRACKER_KERNELS = {"noise_psd_track": True, "causal_low_quantile_baseline": False}
+
+
+class TrackerPlan(NamedTuple):
+    lanes_per_block: int
+    frame_tile: int
+    threads: int
+    smem_bytes: int  # dynamic shared memory per block
+    grid: int  # blocks
+    n_tiles: int  # frame tiles per lane
+
+
+def tracker_launch_plan(kernel: str, lanes: int, T: int) -> TrackerPlan:
+    """The launch plan of K2 (``"noise_psd_track"``) or K3
+    (``"causal_low_quantile_baseline"``) for ``lanes`` rows of ``T`` frames,
+    as ``lanes_per_block_for`` / ``smem_bytes_for`` in ``csrc/trackers.cu``.
+
+    Lanes per block: the largest power of two up to 32 that still gives
+    :data:`TRACKER_TARGET_BLOCKS` blocks, else 1.  Shared memory: two input
+    and two output tiles of ``lanes_per_block`` rows of 65 floats, and for K2
+    two rain tiles of as many rows of 17 words.  Raises ``ValueError`` for
+    what the C launcher refuses: an unknown kernel, no lanes or frames, or
+    more than ``2**31 - 1`` of either.
+    """
+    if kernel not in _TRACKER_KERNELS:
+        raise ValueError(f"no tracker kernel {kernel!r}; expected one of {sorted(_TRACKER_KERNELS)}")
+    if not (1 <= lanes <= _INT_MAX and 1 <= T <= _INT_MAX):
+        raise ValueError(f"{kernel}: needs 1 to 2**31 - 1 lanes and frames; got {lanes} x {T}")
+    L = TRACKER_MAX_LANES
+    while L > 1 and -(-lanes // L) < TRACKER_TARGET_BLOCKS:
+        L //= 2
+    smem = 16 * L * (TRACKER_FRAME_TILE + 1)
+    if _TRACKER_KERNELS[kernel]:
+        smem += 8 * L * (TRACKER_FRAME_TILE // 4 + 1)
+    return TrackerPlan(L, TRACKER_FRAME_TILE, TRACKER_THREADS, smem, -(-lanes // L),
+                       -(-T // TRACKER_FRAME_TILE))
 
 
 # ---------------------------------------------------------------------------
@@ -82,11 +136,12 @@ def _baseline_cuda(x: torch.Tensor, c: _BaselineConsts) -> torch.Tensor:
     T = x.shape[-1]
     rows = x.reshape(-1, T)
     _kernels.require_cuda("causal_low_quantile_baseline", rows, torch.float32, 2)
+    plan = tracker_launch_plan("causal_low_quantile_baseline", rows.shape[0], T)
     out = torch.empty_like(rows)
     lib = _kernels.build()
     with torch.cuda.device(x.device):
         err = lib.lib.apt_causal_low_quantile_baseline(
-            rows.data_ptr(), out.data_ptr(), rows.shape[0], T,
+            rows.data_ptr(), out.data_ptr(), rows.shape[0], T, *plan,
             c.q, -(1.0 - c.q), c.eta, c.scale_alpha, 1.0 - c.scale_alpha,
             c.floor, _kernels.stream_of(rows),
         )
@@ -212,22 +267,42 @@ def _noise_psd_track_plain(P_band: torch.Tensor, is_rain: torch.Tensor,
     return torch.stack(outs, dim=-1)
 
 
+def _band_strides(P3: torch.Tensor) -> Tuple[int, int]:
+    """Clip and row strides, in elements, of a (B, K, T) band block that K2
+    reads in place: any strides with the frames of each row contiguous (the
+    engine's view ``P[:, rows, :]`` of the spectrogram is one).  Raises
+    ``ValueError`` on any other layout."""
+    if P3.dim() != 3:
+        raise ValueError(f"noise_psd_track: expected (B, K, T), got shape {tuple(P3.shape)}")
+    if P3.shape[-1] > 1 and P3.stride(-1) != 1:
+        raise ValueError(f"noise_psd_track: the frames of each row must be contiguous; "
+                         f"got strides {P3.stride()}")
+    return P3.stride(0), P3.stride(1)
+
+
 def _noise_psd_track_cuda(P_band: torch.Tensor, is_rain: torch.Tensor,
                           p: PsdTrackParams) -> torch.Tensor:
     K, T = P_band.shape[-2:]
-    P3 = P_band.reshape(-1, K, T)
-    rain = is_rain.reshape(-1, T).to(torch.uint8).contiguous()
-    _kernels.require_cuda("noise_psd_track", P3, torch.float32, 3)
+    P3 = P_band.reshape(-1, K, T)  # a view for the engine's band block
+    if P3.device.type != "cuda":
+        raise ValueError(f"noise_psd_track: expected a CUDA tensor, got device {P3.device}")
+    if P3.dtype != torch.float32:
+        raise TypeError(f"noise_psd_track: expected torch.float32, got {P3.dtype}")
+    clip_stride, row_stride = _band_strides(P3)
+    # a bool mask is read as its bytes, without a copy
+    rain = is_rain.to(torch.bool).reshape(-1, T).view(torch.uint8).contiguous()
     _kernels.require_cuda("noise_psd_track(is_rain)", rain, torch.uint8, 2)
     if rain.shape[0] != P3.shape[0] or rain.device != P3.device:
         raise ValueError("noise_psd_track: is_rain must be (..., T) beside P_band (..., K, T)")
+    plan = tracker_launch_plan("noise_psd_track", P3.shape[0] * K, T)
     eta, step_floor, warmup_need = _psd_derived(p)
     sa = float(p.ema_down)
-    out = torch.empty_like(P3)
+    out = torch.empty(P3.shape, dtype=torch.float32, device=P3.device)
     lib = _kernels.build()
     with torch.cuda.device(P3.device):
         err = lib.lib.apt_noise_psd_track(
             P3.data_ptr(), rain.data_ptr(), out.data_ptr(), P3.shape[0], K, T,
+            clip_stride, row_stride, *plan,
             eta, sa, 1.0 - sa, step_floor, warmup_need, p.q, -(1.0 - p.q),
             int(p.adaptive_q_enable), p.adaptive_q_min, p.q - p.adaptive_q_min,
             p.ema_up, p.ema_down, p.maxr, p.adaptive_q_alpha,
@@ -243,7 +318,9 @@ def noise_psd_track(P_band: torch.Tensor, is_rain: torch.Tensor,
     """Track the noise PSD of a band block over time.
 
     ``P_band`` (..., K, T) linear power; ``is_rain`` (..., T) bool, frames
-    excluded from updates after warm-up.  Returns ``N_band`` (..., K, T).
+    excluded from updates after warm-up.  Returns ``N_band`` (..., K, T),
+    contiguous.  On a CUDA tensor whose frames are contiguous (a view of
+    band rows, say) the kernel reads ``P_band`` in place.
     """
     P_band = P_band.to(torch.float32)
     is_rain = is_rain.to(torch.bool)
@@ -251,7 +328,9 @@ def noise_psd_track(P_band: torch.Tensor, is_rain: torch.Tensor,
         return P_band.clone()
     if P_band.device.type == "cpu":
         return _noise_psd_track_plain(P_band, is_rain, params)
-    return _noise_psd_track_cuda(P_band.contiguous(), is_rain, params)
+    if P_band.shape[-1] > 1 and P_band.stride(-1) != 1:
+        P_band = P_band.contiguous()
+    return _noise_psd_track_cuda(P_band, is_rain, params)
 
 
 # ---------------------------------------------------------------------------

@@ -10,15 +10,20 @@ Phases, one line each:
   2. K1 (spectrogram) against its plain version at the production batch,
      128 clips x 10 s at 11,162 Hz, at the other geometries it takes, and on
      float64 and strided inputs;
-  3. K2 (noise PSD tracker) and K3 (flux baseline) against their plain loops
-     at the shapes the main path gives them;
+  3. K2 (noise PSD tracker) and K3 (flux baseline) against their plain loops,
+     bit for bit: at the shapes the main path gives them (K2 with no rain,
+     random rain and adaptive q, on the engine's band view of the
+     spectrogram passed in as it is), and at ragged shapes (lanes not a
+     multiple of the block, T not a multiple of the frame tile, T below it,
+     T = 1, few rows) and on NaN and inf input;
   4. the main path: 128 synthetic clips (half noise, half sharp damped pings)
      written as MARK files, parsed on the host to int16, moved to the card,
      scaled by 1/32767 and run through ``RainDetectorProcessor.run_batch``,
      with the launch count of every kernel read around it;
   5. agreement of the card with the port's plain path on the CPU, 16 clips;
-  6. timings with CUDA events: each kernel beside its plain version, and the
-     main-path batch;
+  6. timings with CUDA events: each kernel's device time per launch (a CUDA
+     graph of back-to-back launches) and per host-launched call beside its
+     plain version, and the main-path batch;
   7. K5 (gain smoothing) against its plain loop at the suppressor's shape,
      adaptive and not, on the gain the suppressor makes from the phase-4 clips;
   8. the engine's default configuration (the suppressor, no outputs beyond
@@ -32,7 +37,9 @@ Phases, one line each:
      against CPU;
  11. timings of K5 beside its plain loop and of the two suppressor batches.
 
-Then one JSON line with the kernels' numbers, and last the device line
+Then one JSON line with the kernels' numbers (each with its bound at this
+run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
+whichever is larger), and last the device line
 ``{"ok": true, "device": {...}}``.  Any failed check, a missing card or a
 missing package exits non-zero before the device line.  The script imports
 nothing of JAX.
@@ -114,6 +121,53 @@ def cuda_times(fn, iters: int) -> list:
         stop.record()
     torch.cuda.synchronize()
     return [start.elapsed_time(stop) for start, stop in events]
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 7) -> float:
+    """Device ms of one call of ``fn``: ``launches`` calls captured in one
+    CUDA graph, the graph replayed ``reps`` times between CUDA events, the
+    median replay divided by ``launches``.  The captured kernels run back to
+    back, so the host's work per call, which the card waits for when a
+    kernel is shorter than it, is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture needs
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / launches)
+    return float(np.median(times))
+
+
+def same_bits(got, ref):
+    """Whether two float32 tensors hold the same bits wherever either holds a
+    number (the sign of zero included) and NaN in the same places, and
+    max|got - ref| where both are finite.  NaN payloads are not compared:
+    the compiler may canonicalise them."""
+    import torch
+
+    if got.shape != ref.shape:
+        return False, float("inf")
+    nan = torch.isnan(got)
+    same = torch.equal(nan, torch.isnan(ref)) and torch.equal(
+        got.contiguous().view(torch.int32)[~nan], ref.contiguous().view(torch.int32)[~nan])
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    return same, float((got - ref)[fin].abs().max()) if bool(fin.any()) else 0.0
 
 
 def rel_err(got, ref) -> float:
@@ -249,40 +303,87 @@ def main() -> int:
               f"max|d|/max = {rel:.3e}")
 
     # ---- 3. K2 and K3 against their plain loops ----------------------------
+    # every case must give the plain loop's bits
     rows = slice(int(geo.band_rows[0]), int(geo.band_rows[-1]) + 1)
-    P_band = P_plain[:, rows, :].contiguous()
+    P_view = P_plain[:, rows, :]  # the engine's band view, read in place by K2
+    P_band = P_view.contiguous()
     B_, K, T = P_band.shape
-    psd = ttr.make_psd_params(
-        cfg_q=cfg.q, win_sec=cfg.win_sec, frames_per_sec=FS / cfg.hop, ema_up=cfg.ema_up,
-        ema_down=cfg.ema_down, eps=cfg.eps, noise_psd_max_ratio=cfg.noise_psd_max_ratio)
+    psd_kw = dict(cfg_q=cfg.q, win_sec=cfg.win_sec, frames_per_sec=FS / cfg.hop,
+                  ema_up=cfg.ema_up, ema_down=cfg.ema_down, eps=cfg.eps,
+                  noise_psd_max_ratio=cfg.noise_psd_max_ratio)
+    psd = ttr.make_psd_params(**psd_kw)
+    psd_aq = ttr.make_psd_params(**psd_kw, adaptive_q_enable=True,
+                                 adaptive_q_min=cfg.adaptive_q_min,
+                                 adaptive_q_alpha=cfg.adaptive_q_alpha)
     gen = torch.Generator(device=dev).manual_seed(1)
-    rain_cases = {"no rain (main path)": torch.zeros((B_, T), dtype=torch.bool, device=dev),
-                  "random rain": torch.rand((B_, T), generator=gen, device=dev) < 0.2}
-    k2_abs = k2_rel = 0.0
-    for label, is_rain in rain_cases.items():
-        got = ttr._noise_psd_track_cuda(P_band, is_rain, psd)
-        ref = ttr._noise_psd_track_plain(P_band, is_rain, psd)
+
+    def rand_rain(n, t):
+        return torch.rand((n, t), generator=gen, device=dev) < 0.2
+
+    no_rain = torch.zeros((B_, T), dtype=torch.bool, device=dev)
+    main_rain = rand_rain(B_, T)
+    P_nonfinite = P_band[:4].clone()
+    P_nonfinite[0, 3, 100], P_nonfinite[1, 0, 0] = float("nan"), float("nan")
+    P_nonfinite[2, 5, 17], P_nonfinite[3, K - 1, T - 1] = float("inf"), float("inf")
+    k2_cases = [
+        ("main, no rain, band view (main path)", P_view, no_rain, psd),
+        ("main, no rain, contiguous", P_band, no_rain, psd),
+        ("main, random rain, band view", P_view, main_rain, psd),
+        ("main, random rain, adaptive q, band view", P_view, main_rain, psd_aq),
+        # an EMA rate above 1 can make the EMA negative, for the clamp at 0
+        ("main, random rain, EMA rate 1.1", P_view, main_rain, psd._replace(ema_up=1.1)),
+    ]
+    # ragged: lanes not a multiple of the block, T not a multiple of the
+    # tile, T < tile, T = 1, one lane per clip (a rain row per lane)
+    for label, Pc in (("127 clips x 71, T 100 (lanes % 32 = 25)", P_plain[:127, rows, :100]),
+                      ("7 clips x 71 (497 lanes, 2 a block)", P_view[:7]),
+                      ("3 clips x 5 bins (15 lanes)", P_view[:3, :5]),
+                      ("T 128 (two whole tiles)", P_view[..., :128]),
+                      ("T 50 < tile", P_view[..., :50]),
+                      ("T 1", P_view[..., :1]),
+                      ("9088 clips x 1 bin", P_band.reshape(-1, 1, T)),
+                      ("NaN and inf", P_nonfinite)):
+        rain = rand_rain(Pc.shape[0], Pc.shape[-1])
+        k2_cases += [(label, Pc, rain, psd), (label + ", adaptive q", Pc, rain, psd_aq)]
+    k2_abs = 0.0
+    for label, Pc, is_rain, params in k2_cases:
+        plan = ttr.tracker_launch_plan("noise_psd_track", Pc.shape[0] * Pc.shape[1], Pc.shape[-1])
+        got = ttr._noise_psd_track_cuda(Pc, is_rain, params)
+        ref = ttr._noise_psd_track_plain(Pc, is_rain, params)
         torch.cuda.synchronize()
-        d = float((got - ref).abs().max())
-        r = d / max(float(ref.abs().max()), 1e-30)
-        print(f"  K2 {label}: max|d| = {d:.3e}, max|d|/max = {r:.3e}")
-        k2_abs, k2_rel = max(k2_abs, d), max(k2_rel, r)
-    check(k2_rel <= 1e-6, f"K2 max|d|/max {k2_rel:.3e} > 1e-6")
+        same, d = same_bits(got, ref)
+        check(same, f"K2 {label}: not the plain loop's bits (max|d| = {d:.3e})")
+        print(f"  K2 {label} {tuple(Pc.shape)} strides {Pc.stride()}, {plan.lanes_per_block} "
+              f"lanes x {plan.grid} blocks: same bits, max|d| = {d:.3e}")
+        k2_abs = max(k2_abs, d)
 
     eng = SpectralNoiseEngine(cfg, device=dev)
-    P_det, _ = eng._detector_input(P_band, FS)
+    P_det, _ = eng._detector_input(P_view, FS)
     _, _, flux_modes, by_mode = _mode_flux(P_det, geo.mode_masks, geo.primary_mask, None)
     stacked = torch.cat([flux_modes[:, None, :], by_mode], dim=1).contiguous()
     bc = ttr._baseline_consts(20.0, FS / cfg.hop, 0.5, 0.0, 1.0)
-    got = ttr._baseline_cuda(stacked, bc)
-    ref = ttr._baseline_plain(stacked, bc)
-    torch.cuda.synchronize()
-    k3_abs = float((got - ref).abs().max())
-    k3_rel = k3_abs / float(ref.abs().max())
-    check(k3_rel <= 1e-6, f"K3 max|d|/max {k3_rel:.3e} > 1e-6")
-    print(f"phase 3 K2 noise_psd_track {tuple(P_band.shape)}: max|d|/max = {k2_rel:.3e}; "
-          f"K3 causal_low_quantile_baseline {tuple(stacked.shape)}: max|d|/max = "
-          f"{k3_rel:.3e} (bounds 1e-6)")
+    flat = stacked.reshape(-1, T)
+    bad = flat[:16].clone()
+    bad[0, 40], bad[3, 7], bad[5, 0] = float("nan"), float("inf"), float("nan")
+    k3_abs = 0.0
+    for label, xr in (("main (main path)", stacked), ("7 rows", flat[:7]),
+                      ("768 rows x T 100", flat[:, :100].contiguous()),
+                      ("765 rows (765 % 4 = 1)", flat[:765]),
+                      ("T 50 < tile", flat[:, :50].contiguous()),
+                      ("T 1", flat[:, :1].contiguous()), ("NaN and inf", bad)):
+        plan = ttr.tracker_launch_plan("causal_low_quantile_baseline",
+                                       xr.numel() // xr.shape[-1], xr.shape[-1])
+        got = ttr._baseline_cuda(xr, bc)
+        ref = ttr._baseline_plain(xr, bc)
+        torch.cuda.synchronize()
+        same, d = same_bits(got, ref)
+        check(same, f"K3 {label}: not the plain loop's bits (max|d| = {d:.3e})")
+        print(f"  K3 {label} {tuple(xr.shape)}, {plan.lanes_per_block} rows x {plan.grid} "
+              f"blocks: same bits, max|d| = {d:.3e}")
+        k3_abs = max(k3_abs, d)
+    print(f"phase 3 K2 noise_psd_track {tuple(P_view.shape)}: {len(k2_cases)} cases, the plain "
+          f"loop's bits, max|d| = {k2_abs:.3e}; K3 causal_low_quantile_baseline "
+          f"{tuple(stacked.shape)}: 7 cases, the plain loop's bits, max|d| = {k3_abs:.3e}")
 
     # ---- 4. the main path --------------------------------------------------
     proc = RainDetectorProcessor(device=dev)
@@ -329,12 +430,17 @@ def main() -> int:
     check(same_dec and same_cnt and agree >= 0.9999, "GPU and CPU paths disagree")
 
     # ---- 6. timings ----------------------------------------------------------
-    k1_ms, k1_plain = in_turns(lambda: stft_power(x), lambda: spectrogram_power(x), 20, 20)
-    no_rain = rain_cases["no rain (main path)"]
-    k2_ms, k2_plain = in_turns(lambda: ttr._noise_psd_track_plain(P_band, no_rain, psd),
-                               lambda: ttr._noise_psd_track_cuda(P_band, no_rain, psd), 2, 20)
-    k3_ms, k3_plain = in_turns(lambda: ttr._baseline_plain(stacked, bc),
-                               lambda: ttr._baseline_cuda(stacked, bc), 2, 20)
+    # each kernel's device time from a graph of back-to-back launches, and
+    # per host-launched call (as PRs 1-3 timed them) in turns with its plain
+    # version, whose loops of small launches are timed per call only
+    k1_call, k1_plain = in_turns(lambda: stft_power(x), lambda: spectrogram_power(x), 20, 20)
+    k2_call, k2_plain = in_turns(lambda: ttr._noise_psd_track_plain(P_view, no_rain, psd),
+                                 lambda: ttr._noise_psd_track_cuda(P_view, no_rain, psd), 2, 20)
+    k3_call, k3_plain = in_turns(lambda: ttr._baseline_plain(stacked, bc),
+                                 lambda: ttr._baseline_cuda(stacked, bc), 2, 20)
+    k1_ms = graph_ms(lambda: spectrogram_power(x))
+    k2_ms = graph_ms(lambda: ttr._noise_psd_track_cuda(P_view, no_rain, psd))
+    k3_ms = graph_ms(lambda: ttr._baseline_cuda(stacked, bc))
     def step():
         return eng.process_batch(pcm_dev.to(torch.float32) / 32767.0)
 
@@ -349,10 +455,11 @@ def main() -> int:
     audio_s = BATCH * CLIP_SEC
     # K1 reads each sample and writes each power value once
     k1_gbs = 4 * (x.numel() + P_kernel.numel()) / k1_ms / 1e6
-    print(f"phase 6 timings on {smi}, medians: K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}, "
-          f"n=40/40) = {k1_gbs:.0f} GB/s, {k1_gbs / 3350:.1%} of 3.35 TB/s; K2 {k2_ms:.3f} ms "
-          f"(plain {k2_plain:.3f}, n=40/4), K3 {k3_ms:.3f} ms "
-          f"(plain {k3_plain:.3f}, n=40/4); main path {step_ms:.3f} ms per {BATCH} x "
+    print(f"phase 6 timings on {smi}, medians, device ms per launch from a graph of 20 "
+          f"(per host-launched call, n=40; plain per call): K1 {k1_ms:.4f} ms ({k1_call:.4f}; "
+          f"plain {k1_plain:.4f}, n=40) = {k1_gbs:.0f} GB/s, {k1_gbs / 3350:.1%} of 3.35 TB/s; "
+          f"K2 {k2_ms:.4f} ms ({k2_call:.4f}; plain {k2_plain:.3f}, n=4), K3 {k3_ms:.4f} ms "
+          f"({k3_call:.4f}; plain {k3_plain:.3f}, n=4); main path {step_ms:.3f} ms per {BATCH} x "
           f"{CLIP_SEC:.0f} s batch (min {min(steps):.3f}, max {max(steps):.3f}, n=30) = "
           f"{audio_s / (step_ms / 1e3):.1f} audio-s/s, int16 on the card -> frame classes; "
           f"host clock over 30 back-to-back batches {host_ms:.3f} ms per batch = "
@@ -527,8 +634,9 @@ def main() -> int:
     print(f"phase 10 detector variants on {N_AGREE} clips: card and CPU agree")
 
     # ---- 11. K5 and suppressor timings ----------------------------------------
-    k5_ms, k5_plain = in_turns(lambda: tsn._gain_time_smooth_plain(G_freq, nc_rand, cfg_sup),
-                               lambda: tsn._gain_time_smooth_cuda(G_freq, nc_rand, cfg_sup), 2, 20)
+    k5_call, k5_plain = in_turns(lambda: tsn._gain_time_smooth_plain(G_freq, nc_rand, cfg_sup),
+                                 lambda: tsn._gain_time_smooth_cuda(G_freq, nc_rand, cfg_sup), 2, 20)
+    k5_ms = graph_ms(lambda: tsn._gain_time_smooth_cuda(G_freq, nc_rand, cfg_sup))
     eng_def = proc._engine({**DEFAULT_PARAMS, **{k: False for k in (
         "compute_output_audio", "return_filtered_audio", "return_spectra", "return_debug",
         "return_detector_debug", "return_noise_psd")}})
@@ -546,8 +654,9 @@ def main() -> int:
         host = (time.perf_counter() - t0) / 20 * 1e3
         med = float(np.median(times))
         batch_times[label] = (med, min(times), max(times), host)
-    print(f"phase 11 timings on {smi}, medians: K5 {k5_ms:.4f} ms (plain {k5_plain:.3f}, "
-          f"n=40/4); " + "; ".join(
+    print(f"phase 11 timings on {smi}, medians: K5 {k5_ms:.4f} ms per launch in a graph "
+          f"({k5_call:.4f} per host-launched call, n=40; plain {k5_plain:.3f}, n=4); "
+          + "; ".join(
               f"{label} {med:.3f} ms per {BATCH} x {CLIP_SEC:.0f} s batch (min {lo:.3f}, max "
               f"{hi:.3f}, n=20) = {audio_s / (med / 1e3):.1f} audio-s/s, host clock {host:.3f} "
               f"ms per batch = {audio_s / (host / 1e3):.1f} audio-s/s"
@@ -557,24 +666,49 @@ def main() -> int:
     print(f"launches per driven path: classifier-only {launches}, default {launches_def}, "
           f"audio out {launches_audio}")
     pkg = "audio_processing_tools_tpu_torch/csrc/"
+    # bounds at this run's shapes: bytes read once and written once over
+    # 3.35 TB/s, operations over the 67 TFLOP/s of float32 outside the
+    # tensor cores; the larger binds.  Operations per item: K1 per frame the
+    # window (n_fft), the half-length FFT (5 M log2 M, M = n_fft/2) and the
+    # split and power (13 per bin); K2 20, K3 12, K5 8 per lane and frame.
+    M = 128
+    work = {
+        "spectrogram_power": (4 * (x.numel() + P_kernel.numel()),
+                              BATCH * T * (2 * M + 5 * M * np.log2(M) + 13 * (M + 1))),
+        "noise_psd_track": (8 * P_band.numel() + B_ * T, 20 * P_band.numel()),
+        "causal_low_quantile_baseline": (8 * stacked.numel(), 12 * stacked.numel()),
+        "gain_time_smooth": (8 * G_freq.numel() + 4 * nc_rand.numel(), 8 * G_freq.numel()),
+    }
+
+    def bound(kernel):
+        nbytes, ops = work[kernel]
+        by_bytes, by_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+        return {"bound_ms": max(by_bytes, by_ops),
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                # no single PyTorch call computes any of these functions
+                "library_ms": None}
+
     kernels = [
         {"name": "spectrogram_power", "route": "cuda", "source": pkg + "spectrogram_power.cu",
          "replaces": "audio_processing_tools_tpu/ops/spectrogram.py:77",
          "launches": launches_all["spectrogram_power"], "max_abs_err": k1_abs,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": k1_ms, "plain_ms": k1_plain, **bound("spectrogram_power")},
         {"name": "noise_psd_track", "route": "cuda", "source": pkg + "trackers.cu",
          "replaces": "audio_processing_tools_tpu/ops/trackers.py:121",
          "launches": launches_all["noise_psd_track"], "max_abs_err": k2_abs,
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "ms": k2_ms, "plain_ms": k2_plain, **bound("noise_psd_track")},
         {"name": "causal_low_quantile_baseline", "route": "cuda", "source": pkg + "trackers.cu",
          "replaces": "audio_processing_tools_tpu/ops/trackers.py:30",
          "launches": launches_all["causal_low_quantile_baseline"], "max_abs_err": k3_abs,
-         "ms": k3_ms, "plain_ms": k3_plain},
+         "ms": k3_ms, "plain_ms": k3_plain, **bound("causal_low_quantile_baseline")},
         {"name": "gain_time_smooth", "route": "cuda", "source": pkg + "gain.cu",
          "replaces": "audio_processing_tools_tpu/models/spectral_noise.py:127",
          "launches": launches_all["gain_time_smooth"], "max_abs_err": k5_abs,
-         "ms": k5_ms, "plain_ms": k5_plain},
+         "ms": k5_ms, "plain_ms": k5_plain, **bound("gain_time_smooth")},
     ]
+    for k in kernels:
+        print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
+              f"({k['bound_ms'] / k['ms']:.1%} of it)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
