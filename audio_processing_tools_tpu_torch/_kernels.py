@@ -44,6 +44,8 @@ LAUNCHES: Dict[str, int] = {
     "noise_psd_track": 0,
     "causal_low_quantile_baseline": 0,
     "gain_time_smooth": 0,
+    "sosfilt_zi": 0,
+    "streaming_suppressor": 0,
 }
 
 _P = ctypes.c_void_p
@@ -54,10 +56,12 @@ _PLAN = (_I,) * 6  # ops/trackers.py::TrackerPlan
 _SIGNATURES = {
     "apt_spectrogram_power": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "apt_noise_psd_track": (_P, _P, _P, _I, _I, _I, _L, _L, *_PLAN, _F, _F, _F, _F, _I,
-                            _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, _P),
+                            _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, *(_P,) * 11, _P),
     "apt_causal_low_quantile_baseline": (_P, _P, _I, _I, *_PLAN, _F, _F, _F, _F, _F,
-                                         _F, _P),
+                                         _F, _P, _P, _P, _P, _P),
     "apt_gain_time_smooth": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
+    "apt_sosfilt_zi": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
+    "apt_streaming_suppressor": (_P, _P, _I, _P),
 }
 
 
@@ -172,3 +176,12 @@ def require_cuda(name: str, t, dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dimensions, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def carry_vector(name: str, t, like, n: int, dtype):
+    """One carry of a kernel as ``n`` contiguous values of ``dtype`` on
+    ``like``'s device; ``ValueError`` when it does not fit."""
+    if t.device != like.device or t.numel() != n:
+        raise ValueError(f"{name}: carry of shape {tuple(t.shape)} on {t.device} does not fit "
+                         f"{n} values on {like.device}")
+    return t.to(dtype).reshape(n).contiguous()

@@ -53,6 +53,17 @@
 //    tiles) is computed in ops/trackers.py::tracker_launch_plan; the
 //    launchers below refuse a plan unlike their own.
 //
+// Carries.  Each launcher takes optional carry-in and carry-out pointers:
+// the streaming detector threads the trackers' state from one chunk of a live
+// stream to the next (noise_psd_track_chunk, trackers.py:372-385, and
+// causal_low_quantile_baseline_chunk, :262-302).  Null carry-in pointers give
+// the offline start (the state built from frame 0); null carry-out pointers
+// write no state.  Either way the walk is the same code, so a stream cut into
+// chunks at any frame gives the bits of one call over the whole stream.  The
+// launchers pick the instantiation by whether any carry pointer is given
+// (the template flag kCarry), so the offline walk carries none of the
+// streaming code in its registers.
+//
 // Arithmetic follows the plain PyTorch loops step for step: every product
 // and sum is rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn are never
 // contracted into an FMA), constants arrive already rounded to float by the
@@ -132,6 +143,19 @@ __device__ __forceinline__ float max_nan(float a, float floor) {
   return d;
 }
 
+// K2's carry (trackers.py:305-316): tracker, scale and the last output per
+// lane; the warm-up count, the rain EMA and whether the stream has seen no
+// frame yet per clip.
+struct PsdCarry {
+  const float *tracker, *scale, *prev_n;
+  const int* wcount;
+  const float* rain_ema;
+  const uint8_t* is_first;
+  float *o_tracker, *o_scale, *o_prev_n;
+  int* o_wcount;
+  float* o_rain_ema;
+};
+
 struct PsdConsts {
   float eta, scale_alpha, one_minus_scale_alpha, step_floor;
   int warmup_need;
@@ -206,11 +230,16 @@ __device__ __forceinline__ void walk_row(const float* __restrict__ x,
 // step before the one product (q * step and step * q round alike), 1 - lam
 // is computed once for both rates, and the two maxes of the tracker's chain
 // are single max.NaN instructions (see max_nan).
+template <bool kCarry>
 struct PsdTracker {
   static constexpr bool kRain = true;
   PsdConsts c;
+  PsdCarry io;
   float tracker, scale, prev_n, rain_ema;
   int wcount;
+  int lane, clip;
+  bool lead;   // the clip's first lane writes its per-clip carry
+  bool first;  // frame 0 of this call is the stream's first frame
 
   template <bool kAdaptive>
   __device__ __forceinline__ void walk_q(const float* x, const uint32_t* rain, int shift,
@@ -220,11 +249,12 @@ struct PsdTracker {
     float rain_ema = this->rain_ema;
     int wcount = this->wcount;
     const PsdConsts c = this->c;
+    const bool first = kCarry ? this->first : true;
     // 1 - lam of both EMA rates, rounded as the loop rounds __fsub_rn(1, lam)
     const float one_minus_up = __fsub_rn(1.f, c.ema_up);
     const float one_minus_down = __fsub_rn(1.f, c.ema_down);
     walk_row(x, rain, shift, y, nt, [&](int j, float pt, uint32_t rain_j) {
-      const int t = t0 + j;
+      const bool f = first && t0 + j == 0;
       const bool raint = rain_j != 0;
       const bool allow = (wcount < c.warmup_need) || !raint;
 
@@ -242,15 +272,15 @@ struct PsdTracker {
       const float delta = __fmul_rn((pt >= tracker) ? up : down, step);
       // tracker >= +0 and delta != -0, so the sum is never -0
       const float candidate = max_nan(__fadd_rn(tracker, delta), 0.f);
-      // the first frame keeps the initial tracker and scale
-      const float tracker_new = (t == 0 || !allow) ? tracker : candidate;
-      const float scale_out = (t == 0) ? scale : scale_new;
+      // the stream's first frame keeps the initial tracker and scale
+      const float tracker_new = (f || !allow) ? tracker : candidate;
+      const float scale_out = f ? scale : scale_new;
 
       const bool rising = tracker_new > prev_n;
       const float n_ema = __fadd_rn(__fmul_rn(rising ? c.ema_up : c.ema_down, prev_n),
                                     __fmul_rn(rising ? one_minus_up : one_minus_down,
                                               tracker_new));
-      float n = (t == 0) ? tracker_new : n_ema;
+      float n = f ? tracker_new : n_ema;
       n = nan_min(n, __fmul_rn(c.maxr, pt));
       n = nan_max(n, 0.f);
 
@@ -273,17 +303,44 @@ struct PsdTracker {
   __device__ __forceinline__ void walk(const float* x, const uint32_t* rain, int shift, float* y,
                                        int t0, int nt) {
     if (t0 == 0) {
-      const float first = x[0];
-      tracker = nan_max(first, 0.f);
-      scale = nan_max(fabsf(first), c.step_floor);
-      prev_n = 0.f;
-      wcount = 0;
-      rain_ema = 0.f;
+      if (kCarry && io.tracker) {
+        tracker = io.tracker[lane];
+        scale = io.scale[lane];
+        prev_n = io.prev_n[lane];
+        wcount = io.wcount[clip];
+        rain_ema = io.rain_ema[clip];
+        first = io.is_first[clip] != 0;
+      } else {
+        const float x0 = x[0];
+        tracker = nan_max(x0, 0.f);
+        scale = nan_max(fabsf(x0), c.step_floor);
+        prev_n = 0.f;
+        wcount = 0;
+        rain_ema = 0.f;
+        first = true;
+      }
     }
     if (c.adaptive) {
       walk_q<true>(x, rain, shift, y, t0, nt);
     } else {
       walk_q<false>(x, rain, shift, y, t0, nt);
+    }
+  }
+
+  __device__ __forceinline__ void bind(int g, int K) {
+    lane = g;
+    clip = g / K;
+    lead = g - clip * K == 0;
+  }
+
+  __device__ __forceinline__ void finish() const {
+    if (!kCarry || !io.o_tracker) return;
+    io.o_tracker[lane] = tracker;
+    io.o_scale[lane] = scale;
+    io.o_prev_n[lane] = prev_n;
+    if (lead) {
+      io.o_wcount[clip] = wcount;
+      io.o_rain_ema[clip] = rain_ema;
     }
   }
 };
@@ -292,19 +349,33 @@ struct BaselineConsts {
   float q, neg_one_minus_q, eta, scale_alpha, one_minus_scale_alpha, floor;
 };
 
+// K3's carry (trackers.py:256-259): the baseline and scale per row.
+struct BaselineCarry {
+  const float *baseline, *scale;
+  float *o_baseline, *o_scale;
+};
+
 // K3's step (trackers.py:65-73): emit before ingesting x[t], with the
 // nan_to_num / floor epilogue (:77-79) applied at the emit.
+template <bool kCarry>
 struct BaselineTracker {
   static constexpr bool kRain = false;
   BaselineConsts c;
+  BaselineCarry io;
   float baseline, scale;
+  int lane;
 
   __device__ __forceinline__ void walk(const float* x, const uint32_t*, int, float* y, int t0,
                                        int nt) {
     if (t0 == 0) {
-      const float x0 = x[0];
-      baseline = nan_max(x0, c.floor);
-      scale = nan_max(fabsf(x0), c.floor);
+      if (kCarry && io.baseline) {
+        baseline = io.baseline[lane];
+        scale = io.scale[lane];
+      } else {
+        const float x0 = x[0];
+        baseline = nan_max(x0, c.floor);
+        scale = nan_max(fabsf(x0), c.floor);
+      }
     }
     float baseline = this->baseline, scale = this->scale;
     const BaselineConsts c = this->c;
@@ -322,6 +393,14 @@ struct BaselineTracker {
     });
     this->baseline = baseline;
     this->scale = scale;
+  }
+
+  __device__ __forceinline__ void bind(int g, int) { lane = g; }
+
+  __device__ __forceinline__ void finish() const {
+    if (!kCarry || !io.o_baseline) return;
+    io.o_baseline[lane] = baseline;
+    io.o_scale[lane] = scale;
   }
 };
 
@@ -392,6 +471,7 @@ __global__ void __launch_bounds__(kThreads) tracker_tiles(Rows r, Tracker trk) {
 
   Tracker w = trk;
   const int l = threadIdx.x;
+  if (ld < 0 && l < nl) w.bind(lane0 + l, r.K);
   // walkers: this lane's row among the staged rain rows, and the byte of
   // that row which holds frame t0 of every tile (tiles start at multiples of 4)
   const int rain_row = (lane0 + l) / r.K - clip0;
@@ -418,7 +498,11 @@ __global__ void __launch_bounds__(kThreads) tracker_tiles(Rows r, Tracker trk) {
     }
   }
   __syncthreads();
-  if (ld >= 0) store(r.n_tiles - 1, (r.n_tiles - 1) & 1);
+  if (ld >= 0) {
+    store(r.n_tiles - 1, (r.n_tiles - 1) & 1);
+  } else if (l < nl) {
+    w.finish();
+  }
 }
 
 template <class Tracker>
@@ -447,39 +531,69 @@ cudaError_t launch(const Rows& r, const Tracker& trk, int grid, size_t smem,
 // (the engine's band view of the spectrogram goes in as it is); rain: (B, T)
 // bytes; out: (B, K, T) contiguous.  The plan is that of
 // ops/trackers.py::tracker_launch_plan, which must equal this file's own.
+// Carry in (all null, or none): tracker, scale, prev_n (B, K); wcount (B,)
+// int32, rain_ema (B,), is_first (B,) bytes.  Carry out (all null, or none):
+// the same but is_first, after frame T - 1.
 extern "C" int apt_noise_psd_track(
     const float* P, const uint8_t* rain, float* out, int B, int K, int T,
     long long clip_stride, long long row_stride, int lanes_per_block, int frame_tile,
     int threads, int smem_bytes, int grid, int n_tiles, float eta, float scale_alpha,
     float one_minus_scale_alpha, float step_floor, int warmup_need, float q,
     float neg_one_minus_q, int adaptive, float aq_min, float q_minus_aq_min, float ema_up,
-    float ema_down, float maxr, float aq_alpha, float one_minus_aq_alpha, void* stream) {
+    float ema_down, float maxr, float aq_alpha, float one_minus_aq_alpha, const float* c_tracker,
+    const float* c_scale, const float* c_prev_n, const int* c_wcount, const float* c_rain_ema,
+    const uint8_t* c_is_first, float* o_tracker, float* o_scale, float* o_prev_n, int* o_wcount,
+    float* o_rain_ema, void* stream) {
   const long long lanes = (long long)B * K;
   if (B <= 0 || K <= 0 || T <= 0 || lanes > 0x7fffffffLL || clip_stride < 0 || row_stride < 0)
     return (int)cudaErrorInvalidValue;
   if (!plan_matches(lanes, T, true, lanes_per_block, frame_tile, threads, smem_bytes, grid,
                     n_tiles))
     return (int)cudaErrorInvalidValue;
-  PsdTracker trk{};
-  trk.c = PsdConsts{eta, scale_alpha, one_minus_scale_alpha, step_floor, warmup_need, q,
+  const bool in_any = c_tracker || c_scale || c_prev_n || c_wcount || c_rain_ema || c_is_first;
+  const bool in_all = c_tracker && c_scale && c_prev_n && c_wcount && c_rain_ema && c_is_first;
+  const bool out_any = o_tracker || o_scale || o_prev_n || o_wcount || o_rain_ema;
+  const bool out_all = o_tracker && o_scale && o_prev_n && o_wcount && o_rain_ema;
+  if (in_any != in_all || out_any != out_all) return (int)cudaErrorInvalidValue;
+  const PsdCarry io{c_tracker, c_scale, c_prev_n, c_wcount, c_rain_ema, c_is_first,
+                    o_tracker, o_scale, o_prev_n, o_wcount, o_rain_ema};
+  const PsdConsts c{eta, scale_alpha, one_minus_scale_alpha, step_floor, warmup_need, q,
                     neg_one_minus_q, adaptive, aq_min, q_minus_aq_min, ema_up, ema_down, maxr,
                     aq_alpha, one_minus_aq_alpha};
   const Rows r{P, clip_stride, row_stride, K, rain, out, (int)lanes, T, lanes_per_block,
                n_tiles};
+  if (in_any || out_any) {
+    PsdTracker<true> trk{};
+    trk.io = io;
+    trk.c = c;
+    return (int)launch(r, trk, grid, (size_t)smem_bytes, (cudaStream_t)stream);
+  }
+  PsdTracker<false> trk{};
+  trk.c = c;
   return (int)launch(r, trk, grid, (size_t)smem_bytes, (cudaStream_t)stream);
 }
 
-// x, out: (R, T) contiguous.
+// x, out: (R, T) contiguous.  Carry in and out (each both null, or none):
+// baseline and scale (R,).
 extern "C" int apt_causal_low_quantile_baseline(
     const float* x, float* out, int R, int T, int lanes_per_block, int frame_tile, int threads,
     int smem_bytes, int grid, int n_tiles, float q, float neg_one_minus_q, float eta,
-    float scale_alpha, float one_minus_scale_alpha, float floor, void* stream) {
+    float scale_alpha, float one_minus_scale_alpha, float floor, const float* c_baseline,
+    const float* c_scale, float* o_baseline, float* o_scale, void* stream) {
   if (R <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  if (!c_baseline != !c_scale || !o_baseline != !o_scale) return (int)cudaErrorInvalidValue;
   if (!plan_matches(R, T, false, lanes_per_block, frame_tile, threads, smem_bytes, grid,
                     n_tiles))
     return (int)cudaErrorInvalidValue;
-  BaselineTracker trk{};
-  trk.c = BaselineConsts{q, neg_one_minus_q, eta, scale_alpha, one_minus_scale_alpha, floor};
+  const BaselineConsts c{q, neg_one_minus_q, eta, scale_alpha, one_minus_scale_alpha, floor};
   const Rows r{x, (long long)T, 0, 1, nullptr, out, R, T, lanes_per_block, n_tiles};
+  if (c_baseline || o_baseline) {
+    BaselineTracker<true> trk{};
+    trk.io = BaselineCarry{c_baseline, c_scale, o_baseline, o_scale};
+    trk.c = c;
+    return (int)launch(r, trk, grid, (size_t)smem_bytes, (cudaStream_t)stream);
+  }
+  BaselineTracker<false> trk{};
+  trk.c = c;
   return (int)launch(r, trk, grid, (size_t)smem_bytes, (cudaStream_t)stream);
 }

@@ -94,7 +94,9 @@ def gain_freq_stage(cfg: NoiseConfig, P_band: torch.Tensor, N_band: torch.Tensor
     denom = max(1e-9, 1.0 - th)
 
     if adaptive:
-        eff_noise = torch.clamp((noise_conf - th) / denom, 0.0, 1.0)
+        # divided by a 0-dim tensor: on the card a Python divisor becomes a
+        # reciprocal multiply, which is not the JAX program's (or K8's) rounding
+        eff_noise = torch.clamp((noise_conf - th) / noise_conf.new_full((), denom), 0.0, 1.0)
         oversub = cfg.oversub_base + eff_noise * (cfg.oversub_max - cfg.oversub_base)
         if snr_gate is not None:
             oversub = oversub * (1.0 - torch.clamp(snr_gate, 0.0, 1.0))

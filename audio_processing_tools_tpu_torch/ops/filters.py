@@ -11,14 +11,21 @@ Counterpart of ``audio_processing_tools_tpu/ops/filters.py``.
   ``boundary="logdepth"`` form, forward and ``reverse=True``, and
   :func:`sosfiltfilt` (``:715-762``) with scipy's odd extension and padlen
   rule; :func:`sosfilt` from zero state (``:669-702``) on inputs of one
-  block, where the ``scan`` boundary has no step.  The whole cascade is two constant matrix products per 128-sample
-  block plus a log-depth prefix over block-boundary states; the products are
-  plain float32 ``torch.matmul`` (the JAX package ran them outside any
-  Pallas kernel), with TF32 disabled at package import.
+  block, where the ``scan`` boundary has no step.  The whole cascade is two
+  constant matrix products per 128-sample block plus a log-depth prefix over
+  block-boundary states; the products are plain float32 ``torch.matmul``
+  (the JAX package ran them outside any Pallas kernel), with TF32 disabled
+  at package import.
+* :func:`sosfilt` with ``zi`` returns ``(y, zf)``, the streaming detector's
+  causal prefilter (``:669-712``, whose per-section blocked scan is
+  ``_sosfilt_section_pscan``, ``:290-411``): on a CUDA tensor the
+  hand-written kernel K7 (``csrc/filters.cu``), one thread per stream
+  walking the samples in order; its plain version :func:`_sosfilt_zi_plain`
+  walks them the same way.  Both give the same bits for any cut of a stream
+  into chunks.
 
-The sequential ``scan`` boundary over more than one block, ``zi``/``zf``
-streaming and ``_sosfilt_section_pscan`` belong to the streaming path
-(ROADMAP P13).
+The sequential ``scan`` boundary over more than one block (K4) belongs to
+``sosfilt_matmul_zf`` in band noise (ROADMAP P14) and raises.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
+from audio_processing_tools_tpu_torch import _kernels
 from audio_processing_tools_tpu_torch.ops._device import device_constant
 
 
@@ -407,7 +415,7 @@ def _sosfilt_cascade_matmul(sos: np.ndarray, x: torch.Tensor,
     if boundary != "logdepth" and nb > 1:
         raise NotImplementedError(
             f"boundary={boundary!r} over {nb} blocks: the sequential block-boundary "
-            "scan belongs to the streaming path (ROADMAP P13)"
+            "scan (K4) belongs to band noise's sosfilt_matmul_zf (ROADMAP P14)"
         )
     sos = np.asarray(sos, dtype=np.float64)
     S = sos.shape[0]
@@ -451,14 +459,106 @@ def _sosfilt_cascade_matmul(sos: np.ndarray, x: torch.Tensor,
     return y[..., pad:] if reverse else y[..., :T]
 
 
-def sosfilt(sos: np.ndarray, x: torch.Tensor) -> torch.Tensor:
-    """Causal cascade filter from zero state over the last axis, scipy
-    ``sosfilt`` semantics (``filters.py:669-702`` without ``zi``): the
-    JAX package's ``boundary="scan"`` cascade, which the port runs for
-    inputs of one 128-sample block (ROADMAP P13 for longer ones)."""
+def _sos_coefficients(sos: np.ndarray) -> np.ndarray:
+    """``(S, 5)`` b0, b1, b2, a1, a2 per section, rounded to float32 as the
+    JAX package's scan rounds its Python-float constants."""
+    return np.ascontiguousarray(np.asarray(sos, np.float64)[:, [0, 1, 2, 4, 5]], np.float32)
+
+
+def _sosfilt_zi_plain(coef: torch.Tensor, x: torch.Tensor, zi: torch.Tensor):
+    """Direct Form II transposed over ``x`` (R, n) from ``zi`` (R, S, 2),
+    sample by sample, every product and sum rounded on its own:
+
+        y = b0 x + z0;  z0 = (b1 x - a1 y) + z1;  z1 = b2 x - a2 y
+
+    The sections run as a wavefront (section s filters sample t - s at step
+    t), which is the same arithmetic in fewer steps.  Returns ``(y, zf)``."""
+    R, n = x.shape
+    S = coef.shape[0]
+    z0 = zi[..., 0].clone()
+    z1 = zi[..., 1].clone()
+    u = x.new_zeros(R, S)   # each section's input at this step
+    yy = x.new_zeros(R, S)  # each section's output at this step
+    t1 = x.new_empty(R, S)
+    t2 = x.new_empty(R, S)
+    y = x.new_empty(R, n)
+    xT = x.t()
+    # views made once: the loop's own indexing would cost more than its work
+    u_in, u_first, y_prev, y_last = u[:, 1:], u[:, 0], yy[:, :-1], yy[:, S - 1]
+    full = (*coef.unbind(1), u, yy, z0, z1, t1, t2)
+
+    def step(b0, b1, b2, a1, a2, u, yy, z0, z1, t1, t2):
+        torch.mul(b0, u, out=yy)
+        yy += z0
+        torch.mul(b1, u, out=t1)
+        torch.mul(a1, yy, out=t2)
+        t1 -= t2
+        torch.add(t1, z1, out=z0)
+        torch.mul(b2, u, out=t1)
+        torch.mul(a2, yy, out=t2)
+        torch.sub(t1, t2, out=z1)
+
+    for t in range(n + S - 1):
+        u_in.copy_(y_prev)
+        if t < n:
+            u_first.copy_(xT[t])
+        lo, hi = max(0, t - n + 1), min(S, t + 1)  # sections at work
+        if hi - lo == S:
+            step(*full)
+        else:
+            step(*(a[..., lo:hi] for a in full))
+        if t >= S - 1:
+            y[:, t - S + 1] = y_last
+    return y, torch.stack([z0, z1], dim=-1)
+
+
+def _sosfilt_zi_cuda(coef: torch.Tensor, x: torch.Tensor, zi: torch.Tensor):
+    """K7: ``(y, zf)`` on the card."""
+    R, n = x.shape
+    S = coef.shape[0]
+    _kernels.require_cuda("sosfilt", x, torch.float32, 2)
+    _kernels.require_cuda("sosfilt(zi)", zi, torch.float32, 3)
+    if zi.shape != (R, S, 2) or zi.device != x.device or coef.device != x.device:
+        raise ValueError(f"sosfilt: zi must be ({R}, {S}, 2) on {x.device}; got {tuple(zi.shape)}")
+    if not 1 <= S <= 8:
+        raise ValueError(f"sosfilt: the CUDA kernel takes 1 to 8 sections; got {S}")
+    y = torch.empty_like(x)
+    zf = torch.empty_like(zi)
+    lib = _kernels.build()
+    with torch.cuda.device(x.device):
+        err = lib.lib.apt_sosfilt_zi(x.data_ptr(), coef.data_ptr(), zi.data_ptr(), y.data_ptr(),
+                                     zf.data_ptr(), R, n, S, _kernels.stream_of(x))
+    lib.check(err, "sosfilt_zi")
+    _kernels.count("sosfilt_zi")
+    return y, zf
+
+
+def sosfilt(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor | None = None):
+    """Causal cascade filter over the last axis, scipy ``sosfilt``
+    semantics (``filters.py:669-712``).
+
+    Without ``zi``: from zero state, the JAX package's ``boundary="scan"``
+    cascade, which the port runs for inputs of one 128-sample block (K4,
+    ROADMAP P14, for longer ones); returns ``y``.  With ``zi`` ((S, 2) or
+    (..., S, 2)): returns ``(y, zf)``, kernel K7 on a CUDA tensor and its
+    plain loop on a CPU tensor; carrying ``zf`` into the next call as ``zi``
+    gives the bits of one call over the whole stream."""
     sos = np.asarray(sos, dtype=np.float64)
-    zi = x.new_zeros((sos.shape[0], 2))
-    return _sosfilt_cascade_matmul(sos, x.to(torch.float32), zi, boundary="scan")
+    x = x.to(torch.float32)
+    if zi is None:
+        zeros = x.new_zeros((sos.shape[0], 2))
+        return _sosfilt_cascade_matmul(sos, x, zeros, boundary="scan")
+    S = sos.shape[0]
+    lead, n = x.shape[:-1], x.shape[-1]
+    xr = x.reshape(-1, n).contiguous()
+    zir = zi.to(torch.float32).expand(lead + (S, 2)).reshape(-1, S, 2).contiguous()
+    coef = device_constant(("sos_coefficients", sos.tobytes()), x.device,
+                           lambda: _sos_coefficients(sos))
+    if x.device.type == "cpu":
+        y, zf = _sosfilt_zi_plain(coef, xr, zir)
+    else:
+        y, zf = _sosfilt_zi_cuda(coef, xr, zir)
+    return y.reshape(x.shape), zf.reshape(lead + (S, 2))
 
 
 def sosfiltfilt(sos: np.ndarray, x: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Counterpart of ``audio_processing_tools_tpu/ops/stats.py:17-132``:
 ``kurtosis`` (scipy parity), ``crest_factor``, ``quantile_linear`` (NumPy's
-default linear interpolation) and ``nan_to_num``.
+default linear interpolation) and ``nan_to_num``; and :func:`tree_sum`, a
+sum in one fixed order on every device and at every shape.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as tnf
 
 
 def kurtosis(x: torch.Tensor, dim: int = -1, fisher: bool = True,
@@ -65,3 +67,21 @@ def nan_to_num(x: torch.Tensor, nan: float = 0.0, posinf: float = 0.0,
                neginf: float = 0.0) -> torch.Tensor:
     """``np.nan_to_num`` with explicit replacements (all 0 by default)."""
     return torch.nan_to_num(x, nan=nan, posinf=posinf, neginf=neginf)
+
+
+def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` in one fixed pairwise order: zero-padded to a power of
+    two ``m``, then ``x[i] + x[i + m/2]`` level by level.  Each level is an
+    elementwise addition, so the bits do not depend on the device, the
+    other dimensions' sizes or the library's reduction strategy (torch's
+    reductions change their order with the shape, on the card with the
+    number of outputs)."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    m = 1 << max(0, (n - 1).bit_length())
+    if m != n:
+        x = tnf.pad(x, (0, m - n))
+    while m > 1:
+        m //= 2
+        x = x[..., :m] + x[..., m:]
+    return x[..., 0]

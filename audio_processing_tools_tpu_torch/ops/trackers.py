@@ -10,7 +10,13 @@ Counterpart of ``audio_processing_tools_tpu/ops/trackers.py``:
     asymmetric EMA, warm-up gating, rain exclusion, adaptive q and the
     ``N <= maxr * P`` clamp, runs on a CUDA tensor as kernel K2;
   * :func:`causal_time_mean` / :func:`causal_time_median` (``:204-248``),
-    plain tensor code.
+    plain tensor code;
+  * the streaming carry forms (``:256-385``): :func:`baseline_carry_init`
+    and :func:`causal_low_quantile_baseline_chunk` (K3 with a carry in and
+    out), :func:`psd_carry_init`, :func:`make_psd_track_step` (the one-frame
+    transition, plain tensor code) and :func:`noise_psd_track_chunk` (K2 with
+    a carry in and out).  The kernels take the carries as optional pointers,
+    so the offline and the chunked calls run the same walk.
 
 The JAX package runs the recurrences as ``lax.scan``.  Their plain
 versions here are Python loops over frames that mirror the scan steps
@@ -111,13 +117,19 @@ def _baseline_consts(q_percent, samples_per_sec, win_sec, min_hist_sec,
     return _BaselineConsts(q, eta, scale_alpha, floor, min_hist)
 
 
-def _baseline_plain(x: torch.Tensor, c: _BaselineConsts) -> torch.Tensor:
+def baseline_carry_init(x0: torch.Tensor, floor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Initial ``(baseline, scale)`` carry from the first sample
+    (``trackers.py:256-259``)."""
+    floor = float(max(floor, 1e-12))
+    return torch.clamp(x0, min=floor), torch.clamp(torch.abs(x0), min=floor)
+
+
+def _baseline_plain(x: torch.Tensor, c: _BaselineConsts, carry=None):
     """The scan of ``trackers.py:65-73`` as a loop, plus the ``:77-79``
-    epilogue."""
+    epilogue.  Without ``carry`` it starts from frame 0 and returns the
+    baseline; with it, it returns ``(baseline, new_carry)``."""
     T = x.shape[-1]
-    x0 = x[..., 0]
-    baseline = torch.clamp(x0, min=c.floor)
-    scale = torch.clamp(torch.abs(x0), min=c.floor)
+    baseline, scale = carry if carry is not None else baseline_carry_init(x[..., 0], c.floor)
     outs = []
     for t in range(T):
         xt = x[..., t]
@@ -129,25 +141,36 @@ def _baseline_plain(x: torch.Tensor, c: _BaselineConsts) -> torch.Tensor:
         baseline = torch.clamp(baseline + delta, min=c.floor)
     out = torch.stack(outs, dim=-1)
     out = torch.nan_to_num(out, nan=c.floor, posinf=c.floor, neginf=c.floor)
-    return torch.clamp(out, min=c.floor)
+    out = torch.clamp(out, min=c.floor)
+    return out if carry is None else (out, (baseline, scale))
 
 
-def _baseline_cuda(x: torch.Tensor, c: _BaselineConsts) -> torch.Tensor:
+def _baseline_cuda(x: torch.Tensor, c: _BaselineConsts, carry=None):
     T = x.shape[-1]
     rows = x.reshape(-1, T)
+    R = rows.shape[0]
     _kernels.require_cuda("causal_low_quantile_baseline", rows, torch.float32, 2)
-    plan = tracker_launch_plan("causal_low_quantile_baseline", rows.shape[0], T)
+    plan = tracker_launch_plan("causal_low_quantile_baseline", R, T)
     out = torch.empty_like(rows)
+    ptrs = [None] * 4
+    if carry is not None:
+        cin = [_kernels.carry_vector("causal_low_quantile_baseline", v, rows, R, torch.float32)
+               for v in carry]
+        cout = [torch.empty(R, dtype=torch.float32, device=x.device) for _ in range(2)]
+        ptrs = [v.data_ptr() for v in cin + cout]
     lib = _kernels.build()
     with torch.cuda.device(x.device):
         err = lib.lib.apt_causal_low_quantile_baseline(
-            rows.data_ptr(), out.data_ptr(), rows.shape[0], T, *plan,
+            rows.data_ptr(), out.data_ptr(), R, T, *plan,
             c.q, -(1.0 - c.q), c.eta, c.scale_alpha, 1.0 - c.scale_alpha,
-            c.floor, _kernels.stream_of(rows),
+            c.floor, *ptrs, _kernels.stream_of(rows),
         )
     lib.check(err, "causal_low_quantile_baseline")
     _kernels.count("causal_low_quantile_baseline")
-    return out.reshape(x.shape)
+    out = out.reshape(x.shape)
+    if carry is None:
+        return out
+    return out, tuple(v.reshape(x.shape[:-1]) for v in cout)
 
 
 def causal_low_quantile_baseline(
@@ -175,6 +198,30 @@ def causal_low_quantile_baseline(
         baseline = _baseline_cuda(x.contiguous(), c)
     warm = torch.arange(T, device=x.device) >= c.min_hist
     return baseline, warm.expand(x.shape)
+
+
+def causal_low_quantile_baseline_chunk(
+    x: torch.Tensor,
+    carry: Tuple[torch.Tensor, torch.Tensor],
+    *,
+    q_percent: float,
+    samples_per_sec: float,
+    win_sec: float,
+    floor: float = 1e-6,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One chunk of :func:`causal_low_quantile_baseline` with an explicit
+    carry (``trackers.py:262-302``): threading the carry over consecutive
+    chunks gives the bits of one call on the whole row.  ``carry`` is
+    ``(baseline, scale)`` of the input's leading shape, from
+    :func:`baseline_carry_init` or the previous chunk.  Returns
+    ``(baseline, new_carry)``."""
+    c = _baseline_consts(q_percent, samples_per_sec, win_sec, 0.0, floor)
+    x = x.to(torch.float32)
+    if x.shape[-1] == 0:
+        return x, carry
+    if x.device.type == "cpu":
+        return _baseline_plain(x, c, carry)
+    return _baseline_cuda(x.contiguous(), c, carry)
 
 
 # ---------------------------------------------------------------------------
@@ -223,22 +270,36 @@ def _psd_derived(p: PsdTrackParams):
     return eta, step_floor, warmup_need
 
 
-def _noise_psd_track_plain(P_band: torch.Tensor, is_rain: torch.Tensor,
-                           p: PsdTrackParams) -> torch.Tensor:
-    """The scan step of ``trackers.py:160-196`` as a loop over frames."""
+#: K2's carry: tracker, scale and last output (..., K); warm-up count,
+#: rain EMA and whether no frame was seen yet (...,)
+PsdCarry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                 torch.Tensor]
+
+
+def psd_carry_init(first_band_frame: torch.Tensor, params: PsdTrackParams) -> PsdCarry:
+    """Initial PSD-tracker carry from the first band frame (..., K)
+    (``trackers.py:305-316``); the flag ``is_first`` has the leading shape."""
+    step_floor = float(max(params.eps, 1e-9))
+    first = first_band_frame.to(torch.float32)
+    lead, dev = first.shape[:-1], first.device
+    return (torch.clamp(first, min=0.0), torch.clamp(torch.abs(first), min=step_floor),
+            torch.zeros_like(first), torch.zeros(lead, dtype=torch.int32, device=dev),
+            torch.zeros(lead, dtype=torch.float32, device=dev),
+            torch.ones(lead, dtype=torch.bool, device=dev))
+
+
+def make_psd_track_step(params: PsdTrackParams):
+    """The tracker's one-frame transition (``trackers.py:319-369``), plain
+    tensor code: ``step(carry, (P_t, rain_t)) -> (new_carry, N_t)`` with
+    ``P_t`` (..., K) and ``rain_t`` (...,) bool.  K2 and the streaming
+    suppressor's kernel K8 give its values bit for bit."""
+    p = params
     eta, step_floor, warmup_need = _psd_derived(p)
     scale_alpha = float(p.ema_down)
-    T = P_band.shape[-1]
-    first = P_band[..., 0]
-    tracker = torch.clamp(first, min=0.0)
-    scale = torch.clamp(torch.abs(first), min=step_floor)
-    prev_N = torch.zeros_like(first)
-    wcount = torch.zeros(first.shape[:-1], dtype=torch.int32, device=P_band.device)
-    rain_ema = torch.zeros(first.shape[:-1], dtype=torch.float32, device=P_band.device)
-    outs = []
-    for t in range(T):
-        Pt = P_band[..., t]
-        raint = is_rain[..., t]
+
+    def step(carry: PsdCarry, inp):
+        tracker, scale, prev_N, wcount, rain_ema, is_first = carry
+        Pt, raint = inp
         allow = (wcount < warmup_need) | (~raint)
         err = Pt - tracker
         scale_new = scale_alpha * scale + (1.0 - scale_alpha) * torch.abs(err)
@@ -252,19 +313,39 @@ def _noise_psd_track_plain(P_band: torch.Tensor, is_rain: torch.Tensor,
             delta = torch.where(Pt >= tracker, p.q * step_sz,
                                 -(1.0 - p.q) * step_sz)
         candidate = torch.clamp(tracker + delta, min=0.0)
-        if t > 0:  # the first frame keeps the initial tracker and scale
-            tracker = torch.where(allow[..., None], candidate, tracker)
-            scale = scale_new
-        lam = torch.where(tracker > prev_N, p.ema_up, p.ema_down)
-        N = lam * prev_N + (1.0 - lam) * tracker if t > 0 else tracker
+        # the stream's first frame keeps the initial tracker and scale
+        first = is_first[..., None]
+        tracker_new = torch.where(first | ~allow[..., None], tracker, candidate)
+        scale_out = torch.where(first, scale, scale_new)
+        lam = torch.where(tracker_new > prev_N, p.ema_up, p.ema_down)
+        N = torch.where(first, tracker_new, lam * prev_N + (1.0 - lam) * tracker_new)
         N = torch.minimum(N, p.maxr * Pt)
         N = torch.clamp(N, min=0.0)
-        outs.append(N)
-        prev_N = N
         wcount = wcount + allow.to(torch.int32)
         rain_ema = p.adaptive_q_alpha * rain_ema + (
             1.0 - p.adaptive_q_alpha) * raint.to(torch.float32)
-    return torch.stack(outs, dim=-1)
+        return (tracker_new, scale_out, N, wcount, rain_ema, torch.zeros_like(is_first)), N
+
+    return step
+
+
+def _noise_psd_track_chunk_plain(P_band: torch.Tensor, is_rain: torch.Tensor,
+                                 carry: PsdCarry, p: PsdTrackParams):
+    """:func:`make_psd_track_step` as a loop over frames; returns
+    ``(N_band, new_carry)``."""
+    step = make_psd_track_step(p)
+    outs = []
+    for t in range(P_band.shape[-1]):
+        carry, N = step(carry, (P_band[..., t], is_rain[..., t]))
+        outs.append(N)
+    return torch.stack(outs, dim=-1), carry
+
+
+def _noise_psd_track_plain(P_band: torch.Tensor, is_rain: torch.Tensor,
+                           p: PsdTrackParams) -> torch.Tensor:
+    """The scan of ``trackers.py:148-200``: the chunk loop from the carry
+    that frame 0 gives."""
+    return _noise_psd_track_chunk_plain(P_band, is_rain, psd_carry_init(P_band[..., 0], p), p)[0]
 
 
 def _band_strides(P3: torch.Tensor) -> Tuple[int, int]:
@@ -281,7 +362,9 @@ def _band_strides(P3: torch.Tensor) -> Tuple[int, int]:
 
 
 def _noise_psd_track_cuda(P_band: torch.Tensor, is_rain: torch.Tensor,
-                          p: PsdTrackParams) -> torch.Tensor:
+                          p: PsdTrackParams, carry: PsdCarry | None = None):
+    """K2 from frame 0 (returns ``N_band``), or from ``carry`` (returns
+    ``(N_band, new_carry)``)."""
     K, T = P_band.shape[-2:]
     P3 = P_band.reshape(-1, K, T)  # a view for the engine's band block
     if P3.device.type != "cuda":
@@ -298,19 +381,37 @@ def _noise_psd_track_cuda(P_band: torch.Tensor, is_rain: torch.Tensor,
     eta, step_floor, warmup_need = _psd_derived(p)
     sa = float(p.ema_down)
     out = torch.empty(P3.shape, dtype=torch.float32, device=P3.device)
+    B = P3.shape[0]
+    ptrs = [None] * 11
+    if carry is not None:
+        name = "noise_psd_track"
+        cin = [_kernels.carry_vector(name, v, P3, B * K, torch.float32) for v in carry[:3]]
+        cin += [_kernels.carry_vector(name, carry[3], P3, B, torch.int32),
+                _kernels.carry_vector(name, carry[4], P3, B, torch.float32),
+                _kernels.carry_vector(name, carry[5], P3, B, torch.bool).view(torch.uint8)]
+        cout = [torch.empty(B * K, dtype=torch.float32, device=P3.device) for _ in range(3)]
+        cout += [torch.empty(B, dtype=torch.int32, device=P3.device),
+                 torch.empty(B, dtype=torch.float32, device=P3.device)]
+        ptrs = [v.data_ptr() for v in cin + cout]
     lib = _kernels.build()
     with torch.cuda.device(P3.device):
         err = lib.lib.apt_noise_psd_track(
-            P3.data_ptr(), rain.data_ptr(), out.data_ptr(), P3.shape[0], K, T,
+            P3.data_ptr(), rain.data_ptr(), out.data_ptr(), B, K, T,
             clip_stride, row_stride, *plan,
             eta, sa, 1.0 - sa, step_floor, warmup_need, p.q, -(1.0 - p.q),
             int(p.adaptive_q_enable), p.adaptive_q_min, p.q - p.adaptive_q_min,
             p.ema_up, p.ema_down, p.maxr, p.adaptive_q_alpha,
-            1.0 - p.adaptive_q_alpha, _kernels.stream_of(P3),
+            1.0 - p.adaptive_q_alpha, *ptrs, _kernels.stream_of(P3),
         )
     lib.check(err, "noise_psd_track")
     _kernels.count("noise_psd_track")
-    return out.reshape(P_band.shape)
+    out = out.reshape(P_band.shape)
+    if carry is None:
+        return out
+    lane_shape, clip_shape = P_band.shape[:-1], P_band.shape[:-2]
+    return out, (*(v.reshape(lane_shape) for v in cout[:3]),
+                 *(v.reshape(clip_shape) for v in cout[3:]),
+                 torch.zeros(clip_shape, dtype=torch.bool, device=P3.device))
 
 
 def noise_psd_track(P_band: torch.Tensor, is_rain: torch.Tensor,
@@ -331,6 +432,24 @@ def noise_psd_track(P_band: torch.Tensor, is_rain: torch.Tensor,
     if P_band.shape[-1] > 1 and P_band.stride(-1) != 1:
         P_band = P_band.contiguous()
     return _noise_psd_track_cuda(P_band, is_rain, params)
+
+
+def noise_psd_track_chunk(P_band: torch.Tensor, is_rain: torch.Tensor, carry: PsdCarry,
+                          params: PsdTrackParams):
+    """One chunk of :func:`noise_psd_track` with an explicit carry
+    (``trackers.py:372-385``): threading the carry over consecutive chunks
+    gives the bits of one call on the whole stream.  ``carry`` from
+    :func:`psd_carry_init` or the previous chunk.  Returns
+    ``(N_band, new_carry)``."""
+    P_band = P_band.to(torch.float32)
+    is_rain = is_rain.to(torch.bool)
+    if P_band.shape[-1] == 0:
+        return P_band.clone(), carry
+    if P_band.device.type == "cpu":
+        return _noise_psd_track_chunk_plain(P_band, is_rain, carry, params)
+    if P_band.shape[-1] > 1 and P_band.stride(-1) != 1:
+        P_band = P_band.contiguous()
+    return _noise_psd_track_cuda(P_band, is_rain, params, carry)
 
 
 # ---------------------------------------------------------------------------

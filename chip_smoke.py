@@ -35,7 +35,29 @@ Phases, one line each:
  10. the detector variants (peak gate, comb-filter and band-pass TD input,
      envelope features, clip occupancy, sparse dump) on 16 clips, card
      against CPU;
- 11. timings of K5 beside its plain loop and of the two suppressor batches.
+ 11. timings of K5 beside its plain loop and of the two suppressor batches;
+ 12. the streaming kernels against their plain versions: K7 (the causal
+     prefilter with state, ``sosfilt`` with ``zi``) bit for bit at 64 x 2,048
+     and within 1e-5 of scipy in float64 at 64 x 22,272, K2 and K3 with
+     their carries threaded over 1-, 4- and 174-frame chunks bit for bit
+     against one call, and K8 (the streaming suppressor) at 64 streams x 174
+     frames against its plain loop (gain and carries bit for bit, audio to
+     float rounding), in three suppressor configurations;
+ 13. the live streaming path, 64 streams x 2 s x 15 chunks from int16 on the
+     card through ``StreamingRainDetector.process_chunk_batch``, detector
+     only and with denoised audio out, and the low-latency profile of 16
+     streams x 512 and x 1,024 samples: kernel launches per chunk, ms per
+     chunk (p50, p99) and audio-s/s;
+ 14. bitwise chunk invariance on the card, 8 streams, detector only and
+     audio out: one whole chunk, 2 s chunks and three seeded random
+     hop-multiple partitions give the same frame classes, rain confidence
+     and audio, and the batched step gives each stream's single-stream bits;
+ 15. the card against the port's CPU path on those 8 streams: frame classes
+     identical, audio within 1e-4 of its maximum;
+ 16. the live server on the card over loopback TCP with dynamic batching:
+     three clients on a detector server (one on the mu-law wire) and one on
+     an emit-audio server, every reply equal to direct ``process_chunk``
+     results, batched calls made and no batch re-run.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -203,6 +225,51 @@ def in_turns(plain, kernel, iters_plain: int, iters_kernel: int):
     k = cuda_times(kernel, iters_kernel) + cuda_times(kernel, iters_kernel)
     p += cuda_times(plain, iters_plain)
     return float(np.median(k)), float(np.median(p))
+
+
+STREAMS = 64  # live streams of the serving profile (the JAX bench's)
+CHUNK = FS * 2 // 128 * 128  # 2 s lockstep chunks: 22,272 samples, 174 hops
+CHUNKS = 15
+LOWLAT = (16, (512, 1024))  # the low-latency profile: streams, chunk samples
+STREAM_PARAMS = {"sample_rate": FS, "clip_rain_min_frames": 3,
+                 "detector": PARAMS["detector"]}
+STREAM_AUDIO = {**STREAM_PARAMS, "compute_output_audio": True}
+
+
+def synth_streams(n_streams: int, seconds: float, seed: int = 5):
+    """Live streams as int16: even ones noise, odd ones noise with sharp
+    damped pings, as :func:`synth_clips` makes them; labels say which."""
+    rng = np.random.default_rng(seed)
+    n = int(FS * seconds)
+    k = np.arange(800)
+    out = np.empty((n_streams, n), np.int16)
+    labels = np.arange(n_streams) % 2 == 1
+    for i in range(n_streams):
+        x = (0.02 if i % 2 == 0 else 0.006) * rng.standard_normal(n)
+        if labels[i]:
+            decay = rng.uniform(40.0, 60.0)
+            ping = np.exp(-k / decay) * sum(a * np.sin(2 * np.pi * f * k / FS) for f, a in PING_MODES)
+            for t0 in rng.integers(FS // 4, n - 1000, int(8 * seconds)):
+                x[t0 : t0 + 800] += rng.uniform(0.3, 0.5) * ping
+        out[i] = (np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16)
+    return out, labels
+
+
+def run_stream(det, x, sizes, state=None):
+    """Streams ``x`` (B, n) through chunks of ``sizes`` samples (cycled) with
+    ``process_chunk_batch``; returns the outputs concatenated over time, on
+    the host, and the final state."""
+    import torch
+
+    state = det.init_state_batch(x.shape[0]) if state is None else state
+    outs, i, k = [], 0, 0
+    while i < x.shape[1]:
+        n = min(sizes[k % len(sizes)], x.shape[1] - i)
+        state, out = det.process_chunk_batch(state, x[:, i : i + n])
+        outs.append({key: out[key].cpu() for key in ("frame_class", "rain_conf", "y") if key in out})
+        i += n
+        k += 1
+    return {key: torch.cat([o[key] for o in outs], dim=-1) for key in outs[0]}, state
 
 
 def main() -> int:
@@ -397,7 +464,8 @@ def main() -> int:
     wall_s = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
     check(launches == {**launches, "spectrogram_power": 1, "noise_psd_track": 1,
-                       "causal_low_quantile_baseline": 1, "gain_time_smooth": 0},
+                       "causal_low_quantile_baseline": 1, "gain_time_smooth": 0,
+                       "sosfilt_zi": 0, "streaming_suppressor": 0},
           f"classifier-only launches {launches}")
     fc = np.stack([s["frame_class"] for _, s in pairs])
     rc = np.stack([s["rain_conf"] for _, s in pairs])
@@ -501,8 +569,9 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_def = time.perf_counter() - t0
     launches_def = dict(_kernels.LAUNCHES)
-    check(launches_def == {"spectrogram_power": 1, "noise_psd_track": 2,
-                           "causal_low_quantile_baseline": 1, "gain_time_smooth": 0},
+    check(launches_def == {**launches_def, "spectrogram_power": 1, "noise_psd_track": 2,
+                           "causal_low_quantile_baseline": 1, "gain_time_smooth": 0,
+                           "sosfilt_zi": 0, "streaming_suppressor": 0},
           f"default-configuration launches {launches_def}")
     fc_def = np.stack([st["frame_class"] for _, st in pairs_def])
     floors = np.array([[m["mean_noise_floor_db"], m["median_noise_floor_db"]] for m, _ in pairs_def])
@@ -533,8 +602,9 @@ def main() -> int:
     y_rms = torch.sqrt(torch.mean(out_audio["y"] ** 2, dim=-1)).cpu().numpy()
     wall_audio = time.perf_counter() - t0
     launches_audio = dict(_kernels.LAUNCHES)
-    check(launches_audio == {"spectrogram_power": 0, "noise_psd_track": 2,
-                             "causal_low_quantile_baseline": 1, "gain_time_smooth": 1},
+    check(launches_audio == {**launches_audio, "spectrogram_power": 0, "noise_psd_track": 2,
+                             "causal_low_quantile_baseline": 1, "gain_time_smooth": 1,
+                             "sosfilt_zi": 0, "streaming_suppressor": 0},
           f"audio-out launches {launches_audio}")
     y_card = out_audio["y"]
     check(tuple(y_card.shape) == (BATCH, N) and bool(torch.isfinite(y_card).all()), "y")
@@ -662,9 +732,12 @@ def main() -> int:
               f"ms per batch = {audio_s / (host / 1e3):.1f} audio-s/s"
               for label, (med, lo, hi, host) in batch_times.items()))
 
-    launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] for k in launches}
+    stream = streaming_phases(smi)
+
+    launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
+                    for k in launches}
     print(f"launches per driven path: classifier-only {launches}, default {launches_def}, "
-          f"audio out {launches_audio}")
+          f"audio out {launches_audio}, streaming (all chunks of phase 13) {stream['launches']}")
     pkg = "audio_processing_tools_tpu_torch/csrc/"
     # bounds at this run's shapes: bytes read once and written once over
     # 3.35 TB/s, operations over the 67 TFLOP/s of float32 outside the
@@ -678,6 +751,8 @@ def main() -> int:
         "noise_psd_track": (8 * P_band.numel() + B_ * T, 20 * P_band.numel()),
         "causal_low_quantile_baseline": (8 * stacked.numel(), 12 * stacked.numel()),
         "gain_time_smooth": (8 * G_freq.numel() + 4 * nc_rand.numel(), 8 * G_freq.numel()),
+        "sosfilt_zi": stream["work"]["sosfilt_zi"],
+        "streaming_suppressor": stream["work"]["streaming_suppressor"],
     }
 
     def bound(kernel):
@@ -705,6 +780,17 @@ def main() -> int:
          "replaces": "audio_processing_tools_tpu/models/spectral_noise.py:127",
          "launches": launches_all["gain_time_smooth"], "max_abs_err": k5_abs,
          "ms": k5_ms, "plain_ms": k5_plain, **bound("gain_time_smooth")},
+        {"name": "sosfilt_zi", "route": "cuda", "source": pkg + "filters.cu",
+         "replaces": "audio_processing_tools_tpu/ops/filters.py:290",
+         "launches": launches_all["sosfilt_zi"], "max_abs_err": stream["err"]["sosfilt_zi"],
+         "ms": stream["ms"]["sosfilt_zi"], "plain_ms": stream["plain_ms"]["sosfilt_zi"],
+         **bound("sosfilt_zi")},
+        {"name": "streaming_suppressor", "route": "cuda", "source": pkg + "streaming.cu",
+         "replaces": "audio_processing_tools_tpu/models/streaming.py:373",
+         "launches": launches_all["streaming_suppressor"],
+         "max_abs_err": stream["err"]["streaming_suppressor"],
+         "ms": stream["ms"]["streaming_suppressor"],
+         "plain_ms": stream["plain_ms"]["streaming_suppressor"], **bound("streaming_suppressor")},
     ]
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
@@ -713,6 +799,343 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def streaming_phases(smi: str) -> dict:
+    """Phases 12-16: the live streaming path (K7, K8 and the carry forms of
+    K2 and K3 beside K1) and its server.  Returns the launches of phase 13,
+    and each new kernel's error, times and work for the kernels line."""
+    import socket
+    import threading
+
+    import scipy.signal as ss
+    import torch
+
+    from audio_processing_tools_tpu_torch import _kernels
+    from audio_processing_tools_tpu_torch.cli import serve
+    from audio_processing_tools_tpu_torch.models import streaming as tsm
+    from audio_processing_tools_tpu_torch.ops import filters as tfl
+    from audio_processing_tools_tpu_torch.ops import trackers as ttr
+    from audio_processing_tools_tpu_torch.ops.spectrogram import spectrogram_power
+    from audio_processing_tools_tpu_torch.ops.wire import mulaw_decode_np, mulaw_encode
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    pcm, labels = synth_streams(STREAMS, CHUNK * CHUNKS / FS)
+    pcm_dev = torch.from_numpy(pcm).to(dev)
+
+    def detector(params, device=dev):
+        det = tsm.StreamingRainDetector(device=device)
+        det.setup(dict(params))
+        return det
+
+    def chunk(c, rows=STREAMS, length=CHUNK):
+        return pcm_dev[:rows, c * length : (c + 1) * length].to(torch.float32) / 32767.0
+
+    # ---- 12. K7, K2/K3 carries and K8 against their plain versions ----------
+    det = detector(STREAM_AUDIO)
+    st = det._static()
+    x0 = chunk(0)
+    S = st.td_sos.shape[0]
+    coef = torch.from_numpy(tfl._sos_coefficients(st.td_sos)).to(dev)
+    zi = 0.01 * torch.randn((STREAMS, S, 2), generator=gen, device=dev)
+    xs = x0[:, :2048].contiguous()
+    y_k, zf_k = tfl._sosfilt_zi_cuda(coef, xs, zi)
+    y_p, zf_p = tfl._sosfilt_zi_plain(coef, xs, zi)
+    torch.cuda.synchronize()
+    (same_y, k7_abs), (same_z, _) = same_bits(y_k, y_p), same_bits(zf_k, zf_p)
+    check(same_y and same_z, f"K7 at {tuple(xs.shape)}: not the plain loop's bits ({k7_abs:.3e})")
+    y_k, zf_k = tfl._sosfilt_zi_cuda(coef, x0, zi)
+    y_sp, zf_sp = ss.sosfilt(st.td_sos, x0.double().cpu().numpy(), axis=-1,
+                             zi=zi.double().cpu().numpy().transpose(1, 0, 2))
+    k7_rel = rel_err(y_k.cpu().numpy(), y_sp)
+    k7_zrel = rel_err(zf_k.cpu().numpy(), zf_sp.transpose(1, 0, 2))
+    check(k7_rel <= 1e-5 and k7_zrel <= 1e-5,
+          f"K7 at {tuple(x0.shape)} against scipy float64: y {k7_rel:.3e}, zf {k7_zrel:.3e}")
+    print(f"  K7 sosfilt_zi {tuple(xs.shape)}, {S} sections: the plain loop's bits (y and zf); "
+          f"{tuple(x0.shape)} against scipy in float64: y max|d|/max {k7_rel:.3e}, zf "
+          f"{k7_zrel:.3e} (bound 1e-5)")
+
+    xa0 = torch.cat([torch.zeros((STREAMS, st.n_fft - st.hop), device=dev), x0], dim=1)
+    P0 = spectrogram_power(xa0, center=False)
+    P_band = P0[:, st.rows, :]
+    T = P_band.shape[-1]
+    cuts = {"1-frame": [1] * T, "4-frame": [4] * (T // 4) + [T % 4] * bool(T % 4), "174-frame": [T]}
+    rain = torch.rand((STREAMS, T), generator=gen, device=dev) < 0.2
+    for params in (st.psd_params, st.psd_params._replace(adaptive_q_enable=True)):
+        one = ttr._noise_psd_track_cuda(P_band, rain, params)
+        _, carry_plain = ttr._noise_psd_track_chunk_plain(
+            P_band, rain, ttr.psd_carry_init(P_band[..., 0], params), params)
+        for label, sizes in cuts.items():
+            carry, parts, t0 = ttr.psd_carry_init(P_band[..., 0], params), [], 0
+            for n in sizes:
+                N, carry = ttr._noise_psd_track_cuda(P_band[..., t0 : t0 + n], rain[:, t0 : t0 + n],
+                                                     params, carry)
+                parts.append(N)
+                t0 += n
+            same, d = same_bits(torch.cat(parts, dim=-1), one)
+            check(same, f"K2 with a carry over {label} chunks: not one call's bits ({d:.3e})")
+            for a, b in zip(carry[:5], carry_plain[:5]):
+                check(same_bits(a.float(), b.float())[0], f"K2 carry over {label} chunks")
+    flux = (3.0 * torch.rand((STREAMS, 6, T), generator=gen, device=dev)) ** 2
+    bc = ttr._baseline_consts(20.0, FS / 128, 0.5, 0.0, 1.0)
+    one = ttr._baseline_cuda(flux, bc)
+    _, carry_plain = ttr._baseline_plain(flux, bc, ttr.baseline_carry_init(flux[..., 0], 1.0))
+    for label, sizes in cuts.items():
+        carry, parts, t0 = ttr.baseline_carry_init(flux[..., 0], 1.0), [], 0
+        for n in sizes:
+            b, carry = ttr._baseline_cuda(flux[..., t0 : t0 + n].contiguous(), bc, carry)
+            parts.append(b)
+            t0 += n
+        check(same_bits(torch.cat(parts, dim=-1), one)[0],
+              f"K3 with a carry over {label} chunks: not one call's bits")
+        for a, b in zip(carry, carry_plain):
+            check(same_bits(a, b)[0], f"K3 carry over {label} chunks")
+    print(f"  K2 ({tuple(P_band.shape)}, fixed and adaptive q) and K3 ({tuple(flux.shape)}) with "
+          f"their carries over 1-, 4- and {T}-frame chunks: one call's bits, and the plain "
+          f"loop's carry")
+
+    # the library FFT the audio path does not use: does cuFFT give a frame
+    # the same bits at another batch shape?  (K8 computes its own DFT.)
+    frames = x0.unfold(-1, st.n_fft, st.hop).contiguous()  # (64, 173, 256)
+    ref = torch.fft.rfft(frames, dim=-1)
+    same_fft = {f"{tuple(frames[sl].shape[:2])}": torch.equal(
+        torch.fft.rfft(frames[sl].contiguous(), dim=-1), ref[sl])
+        for sl in (np.s_[:8], np.s_[:8, :4], np.s_[:1])}
+    print(f"  cuFFT rfft of the same frames at other batch shapes than {tuple(frames.shape[:2])} "
+          f"gives the same bits: {same_fft}")
+
+    k8_abs = k8_rel = 0.0
+    k8_case = None
+    variants = (("default", {}), ("SNR gate", {"snr_gating_enable": True}),
+                ("Wiener, lagged N, fixed gain", {"gain_mode": "wiener", "use_lagged_noise_psd": True,
+                                                  "adaptive_gain_enable": False,
+                                                  "gain_freq_smooth_enable": False}))
+    for label, extra in variants:
+        dv = detector({**STREAM_AUDIO, **extra})
+        sup = dv.suppressor()
+        state = dv.init_state_batch(STREAMS)
+        for c in range(2):  # the stream's first chunk, then a carried one
+            x = chunk(c)
+            xa = torch.cat([state["raw_tail"], x], dim=1)
+            P = spectrogram_power(xa, center=False)
+            carry = (tsm._seed_psd(state["sup_psd"], P[:, st.rows, 0], dv.cfg.eps),
+                     state["gain_prev"], state["ola_tail"])
+            new, out = dv.process_chunk_batch(state, x)
+            args = (sup, xa, P, out["frame_class"], out["noise_conf"], state["frame_idx"], carry)
+            y_k, c_k, g_k = tsm._suppressor_cuda(*args, want_gain=True)
+            y_p, c_p, g_p = tsm._suppressor_plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(y_k, out["y"]), f"K8 {label}: the detector's y is not K8's")
+            same_g, _ = same_bits(g_k, g_p)
+            same_c = all(same_bits(a.float(), b.float())[0] for a, b in zip(c_k[0][:5], c_p[0][:5]))
+            same_c = same_c and same_bits(c_k[1], c_p[1])[0]
+            d = float((y_k - y_p).abs().max())
+            r = d / float(y_p.abs().max())
+            r_ola = rel_err(c_k[2].cpu().numpy(), c_p[2].cpu().numpy())
+            check(same_g and same_c and r <= 1e-4 and r_ola <= 1e-4,
+                  f"K8 {label}, chunk {c}: gain bits {same_g}, carry bits {same_c}, y max|d|/max "
+                  f"{r:.3e}, overlap-add tail {r_ola:.3e} (bound 1e-4)")
+            print(f"  K8 {label}, chunk {c} ({STREAMS} streams x {T} frames): gain and carries the "
+                  f"plain loop's bits, y max|d| {d:.3e}, max|d|/max {r:.3e} (bound 1e-4)")
+            k8_abs, k8_rel = max(k8_abs, d), max(k8_rel, r)
+            if label == "default" and c == 1:
+                k8_case = args
+            state = new
+    print(f"phase 12 streaming kernels on the card: K7 and K2/K3 carries bit for bit, K8 y within "
+          f"{k8_rel:.3e} of its maximum, gain and carries bit for bit")
+
+    # ---- 13. the live streaming path -----------------------------------------
+    def drive(params, B, L, n_chunks):
+        dd = detector(params)
+        dd.process_chunk_batch(dd.init_state_batch(B), chunk(0, B, L))  # warm
+        torch.cuda.synchronize()
+        state = dd.init_state_batch(B)
+        _kernels.reset_launches()
+        times, fcs, ys = [], [], 0
+        for c in range(n_chunks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = dd.process_chunk_batch(state, chunk(c, B, L))
+            fc = out["frame_class"].cpu()
+            _ = out["rain_conf"].cpu()
+            if "y" in out:
+                y = out["y"].cpu()
+                check(bool(torch.isfinite(y).all()) and y.shape == (B, L), "streaming y")
+                ys += 1
+            times.append((time.perf_counter() - t0) * 1e3)
+            fcs.append(fc)
+        counts = dict(_kernels.LAUNCHES)
+        fc = torch.cat(fcs, dim=-1).numpy()
+        check(fc.shape == (B, n_chunks * L // 128) and set(np.unique(fc)) <= {0, 1, 2},
+              "streaming frame classes")
+        want = {k: n_chunks for k in ("spectrogram_power", "noise_psd_track",
+                                      "causal_low_quantile_baseline", "sosfilt_zi")}
+        want.update(streaming_suppressor=n_chunks if params.get("compute_output_audio") else 0,
+                    gain_time_smooth=0)
+        check(counts == want, f"streaming launches {counts}, expected {want}")
+        return counts, np.asarray(times), fc
+
+    totals = {k: 0 for k in _kernels.LAUNCHES}
+    profiles = {}
+    for label, params, B, L, n in (("detector", STREAM_PARAMS, STREAMS, CHUNK, CHUNKS),
+                                   ("audio out", STREAM_AUDIO, STREAMS, CHUNK, CHUNKS),
+                                   ("low latency 512", STREAM_PARAMS, LOWLAT[0], LOWLAT[1][0], 60),
+                                   ("low latency 1024", STREAM_PARAMS, LOWLAT[0], LOWLAT[1][1], 30)):
+        counts, times, fc = drive(params, B, L, n)
+        for k, v in counts.items():
+            totals[k] += v
+        rain = (fc == 2).sum(-1)  # FrameClass.RAIN
+        p50, p99 = float(np.percentile(times, 50)), float(np.percentile(times, 99))
+        profiles[label] = (p50, p99)
+        lab = labels[:B]
+        if L == CHUNK:
+            check(rain[lab].min() > rain[~lab].max(),
+                  f"{label}: ping streams' rain frames {rain[lab].min()} not above noise streams' "
+                  f"{rain[~lab].max()}")
+        print(f"  {label}: {B} streams x {L} samples x {n} chunks: launches per chunk "
+              f"{ {k: v / n for k, v in counts.items() if v} }; ms per chunk p50 {p50:.3f}, p99 "
+              f"{p99:.3f} (host clock, int16 on the card to results on the host) = "
+              f"{B * L / FS / (p50 / 1e3):.1f} audio-s/s; rain frames per stream: ping "
+              f"{rain[lab].mean():.1f} (min {rain[lab].min()}), noise {rain[~lab].mean():.2f} "
+              f"(max {rain[~lab].max()})")
+    print(f"phase 13 streaming path on {smi}: launches over the four runs {totals}")
+
+    # ---- 14. chunk invariance on the card; 15. the card against the CPU ----
+    x8 = pcm_dev[:8, : 3 * CHUNK].to(torch.float32) / 32767.0
+    splits = [[CHUNK]] + [[int(r) * 128 for r in np.random.default_rng(100 + s).integers(1, 40, 400)]
+                          for s in range(3)]
+    for label, params in (("detector", STREAM_PARAMS), ("audio out", STREAM_AUDIO)):
+        dd = detector(params)
+        one, _ = run_stream(dd, x8, [x8.shape[1]])
+        for sizes in splits:
+            got, _ = run_stream(dd, x8, sizes)
+            for k in one:
+                check(torch.equal(got[k], one[k]), f"{label}: {k} at chunks {sizes[:3]} differs")
+        for i in range(8):
+            got, _ = run_stream(dd, x8[i : i + 1], [CHUNK])
+            for k in one:
+                check(torch.equal(got[k][0], one[k][i]), f"{label}: stream {i} alone differs in {k}")
+        cpu, _ = run_stream(detector(params, "cpu"), x8.cpu(), [CHUNK])
+        check(torch.equal(cpu["frame_class"], one["frame_class"].cpu()),
+              f"{label}: card and CPU frame classes differ")
+        y_rel = rel_err(one["y"].cpu().numpy(), cpu["y"].numpy()) if "y" in one else 0.0
+        check(y_rel <= 1e-4, f"{label}: y card against CPU {y_rel:.3e}")
+        print(f"  {label}: one chunk, 2 s chunks and 3 random partitions give the same "
+              f"{sorted(one)} bits; 8 single streams equal the batch; CPU frame classes "
+              f"identical" + (f", y max|d|/max {y_rel:.3e} (bound 1e-4)" if "y" in one else ""))
+    print("phase 14-15 chunk invariance and batched equality on the card, card against the CPU: "
+          "all equal")
+
+    # ---- 16. the live server on the card -------------------------------------
+    packet, n_packets = 4096, 11
+    servers = [serve.make_server(STREAM_PARAMS, port=0, batch_window_ms=50.0, device="cuda"),
+               serve.make_server(STREAM_PARAMS, port=0, batch_window_ms=50.0, emit_audio=True,
+                                 device="cuda")]
+    threads = [threading.Thread(target=srv.serve_forever, daemon=True) for srv in servers]
+    for t in threads:
+        t.start()
+    clients = [(0, 0, "int16"), (1, 0, "int16"), (2, 0, "mulaw"), (3, 1, "int16")]
+    go = threading.Barrier(len(clients))
+    results = [None] * len(clients)
+
+    def client(j, stream_i, srv_i, wire):
+        addr = servers[srv_i].server_address
+        audio = srv_i == 1
+        data = pcm[stream_i, : packet * n_packets]
+        replies = []
+        with socket.create_connection(addr, timeout=300) as sock:
+            f = sock.makefile("rb")
+            go.wait()
+            for q in range(n_packets):
+                piece = data[q * packet : (q + 1) * packet]
+                if wire == "mulaw":
+                    payload, magic = mulaw_encode(piece).tobytes(), serve.MAGIC_MULAW
+                else:
+                    payload, magic = piece.astype("<i2").tobytes(), serve.MAGIC_DATA
+                sock.sendall(serve._HDR.pack(magic, len(payload)) + payload)
+                r = json.loads(f.readline())
+                if audio:
+                    _, nb = serve._HDR.unpack(f.read(serve._HDR.size))
+                    r["audio"] = np.frombuffer(f.read(nb), "<i2")
+                replies.append(r)
+            sock.sendall(serve._HDR.pack(serve.MAGIC_EOS, 0))
+            summary = json.loads(f.readline())
+            if audio:
+                _, nb = serve._HDR.unpack(f.read(serve._HDR.size))
+                summary["audio"] = np.frombuffer(f.read(nb), "<i2")
+        results[j] = (replies, summary)
+
+    workers = [threading.Thread(target=client, args=(j, *c)) for j, c in enumerate(clients)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    batched = servers[0].batcher.batched_calls
+    reruns = [srv.batcher.group_reruns for srv in servers]
+    for srv in servers:
+        srv.shutdown()
+        srv.server_close()
+    for j, (stream_i, srv_i, wire) in enumerate(clients):
+        replies, summary = results[j]
+        dd = detector(STREAM_AUDIO if srv_i == 1 else STREAM_PARAMS)
+        state = dd.init_state()
+        data = pcm[stream_i, : packet * n_packets]
+        for q, r in enumerate(replies):
+            piece = data[q * packet : (q + 1) * packet]
+            if wire == "mulaw":
+                xq = mulaw_decode_np(mulaw_encode(piece))
+                xq *= 32768.0 / serve.INT16_SCALE
+            else:
+                xq = piece.astype(np.float32)
+                xq /= serve.INT16_SCALE
+            state, out = dd.process_chunk(state, xq)
+            fc = out["frame_class"].cpu().numpy()
+            want = {"frames": int(fc.size), "rain_frames": int((fc == 2).sum()),
+                    "rain_conf_mean": float(np.mean(out["rain_conf"].cpu().numpy()))}
+            check(all(r[k] == v for k, v in want.items()),
+                  f"server client {j} packet {q}: {r} against direct {want}")
+            if srv_i == 1:
+                check(np.array_equal(r["audio"], serve._to_pcm16(out["y"].cpu().numpy())),
+                      f"server client {j} packet {q}: audio differs from direct")
+        if srv_i == 1:
+            check(np.array_equal(summary["audio"], serve._to_pcm16(dd.drain_audio(state))),
+                  f"server client {j}: drained tail differs")
+    check(batched > 0 and reruns == [0, 0],
+          f"server: batched calls {batched}, group re-runs {reruns}")
+    print(f"phase 16 server on the card: {len(clients)} clients x {n_packets} packets of {packet} "
+          f"samples (one on the mu-law wire, one with audio out), every reply equal to direct "
+          f"process_chunk results; batched calls {batched}, group re-runs {reruns}")
+
+    # ---- timings of the new kernels at the live shapes -------------------------
+    k7_ms = graph_ms(lambda: tfl._sosfilt_zi_cuda(coef, x0, zi))
+    k7_plain = float(np.median(cuda_times(lambda: tfl._sosfilt_zi_plain(coef, x0, zi), 1)))
+    k8_ms = graph_ms(lambda: tsm._suppressor_cuda(*k8_case))
+    k8_plain = float(np.median(cuda_times(lambda: tsm._suppressor_plain(*k8_case), 2)))
+    print(f"  timings on {smi}: K7 {k7_ms:.4f} ms per launch at {tuple(x0.shape)} (plain loop "
+          f"{k7_plain:.1f} ms, n=1); K8 {k8_ms:.4f} ms per launch at {STREAMS} x {T} frames "
+          f"(plain loop {k8_plain:.1f} ms, n=2)")
+    # bounds: K7 reads x and zi and writes y and zf, 9 float operations per
+    # sample and section; K8 reads the carried samples and the chunk, the
+    # band power, the classes and confidences and writes the audio, and does
+    # a forward and an inverse real FFT per frame (2.5 N log2 N each) and
+    # ~40 operations per band bin
+    sup = k8_case[0]
+    B8, T8 = k8_case[3].shape
+    n_fft = sup.st.n_fft
+    return {
+        "launches": totals,
+        "err": {"sosfilt_zi": k7_abs, "streaming_suppressor": k8_abs},
+        "ms": {"sosfilt_zi": k7_ms, "streaming_suppressor": k8_ms},
+        "plain_ms": {"sosfilt_zi": k7_plain, "streaming_suppressor": k8_plain},
+        "work": {
+            "sosfilt_zi": (4 * (2 * x0.numel() + 2 * zi.numel()), 9 * S * x0.numel()),
+            "streaming_suppressor": (
+                4 * (k8_case[1].numel() + B8 * sup.K * T8 + B8 * T8 + B8 * T8 * sup.st.hop)
+                + B8 * T8,
+                B8 * T8 * (2 * 2.5 * n_fft * np.log2(n_fft) + 40 * sup.K)),
+        },
+    }
 
 
 if __name__ == "__main__":

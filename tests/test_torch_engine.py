@@ -146,13 +146,13 @@ def test_configs_outside_the_slice_raise(corpus, case):
 
 
 def test_unported_paths_raise():
-    """The sequential block-boundary scan beyond one 128-sample block
-    (ROADMAP P13) still raises; one block has no boundary step and runs."""
+    """The sequential block-boundary scan beyond one 128-sample block (K4,
+    ROADMAP P14) still raises; one block has no boundary step and runs."""
     from audio_processing_tools_tpu_torch.ops.filters import design_bandpass, sosfilt
 
     sos = design_bandpass(FS, 500.0, 3000.0, 4)
     assert sosfilt(sos, torch.ones(2, 128)).shape == (2, 128)
-    with pytest.raises(NotImplementedError, match="P13"):
+    with pytest.raises(NotImplementedError, match="P14"):
         sosfilt(sos, torch.ones(2, 129))
 
 

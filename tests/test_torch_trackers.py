@@ -1,6 +1,7 @@
 """Port parity: the two tracker recurrences (kernels K2 and K3 run their
-plain loops on the CPU) and the causal smoothers against the JAX package,
-and the kernels' launch plan and strided input."""
+plain loops on the CPU), their streaming carry forms and the causal
+smoothers against the JAX package, and the kernels' launch plan and strided
+input."""
 
 import re
 from pathlib import Path
@@ -229,3 +230,94 @@ def test_kernel_wrappers_raise_on_a_cpu_tensor():
                                   params)
     with pytest.raises(ValueError):
         ttr._baseline_cuda(torch.zeros(4, 10), ttr._baseline_consts(20.0, 87.2, 0.5, 0.0, 1.0))
+
+
+
+# ---------------------------------------------------------------------------
+# The carry forms of K2 and K3 (streaming)
+# ---------------------------------------------------------------------------
+
+CUTS = {"1-frame": [1] * 12, "4-frame": [4, 4, 4], "mixed": [1, 4, 174, 7]}
+
+
+@pytest.mark.parametrize("cuts", list(CUTS), ids=list(CUTS))
+@pytest.mark.parametrize("adaptive", [False, True], ids=["fixed_q", "adaptive_q"])
+def test_noise_psd_track_chunk_threads_the_carry(adaptive, cuts):
+    """Chunks threaded through the carry give the bits of one call (and of
+    the offline tracker), and the JAX chunk form's values and carry."""
+    rng = np.random.default_rng(10)
+    T = sum(CUTS[cuts])
+    P = (rng.gamma(1.0, 1.0, (2, 9, T)) ** 2).astype(np.float32)
+    rain = rng.random((2, T)) < 0.3
+    params = ttr.make_psd_params(**_psd_args(adaptive))
+    Pt, rt = torch.from_numpy(P), torch.from_numpy(rain)
+    one, carry_one = ttr.noise_psd_track_chunk(Pt, rt, ttr.psd_carry_init(Pt[..., 0], params),
+                                               params)
+    np.testing.assert_array_equal(one.numpy(), ttr.noise_psd_track(Pt, rt, params).numpy())
+    carry, parts, t0 = ttr.psd_carry_init(Pt[..., 0], params), [], 0
+    for n in CUTS[cuts]:
+        N, carry = ttr.noise_psd_track_chunk(Pt[..., t0 : t0 + n], rt[:, t0 : t0 + n], carry,
+                                             params)
+        parts.append(N)
+        t0 += n
+    assert torch.equal(torch.cat(parts, dim=-1), one)
+    for a, b in zip(carry, carry_one):
+        assert torch.equal(a, b)
+    jparams = jtr.make_psd_params(**_psd_args(adaptive))
+    for b in range(2):  # the JAX carry's flag is one per call
+        ref, jcarry = jtr.noise_psd_track_chunk(
+            jnp.asarray(P[b]), jnp.asarray(rain[b]), jtr.psd_carry_init(jnp.asarray(P[b, :, 0]),
+                                                                        jparams), jparams)
+        assert _rel(one[b].numpy(), np.asarray(ref)) <= 1e-5
+        for got, want in zip(carry_one[:5], jcarry[:5]):
+            assert _rel(got[b].numpy(), np.asarray(want)) <= 1e-5
+        assert not bool(carry_one[5][b]) and not bool(jcarry[5])
+
+
+@pytest.mark.parametrize("cuts", list(CUTS), ids=list(CUTS))
+def test_causal_low_quantile_baseline_chunk_threads_the_carry(cuts):
+    rng = np.random.default_rng(11)
+    T = sum(CUTS[cuts])
+    x = rng.gamma(0.5, 3.0, (3, 6, T)).astype(np.float32)
+    x[0, 1, 2] = np.nan
+    kw = dict(q_percent=20.0, samples_per_sec=11162 / 128, win_sec=0.5, floor=1.0)
+    xt = torch.from_numpy(x)
+    one, carry_one = ttr.causal_low_quantile_baseline_chunk(
+        xt, ttr.baseline_carry_init(xt[..., 0], 1.0), **kw)
+    np.testing.assert_array_equal(one.numpy(),
+                                  ttr.causal_low_quantile_baseline(xt, **kw)[0].numpy())
+    carry, parts, t0 = ttr.baseline_carry_init(xt[..., 0], 1.0), [], 0
+    for n in CUTS[cuts]:
+        b, carry = ttr.causal_low_quantile_baseline_chunk(xt[..., t0 : t0 + n], carry, **kw)
+        parts.append(b)
+        t0 += n
+    assert torch.equal(torch.cat(parts, dim=-1), one)
+    for a, b in zip(carry, carry_one):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())  # NaN where NaN
+    ref, jcarry = jtr.causal_low_quantile_baseline_chunk(
+        jnp.asarray(x), jtr.baseline_carry_init(jnp.asarray(x[..., 0]), 1.0), **kw)
+    assert _rel(one.numpy(), np.asarray(ref)) <= 1e-5
+    for got, want in zip(carry_one, jcarry):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+def test_tracker_launch_plan_takes_every_streaming_chunk_length():
+    """The live chunks are 4 to 174 frames: one partial tile up to three
+    tiles, the last of them partial."""
+    for T in (1, 4, 8, 63, 64, 65, 87, 174):
+        for kernel, lanes in (("noise_psd_track", 64 * 71), ("causal_low_quantile_baseline", 64 * 6)):
+            plan = ttr.tracker_launch_plan(kernel, lanes, T)
+            assert plan.n_tiles == -(-T // ttr.TRACKER_FRAME_TILE)
+            assert (plan.n_tiles - 1) * plan.frame_tile < T <= plan.n_tiles * plan.frame_tile
+
+
+def test_carry_forms_raise_on_a_cpu_tensor():
+    params = ttr.make_psd_params(**_psd_args(False))
+    P = torch.zeros(2, 3, 10)
+    with pytest.raises(ValueError):
+        ttr._noise_psd_track_cuda(P, torch.zeros(2, 10, dtype=torch.bool), params,
+                                  ttr.psd_carry_init(P[..., 0], params))
+    x = torch.zeros(4, 10)
+    with pytest.raises(ValueError):
+        ttr._baseline_cuda(x, ttr._baseline_consts(20.0, 87.2, 0.5, 0.0, 1.0),
+                           ttr.baseline_carry_init(x[..., 0], 1.0))

@@ -6,8 +6,12 @@
 Runs ``SpectralNoiseEngine.process_batch`` in one of the configurations of
 ``chip_smoke.py`` (``classifier_only``, the default; ``default``, the
 engine's default suppressor; ``audio_out``) on 128 synthetic 10 s clips
-already on the card: 25 warm batches, 25 timed on the host clock, 5 under
-the profiler.  Prints one JSON line: device busy ms per batch (the sum of
+already on the card, or one step of the live streaming path
+(``stream``: ``StreamingRainDetector.process_chunk_batch`` on 64 streams x
+2 s chunks, int16 on the card, the state carried from step to step;
+``stream_audio``: the same with denoised audio out; a "batch" is then one
+chunk step): 25 warm batches, 25 timed on the host clock, 5 under the
+profiler.  Prints one JSON line: device busy ms per batch (the sum of
 kernel and copy times on the card), host-clock ms per batch without and with
 the profiler, kernels per batch, the busy share (busy over the unprofiled
 host clock), the device ms and launches per batch of the costliest kernels,
@@ -32,7 +36,8 @@ from pathlib import Path
 WARM = 25  # batches before timing, and batches timed on the host clock
 BATCHES = 5  # batches profiled
 TOP = 12  # kernel lines reported
-CONFIGS = {"classifier_only": "PARAMS", "default": "DEFAULT_PARAMS", "audio_out": "AUDIO_PARAMS"}
+CONFIGS = {"classifier_only": "PARAMS", "default": "DEFAULT_PARAMS", "audio_out": "AUDIO_PARAMS",
+           "stream": "STREAM_PARAMS", "stream_audio": "STREAM_AUDIO"}
 #: K2's kernel, as the one-thread-per-lane source and the staged-tile source name it
 K2_KERNEL = re.compile(r"noise_psd_track_kernel|PsdTracker")
 
@@ -55,13 +60,31 @@ def main() -> int:
     from audio_processing_tools_tpu_torch.models.spectral_noise import SpectralNoiseEngine
 
     dev = torch.device("cuda", 0)
-    clips, _ = chip_smoke.synth_clips()
-    pcm = torch.from_numpy((clips * 32767.0).astype("int16")).to(dev)
     params = getattr(chip_smoke, CONFIGS[args.config])
-    eng = SpectralNoiseEngine(build_noise_config(chip_smoke.FS, params), device=dev)
+    if args.config.startswith("stream"):
+        from audio_processing_tools_tpu_torch.models.streaming import StreamingRainDetector
 
-    def step():
-        return eng.process_batch(pcm.to(torch.float32) / 32767.0)
+        n_chunks = 2 * WARM + BATCHES + 1
+        pcm_np, _ = chip_smoke.synth_streams(chip_smoke.STREAMS,
+                                             n_chunks * chip_smoke.CHUNK / chip_smoke.FS)
+        pcm = torch.from_numpy(pcm_np).to(dev)
+        det = StreamingRainDetector(device=dev)
+        det.setup(dict(params))
+        live = {"state": det.init_state_batch(pcm.shape[0]), "chunk": 0}
+
+        def step():
+            c, L = live["chunk"], chip_smoke.CHUNK
+            live["state"], out = det.process_chunk_batch(
+                live["state"], pcm[:, c * L : (c + 1) * L].to(torch.float32) / 32767.0)
+            live["chunk"] += 1
+            return out
+    else:
+        clips, _ = chip_smoke.synth_clips()
+        pcm = torch.from_numpy((clips * 32767.0).astype("int16")).to(dev)
+        eng = SpectralNoiseEngine(build_noise_config(chip_smoke.FS, params), device=dev)
+
+        def step():
+            return eng.process_batch(pcm.to(torch.float32) / 32767.0)
 
     for _ in range(WARM):
         step()
