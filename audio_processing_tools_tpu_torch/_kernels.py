@@ -46,6 +46,8 @@ LAUNCHES: Dict[str, int] = {
     "gain_time_smooth": 0,
     "sosfilt_zi": 0,
     "streaming_suppressor": 0,
+    "cascade_sosfilt": 0,
+    "band_noise_scan": 0,
 }
 
 _P = ctypes.c_void_p
@@ -62,6 +64,8 @@ _SIGNATURES = {
     "apt_gain_time_smooth": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
     "apt_sosfilt_zi": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
     "apt_streaming_suppressor": (_P, _P, _I, _P),
+    "apt_cascade_sosfilt": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
+    "apt_band_noise_scan": (_P, _P, _P),
 }
 
 

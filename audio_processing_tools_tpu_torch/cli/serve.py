@@ -28,9 +28,14 @@ call.  A batch that fails is run again one request at a time, so one bad
 member cannot fail its neighbours; each such re-run is counted in
 ``_Batcher.group_reruns``.
 
+``--model band_noise`` serves the firmware-shaped band-noise estimator
+(``models/band_noise.py``) instead: per-frame FFT rain decisions and Wiener
+telemetry, one frame (512 samples) of granularity; with ``--emit-audio``
+each frame scaled by its band gain ``G_mag`` (no added latency).
+
 Run: ``python -m audio_processing_tools_tpu_torch.cli.serve --port 0
-[--cpu] [--emit-audio]``; ``--client FILE --port N`` streams a file to a
-running server.  ``--model band_noise`` is not ported yet (ROADMAP P14).
+[--cpu] [--emit-audio] [--model band_noise]``; ``--client FILE --port N``
+streams a file to a running server.
 """
 
 from __future__ import annotations
@@ -135,6 +140,77 @@ class _SpectralService:
         fields = [self._fields({k: v[i] for k, v in out.items()}) for i in range(len(states))]
         return split_state(new), fields
 
+
+class _BandNoiseService:
+    """The streaming band-noise estimator (``edge/band_noise_estimator.py``
+    semantics), one state per connection: per-frame FFT rain decisions and
+    Wiener telemetry."""
+
+    def __init__(self, params: Dict[str, Any], emit_audio: bool = False,
+                 device: str = "cuda"):
+        import torch
+
+        from audio_processing_tools_tpu_torch.models.band_noise import build_band_noise_config
+
+        self.cfg = build_band_noise_config(dict(params))
+        self.emit_audio = emit_audio
+        self.device = torch.device(device)
+        self.block = int(self.cfg.frame_len)
+        self.min_event_frames = max(1, int(params.get("clip_rain_min_frames", 3)))
+        self.lock = threading.Lock()
+
+    def new_state(self):
+        from audio_processing_tools_tpu_torch.models.band_noise import band_noise_init_state
+
+        return band_noise_init_state(self.cfg, 1, self.device)
+
+    def drain(self, _state) -> np.ndarray:
+        return np.zeros(0, "<i2")  # a per-frame gain buffers nothing
+
+    def _run(self, state, rows):
+        import torch
+
+        from audio_processing_tools_tpu_torch.models.band_noise import band_noise_process_chunk
+
+        x = torch.as_tensor(np.stack([np.asarray(r, np.float32) for r in rows]), device=self.device)
+        with self.lock:
+            outs, state = band_noise_process_chunk(x, self.cfg, state)
+            outs = {k: outs[k].cpu().numpy() for k in ("fft_rain_frame", "N_E", "G_mag")}
+        return state, outs
+
+    def process(self, state, samples: np.ndarray):
+        state, outs = self._run(state, [samples])
+        return state, self._fields({k: v[0] for k, v in outs.items()}, samples)
+
+    def _fields(self, outs, samples=None) -> Dict[str, Any]:
+        rain = np.asarray(outs["fft_rain_frame"]).astype(bool)
+        fields = {
+            "frames": int(rain.size),
+            "rain_frames": int(rain.sum()),
+            "N_E_last": float(np.asarray(outs["N_E"])[-1]),
+            "G_mag_mean": float(np.mean(np.asarray(outs["G_mag"]))),
+        }
+        if self.emit_audio and samples is not None:
+            # the estimator's Wiener gain is one band-magnitude scalar per
+            # frame (M_clean = G_mag * M_band); its time-domain rendering
+            # applies that gain to the frame, with no added latency
+            g = np.asarray(outs["G_mag"], np.float32)
+            frames = np.asarray(samples, np.float32).reshape(g.size, -1)
+            fields["_audio"] = _to_pcm16((frames * g[:, None]).reshape(-1))
+        return fields
+
+    def process_many(self, states, sample_rows):
+        """B lockstep requests of one chunk length as one batched
+        ``band_noise_process_chunk``, per stream the bits of ``process``."""
+        from audio_processing_tools_tpu_torch.models.band_noise import split_state, stack_states
+
+        new, outs = self._run(stack_states(states), sample_rows)
+        fields = [self._fields({k: v[i] for k, v in outs.items()}, sample_rows[i])
+                  for i in range(len(states))]
+        return split_state(new), fields
+
+
+_SERVICES = {"spectral": _SpectralService, "band_noise": _BandNoiseService}
 
 
 class _Batcher:
@@ -322,11 +398,9 @@ def make_server(params: Dict[str, Any], *, host: str = "127.0.0.1", port: int = 
     of latency).  ``emit_audio`` streams denoised PCM back after every
     reply.
     """
-    if model == "band_noise":
-        raise NotImplementedError("the band-noise service is not ported yet (ROADMAP P14)")
-    if model != "spectral":
-        raise ValueError(f"unknown model {model!r}; expected 'spectral'")
-    svc = _SpectralService(params, emit_audio=emit_audio, device=device)
+    if model not in _SERVICES:
+        raise ValueError(f"unknown model {model!r}; expected one of {sorted(_SERVICES)}")
+    svc = _SERVICES[model](params, emit_audio=emit_audio, device=device)
     srv = _UnixServer(unix_path, _StreamHandler) if unix_path else _TcpServer((host, port),
                                                                               _StreamHandler)
     srv.svc = svc  # type: ignore[attr-defined]
@@ -416,8 +490,8 @@ def main(argv=None) -> int:
     ap.add_argument("--wire", default="int16", choices=("int16", "mulaw"),
                     help="client mode: uplink encoding (mulaw = companded APT2 packets, "
                          "half the bytes of int16)")
-    ap.add_argument("--model", default="spectral", choices=("spectral", "band_noise"),
-                    help="engine family to serve (band_noise: not ported yet)")
+    ap.add_argument("--model", default="spectral", choices=tuple(_SERVICES),
+                    help="engine family to serve")
     ap.add_argument("--batch-window-ms", type=float, default=0.0,
                     help="dynamic batching window: concurrent connections coalesce into one "
                          "batched call (0 = off)")
@@ -435,10 +509,6 @@ def main(argv=None) -> int:
                 reply["audio"] = {"samples": int(len(audio))}
             print(json.dumps(reply), flush=True)
         return 0
-
-    if args.model == "band_noise":
-        print("serve: --model band_noise is not ported yet (ROADMAP P14)", file=sys.stderr)
-        return 2
 
     from audio_processing_tools_tpu_torch.config import DEFAULT_MODE_BANDS
 

@@ -258,7 +258,10 @@ __global__ void __launch_bounds__(kThreads) streaming_suppressor(SupIO io, SupCo
       }
       const float snr = __fdiv_rn(red[0], __fadd_rn(red[m], c.eps));
       gate = __fdiv_rn(snr, __fadd_rn(snr, c.snr1));
-      if (c.snr_pow) gate = powf(clamp(gate, 0.f, 1.f), c.snr_pwr);
+      // gate ** p as exp(p log gate) in double, rounded once to float, as
+      // the plain loop computes it (models/streaming.py::_gate_power)
+      if (c.snr_pow)
+        gate = (float)exp(__dmul_rn(log((double)clamp(gate, 0.f, 1.f)), (double)c.snr_pwr));
       gate = clamp(gate, 0.f, 1.f);
     }
 

@@ -241,6 +241,17 @@ class Suppressor:
 SupCarry = Tuple[Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]
 
 
+def _gate_power(gate: torch.Tensor, pwr: float) -> torch.Tensor:
+    """``gate ** pwr`` for a gate in [0, 1] as ``exp(pwr * log(gate))`` in
+    float64, rounded to float32, which K8 computes the same way.  CPU
+    ``torch.pow`` takes another path for a vector than for a few values, so
+    its bits would depend on the number of streams; this form's float64
+    result lies far inside one float32 rounding step of either path."""
+    g = gate.to(torch.float64)
+    p = float(np.float32(pwr))  # the power as float32, as the JAX program takes it
+    return torch.exp(torch.log(g) * p).to(torch.float32)
+
+
 def _suppressor_plain(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
                       frame_class: torch.Tensor, noise_conf: torch.Tensor,
                       frame_idx: torch.Tensor, carry: SupCarry):
@@ -279,7 +290,7 @@ def _suppressor_plain(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
             snr = tree_sum(P_t[:, cols]) / (tree_sum(N_eff[:, cols]) + float(cfg.eps))
             gate = snr / (snr + snr1)
             if pwr != 1.0 and np.isfinite(pwr) and pwr > 0:
-                gate = torch.pow(torch.clamp(gate, 0.0, 1.0), pwr)
+                gate = _gate_power(torch.clamp(gate, 0.0, 1.0), pwr)
             gate = torch.clamp(gate, 0.0, 1.0)[:, None]
         G_f = gain_freq_stage(cfg, P_t[..., None], N_eff[..., None], noise_conf[:, t, None],
                               gate)[..., 0]

@@ -7,15 +7,22 @@ Counterpart of ``audio_processing_tools_tpu/ops/filters.py``.
   ``_cascade_state_space``, ``_cascade_matmul_constants`` and
   ``_boundary_logdepth_powers`` (``:421-515``), ``design_highpass`` /
   ``design_bandpass`` (``:770-792``).
-* **Run**: :func:`_sosfilt_cascade_matmul` (``:518-635``) in its
+* **Run, offline**: :func:`_sosfilt_cascade_matmul` (``:518-650``) in its
   ``boundary="logdepth"`` form, forward and ``reverse=True``, and
   :func:`sosfiltfilt` (``:715-762``) with scipy's odd extension and padlen
-  rule; :func:`sosfilt` from zero state (``:669-702``) on inputs of one
-  block, where the ``scan`` boundary has no step.  The whole cascade is two
-  constant matrix products per 128-sample block plus a log-depth prefix over
-  block-boundary states; the products are plain float32 ``torch.matmul``
-  (the JAX package ran them outside any Pallas kernel), with TF32 disabled
-  at package import.
+  rule.  The whole cascade is two constant matrix products per 128-sample
+  block plus a log-depth prefix over block-boundary states; the products
+  are plain float32 ``torch.matmul`` (the JAX package ran them outside any
+  Pallas kernel), with TF32 disabled at package import.
+* **Run, sequential boundary**: :func:`cascade_sosfilt`, the
+  ``boundary="scan"`` form of ``_sosfilt_cascade_matmul`` with its exact
+  final state (``sosfilt_matmul_zf``, ``:652-666``), which band noise runs
+  and :func:`sosfilt` without ``zi`` runs from zero state: on a CUDA tensor
+  the hand-written kernel K4 (``csrc/cascade.cu``), on a CPU tensor its
+  plain version :func:`_cascade_sosfilt_plain`.  No library product: every
+  dot product is a left-to-right sum in one fixed order, so both give the
+  same bits, and a stream cut into multiples of 128 samples gives the bits
+  of one call.
 * :func:`sosfilt` with ``zi`` returns ``(y, zf)``, the streaming detector's
   causal prefilter (``:669-712``, whose per-section blocked scan is
   ``_sosfilt_section_pscan``, ``:290-411``): on a CUDA tensor the
@@ -23,9 +30,6 @@ Counterpart of ``audio_processing_tools_tpu/ops/filters.py``.
   walking the samples in order; its plain version :func:`_sosfilt_zi_plain`
   walks them the same way.  Both give the same bits for any cut of a stream
   into chunks.
-
-The sequential ``scan`` boundary over more than one block (K4) belongs to
-``sosfilt_matmul_zf`` in band noise (ROADMAP P14) and raises.
 """
 
 from __future__ import annotations
@@ -394,9 +398,10 @@ def _boundary_logdepth_powers(sos: np.ndarray, block: int, nb: int):
 
 def _sosfilt_cascade_matmul(sos: np.ndarray, x: torch.Tensor,
                             zi: torch.Tensor, block: int = 128,
-                            reverse: bool = False,
-                            boundary: str = "logdepth") -> torch.Tensor:
-    """Whole-cascade ``sosfilt`` over the last axis (y only).
+                            reverse: bool = False) -> torch.Tensor:
+    """Whole-cascade ``sosfilt`` over the last axis (y only), the JAX
+    package's ``boundary="logdepth"`` form (the ``scan`` form is
+    :func:`cascade_sosfilt`).
 
     With block-start state ``z`` and in-block index ``i`` the output is
     ``y[i] = Zmat[i] . z + sum_u L[i, u] x[u]``: two constant products.  The
@@ -410,13 +415,6 @@ def _sosfilt_cascade_matmul(sos: np.ndarray, x: torch.Tensor,
     """
     T = x.shape[-1]
     nb = -(-T // block)
-    # one block has no boundary step: the scan and the log-depth prefix are
-    # then the same computation
-    if boundary != "logdepth" and nb > 1:
-        raise NotImplementedError(
-            f"boundary={boundary!r} over {nb} blocks: the sequential block-boundary "
-            "scan (K4) belongs to band noise's sosfilt_matmul_zf (ROADMAP P14)"
-        )
     sos = np.asarray(sos, dtype=np.float64)
     S = sos.shape[0]
     dev = x.device
@@ -457,6 +455,148 @@ def _sosfilt_cascade_matmul(sos: np.ndarray, x: torch.Tensor,
     y = torch.matmul(xb, Lt) + torch.matmul(zstarts, Zt)
     y = y.reshape(lead + (nb * block,))
     return y[..., pad:] if reverse else y[..., :T]
+
+
+# ---------------------------------------------------------------------------
+# K4: the cascade with the sequential block boundary
+# ---------------------------------------------------------------------------
+
+#: samples per block of the cascade form that kernel K4 takes
+K4_BLOCK = 128
+#: second-order sections K4 takes (a state of 2 S <= 16 values)
+K4_MAX_SECTIONS = 8
+
+
+def cascade_scan_tables(sos: np.ndarray, block: int, P: int):
+    """Host constants of the sequential-boundary cascade, float64 (rounded
+    to float32 at use): the in-block impulse response ``L`` (block, block),
+    the block-start pickup ``Zmat`` (block, 2S), the block drift weights
+    ``Kblk`` (block, 2S), the block matrix ``A^block`` and ``A^P`` for a
+    last block of ``P`` real samples (2S, 2S)."""
+    L, Zmat, Kblk, Ablk = _cascade_matmul_constants(sos, block)
+    A = _cascade_state_space(sos)[0]
+    return L, Zmat, Kblk, Ablk, np.linalg.matrix_power(A, P)
+
+
+def _k4_flat_tables(sos: np.ndarray, P: int) -> np.ndarray:
+    """K4's one table: ``L[:, 0]`` (``L`` is Toeplitz, ``L[i, u] = L[i - u,
+    0]``) | Kblk | Zmat | A^128 | A^P, row-major."""
+    L, Zmat, Kblk, Ablk, Ap = cascade_scan_tables(sos, K4_BLOCK, P)
+    return np.concatenate([L[:, 0], Kblk.ravel(), Zmat.ravel(), Ablk.ravel(), Ap.ravel()])
+
+
+def _rowdot(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M @ v`` over the last axis of ``v`` with each row's terms summed left
+    to right, every product and sum rounded on its own."""
+    acc = v[..., 0:1] * M[:, 0]
+    for s in range(1, M.shape[1]):
+        acc = acc + v[..., s:s + 1] * M[:, s]
+    return acc
+
+
+def _cascade_sosfilt_plain(tables, x: torch.Tensor, zi: torch.Tensor):
+    """K4's plain version: ``x`` (R, T), ``zi`` (R, 2S), ``tables`` from
+    :func:`cascade_scan_tables` as float32 tensors.  Every dot product is a
+    left-to-right sum of separately rounded products, in K4's order:
+
+        c_j     = sum_u Kblk[u] x_j[u]                 (u = 0 .. block-1)
+        z_{j+1} = (sum_s A^block[:, s] z_j[s]) + c_j   (s = 0 .. 2S-1)
+        y_j[i]  = (sum_{u <= i} L[i, u] x_j[u]) + (sum_s Zmat[i, s] z_j[s])
+
+    and, after a last block of P < block real samples, the final state
+    ``(sum_s A^P[:, s] z_last[s]) + sum_{u < P} Kblk[block - P + u] x[u]``.
+    Returns ``(y, zf)``."""
+    L, Zmat, Kblk, Ablk, Ap = tables
+    block = L.shape[0]
+    R, T = x.shape
+    nb = -(-T // block)
+    pad = nb * block - T
+    xb = tnf.pad(x, (0, pad)).reshape(R, nb, block)
+    c = xb[..., 0:1] * Kblk[0]
+    for u in range(1, block):
+        c = c + xb[..., u:u + 1] * Kblk[u]
+    zs = x.new_empty((R, nb, Ablk.shape[0]))
+    z = zi
+    steps = nb if pad == 0 else nb - 1  # the last partial block's state: A^P below
+    for j in range(nb):
+        zs[:, j] = z
+        if j < steps:
+            z = _rowdot(Ablk, z) + c[:, j]
+    acc = xb[..., 0:1] * L[:, 0]
+    for u in range(1, block):
+        acc[..., u:] = acc[..., u:] + xb[..., u:u + 1] * L[u:, u]
+    y = (acc + _rowdot(Zmat, zs)).reshape(R, nb * block)[:, :T]
+    if pad:
+        P = block - pad
+        d = xb[:, -1, 0:1] * Kblk[block - P]
+        for u in range(1, P):
+            d = d + xb[:, -1, u:u + 1] * Kblk[block - P + u]
+        z = _rowdot(Ap, zs[:, -1]) + d
+    return y, z
+
+
+def _cascade_sosfilt_cuda(tables: torch.Tensor, x: torch.Tensor, zi: torch.Tensor,
+                          n_sections: int):
+    """K4 on the card: ``(y, zf)`` from the flat table of
+    :func:`_k4_flat_tables`."""
+    R, T = x.shape
+    n = 2 * n_sections
+    _kernels.require_cuda("cascade_sosfilt", x, torch.float32, 2)
+    _kernels.require_cuda("cascade_sosfilt(zi)", zi, torch.float32, 2)
+    if zi.shape != (R, n) or zi.device != x.device or tables.device != x.device:
+        raise ValueError(f"cascade_sosfilt: zi must be ({R}, {n}) on {x.device}; "
+                         f"got {tuple(zi.shape)} on {zi.device}")
+    if not 1 <= n_sections <= K4_MAX_SECTIONS:
+        raise ValueError(f"cascade_sosfilt: the CUDA kernel takes 1 to {K4_MAX_SECTIONS} "
+                         f"sections; got {n_sections}")
+    nb = -(-T // K4_BLOCK)
+    y = torch.empty_like(x)
+    zf = torch.empty_like(zi)
+    drifts = torch.empty((R, nb, n), dtype=torch.float32, device=x.device)
+    starts = torch.empty_like(drifts)
+    lib = _kernels.build()
+    with torch.cuda.device(x.device):
+        err = lib.lib.apt_cascade_sosfilt(x.data_ptr(), tables.data_ptr(), zi.data_ptr(),
+                                          y.data_ptr(), zf.data_ptr(), drifts.data_ptr(),
+                                          starts.data_ptr(), R, T, n_sections,
+                                          _kernels.stream_of(x))
+    lib.check(err, "cascade_sosfilt")
+    _kernels.count("cascade_sosfilt")
+    return y, zf
+
+
+def cascade_sosfilt(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor):
+    """``_sosfilt_cascade_matmul(boundary="scan")`` of the JAX package
+    (``filters.py:518-650``): the cascade over the last axis of ``x`` from
+    ``zi`` ((S, 2) or (..., S, 2)), as block drifts, the sequential walk over
+    block-start states and the in-block outputs.  Kernel K4 on a CUDA
+    tensor, :func:`_cascade_sosfilt_plain` on a CPU tensor; both give the
+    same bits, and so does any cut of a stream into multiples of 128 samples
+    with the final state carried.  Returns ``(y, zf)``, ``zf`` (..., S, 2).
+    """
+    sos = np.asarray(sos, dtype=np.float64)
+    S = sos.shape[0]
+    x = x.to(torch.float32)
+    lead, T = x.shape[:-1], x.shape[-1]
+    xr = x.reshape(-1, T).contiguous()
+    R = xr.shape[0]
+    zir = zi.to(device=x.device, dtype=torch.float32)
+    zir = zir.reshape(zir.shape[:-2] + (2 * S,)).expand(lead + (2 * S,)).reshape(R, 2 * S)
+    zir = zir.contiguous()
+    if T == 0:
+        y, zf = xr, zir
+    else:
+        P = T - (-(-T // K4_BLOCK) - 1) * K4_BLOCK  # real samples in the last block
+        if x.device.type == "cpu":
+            tables = device_constant(("k4_plain", sos.tobytes(), P), x.device,
+                                     lambda: cascade_scan_tables(sos, K4_BLOCK, P))
+            y, zf = _cascade_sosfilt_plain(tables, xr, zir)
+        else:
+            tables = device_constant(("k4", sos.tobytes(), P), x.device,
+                                     lambda: _k4_flat_tables(sos, P))
+            y, zf = _cascade_sosfilt_cuda(tables, xr, zir, S)
+    y = y.reshape(lead + (T,))
+    return y, zf.reshape(lead + (S, 2))
 
 
 def _sos_coefficients(sos: np.ndarray) -> np.ndarray:
@@ -537,17 +677,16 @@ def sosfilt(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor | None = None):
     """Causal cascade filter over the last axis, scipy ``sosfilt``
     semantics (``filters.py:669-712``).
 
-    Without ``zi``: from zero state, the JAX package's ``boundary="scan"``
-    cascade, which the port runs for inputs of one 128-sample block (K4,
-    ROADMAP P14, for longer ones); returns ``y``.  With ``zi`` ((S, 2) or
-    (..., S, 2)): returns ``(y, zf)``, kernel K7 on a CUDA tensor and its
-    plain loop on a CPU tensor; carrying ``zf`` into the next call as ``zi``
-    gives the bits of one call over the whole stream."""
+    Without ``zi``: from zero state, the JAX package's cascade with the
+    sequential boundary, :func:`cascade_sosfilt` (kernel K4 on a CUDA
+    tensor); returns ``y``.  With ``zi`` ((S, 2) or (..., S, 2)): returns
+    ``(y, zf)``, kernel K7 on a CUDA tensor and its plain loop on a CPU
+    tensor, the streaming detector's prefilter; carrying ``zf`` into the
+    next call as ``zi`` gives the bits of one call over the whole stream."""
     sos = np.asarray(sos, dtype=np.float64)
     x = x.to(torch.float32)
     if zi is None:
-        zeros = x.new_zeros((sos.shape[0], 2))
-        return _sosfilt_cascade_matmul(sos, x, zeros, boundary="scan")
+        return cascade_sosfilt(sos, x, x.new_zeros((sos.shape[0], 2)))[0]
     S = sos.shape[0]
     lead, n = x.shape[:-1], x.shape[-1]
     xr = x.reshape(-1, n).contiguous()

@@ -21,7 +21,7 @@ import torch
 from audio_processing_tools_tpu_torch import _kernels
 from audio_processing_tools_tpu_torch.ops._device import device_constant
 from audio_processing_tools_tpu_torch.ops.stft import stft_power
-from audio_processing_tools_tpu_torch.ops.windows import hann_window
+from audio_processing_tools_tpu_torch.ops.windows import analysis_window
 
 #: threads per block of the kernel
 THREADS = 256
@@ -66,25 +66,28 @@ def launch_plan(n_fft: int, hop: int) -> LaunchPlan:
     return LaunchPlan(ft, _smem_bytes(n_fft, hop, ft))
 
 
-def kernel_tables(n_fft: int):
+def kernel_tables(n_fft: int, window: str = "hann"):
     """The kernel's host tables, built in float64 and rounded to float32:
-    the periodic Hann window (n_fft,) and the twiddles
-    ``e^{-2 pi i k / n_fft}``, k < n_fft, as (n_fft, 2) (re, im) pairs."""
+    the window (n_fft,), the periodic Hann window or ones for ``"rect"``,
+    and the twiddles ``e^{-2 pi i k / n_fft}``, k < n_fft, as (n_fft, 2)
+    (re, im) pairs."""
     ang = -2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
     twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
-    return hann_window(n_fft), twiddle
+    return analysis_window(window, n_fft), twiddle
 
 
 def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
-                      center: bool = True) -> torch.Tensor:
+                      center: bool = True, window: str = "hann") -> torch.Tensor:
     """``|STFT|^2`` of the last axis as ``(..., 1 + n_fft//2, T)`` float32.
 
     Centered framing pads ``n_fft // 2`` zeros on both sides (librosa's
-    ``pad_mode="constant"``).  Matches :func:`stft_power` to float32
-    rounding.
+    ``pad_mode="constant"``).  ``window`` is ``"hann"`` (periodic) or
+    ``"rect"`` (no window: the kernel multiplies by ones, which is exact).
+    Matches :func:`stft_power` to float32 rounding.
     """
     if x.device.type == "cpu":
-        return stft_power(x, n_fft=n_fft, hop=hop, center=center)
+        return stft_power(x, n_fft=n_fft, hop=hop, center=center, window=window)
+    analysis_window(window, 1)  # an unknown window raises here, before the launch
     plan = launch_plan(n_fft, hop)
     x = x.to(torch.float32).contiguous()
     lead = x.shape[:-1]
@@ -97,12 +100,12 @@ def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
     out = torch.empty((xb.shape[0], F, T), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out.reshape(lead + (F, T))
-    window, twiddle = device_constant(("spectrogram_tables", n_fft), x.device,
-                                      lambda: kernel_tables(n_fft))
+    win, twiddle = device_constant(("spectrogram_tables", n_fft, window), x.device,
+                                   lambda: kernel_tables(n_fft, window))
     lib = _kernels.build()
     with torch.cuda.device(x.device):
         err = lib.lib.apt_spectrogram_power(
-            xb.data_ptr(), window.data_ptr(), twiddle.data_ptr(), out.data_ptr(),
+            xb.data_ptr(), win.data_ptr(), twiddle.data_ptr(), out.data_ptr(),
             xb.shape[0], n, T, n_fft, hop, pad, plan.frame_tile, plan.smem_bytes,
             _kernels.stream_of(xb),
         )

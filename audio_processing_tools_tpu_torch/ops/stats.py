@@ -2,8 +2,10 @@
 
 Counterpart of ``audio_processing_tools_tpu/ops/stats.py:17-132``:
 ``kurtosis`` (scipy parity), ``crest_factor``, ``quantile_linear`` (NumPy's
-default linear interpolation) and ``nan_to_num``; and :func:`tree_sum`, a
-sum in one fixed order on every device and at every shape.
+default linear interpolation), ``masked_quantile_rankselect`` (the
+band-noise estimator's masked quantile, without a sort), and
+``nan_to_num``; and :func:`tree_sum`, a sum in one fixed order on every
+device and at every shape.
 """
 
 from __future__ import annotations
@@ -61,6 +63,35 @@ def quantile_linear(x: torch.Tensor, q: float, dim: int = -1) -> torch.Tensor:
     v_lo = xs[..., lo]
     v_hi = xs[..., hi]
     return v_lo + float(h - np.float32(lo)) * (v_hi - v_lo)
+
+
+def masked_quantile_rankselect(x: torch.Tensor, valid: torch.Tensor, q) -> torch.Tensor:
+    """``np.quantile(x[valid], q)`` over the last axis of a small buffer with
+    static shapes and no sort (``stats.py:83-118``): the stable rank of every
+    entry (ties broken by index, invalid entries as float32's maximum) from
+    one comparison matrix, and the two order statistics picked from the one
+    entry holding each rank, so the value is exact; linear interpolation
+    between them, and 0 for a row with no valid entry."""
+    x = x.to(torch.float32)
+    W = x.shape[-1]
+    big = torch.finfo(torch.float32).max
+    xv = torch.where(valid, x, big)
+    idx = torch.arange(W, device=x.device)
+    a, b = xv[..., None, :], xv[..., :, None]  # a: the other entry, b: this one
+    before = (a < b) | ((a == b) & (idx[None, :] < idx[:, None]))
+    rank = before.sum(dim=-1)  # (..., W), a permutation of 0..W-1
+    count = valid.sum(dim=-1)
+    # h = q * max(count - 1, 0) in float32, as stats.py:68-72 computes it
+    q = torch.as_tensor(q, dtype=x.dtype, device=x.device)
+    h = q * torch.clamp(count - 1, min=0).to(x.dtype)
+    lo = torch.floor(h).to(torch.int64)
+    hi = torch.ceil(h).to(torch.int64)
+    frac = h - lo.to(x.dtype)
+    v_lo = torch.gather(xv, -1, torch.argmax((rank == lo[..., None]).to(torch.uint8), dim=-1,
+                                             keepdim=True))[..., 0]
+    v_hi = torch.gather(xv, -1, torch.argmax((rank == hi[..., None]).to(torch.uint8), dim=-1,
+                                             keepdim=True))[..., 0]
+    return torch.where(count > 0, v_lo + frac * (v_hi - v_lo), 0.0)
 
 
 def nan_to_num(x: torch.Tensor, nan: float = 0.0, posinf: float = 0.0,

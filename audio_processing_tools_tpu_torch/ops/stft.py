@@ -22,7 +22,7 @@ import torch.nn.functional as tnf
 
 from audio_processing_tools_tpu_torch.ops._device import device_constant
 from audio_processing_tools_tpu_torch.ops.framing import frame_signal
-from audio_processing_tools_tpu_torch.ops.windows import hann_window
+from audio_processing_tools_tpu_torch.ops.windows import analysis_window, hann_window
 
 
 def fft_frequencies(sr: float, n_fft: int) -> np.ndarray:
@@ -43,21 +43,26 @@ def _pad_center(x: torch.Tensor, n_fft: int, pad_mode: str) -> torch.Tensor:
 
 
 def stft(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
-         center: bool = True, pad_mode: str = "constant") -> torch.Tensor:
-    """Complex STFT of the last axis: ``(..., 1 + n_fft//2, T)``."""
+         center: bool = True, pad_mode: str = "constant",
+         window: str = "hann") -> torch.Tensor:
+    """Complex STFT of the last axis: ``(..., 1 + n_fft//2, T)``, with the
+    periodic Hann window or, ``window="rect"``, none."""
     x = x.to(torch.float32)
     if center:
         x = _pad_center(x, n_fft, pad_mode)
     frames = frame_signal(x, n_fft, hop)  # (..., T, n_fft)
-    w = device_constant(("hann", n_fft), x.device, lambda: hann_window(n_fft))
-    spec = torch.fft.rfft(frames * w, dim=-1)  # (..., T, F)
+    if window != "rect":
+        frames = frames * device_constant((window, n_fft), x.device,
+                                          lambda: analysis_window(window, n_fft))
+    spec = torch.fft.rfft(frames, dim=-1)  # (..., T, F)
     return spec.transpose(-1, -2)
 
 
 def stft_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
-               center: bool = True, pad_mode: str = "constant") -> torch.Tensor:
+               center: bool = True, pad_mode: str = "constant",
+               window: str = "hann") -> torch.Tensor:
     """``|STFT|^2`` as float32 ``(..., F, T)``, contiguous."""
-    s = stft(x, n_fft=n_fft, hop=hop, center=center, pad_mode=pad_mode)
+    s = stft(x, n_fft=n_fft, hop=hop, center=center, pad_mode=pad_mode, window=window)
     return (s.real * s.real + s.imag * s.imag).contiguous()
 
 

@@ -20,3 +20,18 @@ def hann_window(n: int, periodic: bool = True, dtype=np.float32) -> np.ndarray:
     k = np.arange(n, dtype=np.float64)
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * k / denom)
     return w.astype(dtype)
+
+
+#: the windows the spectrogram takes: the periodic Hann window, and the
+#: rectangular one (no window) of the band-noise estimator's per-frame rFFT
+WINDOWS = ("hann", "rect")
+
+
+def analysis_window(name: str, n: int) -> np.ndarray:
+    """The float32 analysis window ``name`` (one of :data:`WINDOWS`) of
+    length ``n``."""
+    if name == "hann":
+        return hann_window(n)
+    if name == "rect":
+        return np.ones(n, np.float32)
+    raise ValueError(f"unknown window {name!r}; expected one of {WINDOWS}")

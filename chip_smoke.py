@@ -42,7 +42,8 @@ Phases, one line each:
      their carries threaded over 1-, 4- and 174-frame chunks bit for bit
      against one call, and K8 (the streaming suppressor) at 64 streams x 174
      frames against its plain loop (gain and carries bit for bit, audio to
-     float rounding), in three suppressor configurations;
+     float rounding), in five suppressor configurations (two raise the SNR
+     gate to a power);
  13. the live streaming path, 64 streams x 2 s x 15 chunks from int16 on the
      card through ``StreamingRainDetector.process_chunk_batch``, detector
      only and with denoised audio out, and the low-latency profile of 16
@@ -51,12 +52,32 @@ Phases, one line each:
  14. bitwise chunk invariance on the card, 8 streams, detector only and
      audio out: one whole chunk, 2 s chunks and three seeded random
      hop-multiple partitions give the same frame classes, rain confidence
-     and audio, and the batched step gives each stream's single-stream bits;
+     and audio, and the batched step gives each stream's single-stream bits
+     (also with the SNR gate raised to the power 2);
  15. the card against the port's CPU path on those 8 streams: frame classes
      identical, audio within 1e-4 of its maximum;
  16. the live server on the card over loopback TCP with dynamic batching:
      three clients on a detector server (one on the mu-law wire) and one on
      an emit-audio server, every reply equal to direct ``process_chunk``
+     results, batched calls made and no batch re-run;
+ 17. K4 (the cascade filter with the sequential block boundary) against its
+     plain version bit for bit: high-pass then band-pass at the path's 128 x
+     10 s from the seed states, and at 8 x 10 s from a nonzero state, y and
+     the final state, at a whole and a partial last block; 512 x 17-sample
+     chunks against one call; 128 x 10 s within 1e-5 of scipy in float64;
+ 18. K6 (the band-noise estimator's scan) against its plain loop bit for bit
+     at 128 clips x 218 frames, in four estimator configurations;
+ 19. the band-noise batch path: 128 synthetic 10 s clips (noise and 520 Hz
+     bursts) through ``BandNoiseEstimatorProcessor.run_batch`` with launch
+     counts (K1 1, K4 2, K6 1), 16 clips' FFT rain frames and rain subframes
+     against the CPU path (agreement >= 0.999, N_E within 1e-5 of its max),
+     K1 with the path's rectangular table against ``stft_power`` within 1e-5
+     of max, whole clips against 512 x 17 chunks, single streams and single
+     frames bit for bit on the card, and the batch's time; then K4 and K7,
+     the two kernels of a cascade with a carried state, each timed at the
+     other's shape, K4 within 1e-5 of K7 at the live one;
+ 20. the band-noise server on the card over loopback TCP with dynamic
+     batching: every reply equal to direct ``band_noise_process_chunk``
      results, batched calls made and no batch re-run.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
@@ -234,6 +255,8 @@ LOWLAT = (16, (512, 1024))  # the low-latency profile: streams, chunk samples
 STREAM_PARAMS = {"sample_rate": FS, "clip_rain_min_frames": 3,
                  "detector": PARAMS["detector"]}
 STREAM_AUDIO = {**STREAM_PARAMS, "compute_output_audio": True}
+# the suppressor's SNR gate raised to a power other than 1
+STREAM_SNR_POW = {**STREAM_AUDIO, "snr_gating_enable": True, "snr_gating_power": 2.0}
 
 
 def synth_streams(n_streams: int, seconds: float, seed: int = 5):
@@ -465,7 +488,8 @@ def main() -> int:
     launches = dict(_kernels.LAUNCHES)
     check(launches == {**launches, "spectrogram_power": 1, "noise_psd_track": 1,
                        "causal_low_quantile_baseline": 1, "gain_time_smooth": 0,
-                       "sosfilt_zi": 0, "streaming_suppressor": 0},
+                       "sosfilt_zi": 0, "streaming_suppressor": 0, "cascade_sosfilt": 0,
+                       "band_noise_scan": 0},
           f"classifier-only launches {launches}")
     fc = np.stack([s["frame_class"] for _, s in pairs])
     rc = np.stack([s["rain_conf"] for _, s in pairs])
@@ -571,7 +595,8 @@ def main() -> int:
     launches_def = dict(_kernels.LAUNCHES)
     check(launches_def == {**launches_def, "spectrogram_power": 1, "noise_psd_track": 2,
                            "causal_low_quantile_baseline": 1, "gain_time_smooth": 0,
-                           "sosfilt_zi": 0, "streaming_suppressor": 0},
+                           "sosfilt_zi": 0, "streaming_suppressor": 0, "cascade_sosfilt": 0,
+                       "band_noise_scan": 0},
           f"default-configuration launches {launches_def}")
     fc_def = np.stack([st["frame_class"] for _, st in pairs_def])
     floors = np.array([[m["mean_noise_floor_db"], m["median_noise_floor_db"]] for m, _ in pairs_def])
@@ -604,7 +629,8 @@ def main() -> int:
     launches_audio = dict(_kernels.LAUNCHES)
     check(launches_audio == {**launches_audio, "spectrogram_power": 0, "noise_psd_track": 2,
                              "causal_low_quantile_baseline": 1, "gain_time_smooth": 1,
-                             "sosfilt_zi": 0, "streaming_suppressor": 0},
+                             "sosfilt_zi": 0, "streaming_suppressor": 0, "cascade_sosfilt": 0,
+                       "band_noise_scan": 0},
           f"audio-out launches {launches_audio}")
     y_card = out_audio["y"]
     check(tuple(y_card.shape) == (BATCH, N) and bool(torch.isfinite(y_card).all()), "y")
@@ -733,11 +759,13 @@ def main() -> int:
               for label, (med, lo, hi, host) in batch_times.items()))
 
     stream = streaming_phases(smi)
+    band = band_noise_phases(smi)
 
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
-                    for k in launches}
+                    + band["launches"][k] for k in launches}
     print(f"launches per driven path: classifier-only {launches}, default {launches_def}, "
-          f"audio out {launches_audio}, streaming (all chunks of phase 13) {stream['launches']}")
+          f"audio out {launches_audio}, streaming (all chunks of phase 13) {stream['launches']}, "
+          f"band noise (phase 19) {band['launches']}")
     pkg = "audio_processing_tools_tpu_torch/csrc/"
     # bounds at this run's shapes: bytes read once and written once over
     # 3.35 TB/s, operations over the 67 TFLOP/s of float32 outside the
@@ -753,6 +781,8 @@ def main() -> int:
         "gain_time_smooth": (8 * G_freq.numel() + 4 * nc_rand.numel(), 8 * G_freq.numel()),
         "sosfilt_zi": stream["work"]["sosfilt_zi"],
         "streaming_suppressor": stream["work"]["streaming_suppressor"],
+        "cascade_sosfilt": band["work"]["cascade_sosfilt"],
+        "band_noise_scan": band["work"]["band_noise_scan"],
     }
 
     def bound(kernel):
@@ -791,6 +821,16 @@ def main() -> int:
          "max_abs_err": stream["err"]["streaming_suppressor"],
          "ms": stream["ms"]["streaming_suppressor"],
          "plain_ms": stream["plain_ms"]["streaming_suppressor"], **bound("streaming_suppressor")},
+        {"name": "cascade_sosfilt", "route": "cuda", "source": pkg + "cascade.cu",
+         "replaces": "audio_processing_tools_tpu/ops/filters.py:518",
+         "launches": launches_all["cascade_sosfilt"], "max_abs_err": band["err"]["cascade_sosfilt"],
+         "ms": band["ms"]["cascade_sosfilt"], "plain_ms": band["plain_ms"]["cascade_sosfilt"],
+         **bound("cascade_sosfilt")},
+        {"name": "band_noise_scan", "route": "cuda", "source": pkg + "band_noise.cu",
+         "replaces": "audio_processing_tools_tpu/models/band_noise.py:358",
+         "launches": launches_all["band_noise_scan"], "max_abs_err": band["err"]["band_noise_scan"],
+         "ms": band["ms"]["band_noise_scan"], "plain_ms": band["plain_ms"]["band_noise_scan"],
+         **bound("band_noise_scan")},
     ]
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
@@ -908,6 +948,8 @@ def streaming_phases(smi: str) -> dict:
     k8_abs = k8_rel = 0.0
     k8_case = None
     variants = (("default", {}), ("SNR gate", {"snr_gating_enable": True}),
+                ("SNR gate, power 2", {"snr_gating_enable": True, "snr_gating_power": 2.0}),
+                ("SNR gate, power 0.5", {"snr_gating_enable": True, "snr_gating_power": 0.5}),
                 ("Wiener, lagged N, fixed gain", {"gain_mode": "wiener", "use_lagged_noise_psd": True,
                                                   "adaptive_gain_enable": False,
                                                   "gain_freq_smooth_enable": False}))
@@ -969,10 +1011,10 @@ def streaming_phases(smi: str) -> dict:
         fc = torch.cat(fcs, dim=-1).numpy()
         check(fc.shape == (B, n_chunks * L // 128) and set(np.unique(fc)) <= {0, 1, 2},
               "streaming frame classes")
-        want = {k: n_chunks for k in ("spectrogram_power", "noise_psd_track",
-                                      "causal_low_quantile_baseline", "sosfilt_zi")}
-        want.update(streaming_suppressor=n_chunks if params.get("compute_output_audio") else 0,
-                    gain_time_smooth=0)
+        want = {k: 0 for k in counts}
+        want.update({k: n_chunks for k in ("spectrogram_power", "noise_psd_track",
+                                           "causal_low_quantile_baseline", "sosfilt_zi")})
+        want.update(streaming_suppressor=n_chunks if params.get("compute_output_audio") else 0)
         check(counts == want, f"streaming launches {counts}, expected {want}")
         return counts, np.asarray(times), fc
 
@@ -1005,7 +1047,8 @@ def streaming_phases(smi: str) -> dict:
     x8 = pcm_dev[:8, : 3 * CHUNK].to(torch.float32) / 32767.0
     splits = [[CHUNK]] + [[int(r) * 128 for r in np.random.default_rng(100 + s).integers(1, 40, 400)]
                           for s in range(3)]
-    for label, params in (("detector", STREAM_PARAMS), ("audio out", STREAM_AUDIO)):
+    for label, params in (("detector", STREAM_PARAMS), ("audio out", STREAM_AUDIO),
+                          ("audio out, SNR gate power 2", STREAM_SNR_POW)):
         dd = detector(params)
         one, _ = run_stream(dd, x8, [x8.shape[1]])
         for sizes in splits:
@@ -1134,6 +1177,370 @@ def streaming_phases(smi: str) -> dict:
                 4 * (k8_case[1].numel() + B8 * sup.K * T8 + B8 * T8 + B8 * T8 * sup.st.hop)
                 + B8 * T8,
                 B8 * T8 * (2 * 2.5 * n_fft * np.log2(n_fft) + 40 * sup.K)),
+        },
+    }
+
+
+BN_SEED = 17
+BN_CHUNK = 512 * 17  # odd chunking of the band-noise streams, 17 frames
+BN_CONFIGS = {  # tests/test_band_noise.py:235-239, and both detector triggers
+    "default": {},
+    "smooth N_E": {"smooth_N_E": True},
+    "replenish, TTL 20": {"noise_replenish_from_all_subframes": True,
+                          "noise_buffer_ttl_frames": 20},
+    "D and dE triggers": {"det.use_D_trigger": True, "det.use_dE_over_Ehpf": True},
+}
+
+
+def band_noise_clips(n_clips: int, seed: int = BN_SEED):
+    """Noise with loud 520 Hz bursts at random times, about one a second
+    (``tests/test_band_noise.py:225-232``), float32 (B, 10 s)."""
+    rng = np.random.default_rng(seed)
+    n = int(FS * CLIP_SEC)
+    k = np.arange(2500)
+    burst = 0.5 * np.exp(-k / 400.0) * np.sin(2 * np.pi * 520 * k / FS)
+    x = 0.01 * rng.standard_normal((n_clips, n))
+    for i in range(n_clips):
+        for t0 in rng.integers(FS // 2, n - 3000, int(CLIP_SEC)):
+            x[i, t0 : t0 + 2500] += rng.uniform(0.5, 1.5) * burst
+    return x.astype(np.float32)
+
+
+def band_noise_phases(smi: str) -> dict:
+    """Phases 17-20: the band-noise estimator (K4 and K6 beside K1) on the
+    card and its server.  Returns the batch's launches, and each new
+    kernel's error, times and work for the kernels line."""
+    import socket
+    import threading
+
+    import scipy.signal as ss
+    import torch
+
+    from audio_processing_tools_tpu_torch import _kernels
+    from audio_processing_tools_tpu_torch.cli import serve
+    from audio_processing_tools_tpu_torch.models import band_noise as tbn
+    from audio_processing_tools_tpu_torch.models.band_noise_streaming import BandNoiseEstimator
+    from audio_processing_tools_tpu_torch.models import streaming as tsm
+    from audio_processing_tools_tpu_torch.ops import filters as tfl
+    from audio_processing_tools_tpu_torch.ops.spectrogram import spectrogram_power
+    from audio_processing_tools_tpu_torch.ops.stft import stft_power
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    clips = band_noise_clips(BATCH)
+    x = torch.from_numpy(clips).to(dev)
+    cfg = tbn.build_band_noise_config({"sample_rate": FS})
+    N = cfg.frame_len
+    T = x.shape[1] // N
+    xT = x[:, : T * N].contiguous()
+    hpf, bpf = tbn._design_filters(cfg)
+
+    # ---- 17. K4 against its plain version --------------------------------------
+    def k4_tables(sos, n):
+        """K4's table and its plain version's for rows of ``n`` samples."""
+        P = n - (-(-n // 128) - 1) * 128
+        flat = torch.as_tensor(tfl._k4_flat_tables(sos, P).astype(np.float32), device=dev)
+        tabs = tuple(torch.as_tensor(np.asarray(t, np.float32), device=dev)
+                     for t in tfl.cascade_scan_tables(sos, 128, P))
+        return flat, tabs
+
+    def k4_pair(sos, xs, zi):
+        flat, tabs = k4_tables(sos, xs.shape[-1])
+        k = tfl._cascade_sosfilt_cuda(flat, xs, zi, sos.shape[0])
+        p = tfl._cascade_sosfilt_plain(tabs, xs, zi)
+        torch.cuda.synchronize()
+        return k, p
+
+    # the path's shapes: the high-pass over the clips from their seed states,
+    # then the band-pass over its output; the kernels line's error is these
+    k4_abs = 0.0
+    xs = xT
+    for label, sos in (("high-pass", hpf), ("band-pass", bpf)):
+        zi = tbn._seed(sos, xT[:, 0]).reshape(BATCH, -1).contiguous()
+        (y_k, z_k), (y_p, z_p) = k4_pair(sos, xs, zi)
+        (same_y, d), (same_z, dz) = same_bits(y_k, y_p), same_bits(z_k, z_p)
+        check(same_y and same_z, f"K4 {label} at {tuple(xs.shape)}: not the plain version's "
+                                 f"bits (y {d:.3e}, zf {dz:.3e})")
+        k4_abs = max(k4_abs, d, dz)
+        xs = y_k
+    x8 = xT[:8]
+    for label, sos in (("high-pass", hpf), ("band-pass", bpf)):
+        zi = 0.01 * torch.randn((8, 2 * sos.shape[0]), generator=gen, device=dev)
+        for xs in (x8, x8[:, : T * N - 77].contiguous()):
+            (y_k, z_k), (y_p, z_p) = k4_pair(sos, xs, zi)
+            (same_y, d), (same_z, dz) = same_bits(y_k, y_p), same_bits(z_k, z_p)
+            check(same_y and same_z, f"K4 {label} at {tuple(xs.shape)}: not the plain version's "
+                                     f"bits (y {d:.3e}, zf {dz:.3e})")
+        # chunks of 512 x 17 samples with the state carried give one call's bits
+        zi = zi.reshape(8, sos.shape[0], 2)
+        y1, z1 = tfl.cascade_sosfilt(sos, x8, zi)
+        ys, z = [], zi
+        for a in range(0, x8.shape[1], BN_CHUNK):
+            y, z = tfl.cascade_sosfilt(sos, x8[:, a : a + BN_CHUNK], z)
+            ys.append(y)
+        check(torch.equal(torch.cat(ys, dim=-1), y1) and torch.equal(z, z1),
+              f"K4 {label}: 512 x 17 chunks do not give one call's bits")
+        # the whole batch against scipy in float64
+        zi_b = 0.01 * torch.randn((BATCH, sos.shape[0], 2), generator=gen, device=dev)
+        y_k, zf_k = tfl.cascade_sosfilt(sos, x, zi_b)
+        y_sp, zf_sp = ss.sosfilt(sos, clips.astype(np.float64), axis=-1,
+                                 zi=zi_b.double().cpu().numpy().transpose(1, 0, 2))
+        r_y = rel_err(y_k.cpu().numpy(), y_sp)
+        r_z = rel_err(zf_k.cpu().numpy(), zf_sp.transpose(1, 0, 2))
+        check(r_y <= 1e-5 and r_z <= 1e-5, f"K4 {label} against scipy float64: y {r_y:.3e}, "
+                                           f"zf {r_z:.3e}")
+        print(f"  K4 {label} ({sos.shape[0]} sections): the plain version's bits at "
+              f"{tuple(xT.shape)} from the seed state (the path's shape), at {tuple(x8.shape)} and "
+              f"with a partial last block, zi nonzero, y and zf; 512 x 17 "
+              f"chunks give one call's bits; {tuple(x.shape)} against scipy in float64: y "
+              f"max|d|/max {r_y:.3e}, zf {r_z:.3e} (bound 1e-5)")
+    print("phase 17 K4 cascade_sosfilt on the card: the plain version's bits, chunk invariant, "
+          "within 1e-5 of scipy")
+
+    # ---- 18. K6 against its plain loop -------------------------------------------
+    k6_abs = 0.0
+    k6_case = None
+    for label, extra in BN_CONFIGS.items():
+        c = tbn.build_band_noise_config({"sample_rate": FS, **extra})
+        h, b = tbn._design_filters(c)
+        x0 = xT[:, 0]
+        x_h, x_bp, _, _ = tbn._filters(c, xT, tbn._seed(h, x0), tbn._seed(b, x0))
+        inputs = tbn._per_frame_inputs(x_h, x_bp, c, T)
+        carry = tbn._scan_carry_init(c, BATCH, dev)
+        out_k, carry_k = tbn._band_scan_cuda(c, carry, inputs)
+        out_p, carry_p = tbn._band_scan_plain(c, carry, inputs)
+        torch.cuda.synchronize()
+        for key in out_p:
+            a, b_ = out_k[key], out_p[key]
+            if a.dtype.is_floating_point:
+                same, d = same_bits(a, b_)
+                k6_abs = max(k6_abs, d)
+            else:
+                same = torch.equal(a, b_)
+            check(same, f"K6 {label}: {key} is not the plain loop's")
+        for key in carry_p:
+            check(torch.equal(carry_k[key], carry_p[key]), f"K6 {label}: carry {key} differs")
+        rain = float(out_k["fft_rain_frame"].float().mean())
+        print(f"  K6 {label} ({BATCH} lanes x {T} frames): outputs and carry the plain loop's "
+              f"bits; fft_rain_frame on {rain:.3f} of frames")
+        if label == "default":
+            k6_case = (c, carry, inputs)
+    print(f"phase 18 K6 band_noise_scan: {len(BN_CONFIGS)} configurations, the plain loop's bits")
+
+    # ---- 19. the band-noise batch path -------------------------------------------
+    params = {"sample_rate": FS}
+    proc = tbn.BandNoiseEstimatorProcessor(device=dev)
+    proc.run_batch(x[:2], params)  # warm the allocator and the constants
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    pairs = proc.run_batch(x, params)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want.update(spectrogram_power=1, cascade_sosfilt=2, band_noise_scan=1)
+    check(launches == want, f"band-noise batch launches {launches}, expected {want}")
+    check(len(pairs) == BATCH and all(m["n_frames"] == T for m, _ in pairs), "band-noise pairs")
+    for key in ("N_E", "G_mag", "E_band", "M_clean"):
+        check(all(np.isfinite(s[key]).all() for _, s in pairs), f"band-noise {key} not finite")
+    fft_frac = np.array([m["fft_rain_frac"] for m, _ in pairs])
+    sub_frac = np.array([m["rain_submask_frac"] for m, _ in pairs])
+    check(fft_frac.min() > 0, "a band-noise clip has no FFT rain frame")
+    # the card against the port's CPU path on 16 clips
+    cpu_pairs = tbn.BandNoiseEstimatorProcessor(device="cpu").run_batch(clips[:N_AGREE], params)
+    fr_card = np.stack([s["fft_rain_frame"] for _, s in pairs[:N_AGREE]])
+    fr_cpu = np.stack([s["fft_rain_frame"] for _, s in cpu_pairs])
+    sm_card = np.stack([s["rain_submask"] for _, s in pairs[:N_AGREE]])
+    sm_cpu = np.stack([s["rain_submask"] for _, s in cpu_pairs])
+    agree_fr = float((fr_card == fr_cpu).mean())
+    agree_sm = float((sm_card == sm_cpu).mean())
+    ne_rel = rel_err(np.stack([s["N_E"] for _, s in pairs[:N_AGREE]]),
+                     np.stack([s["N_E"] for _, s in cpu_pairs]))
+    check(agree_fr >= 0.999 and agree_sm >= 0.999 and ne_rel <= 1e-5,
+          f"band noise, card against CPU: fft_rain_frame {agree_fr:.6f}, rain_submask "
+          f"{agree_sm:.6f} (bound 0.999), N_E max|d|/max {ne_rel:.3e} (bound 1e-5)")
+    # K1 with the path's rectangular table, on the path's high-passed frames
+    x_h = tfl.cascade_sosfilt(hpf, xT, tbn._seed(hpf, xT[:, 0]))[0]
+    P_k = spectrogram_power(x_h, n_fft=N, hop=N, center=False, window="rect")
+    P_p = stft_power(x_h, n_fft=N, hop=N, center=False, window="rect")
+    k1_rect = float((P_k - P_p).abs().max()) / float(P_p.abs().max())
+    check(P_k.shape == (BATCH, N // 2 + 1, T) and k1_rect < 1e-5,
+          f"K1 rect at {tuple(x_h.shape)} -> {tuple(P_k.shape)}: max|d|/max {k1_rect:.3e}")
+    # bitwise: whole = 512 x 17 chunks = single frames, batch = single streams
+    full = tbn.band_noise_process(x[:8], cfg)
+    state, parts = tbn.band_noise_init_state(cfg, 8, dev), []
+    for a in range(0, T * N, BN_CHUNK):
+        out, state = tbn.band_noise_process_chunk(x[:8, a : min(a + BN_CHUNK, T * N)], cfg, state)
+        parts.append(out)
+    for key in full:
+        check(torch.equal(torch.cat([p[key] for p in parts], dim=1), full[key]),
+              f"band noise on the card: {key} in 512 x 17 chunks differs from one call")
+    for i in range(8):
+        one = tbn.band_noise_process(x[i : i + 1], cfg)
+        for key in full:
+            check(torch.equal(one[key][0], full[key][i]), f"band noise stream {i} alone: {key}")
+    for i in range(2):
+        est = BandNoiseEstimator(cfg, device=dev)
+        frames = list(est.process_stream(clips[i, : T * N]))
+        for key in ("N_E", "G_mag", "M_clean", "E_band", "noise_effective_q"):
+            got = np.float32([getattr(f, key) for f in frames])
+            check(np.array_equal(got, full[key][i].cpu().numpy()),
+                  f"band noise stream {i} frame by frame: {key}")
+        check(np.array_equal(np.stack([f.rain_submask for f in frames]),
+                             full["rain_submask"][i].cpu().numpy()), "frame by frame: rain_submask")
+    # timings: the batched call (results on the card) with CUDA events, then
+    # run_batch on the host clock with the copy and the per-clip summaries
+    def batch():
+        return tbn.band_noise_process(x, cfg)
+
+    times = cuda_times(batch, 20)
+    med = float(np.median(times))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        proc.run_batch(x, params)
+    host = (time.perf_counter() - t0) / 5 * 1e3
+    audio_s = BATCH * CLIP_SEC
+    print(f"phase 19 band-noise batch {BATCH} x {CLIP_SEC:.0f} s ({T} frames) via run_batch: "
+          f"launches { {k: v for k, v in launches.items() if v} }; FFT rain frames "
+          f"{fft_frac.mean():.4f} of frames (min {fft_frac.min():.4f}), rain subframes "
+          f"{sub_frac.mean():.4f}; wall {wall * 1e3:.1f} ms incl. copy and summaries; card "
+          f"against the CPU path on {N_AGREE} clips: fft_rain_frame {agree_fr:.6f}, rain_submask "
+          f"{agree_sm:.6f} (bound 0.999), N_E max|d|/max {ne_rel:.3e} (bound 1e-5); K1 with the "
+          f"rectangular table {tuple(x_h.shape)} -> {tuple(P_k.shape)} against stft_power: max|d|/max "
+          f"{k1_rect:.3e} (bound 1e-5); whole = 512 x 17 chunks = "
+          f"8 single streams, bit for bit, and 2 streams frame by frame; on {smi}: "
+          f"band_noise_process {med:.3f} ms per batch (min {min(times):.3f}, max "
+          f"{max(times):.3f}, n=20) = {audio_s / (med / 1e3):.1f} audio-s/s; run_batch host "
+          f"clock {host:.3f} ms per batch = {audio_s / (host / 1e3):.1f} audio-s/s")
+
+    # ---- 20. the band-noise server on the card -------------------------------
+    packet = 4096
+    n_packets = min(11, clips.shape[1] // packet)
+    pcm = (np.clip(clips[:4, : packet * n_packets], -1.0, 1.0) * 32767.0).astype("<i2")
+    servers = [serve.make_server(params, port=0, model="band_noise", batch_window_ms=50.0,
+                                 device="cuda"),
+               serve.make_server(params, port=0, model="band_noise", emit_audio=True,
+                                 device="cuda")]
+    threads = [threading.Thread(target=srv.serve_forever, daemon=True) for srv in servers]
+    for t in threads:
+        t.start()
+    clients = [(0, 0), (1, 0), (2, 0), (3, 1)]
+    go = threading.Barrier(len(clients))
+    results = [None] * len(clients)
+
+    def client(j, stream_i, srv_i):
+        audio = srv_i == 1
+        replies = []
+        with socket.create_connection(servers[srv_i].server_address, timeout=300) as sock:
+            f = sock.makefile("rb")
+            go.wait()
+            for q in range(n_packets):
+                payload = pcm[stream_i, q * packet : (q + 1) * packet].tobytes()
+                sock.sendall(serve._HDR.pack(serve.MAGIC_DATA, len(payload)) + payload)
+                r = json.loads(f.readline())
+                if audio:
+                    _, nb = serve._HDR.unpack(f.read(serve._HDR.size))
+                    r["audio"] = np.frombuffer(f.read(nb), "<i2")
+                replies.append(r)
+            sock.sendall(serve._HDR.pack(serve.MAGIC_EOS, 0))
+            summary = json.loads(f.readline())
+            if audio:
+                f.read(serve._HDR.size)
+        results[j] = (replies, summary)
+
+    workers = [threading.Thread(target=client, args=(j, *c)) for j, c in enumerate(clients)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    batched = servers[0].batcher.batched_calls
+    reruns = [srv.batcher.group_reruns if srv.batcher else 0 for srv in servers]
+    for srv in servers:
+        srv.shutdown()
+        srv.server_close()
+    for j, (stream_i, srv_i) in enumerate(clients):
+        replies, _ = results[j]
+        state = tbn.band_noise_init_state(cfg, 1, dev)
+        for q, r in enumerate(replies):
+            xq = pcm[stream_i, q * packet : (q + 1) * packet].astype(np.float32)
+            xq /= serve.INT16_SCALE
+            out, state = tbn.band_noise_process_chunk(torch.from_numpy(xq)[None].to(dev), cfg,
+                                                      state)
+            g = out["G_mag"][0].cpu().numpy()
+            rain = out["fft_rain_frame"][0].cpu().numpy()
+            direct = {"frames": int(rain.size), "rain_frames": int(rain.sum()),
+                      "N_E_last": float(out["N_E"][0, -1]), "G_mag_mean": float(np.mean(g))}
+            check(all(r[k] == v for k, v in direct.items()),
+                  f"band-noise server client {j} packet {q}: {r} against direct {direct}")
+            if srv_i == 1:
+                y = serve._to_pcm16((xq.reshape(g.size, -1) * g[:, None]).reshape(-1))
+                check(np.array_equal(r["audio"], y), f"band-noise server client {j}: audio")
+    check(batched > 0 and reruns == [0, 0],
+          f"band-noise server: batched calls {batched}, group re-runs {reruns}")
+    print(f"phase 20 band-noise server on the card: {len(clients)} clients x {n_packets} packets "
+          f"of {packet} samples (one with audio out), every reply equal to direct "
+          f"band_noise_process_chunk results; batched calls {batched}, group re-runs {reruns}")
+
+    # ---- timings of K4 and K6 at the batch's shapes --------------------------
+    k4 = {}
+    for label, sos, xs in (("high-pass", hpf, xT), ("band-pass", bpf, x_h)):
+        zi = tbn._seed(sos, xT[:, 0]).reshape(BATCH, -1).contiguous()
+        flat, tabs = k4_tables(sos, xs.shape[-1])
+        k_ms = graph_ms(lambda: tfl._cascade_sosfilt_cuda(flat, xs, zi, sos.shape[0]))
+        p_ms = float(np.median(cuda_times(lambda: tfl._cascade_sosfilt_plain(tabs, xs, zi), 2)))
+        S2 = 2 * sos.shape[0]
+        # bytes: x read and y written; operations per sample: the in-block
+        # sum (129 on average), the pickup and the drift (4 S each)
+        k4[label] = (k_ms, p_ms, (4 * 2 * xs.numel(), xs.numel() * (129 + 2 * S2 + 2 * S2)))
+    c6, carry6, inputs6 = k6_case
+    k6_ms = graph_ms(lambda: tbn._band_scan_cuda(c6, carry6, inputs6))
+    k6_plain = float(np.median(cuda_times(lambda: tbn._band_scan_plain(c6, carry6, inputs6), 1)))
+    print(f"  timings on {smi}: K4 " + ", ".join(
+        f"{label} {ms:.4f} ms per launch (plain {pm:.1f} ms, n=2)"
+        for label, (ms, pm, _) in k4.items())
+          + f" at {tuple(xT.shape)}; K6 {k6_ms:.4f} ms per launch at {BATCH} x {T} frames (plain "
+            f"loop {k6_plain:.1f} ms, n=1)")
+    # K4 and K7 compute the same filter with a carried state: each at the
+    # other's shape (K7's live prefilter at 64 x 2 s with its sections, K4's
+    # two filters at the batch's), K4 held to K7 within 1e-5 of max
+    det = tsm.StreamingRainDetector(device=dev)
+    det.setup(dict(STREAM_PARAMS))
+    td = det._static().td_sos
+    xl = xT[:STREAMS, :CHUNK].contiguous()
+    zl = tbn._seed(td, xl[:, 0]).reshape(STREAMS, -1).contiguous()
+    flat_l, _ = k4_tables(td, CHUNK)
+    coef_l = torch.from_numpy(tfl._sos_coefficients(td)).to(dev)
+    y4, _ = tfl._cascade_sosfilt_cuda(flat_l, xl, zl, td.shape[0])
+    y7, _ = tfl._sosfilt_zi_cuda(coef_l, xl, zl.reshape(STREAMS, -1, 2))
+    r47 = rel_err(y4.cpu().numpy(), y7.cpu().numpy())
+    check(r47 <= 1e-5, f"K4 against K7 at {tuple(xl.shape)}: max|d|/max {r47:.3e}")
+    k4_live = graph_ms(lambda: tfl._cascade_sosfilt_cuda(flat_l, xl, zl, td.shape[0]))
+    k7_live = graph_ms(lambda: tfl._sosfilt_zi_cuda(coef_l, xl, zl.reshape(STREAMS, -1, 2)))
+    k7_band = []
+    for label, sos, xs in (("high-pass", hpf, xT), ("band-pass", bpf, x_h)):
+        coef = torch.from_numpy(tfl._sos_coefficients(sos)).to(dev)
+        zi = tbn._seed(sos, xT[:, 0]).contiguous()
+        k7_band.append(f"{label} {graph_ms(lambda: tfl._sosfilt_zi_cuda(coef, xs, zi)):.4f} ms")
+    print(f"  K4 against K7 on {smi}: at the live shape {tuple(xl.shape)}, {td.shape[0]} sections, "
+          f"K4 {k4_live:.4f} ms, K7 {k7_live:.4f} ms per launch (K4 within {r47:.3e} of K7's max); "
+          f"at the band-noise shape {tuple(xT.shape)}, K7 " + ", ".join(k7_band) + " per launch")
+    S = tbn.n_subframes(cfg)
+    n_lf = BATCH * T
+    return {
+        "launches": launches,
+        "err": {"cascade_sosfilt": k4_abs, "band_noise_scan": k6_abs},
+        # K4: per launch, the mean of the batch's two launches
+        "ms": {"cascade_sosfilt": float(np.mean([v[0] for v in k4.values()])),
+               "band_noise_scan": k6_ms},
+        "plain_ms": {"cascade_sosfilt": float(np.mean([v[1] for v in k4.values()])),
+                     "band_noise_scan": k6_plain},
+        "work": {
+            "cascade_sosfilt": tuple(float(np.mean([v[2][i] for v in k4.values()]))
+                                     for i in range(2)),
+            # K6 reads 2 S + 4 values and writes 9 + 10 values and S flags a
+            # lane and frame; the rank count makes 2 W^2 comparisons and adds
+            "band_noise_scan": (n_lf * (4 * (2 * S + 4 + 19) + S), n_lf * 2 * cfg.W ** 2),
         },
     }
 

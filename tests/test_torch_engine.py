@@ -146,14 +146,22 @@ def test_configs_outside_the_slice_raise(corpus, case):
 
 
 def test_unported_paths_raise():
-    """The sequential block-boundary scan beyond one 128-sample block (K4,
-    ROADMAP P14) still raises; one block has no boundary step and runs."""
+    """The zero-state ``sosfilt`` beyond one 128-sample block, which raised
+    until the sequential block-boundary scan (kernel K4) was ported, equals
+    the JAX package's at 129 samples and at 10 s, within 1e-5 of its
+    maximum; one block still runs."""
+    from audio_processing_tools_tpu.ops.filters import sosfilt as jsosfilt
     from audio_processing_tools_tpu_torch.ops.filters import design_bandpass, sosfilt
 
     sos = design_bandpass(FS, 500.0, 3000.0, 4)
     assert sosfilt(sos, torch.ones(2, 128)).shape == (2, 128)
-    with pytest.raises(NotImplementedError, match="P14"):
-        sosfilt(sos, torch.ones(2, 129))
+    rng = np.random.default_rng(12)
+    for n in (129, 10 * FS):
+        x = (0.1 * rng.standard_normal((2, n))).astype(np.float32)
+        got = sosfilt(sos, torch.from_numpy(x))
+        ref = np.asarray(jsosfilt(sos, jnp.asarray(x)))
+        assert isinstance(got, torch.Tensor) and got.shape == ref.shape == (2, n)
+        assert np.abs(got.numpy() - ref).max() / np.abs(ref).max() <= 1e-5
 
 
 def test_alac_payload_raises_not_implemented():
@@ -171,7 +179,9 @@ def test_port_imports_no_jax():
         "import audio_processing_tools_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 17, names\n"
+        "new = {pkg.__name__ + '.models.' + m for m in ('band_noise', 'band_noise_streaming')}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'audio_processing_tools_tpu.')) or m == 'audio_processing_tools_tpu')\n"
         "assert not bad, bad\n"
         "print('NO_JAX', len(names))\n"

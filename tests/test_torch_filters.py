@@ -61,12 +61,22 @@ def test_cascade_matmul_logdepth_matches_jax(reverse):
 
 
 def test_sosfiltfilt_short_input_and_scan_boundary_raise():
+    """A too-short input to ``sosfiltfilt`` raises naming padlen.  The
+    sequential ``scan`` boundary over more than one block, which raised
+    until kernel K4 was ported, is :func:`cascade_sosfilt`: its output
+    equals the JAX package's ``boundary="scan"`` within 1e-5 of its
+    maximum."""
     sos = tf.design_highpass(FS, 350.0, 4)
     with pytest.raises(ValueError, match="padlen"):
         tf.sosfiltfilt(sos, torch.zeros(1, 15))
-    with pytest.raises(NotImplementedError, match="P14"):
-        tf._sosfilt_cascade_matmul(sos, torch.zeros(1, 300), torch.zeros(2, 2),
-                                   boundary="scan")
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 300)).astype(np.float32)
+    zi = (0.1 * rng.standard_normal((sos.shape[0], 2))).astype(np.float32)
+    got = tf.cascade_sosfilt(sos, torch.from_numpy(x), torch.from_numpy(zi))[0].numpy()
+    ref = np.asarray(jf._sosfilt_cascade_matmul(sos, jnp.asarray(x), jnp.asarray(zi),
+                                                boundary="scan"))
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-5
 
 
 @pytest.mark.parametrize("case", [0, 1, 2], ids=["highpass", "bandpass", "lowpass3"])

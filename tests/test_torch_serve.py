@@ -260,7 +260,92 @@ def test_batcher_reruns_a_failed_group_one_by_one():
     assert batcher.group_reruns == 1 and batcher.batched_calls == 0
 
 
+def _band_noise_direct(pcm_i16, packet, params, audio=False):
+    """The replies a band-noise server owes one stream sent in ``packet``
+    samples (a multiple of the frame): ``band_noise_process_chunk`` on each
+    packet, threading the state."""
+    from audio_processing_tools_tpu_torch.models.band_noise import (
+        band_noise_init_state,
+        band_noise_process_chunk,
+        build_band_noise_config,
+    )
+
+    cfg = build_band_noise_config(params)
+    state, want = band_noise_init_state(cfg, 1, "cpu"), []
+    for start in range(0, len(pcm_i16), packet):
+        x = pcm_i16[start : start + packet].astype(np.float32)
+        x /= serve.INT16_SCALE
+        out, state = band_noise_process_chunk(x[None], cfg, state)
+        g = out["G_mag"][0].numpy()
+        rain = out["fft_rain_frame"][0].numpy()
+        r = {"frames": int(rain.size), "rain_frames": int(rain.sum()),
+             "N_E_last": float(out["N_E"][0, -1]), "G_mag_mean": float(np.mean(g))}
+        if audio:
+            r["audio"] = serve._to_pcm16((x.reshape(g.size, -1) * g[:, None]).reshape(-1))
+        want.append(r)
+    return want
+
+
 def test_band_noise_model_waits_for_its_port():
-    with pytest.raises(NotImplementedError, match="P14"):
-        serve.make_server({"sample_rate": FS}, port=0, model="band_noise", device="cpu")
-    assert serve.main(["--model", "band_noise", "--port", "0", "--cpu"]) == 2
+    """``--model band_noise``, which raised until the estimator was ported,
+    serves it: three concurrent streams through a batching server get
+    replies equal to direct ``band_noise_process_chunk`` results, through
+    batched calls with no re-run; an emit-audio server returns each frame
+    scaled by its gain."""
+    params = {"sample_rate": FS}
+    packet = 4096  # 8 frames
+    srv = _start(serve.make_server(params, port=0, model="band_noise", batch_window_ms=150.0,
+                                   device="cpu"))
+    try:
+        clips = [_pcm(("noise", "rain_heavy" if i != 1 else "noise"), 400 + i, seconds=1.5)
+                 for i in range(3)]
+        clips = [c[: len(c) // packet * packet] for c in clips]
+        with cf.ThreadPoolExecutor(3) as pool:
+            results = [f.result() for f in [pool.submit(_stream, srv.server_address, c, packet)
+                                            for c in clips]]
+        for clip, (replies, summary, _) in zip(clips, results):
+            want = _band_noise_direct(clip, packet, params)
+            assert [{k: r[k] for k in w} for r, w in zip(replies, want)] == want
+            assert summary["frames"] == sum(w["frames"] for w in want)
+        assert results[0][1]["rain_frames"] > 0
+        assert srv.batcher.batched_calls > 0 and srv.batcher.group_reruns == 0
+    finally:
+        _stop(srv)
+    srv = _start(serve.make_server(params, port=0, model="band_noise", emit_audio=True,
+                                   device="cpu"))
+    try:
+        replies, summary, y = _stream(srv.server_address, clips[0], packet, audio=True)
+    finally:
+        _stop(srv)
+    want = _band_noise_direct(clips[0], packet, params, audio=True)
+    np.testing.assert_array_equal(y, np.concatenate([w["audio"] for w in want]))
+    assert summary["audio_samples"] == 0
+    with pytest.raises(ValueError, match="unknown model"):
+        serve.make_server(params, port=0, model="roe", device="cpu")
+
+
+def test_band_noise_replies_equal_the_jax_server():
+    """The same packets through the JAX package's band-noise server: frames
+    and rain frames exact, the noise estimate and the mean gain within 1e-4
+    (relative, and absolute for the gain; the port's filters and FFT sum in
+    their own order)."""
+    params = {"sample_rate": FS}
+    pcm = _pcm(("noise", "rain_heavy"), 9)
+    jsrv = _start(jserve.make_server(params, port=0, model="band_noise"))
+    try:
+        jr, js, _ = _stream(jsrv.server_address, pcm, 3000)
+    finally:
+        _stop(jsrv)
+    psrv = _start(serve.make_server(params, port=0, model="band_noise", device="cpu"))
+    try:
+        pr, ps, _ = _stream(psrv.server_address, pcm, 3000)
+    finally:
+        _stop(psrv)
+    assert len(pr) == len(jr) and ps["rain_frames"] > 0
+    for a, b in zip(pr, jr):
+        assert (a["frames"], a["rain_frames"]) == (b["frames"], b["rain_frames"])
+        if b["frames"]:
+            assert abs(a["N_E_last"] - b["N_E_last"]) <= 1e-4 * max(abs(b["N_E_last"]), 1e-9)
+            assert abs(a["G_mag_mean"] - b["G_mag_mean"]) <= 1e-4
+    for k in ("frames", "rain_frames", "stream_is_rain", "chunks", "dropped_tail_samples"):
+        assert ps[k] == js[k], k

@@ -61,6 +61,24 @@ def test_kernel_tables_are_float64_rounded_to_float32(n_fft):
     np.testing.assert_array_equal(twiddle, np.stack([e.real, e.imag], -1).astype(np.float32))
 
 
+def test_rectangular_window_is_the_band_noise_frame_power():
+    """``window="rect"`` is the unwindowed power of the band-noise estimator's
+    frames (``band_noise.py:226-228``: n = hop = frame_len, no centering),
+    within 1e-5 of the JAX rFFT's maximum; the kernel's window table is
+    ones, and an unknown window raises."""
+    x = _input((2, 512 * 9))
+    got = tspec.spectrogram_power(torch.from_numpy(x), n_fft=512, hop=512, center=False,
+                                  window="rect").numpy()
+    X = np.asarray(jnp.fft.rfft(jnp.asarray(x.reshape(2, 9, 512)), axis=-1))
+    ref = (X.real ** 2 + X.imag ** 2).transpose(0, 2, 1)
+    assert got.shape == ref.shape == (2, 257, 9)
+    assert np.abs(got - ref).max() / ref.max() < 1e-5
+    window, _ = tspec.kernel_tables(512, "rect")
+    np.testing.assert_array_equal(window, np.ones(512, np.float32))
+    with pytest.raises(ValueError, match="window"):
+        tspec.spectrogram_power(torch.from_numpy(x), window="kaiser")
+
+
 @pytest.mark.parametrize("n_fft", tspec.N_FFTS)
 def test_launch_plan_fits_shared_memory(n_fft):
     for hop in [*range(4, 4 * n_fft + 1, 4), 65536]:

@@ -10,7 +10,9 @@ already on the card, or one step of the live streaming path
 (``stream``: ``StreamingRainDetector.process_chunk_batch`` on 64 streams x
 2 s chunks, int16 on the card, the state carried from step to step;
 ``stream_audio``: the same with denoised audio out; a "batch" is then one
-chunk step): 25 warm batches, 25 timed on the host clock, 5 under the
+chunk step), or the band-noise estimator (``band_noise``:
+``band_noise_process`` on chip_smoke's 128 synthetic 10 s band-noise
+clips): 25 warm batches, 25 timed on the host clock, 5 under the
 profiler.  Prints one JSON line: device busy ms per batch (the sum of
 kernel and copy times on the card), host-clock ms per batch without and with
 the profiler, kernels per batch, the busy share (busy over the unprofiled
@@ -37,7 +39,7 @@ WARM = 25  # batches before timing, and batches timed on the host clock
 BATCHES = 5  # batches profiled
 TOP = 12  # kernel lines reported
 CONFIGS = {"classifier_only": "PARAMS", "default": "DEFAULT_PARAMS", "audio_out": "AUDIO_PARAMS",
-           "stream": "STREAM_PARAMS", "stream_audio": "STREAM_AUDIO"}
+           "stream": "STREAM_PARAMS", "stream_audio": "STREAM_AUDIO", "band_noise": None}
 #: K2's kernel, as the one-thread-per-lane source and the staged-tile source name it
 K2_KERNEL = re.compile(r"noise_psd_track_kernel|PsdTracker")
 
@@ -60,8 +62,16 @@ def main() -> int:
     from audio_processing_tools_tpu_torch.models.spectral_noise import SpectralNoiseEngine
 
     dev = torch.device("cuda", 0)
-    params = getattr(chip_smoke, CONFIGS[args.config])
-    if args.config.startswith("stream"):
+    params = getattr(chip_smoke, CONFIGS[args.config] or "PARAMS")
+    if args.config == "band_noise":
+        from audio_processing_tools_tpu_torch.models import band_noise as tbn
+
+        x = torch.from_numpy(chip_smoke.band_noise_clips(chip_smoke.BATCH)).to(dev)
+        cfg = tbn.build_band_noise_config({"sample_rate": chip_smoke.FS})
+
+        def step():
+            return tbn.band_noise_process(x, cfg)
+    elif args.config.startswith("stream"):
         from audio_processing_tools_tpu_torch.models.streaming import StreamingRainDetector
 
         n_chunks = 2 * WARM + BATCHES + 1
