@@ -16,8 +16,10 @@ the 40-byte little-endian header:
   38      2     skipped (firmware quirk)
   40      ...   payload (int16 PCM or BER-framed ALAC)
 
-Pure stdlib + NumPy.  ALAC payloads raise ``NotImplementedError``
-(ROADMAP P21).
+Pure stdlib + NumPy.  ALAC payloads decode and encode through
+``io/alac_native.py`` (the port's own fast decoder; the libavcodec shim,
+where libavcodec links, for encoding and for streams outside the
+firmware's mono 16-bit format).
 """
 
 from __future__ import annotations
@@ -30,9 +32,6 @@ import numpy as np
 MARK_MAGIC = b"\xAD\xFB\xCA\xDE"
 HEADER_SIZE = 40
 _HEADER_FMT = "<4sIIBBBBfff10s2s"
-
-_ALAC_TODO = "ALAC MARK payloads are not ported yet (ROADMAP P21)"
-
 
 class MarkHeaderError(ValueError):
     """Raised when the MARK magic does not match."""
@@ -77,8 +76,9 @@ def write_mark_audio_file(
 ) -> bytes:
     """Serialize int16 PCM (or a raw ``payload``) into a MARK container.
 
-    Float input is clipped to [-1, 1] and scaled by 32767.  Encoding PCM to
-    an ALAC payload (``file_version >= 1`` with no ``payload``) raises.
+    Float input is clipped to [-1, 1] and scaled by 32767.  ``file_version
+    >= 1`` with no ``payload`` encodes the PCM to a firmware-geometry ALAC
+    payload (``RuntimeError`` naming libavcodec where it does not link).
     """
     if payload is None:
         arr = np.asarray(pcm)
@@ -89,8 +89,11 @@ def write_mark_audio_file(
             else:
                 arr = arr.astype(np.int16)
         if file_version >= 1:
-            raise NotImplementedError(_ALAC_TODO)
-        payload = arr.astype("<i2" if endianness == 0 else ">i2").tobytes()
+            from audio_processing_tools_tpu_torch.io.alac_native import encode_alac_payload
+
+            payload = encode_alac_payload(arr, sample_rate)
+        else:
+            payload = arr.astype("<i2" if endianness == 0 else ">i2").tobytes()
     header = struct.pack(
         _HEADER_FMT,
         MARK_MAGIC,
@@ -125,8 +128,7 @@ def parse_mark_audio_file(
 
       * header-parse failure -> raw-PCM defaults (sr 11162, 16-bit mono LE),
       * payload length aligned down to whole samples before decoding,
-      * ``file_version >= 1`` (or ``force_file_type='alac'``) -> ALAC, which
-        raises ``NotImplementedError`` here.
+      * ``file_version >= 1`` (or ``force_file_type='alac'``) -> ALAC decode.
     """
     try:
         parsed = parse_mark_header(file_contents)
@@ -166,9 +168,12 @@ def parse_mark_audio_file(
     else:
         is_alac = file_version >= 1
     if is_alac:
-        raise NotImplementedError(_ALAC_TODO)
+        from audio_processing_tools_tpu_torch.io.alac_native import decode_alac_payload
 
-    sig = _decode_pcm_payload(audio_data, bit_depth, channels, endianness)
+        sig = decode_alac_payload(audio_data)
+    else:
+        sig = _decode_pcm_payload(audio_data, bit_depth, channels, endianness)
+
     n_per_ch = len(sig) / channels if channels > 0 else len(sig)
     duration = round(n_per_ch / sample_rate, 2)
 
@@ -183,6 +188,6 @@ def parse_mark_audio_file(
         "long": gps[1],
         "duration": duration,
         "audio_file_version": file_version,
-        "format": "pcm",
+        "format": "alac" if is_alac else "pcm",
     }
     return sig, metadata

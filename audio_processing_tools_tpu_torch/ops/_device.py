@@ -1,8 +1,10 @@
-"""Host constants kept resident on each device.
+"""Host constants kept resident on each device, and float32 scalars.
 
 Filter and DFT constants are designed in NumPy on the host.  Copying them
 to the card on every call would be a synchronous host-to-device copy each
-time, so each is copied once per device and kept.
+time, so each is copied once per device and kept.  :func:`f32` and
+:func:`f32_recip` make the 0-dim float32 constants that code matching the
+JAX package's bits operates with.
 """
 
 from __future__ import annotations
@@ -37,3 +39,17 @@ def device_constant(key: Hashable, device: torch.device, make: Callable,
     while len(_CACHE) > _CACHE_MAX:
         _CACHE.popitem(last=False)
     return out
+
+
+def f32(value, device) -> torch.Tensor:
+    """A Python constant rounded to float32, as a 0-dim tensor on ``device``
+    (what JAX does with a weakly typed Python float)."""
+    return torch.tensor(np.float32(value), device=device)
+
+
+def f32_recip(value, device, times=1.0) -> torch.Tensor:
+    """``times * (1 / value)`` in float32, as a 0-dim tensor on ``device``:
+    compiled, XLA multiplies by it where JAX computes ``x * times / value``
+    with constants ``times`` and ``value`` (``jnp.mean`` included), and a
+    product gives the same bits on the CPU and the card."""
+    return torch.tensor(np.float32(times) * (np.float32(1) / np.float32(value)), device=device)

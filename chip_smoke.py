@@ -78,11 +78,35 @@ Phases, one line each:
      other's shape, K4 within 1e-5 of K7 at the live one;
  20. the band-noise server on the card over loopback TCP with dynamic
      batching: every reply equal to direct ``band_noise_process_chunk``
-     results, batched calls made and no batch re-run.
+     results, batched calls made and no batch re-run;
+ 21. K4 at the legacy RoE classifier's shapes against its plain version bit
+     for bit: the order-8 operating band-pass (8 sections) over the 640
+     chunk rows of 128 x 10 s (640 x 22,324) and the order-4 pulse
+     band-pass over its padded output (640 x 22,580), both within 1e-5 of
+     scipy in float64; K1 at (640, 22,324) against ``stft_power``;
+ 22. the RoE classifier at full width: 128 synthetic 10 s clips through
+     ``roe_detect_batch(x, device="cuda")``, launches K1 1 and K4 2, 16
+     clips against the port's CPU path (counts and ``frain_mean``
+     identical, per-frame ``raining`` and ``rain_peaks`` agreement >=
+     0.999), and the batch's time;
+ 23. the mel classifier at full width: 128 x 10 s through
+     ``MelRainProcessor(device="cuda").run_batch``, launches K1 1, 16 clips
+     against the CPU path (``clip_is_rain`` identical, ``frame_is_rain``
+     agreement >= 0.999, mel power within 1e-5 of its maximum), and the
+     batch's time;
+ 24. ALAC ingest at full width: 128 ALAC MARK files of 10 s built from the
+     packets of ``tests/fixtures/alac_golden.bin`` (clip i rotates its full
+     packets by i), decoded on the host by the fast decoder bit for bit
+     against the same tiling of ``alac_golden_pcm.npy`` and timed, then the
+     classifier-only ``run_batch`` on the card, identical to the same PCM
+     read from version-0 MARK files;
+ 25. the wind and pitch tools once, card against CPU: the same energy-peak
+     pulse list and gust times, EAC and pitch within 1e-5.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
-whichever is larger), and last the device line
+whichever is larger, and for K1 the time of ``stft_power``, cuFFT and the
+square, as its library call), and last the device line
 ``{"ok": true, "device": {...}}``.  Any failed check, a missing card or a
 missing package exits non-zero before the device line.  The script imports
 nothing of JAX.
@@ -246,6 +270,48 @@ def in_turns(plain, kernel, iters_plain: int, iters_kernel: int):
     k = cuda_times(kernel, iters_kernel) + cuda_times(kernel, iters_kernel)
     p += cuda_times(plain, iters_plain)
     return float(np.median(k)), float(np.median(p))
+
+
+def bound_of(nbytes: float, ops: float):
+    """The least time of a kernel on the card, ``(ms, "bytes" or
+    "operations")``: its bytes over 3.35 TB/s or its float32 operations over
+    67 TFLOP/s, whichever is larger."""
+    by_bytes, by_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def k4_work(xs, n_sections: int):
+    """The work of the filter K4 computes over rows ``xs``, whatever its
+    algorithm: x read and y written once; per sample and section the
+    transposed direct form's 5 products and 4 sums."""
+    return 4 * 2 * xs.numel(), xs.numel() * 9 * n_sections
+
+
+def k4_tables(sos, n: int, dev):
+    """K4's flat table and its plain version's tables for rows of ``n``
+    samples, on ``dev``."""
+    import torch
+
+    from audio_processing_tools_tpu_torch.ops import filters as tfl
+
+    P = n - (-(-n // 128) - 1) * 128
+    flat = torch.as_tensor(tfl._k4_flat_tables(sos, P).astype(np.float32), device=dev)
+    tabs = tuple(torch.as_tensor(np.asarray(t, np.float32), device=dev)
+                 for t in tfl.cascade_scan_tables(sos, 128, P))
+    return flat, tabs
+
+
+def k4_pair(sos, xs, zi):
+    """K4 and its plain version on the same rows: ``((y, zf), (y, zf))``."""
+    import torch
+
+    from audio_processing_tools_tpu_torch.ops import filters as tfl
+
+    flat, tabs = k4_tables(sos, xs.shape[-1], xs.device)
+    k = tfl._cascade_sosfilt_cuda(flat, xs, zi, sos.shape[0])
+    p = tfl._cascade_sosfilt_plain(tabs, xs, zi)
+    torch.cuda.synchronize()
+    return k, p
 
 
 STREAMS = 64  # live streams of the serving profile (the JAX bench's)
@@ -531,6 +597,8 @@ def main() -> int:
     k3_call, k3_plain = in_turns(lambda: ttr._baseline_plain(stacked, bc),
                                  lambda: ttr._baseline_cuda(stacked, bc), 2, 20)
     k1_ms = graph_ms(lambda: spectrogram_power(x))
+    # K1's library call: cuFFT on the framed, windowed clips, then the square
+    k1_lib = graph_ms(lambda: stft_power(x))
     k2_ms = graph_ms(lambda: ttr._noise_psd_track_cuda(P_view, no_rain, psd))
     k3_ms = graph_ms(lambda: ttr._baseline_cuda(stacked, bc))
     def step():
@@ -550,6 +618,7 @@ def main() -> int:
     print(f"phase 6 timings on {smi}, medians, device ms per launch from a graph of 20 "
           f"(per host-launched call, n=40; plain per call): K1 {k1_ms:.4f} ms ({k1_call:.4f}; "
           f"plain {k1_plain:.4f}, n=40) = {k1_gbs:.0f} GB/s, {k1_gbs / 3350:.1%} of 3.35 TB/s; "
+          f"library stft_power {k1_lib:.4f} ms in a graph of 20; "
           f"K2 {k2_ms:.4f} ms ({k2_call:.4f}; plain {k2_plain:.3f}, n=4), K3 {k3_ms:.4f} ms "
           f"({k3_call:.4f}; plain {k3_plain:.3f}, n=4); main path {step_ms:.3f} ms per {BATCH} x "
           f"{CLIP_SEC:.0f} s batch (min {min(steps):.3f}, max {max(steps):.3f}, n=30) = "
@@ -760,12 +829,15 @@ def main() -> int:
 
     stream = streaming_phases(smi)
     band = band_noise_phases(smi)
+    more = roe_mel_alac_phases(smi)
 
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
-                    + band["launches"][k] for k in launches}
+                    + band["launches"][k] + sum(v[k] for v in more["launches"].values())
+                    for k in launches}
     print(f"launches per driven path: classifier-only {launches}, default {launches_def}, "
           f"audio out {launches_audio}, streaming (all chunks of phase 13) {stream['launches']}, "
-          f"band noise (phase 19) {band['launches']}")
+          f"band noise (phase 19) {band['launches']}, "
+          + ", ".join(f"{path} {v}" for path, v in more["launches"].items()))
     pkg = "audio_processing_tools_tpu_torch/csrc/"
     # bounds at this run's shapes: bytes read once and written once over
     # 3.35 TB/s, operations over the 67 TFLOP/s of float32 outside the
@@ -785,19 +857,17 @@ def main() -> int:
         "band_noise_scan": band["work"]["band_noise_scan"],
     }
 
-    def bound(kernel):
-        nbytes, ops = work[kernel]
-        by_bytes, by_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
-        return {"bound_ms": max(by_bytes, by_ops),
-                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                # no single PyTorch call computes any of these functions
-                "library_ms": None}
+    def bound(kernel, library_ms=None):
+        ms, by = bound_of(*work[kernel])
+        # one PyTorch call computes K1's function (stft_power); none computes
+        # any of the others
+        return {"bound_ms": ms, "bound_by": by, "library_ms": library_ms}
 
     kernels = [
         {"name": "spectrogram_power", "route": "cuda", "source": pkg + "spectrogram_power.cu",
          "replaces": "audio_processing_tools_tpu/ops/spectrogram.py:77",
          "launches": launches_all["spectrogram_power"], "max_abs_err": k1_abs,
-         "ms": k1_ms, "plain_ms": k1_plain, **bound("spectrogram_power")},
+         "ms": k1_ms, "plain_ms": k1_plain, **bound("spectrogram_power", k1_lib)},
         {"name": "noise_psd_track", "route": "cuda", "source": pkg + "trackers.cu",
          "replaces": "audio_processing_tools_tpu/ops/trackers.py:121",
          "launches": launches_all["noise_psd_track"], "max_abs_err": k2_abs,
@@ -823,9 +893,12 @@ def main() -> int:
          "plain_ms": stream["plain_ms"]["streaming_suppressor"], **bound("streaming_suppressor")},
         {"name": "cascade_sosfilt", "route": "cuda", "source": pkg + "cascade.cu",
          "replaces": "audio_processing_tools_tpu/ops/filters.py:518",
-         "launches": launches_all["cascade_sosfilt"], "max_abs_err": band["err"]["cascade_sosfilt"],
+         "launches": launches_all["cascade_sosfilt"],
+         "max_abs_err": max(band["err"]["cascade_sosfilt"], more["k4_err"]),
          "ms": band["ms"]["cascade_sosfilt"], "plain_ms": band["plain_ms"]["cascade_sosfilt"],
-         **bound("cascade_sosfilt")},
+         **bound("cascade_sosfilt"),
+         # K4's time at each path's shapes (the entry's own ms is band noise's)
+         "shapes": more["k4_shapes"]},
         {"name": "band_noise_scan", "route": "cuda", "source": pkg + "band_noise.cu",
          "replaces": "audio_processing_tools_tpu/models/band_noise.py:358",
          "launches": launches_all["band_noise_scan"], "max_abs_err": band["err"]["band_noise_scan"],
@@ -1236,21 +1309,6 @@ def band_noise_phases(smi: str) -> dict:
     hpf, bpf = tbn._design_filters(cfg)
 
     # ---- 17. K4 against its plain version --------------------------------------
-    def k4_tables(sos, n):
-        """K4's table and its plain version's for rows of ``n`` samples."""
-        P = n - (-(-n // 128) - 1) * 128
-        flat = torch.as_tensor(tfl._k4_flat_tables(sos, P).astype(np.float32), device=dev)
-        tabs = tuple(torch.as_tensor(np.asarray(t, np.float32), device=dev)
-                     for t in tfl.cascade_scan_tables(sos, 128, P))
-        return flat, tabs
-
-    def k4_pair(sos, xs, zi):
-        flat, tabs = k4_tables(sos, xs.shape[-1])
-        k = tfl._cascade_sosfilt_cuda(flat, xs, zi, sos.shape[0])
-        p = tfl._cascade_sosfilt_plain(tabs, xs, zi)
-        torch.cuda.synchronize()
-        return k, p
-
     # the path's shapes: the high-pass over the clips from their seed states,
     # then the band-pass over its output; the kernels line's error is these
     k4_abs = 0.0
@@ -1486,13 +1544,10 @@ def band_noise_phases(smi: str) -> dict:
     k4 = {}
     for label, sos, xs in (("high-pass", hpf, xT), ("band-pass", bpf, x_h)):
         zi = tbn._seed(sos, xT[:, 0]).reshape(BATCH, -1).contiguous()
-        flat, tabs = k4_tables(sos, xs.shape[-1])
+        flat, tabs = k4_tables(sos, xs.shape[-1], dev)
         k_ms = graph_ms(lambda: tfl._cascade_sosfilt_cuda(flat, xs, zi, sos.shape[0]))
         p_ms = float(np.median(cuda_times(lambda: tfl._cascade_sosfilt_plain(tabs, xs, zi), 2)))
-        S2 = 2 * sos.shape[0]
-        # bytes: x read and y written; operations per sample: the in-block
-        # sum (129 on average), the pickup and the drift (4 S each)
-        k4[label] = (k_ms, p_ms, (4 * 2 * xs.numel(), xs.numel() * (129 + 2 * S2 + 2 * S2)))
+        k4[label] = (k_ms, p_ms, k4_work(xs, sos.shape[0]))
     c6, carry6, inputs6 = k6_case
     k6_ms = graph_ms(lambda: tbn._band_scan_cuda(c6, carry6, inputs6))
     k6_plain = float(np.median(cuda_times(lambda: tbn._band_scan_plain(c6, carry6, inputs6), 1)))
@@ -1509,7 +1564,7 @@ def band_noise_phases(smi: str) -> dict:
     td = det._static().td_sos
     xl = xT[:STREAMS, :CHUNK].contiguous()
     zl = tbn._seed(td, xl[:, 0]).reshape(STREAMS, -1).contiguous()
-    flat_l, _ = k4_tables(td, CHUNK)
+    flat_l, _ = k4_tables(td, CHUNK, dev)
     coef_l = torch.from_numpy(tfl._sos_coefficients(td)).to(dev)
     y4, _ = tfl._cascade_sosfilt_cuda(flat_l, xl, zl, td.shape[0])
     y7, _ = tfl._sosfilt_zi_cuda(coef_l, xl, zl.reshape(STREAMS, -1, 2))
@@ -1543,6 +1598,240 @@ def band_noise_phases(smi: str) -> dict:
             "band_noise_scan": (n_lf * (4 * (2 * S + 4 + 19) + S), n_lf * 2 * cfg.W ** 2),
         },
     }
+
+
+ALAC_TILES = 20  # golden payloads per ALAC clip: 20 x 5,581 samples = 111,620 = 10 s
+
+
+def alac_clip_payloads(n_clips: int):
+    """ALAC payloads of ``n_clips`` 10 s clips made from the packets of
+    ``tests/fixtures/alac_golden.bin`` (43 full 128-sample packets and one of
+    77; ALAC packets decode independently): clip i is 20 tiles of the full
+    packets rotated by i, each tile closed by the short packet.  Returns the
+    payloads and the int16 PCM each must decode to, (n_clips, 111,620)."""
+    from audio_processing_tools_tpu_torch.io.alac_native import _ber_frame_header, split_ber_packets
+
+    fixtures = REPO / "tests" / "fixtures"
+    pcm = np.load(fixtures / "alac_golden_pcm.npy")
+    packets = split_ber_packets((fixtures / "alac_golden.bin").read_bytes()[40:])
+    n_full = len(packets) - 1
+    framed = [_ber_frame_header(len(p)) + p for p in packets]
+    blocks = pcm[: 128 * n_full].reshape(n_full, 128)
+    payloads = []
+    expected = np.empty((n_clips, ALAC_TILES * pcm.size), np.int16)
+    for i in range(n_clips):
+        order = np.roll(np.arange(n_full), -i)
+        payloads.append((b"".join(framed[j] for j in order) + framed[-1]) * ALAC_TILES)
+        expected[i] = np.tile(np.concatenate([blocks[order].ravel(), pcm[128 * n_full :]]),
+                              ALAC_TILES)
+    return payloads, expected
+
+
+def roe_mel_alac_phases(smi: str) -> dict:
+    """Phases 21-25: the legacy RoE classifier (K4 at 8 and 4 sections, K1),
+    the mel classifier (K1), ALAC ingest into the classifier-only path, and
+    the wind and pitch tools.  Returns each path's launches, K4's error and
+    its times at the RoE shapes for the kernels line."""
+    import scipy.signal as ss
+    import torch
+    import torch.nn.functional as tnf
+
+    from audio_processing_tools_tpu_torch import _kernels
+    from audio_processing_tools_tpu_torch.io.mark import parse_mark_audio_file, write_mark_audio_file
+    from audio_processing_tools_tpu_torch.models import mel_classifier, pitch, roe, wind
+    from audio_processing_tools_tpu_torch.models.spectral_noise import RainDetectorProcessor
+    from audio_processing_tools_tpu_torch.ops import filters as tfl
+    from audio_processing_tools_tpu_torch.ops.mel import mel_spectrogram
+    from audio_processing_tools_tpu_torch.ops.spectrogram import spectrogram_power
+    from audio_processing_tools_tpu_torch.ops.stft import stft, stft_power
+
+    dev = torch.device("cuda", 0)
+    clips, labels = synth_clips()
+    x = torch.from_numpy(clips).to(dev)
+    cfg = roe.build_roe_config(return_spectra=False)
+    pick = np.r_[np.arange(0, BATCH, 2)[: N_AGREE // 2], np.arange(1, BATCH, 2)[: N_AGREE // 2]]
+    audio_s = BATCH * CLIP_SEC
+    zeros = {k: 0 for k in _kernels.LAUNCHES}
+
+    def launches_of(fn):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(_kernels.LAUNCHES), time.perf_counter() - t0
+
+    # ---- 21. K4 and K1 at the RoE shapes ----------------------------------------
+    plan = roe._chunk_plan(cfg, x.shape[-1])
+    rows = torch.cat([x[:, o : o + t] for o, t in plan], dim=0).contiguous()
+    nyq = 0.5 * FS
+    sos8 = tfl.butter_sos(8, [cfg.op_freq_range[0] / nyq, cfg.op_freq_range[1] / nyq], "bandpass")
+    sos4 = tfl.butter_sos(4, [400.0 / nyq, 900.0 / nyq], "bandpass")
+    k4_err, k4_shapes, y8 = 0.0, [], None
+    for label, sos in (("RoE operating band-pass", sos8), ("RoE pulse band-pass", sos4)):
+        xs = rows if y8 is None else tnf.pad(y8, (cfg.hop_length, cfg.hop_length)).contiguous()
+        zi = torch.zeros((xs.shape[0], 2 * sos.shape[0]), device=dev)
+        (y_k, z_k), (y_p, z_p) = k4_pair(sos, xs, zi)
+        (same_y, d), (same_z, dz) = same_bits(y_k, y_p), same_bits(z_k, z_p)
+        check(same_y and same_z, f"K4 {label} at {tuple(xs.shape)}: not the plain version's "
+                                 f"bits (y {d:.3e}, zf {dz:.3e})")
+        r_sp = rel_err(y_k.cpu().numpy(), ss.sosfilt(sos, xs.double().cpu().numpy(), axis=-1))
+        check(r_sp <= 1e-5, f"K4 {label} against scipy float64: {r_sp:.3e}")
+        k4_err = max(k4_err, d, dz)
+        flat, tabs = k4_tables(sos, xs.shape[-1], dev)
+        ms = graph_ms(lambda: tfl._cascade_sosfilt_cuda(flat, xs, zi, sos.shape[0]))
+        plain = float(np.median(cuda_times(lambda: tfl._cascade_sosfilt_plain(tabs, xs, zi), 2)))
+        b_ms, b_by = bound_of(*k4_work(xs, sos.shape[0]))
+        k4_shapes.append({"path": label, "rows": xs.shape[0], "samples": xs.shape[1],
+                          "sections": sos.shape[0], "ms": ms, "plain_ms": plain,
+                          "bound_ms": b_ms, "bound_by": b_by})
+        print(f"  K4 {label}, {sos.shape[0]} sections, {tuple(xs.shape)}: the plain version's "
+              f"bits (y and zf), within {r_sp:.3e} of scipy float64 (bound 1e-5); {ms:.4f} ms "
+              f"per launch in a graph of 20 (bound {b_ms:.4f} by {b_by}; plain {plain:.1f} ms, n=2)")
+        if y8 is None:
+            y8 = y_k
+    P_k = spectrogram_power(y8, n_fft=cfg.frame_length, hop=cfg.hop_length)
+    P_p = stft_power(y8, n_fft=cfg.frame_length, hop=cfg.hop_length)
+    k1_rel = rel_err(P_k.cpu().numpy(), P_p.cpu().numpy())
+    check(k1_rel < 1e-5, f"K1 at {tuple(y8.shape)}: max|d|/max {k1_rel:.3e}")
+    print(f"phase 21 K4 at the RoE shapes on {smi}: 8 and 4 sections, the plain version's bits, "
+          f"within 1e-5 of scipy; K1 {tuple(y8.shape)} -> {tuple(P_k.shape)} within {k1_rel:.3e} "
+          f"of stft_power's max (bound 1e-5)")
+    del P_k, P_p
+    del rows, y8
+
+    # ---- 22. RoE at full width -----------------------------------------------------
+    roe.roe_detect_batch(x[:2], device=dev)  # warm the allocator and the constants
+    out, l_roe, wall = launches_of(lambda: roe.roe_detect_batch(x, device=dev))
+    check(l_roe == {**zeros, "spectrogram_power": 1, "cascade_sosfilt": 2},
+          f"RoE launches {l_roe}, expected K1 1, K4 2")
+    T_all = sum(2 + t // cfg.hop_length for _, t in plan)  # T + 1 frames a chunk
+    check(out["raining"].shape == (BATCH, T_all) and out["nov"].shape == (BATCH, 6, T_all),
+          f"RoE outputs {out['raining'].shape}")
+    check(all(np.isfinite(out[k]).all() for k in ("nov", "kurtosis", "crest_factor",
+                                                 "diff_energy", "frain_mean")), "RoE not finite")
+    cpu = roe.roe_detect_batch(clips[pick], device="cpu")
+    for key in ("rain_drop_count", "rain_drop_count_mod", "rain_peaks_count", "frain_mean"):
+        check(np.array_equal(out[key][pick], cpu[key]),
+              f"RoE {key}: card {out[key][pick]} against CPU {cpu[key]}")
+    agree = {k: float((out[k][pick] == cpu[k]).mean()) for k in ("raining", "rain_peaks")}
+    check(min(agree.values()) >= 0.999, f"RoE per-frame agreement {agree}")
+    times = cuda_times(lambda: roe._roe_batch(x, cfg), 20)
+    med = float(np.median(times))
+    rainy = out["rain_drop_count_mod"] > 0
+    print(f"phase 22 RoE {BATCH} x {CLIP_SEC:.0f} s via roe_detect_batch on the card: launches "
+          f"{ {k: v for k, v in l_roe.items() if v} }; raining clips {int(rainy.sum())} (of them "
+          f"ping clips {int((rainy & labels).sum())}), mean rain_drop_count_mod "
+          f"{out['rain_drop_count_mod'].mean():.2f}, mean rain_peaks_count "
+          f"{out['rain_peaks_count'].mean():.2f}; wall {wall * 1e3:.1f} ms incl. the host copy; "
+          f"against the CPU path on {N_AGREE} clips: counts and frain_mean identical, raining "
+          f"{agree['raining']:.6f}, rain_peaks {agree['rain_peaks']:.6f} (bound 0.999); on {smi}: "
+          f"{med:.3f} ms per batch (min {min(times):.3f}, max {max(times):.3f}, n=20) = "
+          f"{audio_s / (med / 1e3):.1f} audio-s/s")
+    del out, cpu
+
+    # ---- 23. mel at full width -------------------------------------------------------
+    params = {"sample_rate": FS}
+    mproc = mel_classifier.MelRainProcessor(device=dev)
+    mproc.run_batch(x[:2], params)
+    pairs, l_mel, wall = launches_of(lambda: mproc.run_batch(x, params))
+    check(l_mel == {**zeros, "spectrogram_power": 1}, f"mel launches {l_mel}, expected K1 1")
+    cpu_pairs = mel_classifier.MelRainProcessor(device="cpu").run_batch(clips[pick], params)
+    same_dec = all(pairs[i][0]["clip_is_rain"] == cpu_pairs[j][0]["clip_is_rain"]
+                   for j, i in enumerate(pick))
+    frames_agree = float(np.mean([(pairs[i][1]["frame_is_rain"] == cpu_pairs[j][1]["frame_is_rain"])
+                                  .mean() for j, i in enumerate(pick)]))
+    M_rel = rel_err(mel_spectrogram(x[torch.as_tensor(pick, device=dev)]).cpu().numpy(),
+                    mel_spectrogram(torch.from_numpy(clips[pick])).numpy())
+    check(same_dec and frames_agree >= 0.999 and M_rel <= 1e-5,
+          f"mel, card against CPU: decisions {same_dec}, frames {frames_agree:.6f}, "
+          f"mel power {M_rel:.3e}")
+    clf = mproc._engine(params)
+    times = cuda_times(lambda: clf.process_batch(x), 20)
+    med = float(np.median(times))
+    dec = np.array([m["clip_is_rain"] for m, _ in pairs])
+    print(f"phase 23 mel {BATCH} x {CLIP_SEC:.0f} s via MelRainProcessor.run_batch on the card: "
+          f"launches { {k: v for k, v in l_mel.items() if v} }; rain clips {int(dec.sum())}, "
+          f"agreement with the labels {float((dec == labels).mean()):.4f}; wall {wall * 1e3:.1f} "
+          f"ms incl. the host copy; against the CPU path on {N_AGREE} clips: clip_is_rain "
+          f"identical, frame_is_rain {frames_agree:.6f} (bound 0.999), mel power max|d|/max "
+          f"{M_rel:.3e} (bound 1e-5); on {smi}: process_batch {med:.3f} ms per batch (min "
+          f"{min(times):.3f}, max {max(times):.3f}, n=20) = {audio_s / (med / 1e3):.1f} audio-s/s")
+    del pairs, cpu_pairs
+
+    # ---- 24. ALAC ingest at full width -----------------------------------------------
+    payloads, expected = alac_clip_payloads(BATCH)
+    files = [write_mark_audio_file(None, sample_rate=FS, timestamp=1700000000 + i,
+                                   device_id=f"ALAC{i:05d}", file_version=1, payload=p)
+             for i, p in enumerate(payloads)]
+    decode_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        decoded = [parse_mark_audio_file(f) for f in files]
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(m["format"] == "alac" for _, m in decoded), "ALAC files not read as ALAC")
+    pcm = np.stack([s for s, _ in decoded])
+    check(np.array_equal(pcm, expected), "ALAC decode is not the golden PCM's tiling")
+    # the same PCM as version-0 files reads back to the same samples, so the
+    # main path gets the same input either way
+    pcm0 = np.stack([parse_mark_audio_file(write_mark_audio_file(e, sample_rate=FS))[0]
+                     for e in expected])
+    check(np.array_equal(pcm0, pcm), "version-0 files of the ALAC clips' PCM read back differently")
+    proc = RainDetectorProcessor(device=dev)
+    proc.run_batch(torch.from_numpy(pcm[:2]).to(dev).to(torch.float32) / 32767.0, PARAMS)
+    got, l_alac, wall = launches_of(lambda: proc.run_batch(
+        torch.from_numpy(pcm).to(dev).to(torch.float32) / 32767.0, PARAMS))
+    check(l_alac == {**zeros, "spectrogram_power": 1, "noise_psd_track": 1,
+                     "causal_low_quantile_baseline": 1}, f"ALAC clips' launches {l_alac}")
+    check(len(got) == BATCH and len({g[1]["frame_class"].shape for g in got}) == 1,
+          "ALAC clips through the main path: results of the wrong shape")
+    med_dec = float(np.median(decode_ms))
+    print(f"phase 24 ALAC ingest: {BATCH} ALAC MARK files of {CLIP_SEC:.0f} s ("
+          f"{sum(map(len, payloads)) / BATCH / 1e3:.1f} kB each against {2 * expected.shape[1] / 1e3:.1f}"
+          f" kB of PCM) decoded by the fast decoder bit for bit, host {med_dec:.1f} ms per "
+          f"{BATCH}-file batch (min {min(decode_ms):.1f}, n=3) = {BATCH / (med_dec / 1e3):.0f} "
+          f"files/s; classifier-only run_batch on the card, launches "
+          f"{ {k: v for k, v in l_alac.items() if v} } (input identical to the same PCM read "
+          f"from version-0 files); rain clips "
+          f"{sum(m['clip_is_rain'] for m, _ in got)}")
+
+    # ---- 25. wind and pitch, card against CPU ------------------------------------------
+    # noise and three sharp 500 Hz pulses, as tests/test_wind_chain.py:50-59
+    # (this seed's noise lets the pulse walk keep one)
+    xw = 0.02 * np.random.default_rng(21).uniform(-1.0, 1.0, 2 * FS)
+    k = np.arange(150)
+    for t0 in (5000, 12000, 17000):
+        xw[t0 : t0 + 150] += 1.5 * np.exp(-k / 12.0) * np.sin(2 * np.pi * 500 * k / FS)
+    (pulses, energy, _), l_wind, _ = launches_of(lambda: wind.analyze_energy_peaks(xw, FS, device=dev))
+    pulses_cpu, energy_cpu, _ = wind.analyze_energy_peaks(xw, FS, device="cpu")
+    check(l_wind == {**zeros, "cascade_sosfilt": 1}, f"wind launches {l_wind}")
+    check(pulses == pulses_cpu and np.array_equal(energy, energy_cpu) and len(pulses) > 0,
+          f"energy-peak pulses: card {len(pulses)}, CPU {len(pulses_cpu)}")
+    t = np.arange(4 * FS) / FS
+    gusty = (0.02 * np.random.default_rng(25).standard_normal(t.size)
+             + 0.3 * (1 + np.sin(2 * np.pi * 0.4 * t)) ** 2 * np.sin(2 * np.pi * 250 * t))
+    mag = torch.abs(stft(torch.from_numpy(gusty.astype(np.float32)))).numpy()
+    g_card, g_cpu = (wind.detect_gusts(mag, FS, device=d) for d in (dev, "cpu"))
+    check(np.array_equal(g_card[0], g_cpu[0]) and g_card[0].size > 0,
+          f"gust times: card {g_card[0].size}, CPU {g_cpu[0].size}")
+    nov_rel = max(rel_err(a, b) for a, b in zip(g_card[1:], g_cpu[1:]))
+    kf = np.arange(1024)
+    frames = np.stack([sum((1.0 / h) * np.sin(2 * np.pi * 220 * h * (kf + 17 * i) / FS)
+                           for h in range(1, 5)) for i in range(6)]).astype(np.float32)
+    e_card = pitch.compute_eac_for_frames(frames, device=dev)
+    e_cpu = pitch.compute_eac_for_frames(frames, device="cpu")
+    eac_rel = rel_err(e_card.cpu().numpy(), e_cpu.numpy())
+    f_card = pitch.estimate_pitch_from_eac(e_card, FS, device=dev).cpu().numpy()
+    f_cpu = pitch.estimate_pitch_from_eac(e_cpu, FS, device="cpu").numpy()
+    f_rel = rel_err(f_card, f_cpu)
+    check(eac_rel <= 1e-5 and f_rel <= 1e-5, f"EAC {eac_rel:.3e}, pitch {f_rel:.3e}")
+    print(f"phase 25 wind and pitch, card against CPU: {len(pulses)} energy-peak pulses identical "
+          f"(K4 launches {l_wind['cascade_sosfilt']}), {g_card[0].size} gust times identical, "
+          f"novelties max|d|/max {nov_rel:.3e}; EAC {tuple(frames.shape)} max|d|/max "
+          f"{eac_rel:.3e}, pitch {f_rel:.3e} (bound 1e-5), {float(np.median(f_card)):.1f} Hz")
+    return {"launches": {"roe (phase 22)": l_roe, "mel (phase 23)": l_mel,
+                         "ALAC classifier-only (phase 24)": l_alac, "wind (phase 25)": l_wind},
+            "k4_err": k4_err, "k4_shapes": k4_shapes}
 
 
 if __name__ == "__main__":

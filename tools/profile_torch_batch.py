@@ -12,8 +12,11 @@ already on the card, or one step of the live streaming path
 ``stream_audio``: the same with denoised audio out; a "batch" is then one
 chunk step), or the band-noise estimator (``band_noise``:
 ``band_noise_process`` on chip_smoke's 128 synthetic 10 s band-noise
-clips): 25 warm batches, 25 timed on the host clock, 5 under the
-profiler.  Prints one JSON line: device busy ms per batch (the sum of
+clips), the legacy RoE classifier (``roe``: ``models/roe.py::_roe_batch``
+with the default ``RoeConfig`` but no spectra, on chip_smoke's 128
+synthetic 10 s clips) or the mel classifier (``mel``:
+``MelRainClassifier.process_batch`` on the same clips): 25 warm batches,
+25 timed on the host clock, 5 under the profiler.  Prints one JSON line: device busy ms per batch (the sum of
 kernel and copy times on the card), host-clock ms per batch without and with
 the profiler, kernels per batch, the busy share (busy over the unprofiled
 host clock), the device ms and launches per batch of the costliest kernels,
@@ -39,7 +42,8 @@ WARM = 25  # batches before timing, and batches timed on the host clock
 BATCHES = 5  # batches profiled
 TOP = 12  # kernel lines reported
 CONFIGS = {"classifier_only": "PARAMS", "default": "DEFAULT_PARAMS", "audio_out": "AUDIO_PARAMS",
-           "stream": "STREAM_PARAMS", "stream_audio": "STREAM_AUDIO", "band_noise": None}
+           "stream": "STREAM_PARAMS", "stream_audio": "STREAM_AUDIO", "band_noise": None,
+           "roe": None, "mel": None}
 #: K2's kernel, as the one-thread-per-lane source and the staged-tile source name it
 K2_KERNEL = re.compile(r"noise_psd_track_kernel|PsdTracker")
 
@@ -71,6 +75,21 @@ def main() -> int:
 
         def step():
             return tbn.band_noise_process(x, cfg)
+    elif args.config in ("roe", "mel"):
+        from audio_processing_tools_tpu_torch.models import mel_classifier, roe
+
+        x = torch.from_numpy(chip_smoke.synth_clips()[0]).to(dev)
+        if args.config == "roe":
+            cfg = roe.build_roe_config(return_spectra=False)
+
+            def step():
+                return roe._roe_batch(x, cfg)
+        else:
+            clf = mel_classifier.MelRainClassifier(device=dev)
+            clf.setup({"sample_rate": chip_smoke.FS})
+
+            def step():
+                return clf.process_batch(x)
     elif args.config.startswith("stream"):
         from audio_processing_tools_tpu_torch.models.streaming import StreamingRainDetector
 
