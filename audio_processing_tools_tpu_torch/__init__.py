@@ -13,5 +13,7 @@ run in full float32 on the card.
 
 import torch
 
+__version__ = "0.1.0"  # pyproject.toml; the ETLs stamp their rows with it
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

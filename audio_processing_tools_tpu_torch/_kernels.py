@@ -48,6 +48,7 @@ LAUNCHES: Dict[str, int] = {
     "streaming_suppressor": 0,
     "cascade_sosfilt": 0,
     "band_noise_scan": 0,
+    "select_peaks_by_distance": 0,
 }
 
 _P = ctypes.c_void_p
@@ -66,6 +67,7 @@ _SIGNATURES = {
     "apt_streaming_suppressor": (_P, _P, _I, _P),
     "apt_cascade_sosfilt": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
     "apt_band_noise_scan": (_P, _P, _P),
+    "apt_select_peaks_by_distance": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,6 +1,6 @@
 """MARK binary audio container (Mark-3 sensor format), PCM payloads.
 
-Counterpart of ``audio_processing_tools_tpu/io/mark.py:42-228``.  Layout of
+Counterpart of ``audio_processing_tools_tpu/io/mark.py:42-252``.  Layout of
 the 40-byte little-endian header:
 
   offset  size  field
@@ -24,6 +24,7 @@ firmware's mono 16-bit format).
 
 from __future__ import annotations
 
+import datetime as dt
 import struct
 from typing import Any, Dict, Optional, Tuple
 
@@ -191,3 +192,29 @@ def parse_mark_audio_file(
         "format": "alac" if is_alac else "pcm",
     }
     return sig, metadata
+
+
+def parse_s3_audio_key(key: str) -> Dict[str, Any]:
+    """Device and time of an S3 key (``io/mark.py:229-252``).
+
+    Two layouts: ``audio/<device>/<location>/<unix_ts>`` (old) and
+    ``raw_audio/<device>/.../<YYYYMMDD_HH_MM_SS_000000>_rain_xxx`` (new).
+    """
+    components = key.split("/")
+    parent = components[0]
+    if parent == "audio":
+        return dict(
+            device_id=components[1],
+            location=components[2],
+            time=dt.datetime.fromtimestamp(int(components[3])),
+        )
+    if parent == "raw_audio":
+        date_format = "%Y%m%d_%H_%M_%S_000000"
+        return dict(
+            device_id=components[1],
+            time=dt.datetime.strptime(components[5].split("_rain_")[0], date_format),
+        )
+    raise ValueError(
+        "Expected parent folder 'audio' or 'raw_audio' to determine file type "
+        f"for parsing but found: '{parent}'"
+    )

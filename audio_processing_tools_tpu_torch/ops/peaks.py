@@ -3,14 +3,18 @@
 Counterpart of ``audio_processing_tools_tpu/ops/peaks.py``:
 :func:`local_maxima` (``:27-71``), :func:`peak_prominences` (``:74-105``)
 and :func:`peak_widths_rel` (``:108-163``), in the JAX package's masked
-O(N^2) forms.  ``torch.cummax`` takes the place of ``lax.cummax``, its
-``reverse=True`` form through ``flip``.  ``find_peaks`` and
-``select_peaks_by_distance`` belong to the RoE path (ROADMAP P16).
+O(N^2) forms, and :func:`select_peaks_by_distance` (``:185-208``), the
+stage-2 confirmer's distance filter (``models/time_domain.py``), whose
+``fori_loop`` is kernel K9 on the card (``csrc/peaks.cu``).
+``torch.cummax`` takes the place of ``lax.cummax``, its ``reverse=True``
+form through ``flip``.  ``find_peaks`` has no caller in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
+
+from audio_processing_tools_tpu_torch import _kernels
 
 
 def local_maxima(x: torch.Tensor) -> torch.Tensor:
@@ -56,7 +60,8 @@ def peak_prominences(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
     its base is the side's minimum, the prominence is the peak less the
     higher base)."""
     n = x.shape[-1]
-    i = torch.arange(n, device=x.device)
+    # int32 positions: the (..., n, n) index planes are half the bytes of int64
+    i = torch.arange(n, dtype=torch.int32, device=x.device)
     xi = x[..., :, None]  # peak position p -> row
     xj = x[..., None, :]  # scan position j -> col
     jj = i[None, :]
@@ -124,3 +129,73 @@ def peak_widths_rel(x: torch.Tensor, is_peak: torch.Tensor,
     right_ip = torch.where(has_r, i_r_c.to(x.dtype) - interp_r, float(n - 1))
 
     return torch.where(is_peak, right_ip - left_ip, 0.0)
+
+
+K9_MAX_LENGTH = 1024  # csrc/peaks.cu: 128 threads a row, at most 8 positions each
+
+
+def _select_peaks_by_distance_plain(x: torch.Tensor, is_peak: torch.Tensor, distance: int,
+                                    max_peaks: int) -> torch.Tensor:
+    """The JAX loop on rows ``x`` (R, n), batched over rows: the
+    ``min(max_peaks, n)`` first positions in the order tallest first, ties
+    to the larger index (non-peaks count as -inf), each clearing ``keep``
+    within ``(p - distance, p + distance)`` but at ``p`` while it is itself
+    kept.  Peaks past the cap never clear others."""
+    n = x.shape[-1]
+    vals = torch.where(is_peak, x, float("-inf"))
+    # lexsort((-arange(n), -vals)): a stable ascending sort of -vals over the
+    # positions in reversed order, so ties keep the larger index first; torch
+    # sorts NaN last and holds -0 equal to +0, as JAX's sort key does
+    order = n - 1 - torch.sort(-vals.flip(-1), dim=-1, stable=True).indices
+    idx = torch.arange(n, device=x.device)
+    keep = is_peak.clone()
+    for k in range(min(max_peaks, n)):
+        p = order[:, k : k + 1]
+        valid = is_peak.gather(1, p) & keep.gather(1, p)
+        kill = (idx > p - distance) & (idx < p + distance) & (idx != p)
+        keep &= ~(kill & valid)
+    return keep & is_peak
+
+
+def _select_peaks_by_distance_cuda(x: torch.Tensor, is_peak: torch.Tensor, distance: int,
+                                   max_peaks: int) -> torch.Tensor:
+    """K9 (``csrc/peaks.cu``): one 128-thread block a row."""
+    R, n = x.shape
+    _kernels.require_cuda("select_peaks_by_distance", x, torch.float32, 2)
+    _kernels.require_cuda("select_peaks_by_distance(is_peak)", is_peak, torch.bool, 2)
+    if is_peak.shape != x.shape or is_peak.device != x.device:
+        raise ValueError(f"select_peaks_by_distance: is_peak {tuple(is_peak.shape)} on "
+                         f"{is_peak.device} does not match x {tuple(x.shape)} on {x.device}")
+    if n > K9_MAX_LENGTH:
+        raise ValueError(f"select_peaks_by_distance: the CUDA kernel takes rows of at most "
+                         f"{K9_MAX_LENGTH} positions; got {n}")
+    out = torch.empty_like(is_peak)
+    if R == 0 or n == 0:
+        return out
+    lib = _kernels.build()
+    with torch.cuda.device(x.device):
+        err = lib.lib.apt_select_peaks_by_distance(
+            x.data_ptr(), is_peak.data_ptr(), out.data_ptr(), R, n, int(distance),
+            min(int(max_peaks), n), _kernels.stream_of(x))
+    lib.check(err, "select_peaks_by_distance")
+    _kernels.count("select_peaks_by_distance")
+    return out
+
+
+def select_peaks_by_distance(x: torch.Tensor, is_peak: torch.Tensor, distance: int,
+                             max_peaks: int = 64) -> torch.Tensor:
+    """scipy's distance filter as the JAX package bounds it
+    (``ops/peaks.py:185-208``) on every row of ``x`` (..., n): the tallest
+    remaining peak keeps its place and clears the others strictly closer
+    than ``distance``, for the ``max_peaks`` first positions in order only
+    (the cap is part of the function).  Returns ``keep & is_peak``.  Kernel
+    K9 on a CUDA tensor, the plain loop on a CPU tensor; both give the JAX
+    loop's bits."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    xr = x.to(torch.float32).reshape(-1, n).contiguous()
+    pr = is_peak.to(torch.bool).reshape(-1, n).contiguous()
+    if x.device.type == "cpu":
+        out = _select_peaks_by_distance_plain(xr, pr, int(distance), int(max_peaks))
+    else:
+        out = _select_peaks_by_distance_cuda(xr, pr, int(distance), int(max_peaks))
+    return out.reshape(lead + (n,))

@@ -101,7 +101,28 @@ Phases, one line each:
      classifier-only ``run_batch`` on the card, identical to the same PCM
      read from version-0 MARK files;
  25. the wind and pitch tools once, card against CPU: the same energy-peak
-     pulse list and gust times, EAC and pitch within 1e-5.
+     pulse list and gust times, EAC and pitch within 1e-5;
+ 26. K9 (the stage-2 confirmer's distance filter over peaks) against its
+     plain loop bit for bit: on the confirmer's own rows of one phase-4
+     clip (871 windows x 384, d = 45) and on rows of 3 to 1,024 positions
+     with more than 64 maxima, equal heights, plateaus and no peak, at d
+     1, 7, 45 and caps 3, 64, 5,000; its time from a graph of 20;
+ 27. the time-domain confirmer (five mode bands, stage 1 from phase 4's
+     rain frames) on 16 clips, card against CPU (masks, counts and peak
+     indices identical, crest and kurtosis within 1e-5), then the 128
+     clips one by one through ``TimeDomainRainDetector.process`` on the
+     card: ms per clip, launches (K9 one a clip), CUDA kernels and peak
+     memory;
+ 28. ``dsd_minutes_device`` on 128 x 60 s on the card, 8 clips against the
+     port's CPU path and the firmware emulator (bins 0-61 identical, fft
+     bins within one and >= 95% equal), and the duty-cycled minutes of four
+     200 s recordings bit-equal to the emulator;
+ 29. the transform ETL's per-minute RoE batch (16 recordings x 2 minutes;
+     RoE's default 10 s check duration makes 5 chunk rows a minute, 160 in
+     all) on the card, launches K1 1 and K4 2, counts identical to the CPU
+     path and ``frain_mean`` within one ulp;
+ 30. ``NoiseProcessor`` and ``RainProcessor`` (over ``rain_detection_algo``)
+     on 4 clips, card against CPU.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -830,14 +851,16 @@ def main() -> int:
     stream = streaming_phases(smi)
     band = band_noise_phases(smi)
     more = roe_mel_alac_phases(smi)
+    td = confirmer_dsd_etl_phases(smi, pcm, fc == int(FrameClass.RAIN))
 
+    paths = {**more["launches"], **td["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
-                    + band["launches"][k] + sum(v[k] for v in more["launches"].values())
+                    + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
     print(f"launches per driven path: classifier-only {launches}, default {launches_def}, "
           f"audio out {launches_audio}, streaming (all chunks of phase 13) {stream['launches']}, "
           f"band noise (phase 19) {band['launches']}, "
-          + ", ".join(f"{path} {v}" for path, v in more["launches"].items()))
+          + ", ".join(f"{path} {v}" for path, v in paths.items()))
     pkg = "audio_processing_tools_tpu_torch/csrc/"
     # bounds at this run's shapes: bytes read once and written once over
     # 3.35 TB/s, operations over the 67 TFLOP/s of float32 outside the
@@ -855,6 +878,7 @@ def main() -> int:
         "streaming_suppressor": stream["work"]["streaming_suppressor"],
         "cascade_sosfilt": band["work"]["cascade_sosfilt"],
         "band_noise_scan": band["work"]["band_noise_scan"],
+        "select_peaks_by_distance": td["k9"]["work"],
     }
 
     def bound(kernel, library_ms=None):
@@ -904,6 +928,12 @@ def main() -> int:
          "launches": launches_all["band_noise_scan"], "max_abs_err": band["err"]["band_noise_scan"],
          "ms": band["ms"]["band_noise_scan"], "plain_ms": band["plain_ms"]["band_noise_scan"],
          **bound("band_noise_scan")},
+        # a mask: phase 26 holds every position to the plain version's bit
+        {"name": "select_peaks_by_distance", "route": "cuda", "source": pkg + "peaks.cu",
+         "replaces": "audio_processing_tools_tpu/ops/peaks.py:185",
+         "launches": launches_all["select_peaks_by_distance"], "max_abs_err": 0.0,
+         "ms": td["k9"]["ms"], "plain_ms": td["k9"]["plain_ms"],
+         **bound("select_peaks_by_distance")},
     ]
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
@@ -1832,6 +1862,317 @@ def roe_mel_alac_phases(smi: str) -> dict:
     return {"launches": {"roe (phase 22)": l_roe, "mel (phase 23)": l_mel,
                          "ALAC classifier-only (phase 24)": l_alac, "wind (phase 25)": l_wind},
             "k4_err": k4_err, "k4_shapes": k4_shapes}
+
+
+def device_kernels(fn):
+    """The CUDA kernels one call of ``fn`` runs, from torch.profiler:
+    ``(count, device ms, the three costliest as "name ms xlaunches")``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:3]
+    return (sum(e.count for e in cuda), sum(e.self_device_time_total for e in cuda) / 1e3,
+            "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                      for e in top))
+
+
+def k9_rows(seed: int, n: int):
+    """Rows that stress the distance filter: uniform noise (more than 64
+    maxima), few levels (equal heights everywhere), plateaus, rows of zeros
+    (no peak) and a single peak, and a mask of 5% of the positions, which
+    the caller flips in the rows' local maxima."""
+    rng = np.random.default_rng(seed)
+    one = np.zeros(n)
+    one[n // 3] = 1.0
+    rows = np.stack([rng.random(n), np.round(rng.random(n) * 4), np.repeat(rng.random(n), 8)[:n],
+                     np.zeros(n), one]).astype(np.float32)
+    return np.tile(rows, (40, 1)), rng.random((5 * 40, n)) < 0.05
+
+
+def rain_minutes(n_clips: int, seconds: float, seed: int):
+    """Noise and loud 520 Hz drops, 40 a minute (``tests/test_dsd_transform.py:24-30``),
+    float32 in [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    n = int(FS * seconds)
+    k = np.arange(600)
+    drop = 1.5 * np.exp(-k / 100.0) * np.sin(2 * np.pi * 520 * k / FS)
+    x = 0.01 * rng.standard_normal((n_clips, n), dtype=np.float32)
+    for i in range(n_clips):
+        for t0 in rng.integers(0, n - 700, int(40 * seconds / 60)):
+            x[i, t0 : t0 + 600] += drop
+    return np.clip(x, -1.0, 1.0)
+
+
+def duty_scenarios(seed: int = 1234):
+    """The four 200 s recordings of ``tests/test_dsd_transform.py:284-301``,
+    from its seed: rain then dry, rain again in a check window, silence, a
+    mid-minute start.  (The float32 FFT can move a quiet frame's peak bin
+    against the float64 emulator: seeds 2 and 29 move pft bin 61 of a check
+    window in the JAX package and in the port alike.)"""
+    rng = np.random.default_rng(seed)
+    k = np.arange(800)
+    ping = np.exp(-k / 60.0) * sum(a * np.sin(2 * np.pi * f * k / FS) for f, a in [(520, 1.0), (900, 0.5)])
+    n = FS * 200
+
+    def build(windows):
+        x = 0.0005 * rng.standard_normal(n)
+        for lo_s, hi_s, m in windows:
+            for t0 in rng.integers(int(FS * lo_s), int(FS * hi_s), m):
+                x[t0 : t0 + 800] += 0.5 * ping
+        return np.clip(x, -1, 1)
+
+    return {"rain_then_dry": (build([(0.25, 50, 25)]), 0.0),
+            "re_engage": (build([(0.25, 50, 25), (177.2, 179.5, 8), (181, 198, 12)]), 0.0),
+            "all_silent": (np.zeros(n), 0.0),
+            "ts_offset": (build([(0.25, 50, 25)])[: FS * 150], 23.0)}
+
+
+def roe_recordings(n_rec: int, minutes: int, seed: int = 31):
+    """int16 recordings of harmonic-ping rain, the RoE classifier's kind,
+    ``minutes`` complete minutes each (``tests/test_dsd_transform.py:123-132``)."""
+    rng = np.random.default_rng(seed)
+    n = 60 * FS * minutes
+    k = np.arange(1000)
+    ping = sum((1.0 / h) * np.sin(2 * np.pi * 500.0 * h * k / FS) for h in range(1, 6))
+    ping = 0.6 * np.exp(-k / 80.0) * ping
+    out = np.empty((n_rec, n), np.int16)
+    for i in range(n_rec):
+        x = 0.003 * rng.standard_normal(n)
+        for t0 in rng.integers(0, n - 1200, 30 * (1 + i % 4) * minutes):  # 30-120 a minute
+            x[t0 : t0 + 1000] += ping
+        out[i] = (np.clip(x, -1, 1) * 32767).astype(np.int16)
+    return out
+
+
+def confirmer_dsd_etl_phases(smi: str, pcm: np.ndarray, stage1: np.ndarray) -> dict:
+    """Phases 26-30: the stage-2 time-domain confirmer with K9, the DSD
+    minute vectors, the transform ETL's per-minute RoE batch and the
+    framework processors.  ``pcm`` holds phase 4's int16 clips and
+    ``stage1`` their classifier-only rain frames.  Returns each path's
+    launches and K9's numbers for the kernels line."""
+    import functools
+
+    import torch
+
+    from audio_processing_tools_tpu_torch import _kernels, transform
+    from audio_processing_tools_tpu_torch.framework import NoiseProcessor, RainProcessor
+    from audio_processing_tools_tpu_torch.host_analysis import (
+        DsdProcessingEmulator,
+        dsd_minutes_device,
+        dsd_minutes_device_duty_cycled,
+    )
+    from audio_processing_tools_tpu_torch.models import roe
+    from audio_processing_tools_tpu_torch.models import time_domain as ttd
+    from audio_processing_tools_tpu_torch.ops import peaks as tpk
+
+    dev = torch.device("cuda", 0)
+    zeros = {k: 0 for k in _kernels.LAUNCHES}
+    clips = pcm.astype(np.float32) / np.float32(32767.0)
+    pick = np.r_[np.arange(0, BATCH, 2)[: N_AGREE // 2], np.arange(1, BATCH, 2)[: N_AGREE // 2]]
+    td_cfg = ttd.build_time_domain_config(PARAMS)
+
+    def launches_of(fn):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(_kernels.LAUNCHES), time.perf_counter() - t0
+
+    # ---- 26. K9 against its plain version -------------------------------------------
+    # the confirmer's own rows: K9's inputs captured from one clip without a
+    # mask (871 windows of 384 samples, d = 45)
+    captured = []
+    real_select = ttd.select_peaks_by_distance
+
+    def capture(x, is_peak, distance, max_peaks=64):
+        captured.append((x.clone(), is_peak.clone(), distance))
+        return real_select(x, is_peak, distance, max_peaks)
+
+    ttd.select_peaks_by_distance = capture
+    try:
+        ttd.TimeDomainRainDetector(td_cfg, device=dev).process(clips[1])
+    finally:
+        ttd.select_peaks_by_distance = real_select
+    env, is_max, dist = captured[0]
+    check(tuple(env.shape) == (871, 384) and dist == 45, f"K9's rows {tuple(env.shape)}, d {dist}")
+    k9_ok = 0
+    cases = [(env, is_max, dist, 64)]
+    for n in (384, 1024, 3, 100):
+        xr, flip = k9_rows(n, n)
+        xr = torch.from_numpy(xr).to(dev)
+        pk = tpk.local_maxima(xr) ^ torch.from_numpy(flip).to(dev)
+        cases += [(xr, pk, d, cap) for d in (1, 7, 45) for cap in (64, 3, 5000)]
+    for xr, pk, d, cap in cases:
+        got = tpk._select_peaks_by_distance_cuda(xr, pk, d, cap)
+        ref = tpk._select_peaks_by_distance_plain(xr, pk, d, cap)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K9 at {tuple(xr.shape)}, d {d}, cap {cap}: "
+                                     f"{int((got != ref).sum())} positions differ")
+        k9_ok += 1
+    k9_ms = graph_ms(lambda: tpk._select_peaks_by_distance_cuda(env, is_max, dist, 64))
+    k9_plain = float(np.median(cuda_times(
+        lambda: tpk._select_peaks_by_distance_plain(env, is_max, dist, 64), 3)))
+    # K9's work: x and the mask read once and the mask written (6 bytes a
+    # position); each step it takes compares the row's keys once, and a
+    # row takes one step more than its candidates up to the 64-step cap
+    steps = torch.clamp(is_max.sum(-1) + 1, max=64).sum().item()
+    k9_work = (6 * env.numel(), steps * env.shape[-1])
+    k9_bound, k9_by = bound_of(*k9_work)
+    print(f"phase 26 K9 select_peaks_by_distance on {smi}: {k9_ok} cases the plain version's bits "
+          f"(the confirmer's {tuple(env.shape)}, d = {dist}, and adversarial rows of 3-1,024 "
+          f"positions, d 1/7/45, caps 3/64/5000); {k9_ms:.4f} ms per launch in a graph of 20, "
+          f"bound {k9_bound:.5f} by {k9_by}; plain {k9_plain:.3f} ms (n=3)")
+
+    # ---- 27. the confirmer, card against CPU, then 128 clips on the card --------
+    det = ttd.TimeDomainRainDetector(td_cfg, device=dev)
+    det_cpu = ttd.TimeDomainRainDetector(td_cfg, device="cpu")
+    worst = {"crest_factor": 0.0, "kurtosis": 0.0}
+    confirmed_frames = 0
+    for i in pick:
+        a = det.process(clips[i], stage1_is_rain=stage1[i])
+        b = det_cpu.process(clips[i], stage1_is_rain=stage1[i])
+        for key in ("confirmed_mask", "confirmed_counts", "candidate_peaks"):
+            check(np.array_equal(a[key], b[key]), f"confirmer clip {i}: {key} card != CPU")
+        check(len(a["details"]) == len(b["details"]) and all(
+            np.array_equal(u["peak_indices_local"], v["peak_indices_local"])
+            for u, v in zip(a["details"], b["details"])), f"confirmer clip {i}: peak indices")
+        for key in worst:
+            den = np.maximum(np.abs(b[key]), 1e-30)
+            worst[key] = max(worst[key], float((np.abs(a[key] - b[key]) / den).max()))
+        confirmed_frames += int(a["confirmed_mask"].sum())
+    check(max(worst.values()) <= 1e-5, f"confirmer crest/kurtosis card vs CPU {worst}")
+    check(confirmed_frames > 0, "the confirmer confirmed no frame on the ping clips")
+    det.process(clips[0], stage1_is_rain=stage1[0])  # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    per_clip, confirmed = [], np.zeros(BATCH, int)
+    _kernels.reset_launches()
+    for i in range(BATCH):
+        t0 = time.perf_counter()
+        out = det.process(clips[i], stage1_is_rain=stage1[i])  # ends in a copy to the host
+        per_clip.append((time.perf_counter() - t0) * 1e3)
+        confirmed[i] = int(out["confirmed_counts"].sum())
+    l_td = dict(_kernels.LAUNCHES)
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    check(l_td == {**zeros, "select_peaks_by_distance": BATCH},
+          f"confirmer launches over {BATCH} clips {l_td}, expected K9 {BATCH}")
+    n_kern, busy, top_td = device_kernels(lambda: det.process(clips[1], stage1_is_rain=stage1[1]))
+    print(f"phase 27 confirmer ({len(td_cfg.mode_bands)} mode bands, stage 1 from phase 4): "
+          f"{N_AGREE} clips card against CPU, masks, counts and peak indices identical, crest "
+          f"max|d|/|ref| {worst['crest_factor']:.3e}, kurtosis {worst['kurtosis']:.3e} (bound "
+          f"1e-5); {BATCH} x {CLIP_SEC:.0f} s clips through process on {smi}: "
+          f"{float(np.median(per_clip)):.3f} ms per clip (min {min(per_clip):.3f}, max "
+          f"{max(per_clip):.3f}, host clock incl. the results' copy), hand-kernel launches "
+          f"{ {k: v for k, v in l_td.items() if v} } ({l_td['select_peaks_by_distance'] / BATCH:.0f} "
+          f"K9 a clip), {n_kern} CUDA kernels a clip ({busy:.3f} ms device busy, profiler; "
+          f"costliest {top_td}), "
+          f"peak memory {peak_mb:.1f} MiB; confirmed drops on rain clips "
+          f"{int(confirmed[1::2].sum())}, on noise clips {int(confirmed[0::2].sum())}")
+
+    # ---- 28. DSD minutes on the card ----------------------------------------------
+    minutes = rain_minutes(BATCH, 60.0, seed=28)
+    x_dev = torch.from_numpy(minutes).to(dev)  # 128 x 669,720 float32 = 343 MB
+    dsd_minutes_device(x_dev[:2], device=dev)  # warm
+    got, l_dsd, _ = launches_of(lambda: dsd_minutes_device(x_dev, device=dev))
+    check(got.shape == (BATCH, 1, 100) and l_dsd == zeros, f"DSD {got.shape}, launches {l_dsd}")
+    cpu = dsd_minutes_device(minutes[:8], device="cpu")
+    emu = np.stack([np.asarray(DsdProcessingEmulator(FS, 512, 512, False, 0)
+                               .process_audio_data(m.astype(np.float64), ts=0)) for m in minutes[:8]])
+    for label, ref in (("CPU", cpu), ("emulator", emu)):
+        same = float((got[:8, :, 62:] == ref[:, :, 62:]).mean())
+        check(np.array_equal(got[:8, :, :62], ref[:, :, :62]) and same >= 0.95
+              and np.abs(got[:8, :, 62:] - ref[:, :, 62:]).max() <= 1,
+              f"DSD card against the {label}: bins 0-61 or fft bins (equal {same:.4f})")
+    fft_equal = float((got[:8, :, 62:] == emu[:, :, 62:]).mean())
+    dsd_times = cuda_times(lambda: dsd_minutes_device(x_dev, device=dev), 10)
+    n_dsd, busy_dsd, top_dsd = device_kernels(lambda: dsd_minutes_device(x_dev, device=dev))
+    del x_dev
+    duty_ms, duty_minutes = [], 0
+    for name, (x, ts) in duty_scenarios().items():
+        ref = DsdProcessingEmulator(FS, 512, 512, False, 0).process_audio_data(x, ts)
+        t0 = time.perf_counter()
+        vecs = dsd_minutes_device_duty_cycled(x.astype(np.float32), FS, 512, ts=ts, device=dev)
+        duty_ms.append((time.perf_counter() - t0) * 1e3)
+        check(len(vecs) == len(ref) >= 2 and all(np.array_equal(v, r) for v, r in zip(vecs, ref)),
+              f"duty-cycled DSD {name}: not the emulator's bins")
+        duty_minutes += len(vecs)
+    print(f"phase 28 DSD on {smi}: dsd_minutes_device {BATCH} x 60 s (343 MB on the card) -> "
+          f"{got.shape}, {float(np.median(dsd_times)):.3f} ms per batch (min {min(dsd_times):.3f}, "
+          f"max {max(dsd_times):.3f}, n=10, incl. the copy of the vectors), {n_dsd} CUDA kernels "
+          f"({busy_dsd:.3f} ms device busy; costliest {top_dsd}), no hand kernel; 8 clips "
+          f"against the CPU path and the "
+          f"emulator: bins 0-61 identical, fft bins within 1 ({fft_equal:.4f} equal to the "
+          f"emulator); duty-cycled, 4 scenarios of 200 s: {duty_minutes} minutes bit-equal to the "
+          f"emulator, {sum(duty_ms):.1f} ms in all")
+
+    # ---- 29. the transform's per-minute RoE batch ----------------------------------
+    recs = roe_recordings(16, 2)
+    transform._classify_minutes(recs[:1], FS, device=dev)  # warm
+    res, l_etl, wall = launches_of(lambda: transform._classify_minutes(list(recs), FS, device=dev))
+    check(l_etl == {**zeros, "spectrogram_power": 1, "cascade_sosfilt": 2},
+          f"minute batch launches {l_etl}, expected K1 1, K4 2")
+    res_cpu = transform._classify_minutes(list(recs), FS, device="cpu")
+    ulps = 0
+    for (d_card, f_card), (d_cpu, f_cpu) in zip(res, res_cpu):
+        check(np.array_equal(d_card, d_cpu), f"minute batch counts: card {d_card}, CPU {d_cpu}")
+        ulps = max(ulps, int(np.abs(f_card.view(np.int32).astype(np.int64)
+                                    - f_cpu.view(np.int32).astype(np.int64)).max()))
+    check(ulps <= 1, f"frain_mean card against CPU: {ulps} ulps")
+    drops = np.concatenate([d for d, _ in res])
+    etl_ms = [wall * 1e3]
+    for _ in range(4):
+        t0 = time.perf_counter()
+        transform._classify_minutes(list(recs), FS, device=dev)
+        etl_ms.append((time.perf_counter() - t0) * 1e3)
+    # RoE's default check_duration (10 s) bounds the chunks of each minute
+    rows = 2 * 16 * len(roe._chunk_plan(roe.build_roe_config(), 60 * FS))
+    n_etl, busy_etl, top_etl = device_kernels(
+        lambda: transform._classify_minutes(list(recs), FS, device=dev))
+    print(f"phase 29 transform minute batch, 16 recordings x 2 minutes (32 x {60 * FS:,} samples, "
+          f"{rows} RoE chunk rows) on {smi}: hand-kernel launches "
+          f"{ {k: v for k, v in l_etl.items() if v} }, {n_etl} CUDA kernels ({busy_etl:.3f} ms "
+          f"device busy; costliest {top_etl}); {float(np.median(etl_ms)):.1f} ms per batch "
+          f"(min {min(etl_ms):.1f}, max {max(etl_ms):.1f}, n=5, host clock from int16 on the host "
+          f"to counts on the host); minutes with drops {int((drops > 0).sum())}/{drops.size}, "
+          f"mean rain_drop_count {drops.mean():.2f}; against the CPU: counts identical, "
+          f"frain_mean within {ulps} ulp")
+
+    # ---- 30. the framework processors, card against CPU ------------------------------
+    params = {**DEFAULT_PARAMS}
+    four = pick[[0, 1, N_AGREE // 2, N_AGREE // 2 + 1]]
+    _, l_noise, _ = launches_of(
+        lambda: NoiseProcessor(name="noise", device=dev).run(clips[four[0]], params))
+    floors = 0.0
+    for i in four:
+        m_card, s_card = NoiseProcessor(name="noise", device=dev).run(clips[i], params)
+        m_cpu, s_cpu = NoiseProcessor(name="noise", device="cpu").run(clips[i], params)
+        check(np.array_equal(s_card["frame_class"], s_cpu["frame_class"])
+              and m_card["rain_frame_fraction"] == m_cpu["rain_frame_fraction"],
+              f"NoiseProcessor clip {i}: frames differ")
+        for key in ("mean_noise_floor_db", "median_noise_floor_db"):
+            floors = max(floors, abs(m_card[key] - m_cpu[key]) / abs(m_cpu[key]))
+        r_card, _ = RainProcessor(name="roe", fn=functools.partial(roe.rain_detection_algo,
+                                                                    device=dev)).run(clips[i], {})
+        r_cpu, _ = RainProcessor(name="roe", fn=functools.partial(roe.rain_detection_algo,
+                                                                   device="cpu")).run(clips[i], {})
+        check(all(r_card[k] == r_cpu[k] for k in ("rain_drops", "frain_mean", "rain_drop_count",
+                                                  "rain_peaks_count", "rain_drop_count_mod")),
+              f"RainProcessor clip {i}: card {r_card} against CPU {r_cpu}")
+    check(floors <= 1e-5, f"NoiseProcessor noise floors {floors:.3e} relative")
+    print(f"phase 30 processors on 4 clips, card against CPU: NoiseProcessor (the default "
+          f"configuration, launches { {k: v for k, v in l_noise.items() if v} }) frames and "
+          f"decisions identical, noise floors within {floors:.3e} relative (bound 1e-5); "
+          f"RainProcessor over rain_detection_algo: counts and frain_mean identical")
+    return {"launches": {"confirmer (phase 27)": l_td, "DSD (phase 28)": l_dsd,
+                         "transform minute batch (phase 29)": l_etl, "NoiseProcessor (phase 30)": l_noise},
+            "k9": {"ms": k9_ms, "plain_ms": k9_plain, "work": k9_work}}
 
 
 if __name__ == "__main__":

@@ -226,7 +226,10 @@ def test_new_modules_import_with_jax_blocked():
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "mods = ['io.alac_native', 'io.mark', 'ops.mel',\n"
-        "        'models.mel_classifier', 'models.roe', 'models.wind', 'models.pitch']\n"
+        "        'models.mel_classifier', 'models.roe', 'models.wind', 'models.pitch',\n"
+        "        'models.time_domain', 'host_analysis', 'host_analysis.dsd_emulator',\n"
+        "        'host_analysis.dsd_device', 'io.audio', 'io.fetch', 'io.db', 'transform',\n"
+        "        'framework', 'framework.processor']\n"
         "for m in mods:\n"
         "    importlib.import_module('audio_processing_tools_tpu_torch.' + m)\n"
         "print('IMPORTED', len(mods))\n"
@@ -234,4 +237,38 @@ def test_new_modules_import_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", probe], cwd=str(REPO),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert "IMPORTED 7" in r.stdout
+    assert "IMPORTED 17" in r.stdout
+
+
+def test_slice_imports_with_pandas_and_pyarrow_blocked():
+    """The card's machine has no pandas and no pyarrow: the confirmer, DSD,
+    the ETL module, the host I/O and the processors import without them
+    (pandas only inside the functions that build a DataFrame), and the
+    card's part of the ETL and the DSD minutes run."""
+    probe = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'audio_processing_tools_tpu',\n"
+        "                                  'pandas', 'pyarrow'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "mods = ['transform', 'host_analysis', 'host_analysis.dsd_emulator',\n"
+        "        'host_analysis.dsd_device', 'io.audio', 'io.fetch', 'io.db', 'io.mark',\n"
+        "        'framework', 'framework.processor', 'models.time_domain']\n"
+        "for m in mods:\n"
+        "    importlib.import_module('audio_processing_tools_tpu_torch.' + m)\n"
+        "import numpy as np\n"
+        "from audio_processing_tools_tpu_torch import transform\n"
+        "from audio_processing_tools_tpu_torch.host_analysis import dsd_minutes_device\n"
+        "sig = (np.random.default_rng(0).standard_normal(11162 * 61) * 300).astype(np.int16)\n"
+        "[(drops, frain)] = transform._classify_minutes([sig], 11162, device='cpu')\n"
+        "assert drops.shape == frain.shape == (1,)\n"
+        "assert dsd_minutes_device(sig[:11162 * 5] / 32768.0, device='cpu').shape == (1, 100)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('pandas', 'pyarrow')]\n"
+        "print('IMPORTED', len(mods))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", probe], cwd=str(REPO),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "IMPORTED 11" in r.stdout

@@ -182,8 +182,11 @@ def test_port_imports_no_jax():
         "import audio_processing_tools_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 17, names\n"
-        "new = {pkg.__name__ + '.models.' + m for m in ('band_noise', 'band_noise_streaming')}\n"
+        "assert len(names) >= 41, names\n"
+        "new = {pkg.__name__ + '.' + m for m in ('models.band_noise', 'models.band_noise_streaming',\n"
+        "       'models.time_domain', 'host_analysis', 'host_analysis.dsd_emulator',\n"
+        "       'host_analysis.dsd_device', 'io.fetch', 'io.db', 'transform', 'framework',\n"
+        "       'framework.processor')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'audio_processing_tools_tpu.')) or m == 'audio_processing_tools_tpu')\n"
         "assert not bad, bad\n"
