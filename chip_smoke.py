@@ -122,7 +122,38 @@ Phases, one line each:
      all) on the card, launches K1 1 and K4 2, counts identical to the CPU
      path and ``frain_mean`` within one ulp;
  30. ``NoiseProcessor`` and ``RainProcessor`` (over ``rain_detection_algo``)
-     on 4 clips, card against CPU.
+     on 4 clips, card against CPU;
+ 31. the backfill corpus: 128 clips x 10 s from the port's
+     ``make_labeled_corpus`` (16 of each of the five base classes, 12 of each
+     of the four hard ones) written as MARK files into a temporary directory
+     and read back through ``get_input_data``, on the host clock;
+ 32. the time-sharded K1 (``parallel/sequence.py``) on a mesh of four
+     entries of the one card: a 60-minute recording (40,182,784 samples)
+     through ``sequence_sharded_stft_power`` and ``sequence_sharded_band_flux``,
+     and the corpus cut to 111,616 samples through
+     ``batch_sequence_sharded_stft_power`` on a 2 x 2 (files, seq) mesh, each
+     held against the unsharded causal K1 (the same bits, or within 1e-5 of
+     max) and against the plain ``stft_power`` within 1e-5 of max; the band
+     power and mode flux against a plain flux in float64 from the plain
+     power (1e-5 and 1e-4 of max); with launches, times, peak memory and the
+     sharded call's costliest CUDA kernels (torch.profiler);
+ 33. ``ShardedRainPipeline.step`` on a one-card mesh over the corpus for the
+     spectral, RoE and band-noise models, with launches per step: 16 clips
+     against the port's CPU path (spectral frames, counts and decisions
+     identical; RoE counts identical, ``frain_mean`` within one ulp; band
+     noise FFT rain frames >= 0.999), every per-clip output against the
+     model's batched engine called directly (the same bits), ms per step,
+     and the corpus's host-to-card copy: its host clock alone and the
+     profiler's copy time inside a step;
+ 34. the orchestrator's pandas-free core ``run_batches`` with
+     ``RainDetectorProcessor`` over the corpus directory: one device batch
+     of 128 against the per-file path on the card and 16 files on the CPU
+     (``rain_frame_count`` identical per file, and equal to phase 33), and
+     files/s on the host clock;
+ 35. the backfill CLI on the card as subprocesses with ``--dsd`` and no
+     ``--out``: one process, then two ranks on the one card over gloo; both
+     ranks print the one process's aggregates, whose ``total_rain_frames``
+     is phase 33's, with each run's wall seconds and audio-h/h.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -852,8 +883,9 @@ def main() -> int:
     band = band_noise_phases(smi)
     more = roe_mel_alac_phases(smi)
     td = confirmer_dsd_etl_phases(smi, pcm, fc == int(FrameClass.RAIN))
+    fleet = backfill_phases(smi)
 
-    paths = {**more["launches"], **td["launches"]}
+    paths = {**more["launches"], **td["launches"], **fleet["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
@@ -1683,14 +1715,6 @@ def roe_mel_alac_phases(smi: str) -> dict:
     audio_s = BATCH * CLIP_SEC
     zeros = {k: 0 for k in _kernels.LAUNCHES}
 
-    def launches_of(fn):
-        torch.cuda.synchronize()
-        _kernels.reset_launches()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, dict(_kernels.LAUNCHES), time.perf_counter() - t0
-
     # ---- 21. K4 and K1 at the RoE shapes ----------------------------------------
     plan = roe._chunk_plan(cfg, x.shape[-1])
     rows = torch.cat([x[:, o : o + t] for o, t in plan], dim=0).contiguous()
@@ -1864,9 +1888,9 @@ def roe_mel_alac_phases(smi: str) -> dict:
             "k4_err": k4_err, "k4_shapes": k4_shapes}
 
 
-def device_kernels(fn):
-    """The CUDA kernels one call of ``fn`` runs, from torch.profiler:
-    ``(count, device ms, the three costliest as "name ms xlaunches")``."""
+def cuda_events(fn) -> list:
+    """torch.profiler's CUDA events (kernels and memory copies) of one call
+    of ``fn``, one entry per name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1874,11 +1898,24 @@ def device_kernels(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_kernels(fn):
+    """The CUDA kernels one call of ``fn`` runs, from torch.profiler:
+    ``(count, device ms, the three costliest as "name ms xlaunches")``."""
+    cuda = cuda_events(fn)
     top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:3]
     return (sum(e.count for e in cuda), sum(e.self_device_time_total for e in cuda) / 1e3,
             "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                       for e in top))
+
+
+def device_copies(fn):
+    """The memory copies one call of ``fn`` makes, from torch.profiler:
+    ``(count, device ms)``."""
+    copies = [e for e in cuda_events(fn) if e.key.startswith("Memcpy")]
+    return sum(e.count for e in copies), sum(e.self_device_time_total for e in copies) / 1e3
 
 
 def k9_rows(seed: int, n: int):
@@ -1975,14 +2012,6 @@ def confirmer_dsd_etl_phases(smi: str, pcm: np.ndarray, stage1: np.ndarray) -> d
     clips = pcm.astype(np.float32) / np.float32(32767.0)
     pick = np.r_[np.arange(0, BATCH, 2)[: N_AGREE // 2], np.arange(1, BATCH, 2)[: N_AGREE // 2]]
     td_cfg = ttd.build_time_domain_config(PARAMS)
-
-    def launches_of(fn):
-        torch.cuda.synchronize()
-        _kernels.reset_launches()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, dict(_kernels.LAUNCHES), time.perf_counter() - t0
 
     # ---- 26. K9 against its plain version -------------------------------------------
     # the confirmer's own rows: K9's inputs captured from one clip without a
@@ -2173,6 +2202,376 @@ def confirmer_dsd_etl_phases(smi: str, pcm: np.ndarray, stage1: np.ndarray) -> d
     return {"launches": {"confirmer (phase 27)": l_td, "DSD (phase 28)": l_dsd,
                          "transform minute batch (phase 29)": l_etl, "NoiseProcessor (phase 30)": l_noise},
             "k9": {"ms": k9_ms, "plain_ms": k9_plain, "work": k9_work}}
+
+
+RECORDING = 78_482 * 512  # one 60-minute recording: 40,182,784 samples
+SEQ_N = 872 * 128  # the batch form's clips: 111,616 samples, a multiple of 2 x 128
+BF_PARAMS = {"sample_rate": FS, "detector": PARAMS["detector"], "clip_rain_min_frames": 3}
+
+
+def launches_of(fn):
+    """``(fn(), the kernel launches it made, host seconds)``."""
+    import torch
+
+    from audio_processing_tools_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def long_recording(n: int, seed: int = 32) -> np.ndarray:
+    """Noise with sharp 520 Hz pings, one a second on average, as
+    ``tests/test_sequence_parallel.py:18-23`` makes them; float32."""
+    rng = np.random.default_rng(seed)
+    x = 0.01 * rng.standard_normal(n, dtype=np.float32)
+    k = np.arange(800)
+    ping = (0.5 * np.exp(-k / 60.0) * np.sin(2 * np.pi * 520 * k / FS)).astype(np.float32)
+    for t0 in rng.integers(2000, n - 2000, n // FS):
+        x[t0 : t0 + 800] += ping
+    return x
+
+
+def ulps(a, b) -> int:
+    """The largest distance in float32 units in the last place."""
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def plain_band_flux(P, mode_bands):
+    """Band power and mode flux from a causal (F, T) power, written out here
+    from the detector's definition: the bins of 400-3,500 Hz, each bin's
+    rise over the frame two back clamped at 0 (0 for the first two frames),
+    summed over each mode band's bins in float64."""
+    import torch
+
+    freqs = np.linspace(0.0, FS / 2.0, P.shape[0])
+    rows = np.flatnonzero((freqs >= 400.0) & (freqs <= 3500.0))
+    Pb = P[torch.from_numpy(rows).to(P.device)]  # (K, T)
+    Pd = Pb.double()
+    d2 = torch.zeros_like(Pd)
+    d2[:, 2:] = (Pd[:, 2:] - Pd[:, :-2]).clamp_min(0.0)
+    fb = freqs[rows]
+    masks = torch.tensor(np.stack([(fb >= lo) & (fb <= hi) for lo, hi in mode_bands]),
+                         dtype=torch.float64, device=P.device)
+    return Pb, masks @ d2
+
+
+def max_rel(a, ref) -> float:
+    """max |a - ref| over max |ref|, in float64."""
+    return float((a.double() - ref.double()).abs().max()) / float(ref.double().abs().max())
+
+
+def backfill_phases(smi: str) -> dict:
+    """Phases 31-35: the fleet backfill path.  The corpus, the time-sharded
+    K1, the sharded pipeline's three models, the orchestrator's pandas-free
+    core and the backfill CLI as subprocesses.  Returns the launches of the
+    in-process paths for the kernels line."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from audio_processing_tools_tpu_torch.framework.batch import run_batches
+    from audio_processing_tools_tpu_torch.io.audio import get_input_data, get_keys
+    from audio_processing_tools_tpu_torch.models import roe
+    from audio_processing_tools_tpu_torch.models.band_noise import band_noise_process
+    from audio_processing_tools_tpu_torch.models.spectral_noise import (
+        RainDetectorProcessor,
+        SpectralNoiseEngine,
+    )
+    from audio_processing_tools_tpu_torch.ops._device import f32_recip
+    from audio_processing_tools_tpu_torch.ops.spectrogram import spectrogram_power
+    from audio_processing_tools_tpu_torch.ops.stft import stft_power
+    from audio_processing_tools_tpu_torch.parallel import (
+        Mesh,
+        ShardedRainPipeline,
+        local_rows,
+        make_mesh,
+    )
+    from audio_processing_tools_tpu_torch.parallel import sequence as seq
+    from audio_processing_tools_tpu_torch.parallel.mesh import _median
+    from audio_processing_tools_tpu_torch.utils.corpus import (
+        CLIP_CLASSES,
+        HARD_CLIP_CLASSES,
+        make_labeled_corpus,
+        write_corpus_dir,
+    )
+
+    from audio_processing_tools_tpu_torch import _kernels
+
+    dev = torch.device("cuda", 0)
+    zeros = {k: 0 for k in _kernels.LAUNCHES}
+    tmp = tempfile.TemporaryDirectory(prefix="apt_backfill_")
+    procs = []
+    try:
+        # ---- 31. the corpus ----------------------------------------------------------
+        corpus_dir = str(Path(tmp.name) / "corpus")
+        counts = {**{k: 16 for k in CLIP_CLASSES}, **{k: 12 for k in HARD_CLIP_CLASSES}}
+        t0 = time.perf_counter()
+        clips, labels, kinds = make_labeled_corpus(seed=31, seconds=CLIP_SEC, counts=counts)
+        synth_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        paths = write_corpus_dir(corpus_dir, clips, labels, kinds)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        data = get_input_data(get_keys("LocalPath", test_vector_path=corpus_dir), "LocalPath",
+                              FS, CLIP_SEC, True, None, None, 2)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        keys = list(data)
+        corpus = np.stack([data[k]["file_contents"] for k in keys])  # key order, as loaded
+        truth = np.array([bool(data[k]["raining"]) for k in keys])
+        check(len(paths) == BATCH and corpus.shape == (BATCH, int(FS * CLIP_SEC))
+              and corpus.dtype == np.float32 and int(truth.sum()) == int(labels.sum()),
+              f"corpus {corpus.shape} {corpus.dtype}, {len(paths)} files")
+        print(f"phase 31 corpus: {BATCH} clips x {CLIP_SEC:.0f} s ({len(CLIP_CLASSES)} classes x "
+              f"16, {len(HARD_CLIP_CLASSES)} hard classes x 12; {int(truth.sum())} rain) in "
+              f"{synth_ms:.0f} ms, written as MARK files in {write_ms:.0f} ms, read back through "
+              f"get_input_data in {load_ms:.0f} ms (host clock)")
+
+        # ---- 32. the time-sharded K1 ---------------------------------------------------
+        x_rec = torch.from_numpy(long_recording(RECORDING)).to(dev)
+        mesh4 = Mesh([dev] * 4, ("files",))
+        bands = tuple(PARAMS["detector"]["mode_bands"])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        P_sh, l_seq, _ = launches_of(lambda: seq.sequence_sharded_stft_power(x_rec, mesh4))
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+        P_ref = spectrogram_power(x_rec, center=False)
+        P_plain = stft_power(x_rec, center=False)
+        T_rec = RECORDING // 128 - 1
+        check(tuple(P_sh.shape) == tuple(P_ref.shape) == tuple(P_plain.shape) == (129, T_rec),
+              f"time-sharded power {tuple(P_sh.shape)}")
+        seq_same = torch.equal(P_sh, P_ref)
+        seq_rel, seq_plain = max_rel(P_sh, P_ref), max_rel(P_sh, P_plain)
+        check(l_seq == {**zeros, "spectrogram_power": 1} and (seq_same or seq_rel <= 1e-5)
+              and seq_plain <= 1e-5,
+              f"time-sharded K1: launches {l_seq}, max|d|/max {seq_rel:.3e} against the unsharded "
+              f"K1, {seq_plain:.3e} against stft_power")
+        flux, l_flux, _ = launches_of(
+            lambda: seq.sequence_sharded_band_flux(x_rec, mesh4, fs=FS, mode_bands=bands))
+        bp_plain, mf_plain = plain_band_flux(P_plain, bands)
+        bp_rel = max_rel(flux["band_power"], bp_plain)
+        flux_rel = max_rel(flux["mode_flux"], mf_plain)
+        check(l_flux == {**zeros, "spectrogram_power": 1} and bp_rel <= 1e-5 and flux_rel <= 1e-4
+              and flux["mode_flux"].shape == (5, T_rec) and float(flux["mode_flux"].max()) > 0,
+              f"time-sharded flux: launches {l_flux}, band power max|d|/max {bp_rel:.3e}, mode "
+              f"flux {flux_rel:.3e} against the plain flux")
+        del P_plain, bp_plain, mf_plain
+        xb = torch.from_numpy(corpus[:, :SEQ_N]).to(dev)
+        grid = Mesh([[dev, dev], [dev, dev]], ("files", "seq"))
+        P2, l_2d, _ = launches_of(lambda: seq.batch_sequence_sharded_stft_power(xb, grid))
+        P2_ref = spectrogram_power(xb, center=False)
+        P2_plain = stft_power(xb, center=False)
+        two_same = torch.equal(P2, P2_ref)
+        two_rel, two_plain = max_rel(P2, P2_ref), max_rel(P2, P2_plain)
+        check(tuple(P2.shape) == tuple(P2_ref.shape) == tuple(P2_plain.shape)
+              == (BATCH, 129, SEQ_N // 128 - 1)
+              and l_2d == {**zeros, "spectrogram_power": 1} and (two_same or two_rel <= 1e-5)
+              and two_plain <= 1e-5,
+              f"2 x 2 mesh: {tuple(P2.shape)}, launches {l_2d}, max|d|/max {two_rel:.3e} against "
+              f"the unsharded K1, {two_plain:.3e} against stft_power")
+        ms = {label: float(np.median(cuda_times(fn, 10))) for label, fn in (
+            ("sharded", lambda: seq.sequence_sharded_stft_power(x_rec, mesh4)),
+            ("unsharded", lambda: spectrogram_power(x_rec, center=False)),
+            ("flux", lambda: seq.sequence_sharded_band_flux(x_rec, mesh4, fs=FS, mode_bands=bands)),
+            ("2x2", lambda: seq.batch_sequence_sharded_stft_power(xb, grid)),
+            ("2x2 unsharded", lambda: spectrogram_power(xb, center=False)))}
+        sh_kern, sh_busy, sh_top = device_kernels(
+            lambda: seq.sequence_sharded_stft_power(x_rec, mesh4))
+        del P_sh, P_ref, flux, P2, P2_ref, P2_plain, x_rec
+        print(f"phase 32 time-sharded K1 on {smi}: 60-minute recording ({RECORDING:,} samples) "
+              f"on 4 entries of {dev} -> (129, {T_rec:,}) power "
+              f"({'the same bits as' if seq_same else f'max|d|/max {seq_rel:.3e} against'} the "
+              f"unsharded causal K1; max|d|/max {seq_plain:.3e} against stft_power, bound 1e-5), "
+              f"launches {l_seq['spectrogram_power']}, "
+              f"{ms['sharded']:.3f} ms (unsharded {ms['unsharded']:.3f} ms; median of 10, CUDA "
+              f"events), peak memory {peak_mb:.1f} MiB, {sh_kern} CUDA kernels in one sharded call "
+              f"({sh_busy:.3f} ms device busy; costliest {sh_top}); band flux {ms['flux']:.3f} ms, "
+              f"launches {l_flux['spectrogram_power']}, against the plain float64 flux from "
+              f"stft_power: band power max|d|/max {bp_rel:.3e} (bound 1e-5), mode flux "
+              f"{flux_rel:.3e} (bound 1e-4); {BATCH} x {SEQ_N:,} on the 2 x 2 (files, seq) mesh: "
+              f"{'the same bits as the unsharded K1' if two_same else f'max|d|/max {two_rel:.3e}'}, "
+              f"{two_plain:.3e} against stft_power, launches "
+              f"{l_2d['spectrogram_power']}, {ms['2x2']:.3f} ms (unsharded {ms['2x2 unsharded']:.3f})")
+
+        # ---- 33. the sharded pipeline, three models ----------------------------------
+        mesh1 = make_mesh(1)
+        models = {"spectral": (BF_PARAMS, {"spectrogram_power": 1, "noise_psd_track": 2,
+                                           "causal_low_quantile_baseline": 1}),
+                  "roe": ({"sample_rate": FS, "check_duration": CLIP_SEC},
+                          {"spectrogram_power": 1, "cascade_sosfilt": 2}),
+                  "band_noise": ({"sample_rate": FS}, {"spectrogram_power": 1,
+                                                       "cascade_sosfilt": 2, "band_noise_scan": 1})}
+        pick = np.arange(0, BATCH, BATCH // N_AGREE)  # every 8th key: all nine classes
+        x_all = torch.from_numpy(corpus).to(dev)
+        copy_host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.from_numpy(corpus).to(dev)
+            torch.cuda.synchronize()
+            copy_host.append((time.perf_counter() - t0) * 1e3)
+        step_launches, lines = {}, []
+        spectral_counts = None
+        for model, (params, expect) in models.items():
+            pipe = ShardedRainPipeline(params, mesh1, model=model)
+            pipe.step(corpus[:2])  # warm
+            out, l_step, _ = launches_of(lambda: pipe.step(corpus))
+            check(l_step == {**zeros, **expect}, f"{model} step launches {l_step}")
+            step_launches[f"sharded {model} step (phase 33)"] = l_step
+            pc = {k: local_rows(v) for k, v in out["per_clip"].items()}
+            agg = {k: np.asarray(v) for k, v in out["aggregates"].items()}
+            cpu = ShardedRainPipeline(params, make_mesh(1, device="cpu"), model=model).step(
+                corpus[pick])
+            pcc = {k: local_rows(v) for k, v in cpu["per_clip"].items()}
+            check(int(agg["total_clips"]) == BATCH
+                  and int(agg["total_rain_clips"]) == int(pc["clip_is_rain"].sum()),
+                  f"{model} aggregates {agg}")
+            if model == "spectral":
+                for key in ("frame_class", "rain_frame_count", "clip_is_rain"):
+                    check(np.array_equal(pc[key][pick], pcc[key]), f"spectral {key}: card != CPU")
+                direct = SpectralNoiseEngine(pipe.cfg, device=dev).process_batch(x_all)
+                check(np.array_equal(direct["frame_class"].cpu().numpy(), pc["frame_class"])
+                      and np.array_equal(direct["rain_conf"].cpu().numpy().view(np.int32),
+                                         pc["rain_conf"].view(np.int32)),
+                      "spectral step against the engine: not the same bits")
+                spectral_counts = pc["rain_frame_count"]
+                check(int(agg["total_rain_frames"]) == int(spectral_counts.sum()),
+                      "total_rain_frames")
+                acc = float((pc["clip_is_rain"] == truth).mean())
+                note = (f"frames, counts and decisions identical to the CPU; rain frames "
+                        f"{int(agg['total_rain_frames'])}, accuracy against the labels {acc:.4f}")
+            elif model == "roe":
+                for key in ("rain_drop_count_mod", "rain_drop_count", "rain_peaks_count",
+                            "clip_is_rain"):
+                    check(np.array_equal(pc[key][pick], pcc[key]), f"RoE {key}: card != CPU")
+                roe_ulps = ulps(pc["frain_mean"][pick], pcc["frain_mean"])
+                check(roe_ulps <= 1, f"RoE frain_mean card against CPU: {roe_ulps} ulps")
+                direct = roe.roe_detect_batch(corpus, device=dev, **params)
+                check(np.array_equal(direct["rain_drop_count_mod"], pc["rain_drop_count_mod"])
+                      and np.array_equal(direct["frain_mean"].view(np.int32),
+                                         pc["frain_mean"].view(np.int32)),
+                      "RoE step against roe_detect_batch: not the same bits")
+                note = (f"counts identical to the CPU, frain_mean within {roe_ulps} ulp; "
+                        f"drops {int(agg['total_drops'])}, rain clips {int(agg['total_rain_clips'])}")
+            else:
+                card_f = band_noise_process(corpus[pick], pipe.cfg, device=dev)["fft_rain_frame"]
+                cpu_f = band_noise_process(corpus[pick], pipe.cfg, device="cpu")["fft_rain_frame"]
+                bn_agree = float((card_f.cpu() == cpu_f).float().mean())
+                check(bn_agree >= 0.999, f"band noise FFT rain frames agree on {bn_agree:.6f}")
+                direct = band_noise_process(x_all, pipe.cfg, device=dev)
+                rain = direct["fft_rain_frame"]
+                frac = rain.sum(-1).to(torch.float32) * f32_recip(rain.shape[-1], dev)
+                for key, ref in (("fft_rain_fraction", frac), ("median_N_E", _median(direct["N_E"])),
+                                 ("median_G", _median(direct["G_mag"]))):
+                    check(np.array_equal(ref.cpu().numpy().view(np.int32),
+                                         pc[key].view(np.int32)),
+                          f"band-noise step {key} against band_noise_process: not the same bits")
+                note = (f"FFT rain frames agree with the CPU on {bn_agree:.6f}; rain clips "
+                        f"{int(agg['total_rain_clips'])}, mean noise energy "
+                        f"{float(agg['mean_noise_energy']):.6g}")
+            del direct
+            times = cuda_times(lambda: pipe.step(corpus), 10)
+            n_kern, busy, top = device_kernels(lambda: pipe.step(corpus))
+            n_copy, copy_ms = device_copies(lambda: pipe.step(corpus))
+            lines.append(f"{model}: {float(np.median(times)):.3f} ms per step (min {min(times):.3f}, "
+                         f"max {max(times):.3f}, n=10), launches "
+                         f"{ {k: v for k, v in l_step.items() if v} }, {n_kern} CUDA kernels "
+                         f"({busy:.3f} ms device busy, of which {n_copy} memory copies "
+                         f"{copy_ms:.3f} ms; costliest {top}); {note}")
+        print(f"phase 33 ShardedRainPipeline on a one-card mesh, {BATCH} x {CLIP_SEC:.0f} s from "
+              f"float32 on the host, on {smi}, every per-clip output the batched engine's bits; "
+              f"the corpus's {corpus.nbytes / 1e6:.1f} MB pageable copy to the card alone "
+              f"{float(np.median(copy_host)):.3f} ms on the host clock (min {min(copy_host):.3f}, "
+              f"max {max(copy_host):.3f}, n=5); " + "; ".join(lines))
+
+        # ---- 34. the orchestrator's pandas-free core ---------------------------------
+        kw = dict(params_global={**BF_PARAMS, "check_duration": CLIP_SEC}, InputType="LocalPath",
+                  test_vector_path=corpus_dir, batch_save_dir=None, batch_size=BATCH)
+        proc = RainDetectorProcessor(device=dev)
+        run_batches(processors=[proc], max_files=2, **kw)  # warm
+        run, l_orch, wall = launches_of(lambda: run_batches(processors=[proc], **kw))
+        check(l_orch == {**zeros, **models["spectral"][1]}, f"orchestrator launches {l_orch}")
+
+        def counts_of(r):
+            return {row["file_key"]: row["rain_detector__rain_frame_count"]
+                    for row in r["results_rows"]}
+
+        got = counts_of(run)
+        t0 = time.perf_counter()
+        per_file = counts_of(run_batches(processors=[RainDetectorProcessor(device=dev)],
+                                         debug_params={"device_batch": False}, **kw))
+        per_file_s = time.perf_counter() - t0
+        cpu16 = counts_of(run_batches(processors=[RainDetectorProcessor(device="cpu")],
+                                      max_files=N_AGREE, **kw))
+        check(list(got) == keys and got == per_file
+              and all(got[k] == v for k, v in cpu16.items()) and len(cpu16) == N_AGREE,
+              "orchestrator rain_frame_count: device batch, per-file path and CPU differ")
+        check(np.array_equal(np.array(list(got.values())), spectral_counts),
+              "orchestrator counts differ from phase 33's step")
+        print(f"phase 34 run_batches (pandas-free orchestrator) with RainDetectorProcessor over "
+              f"{BATCH} MARK files on {smi}: one device batch, launches "
+              f"{ {k: v for k, v in l_orch.items() if v} }, {wall * 1e3:.1f} ms = "
+              f"{BATCH / wall:.1f} files/s (host clock, file reads included); per-file path on the "
+              f"card {per_file_s * 1e3:.0f} ms = {BATCH / per_file_s:.1f} files/s; rain_frame_count "
+              f"identical per file across the batch, the per-file path, the CPU ({N_AGREE} files) "
+              f"and phase 33")
+
+        # ---- 35. the backfill CLI as subprocesses ------------------------------------
+        def cli(*extra):
+            p = subprocess.Popen(
+                [sys.executable, "-m", "audio_processing_tools_tpu_torch.cli.backfill",
+                 "--input-type", "LocalPath", "--path", corpus_dir, "--clip-sec", str(CLIP_SEC),
+                 "--batch", "64", "--dsd", *extra],
+                cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            procs.append(p)
+            return p
+
+        def summary(p):
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0, f"backfill CLI exited {p.returncode}: {err[-3000:]}")
+            return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+        t0 = time.perf_counter()
+        one = summary(cli())
+        one_s = time.perf_counter() - t0
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        ranks = [cli("--distributed", "--coordinator", f"127.0.0.1:{port}",
+                     "--num-processes", "2", "--process-id", str(i)) for i in range(2)]
+        two = [summary(p) for p in ranks]
+        two_s = time.perf_counter() - t0
+        totals = ("total_rain_frames", "total_rain_clips", "total_clips")
+        check(all(two[0][k] == two[1][k] == one[k] for k in totals)
+              and [s["host"] for s in two] == [0, 1],
+              f"2-rank aggregates {two} against one process {one}")
+        check(one["total_rain_frames"] == int(spectral_counts.sum()) and one["total_clips"] == BATCH,
+              f"backfill total_rain_frames {one['total_rain_frames']} against phase 33's "
+              f"{int(spectral_counts.sum())}")
+        print(f"phase 35 backfill CLI on {smi}, {BATCH} files, --batch 64 --dsd, no --out: one "
+              f"process {one_s:.1f} s wall ({one['wall_time_sec']} s in its loop, "
+              f"{one['audio_hours_per_hour']} audio-h/h); 2 ranks on {dev} over gloo "
+              f"{two_s:.1f} s wall ({', '.join(str(s['wall_time_sec']) for s in two)} s in their "
+              f"loops, {', '.join(str(s['audio_hours_per_hour']) for s in two)} audio-h/h); "
+              f"aggregates equal on both ranks and to the one process "
+              f"({ {k: one[k] for k in totals} }), total_rain_frames equal to phase 33's")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tmp.cleanup()
+    return {"launches": {"time-sharded K1 (phase 32)": l_seq, "time-sharded flux (phase 32)": l_flux,
+                         "2 x 2 mesh (phase 32)": l_2d, **step_launches,
+                         "orchestrator batch (phase 34)": l_orch}}
 
 
 if __name__ == "__main__":

@@ -65,7 +65,9 @@ def test_noise_processor_matches_jax(clip):
 
 def test_framework_exports():
     assert set(tframework.__all__) == {"AudioProcessor", "BaseProcessor", "RainProcessor",
-                                       "NoiseProcessor", "has_processor"}
+                                       "NoiseProcessor", "has_processor",
+                                       "process_audio_batches_v2", "process_audio_batches",
+                                       "restore_state_df_from_parquet"}
     procs = [tproc.NoiseProcessor(name="noise"), tproc.RainProcessor(name="roe", fn=troe_algo)]
     assert tproc.has_processor(procs, "roe") and not tproc.has_processor(procs, "mel")
     assert isinstance(procs[0], tproc.AudioProcessor)
