@@ -153,13 +153,34 @@ Phases, one line each:
  35. the backfill CLI on the card as subprocesses with ``--dsd`` and no
      ``--out``: one process, then two ranks on the one card over gloo; both
      ranks print the one process's aggregates, whose ``total_rain_frames``
-     is phase 33's, with each run's wall seconds and audio-h/h.
+     is phase 33's, with each run's wall seconds and audio-h/h;
+ 36. K10 (the threshold sweep's decision counts) against its plain version
+     on phase 37's features: 4,096 combos x 128 clips x 873 frames, counts
+     identical, and identical on a copy with a row of NaN frames and
+     scattered NaN and inf; its time from a graph of 20 beside its bound;
+ 37. the spectral sweep end to end (``grid_search_vmapped``) on phase 31's
+     corpus from int16 on the card: launches K1/K2/K3/K10 1/1/1/1, the
+     features' and the counts' times, the best combo's accuracy; a 64-combo
+     subgrid on 16 clips identical to the CPU; the sweep over a 4-entry mesh
+     of the one card equal to the unsharded sweep;
+ 38. the gradient fits on the card, 300 Adam steps from a detuned start, on
+     the hard corpus (``make_hard_corpus(seed=17)``) and on the 128 clips'
+     features: ms a step, CUDA kernels a step, thresholds within 0.05 of the
+     same fit on the CPU and the same accuracy; the tuned profile through
+     ``RainDetectorProcessor`` on the hard corpus 28/32, the default 24/32;
+ 39. the RoE sweep on the corpus, 64 combos, launches K1 1 and K4 2, 4
+     combos x 8 clips equal to ``rain_detection_algo``, 16 clips identical to
+     the CPU, and the RoE fit from a detuned start;
+ 40. the native RoE library built by g++ with its version, its booleans
+     against the port's RoE on the card on 8 clips, and the two-pass
+     ``dsp_integ`` counts card against CPU.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 whichever is larger, and for K1 the time of ``stft_power``, cuFFT and the
-square, as its library call), and last the device line
-``{"ok": true, "device": {...}}``.  Any failed check, a missing card or a
+square, as its library call; no PyTorch call computes K2-K10's
+functions), and last the device line ``{"ok": true, "device": {...}}``.
+Any failed check, a missing card or a
 missing package exits non-zero before the device line.  The script imports
 nothing of JAX.
 """
@@ -884,8 +905,9 @@ def main() -> int:
     more = roe_mel_alac_phases(smi)
     td = confirmer_dsd_etl_phases(smi, pcm, fc == int(FrameClass.RAIN))
     fleet = backfill_phases(smi)
+    tune = tuning_phases(smi, fleet["corpus"], fleet["truth"])
 
-    paths = {**more["launches"], **td["launches"], **fleet["launches"]}
+    paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
@@ -898,7 +920,8 @@ def main() -> int:
     # 3.35 TB/s, operations over the 67 TFLOP/s of float32 outside the
     # tensor cores; the larger binds.  Operations per item: K1 per frame the
     # window (n_fft), the half-length FFT (5 M log2 M, M = n_fft/2) and the
-    # split and power (13 per bin); K2 20, K3 12, K5 8 per lane and frame.
+    # split and power (13 per bin); K2 20, K3 12, K5 8 per lane and frame;
+    # K10 11 one-lane operations per (combo, clip, frame), counted as 22.
     M = 128
     work = {
         "spectrogram_power": (4 * (x.numel() + P_kernel.numel()),
@@ -911,6 +934,7 @@ def main() -> int:
         "cascade_sosfilt": band["work"]["cascade_sosfilt"],
         "band_noise_scan": band["work"]["band_noise_scan"],
         "select_peaks_by_distance": td["k9"]["work"],
+        "decision_sweep": tune["k10"]["work"],
     }
 
     def bound(kernel, library_ms=None):
@@ -966,6 +990,12 @@ def main() -> int:
          "launches": launches_all["select_peaks_by_distance"], "max_abs_err": 0.0,
          "ms": td["k9"]["ms"], "plain_ms": td["k9"]["plain_ms"],
          **bound("select_peaks_by_distance")},
+        # integer counts: phase 36 holds every count to the plain version's
+        {"name": "decision_sweep", "route": "cuda", "source": pkg + "sweep.cu",
+         "replaces": "audio_processing_tools_tpu/tuning/grid_search.py:231",
+         "launches": launches_all["decision_sweep"], "max_abs_err": 0.0,
+         "ms": tune["k10"]["ms"], "plain_ms": tune["k10"]["plain_ms"],
+         **bound("decision_sweep")},
     ]
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
@@ -2571,7 +2601,335 @@ def backfill_phases(smi: str) -> dict:
         tmp.cleanup()
     return {"launches": {"time-sharded K1 (phase 32)": l_seq, "time-sharded flux (phase 32)": l_flux,
                          "2 x 2 mesh (phase 32)": l_2d, **step_launches,
-                         "orchestrator batch (phase 34)": l_orch}}
+                         "orchestrator batch (phase 34)": l_orch},
+            "corpus": corpus, "truth": truth}
+
+
+# phase 36: 8 x 4 x 4 x 2 x 2 x 4 x 2 = 4,096 threshold combos
+TUNE_GRID = {
+    "new_rain_primary_flux_min": [1.2, 1.5, 1.8, 2.1, 2.4, 2.7, 3.0, 4.0],
+    "new_rain_mode1_flux_min": [2.0, 2.3, 2.6, 2.9],
+    "new_rain_mode2_flux_min": [2.0, 2.3, 2.6, 2.9],
+    "new_rain_mode3_flux_min": [2.5, 3.0],
+    "new_rain_min_support_count": [1, 2],
+    "td_gate_threshold": [2.0, 2.5, 3.0, 3.75],
+    "clip_rain_min_frames": [1, 3],
+}
+# phase 37's card-against-CPU subgrid: 4 x 2 x 2 x 2 x 2 = 64 combos
+TUNE_SUBGRID = {
+    "new_rain_primary_flux_min": [1.5, 1.8, 2.4, 3.0],
+    "new_rain_mode1_flux_min": [2.3, 2.6],
+    "new_rain_min_support_count": [1, 2],
+    "td_gate_threshold": [2.5, 3.75],
+    "clip_rain_min_frames": [1, 3],
+}
+TUNE_BASE = {"sample_rate": FS}
+FIT_BASE = {"sample_rate": FS, "clip_rain_min_frames": 3}
+FIT_KW = {"init": {"new_rain_primary_flux_min": 4.0}, "steps": 300, "lr": 0.05}  # tests/test_tuning.py:145
+# phase 39: 4 x 2 x 4 x 2 = 64 RoE combos
+ROE_GRID = {
+    "harmonic_threshold": [[4.5, 4.0, 3.5, 3.5, 3.5, 3.5], [3.5, 3.0, 2.5, 2.5, 2.5, 2.5],
+                           [6.0, 5.0, 4.5, 4.5, 4.5, 4.5], [5.0, 4.5, 4.0, 4.0, 4.0, 4.0]],
+    "crest_thr": [3.75, 3.0],
+    "min_drop_count": [0.3, 0.5, 1.0, 2.0],
+    "kurtosis_thr": [2.5, 3.5],
+}
+ROE_BASE = {"sample_rate": FS, "check_duration": CLIP_SEC}
+ROE_FIT_KW = {"init": {"harmonic_threshold": [9.0, 8.0, 7.0, 7.0, 7.0, 7.0], "min_drop_count": 2.0,
+                       "kurtosis_thr": 8.0, "crest_thr": 8.0, "diff_energy_thr": 20.0},
+              "steps": 250, "lr": 0.08}  # tests/test_tuning.py:197-203
+NATIVE_PARAMS = {"sample_rate": FS, "check_duration": 10, "op_freq_range": [400, 3500],
+                 "n_freq_range": [400, 700], "harmonic_threshold": [4.5, 4.0, 3.5, 3.5, 3.5, 3.5],
+                 "min_drop_count": 0.3}  # tests/test_native.py:61-65
+
+
+def native_clips(seed: int = 40):
+    """Four clips of harmonic 500 Hz pings (100, 80, 60 and 40 drops) and
+    four of noise, 10 s each (``tests/test_native.py:24-32``); labels."""
+    rng = np.random.default_rng(seed)
+    n = FS * 10
+    k = np.arange(1000)
+    ping = 0.6 * np.exp(-k / 80.0) * sum((1.0 / h) * np.sin(2 * np.pi * 500.0 * h * k / FS)
+                                         for h in range(1, 6))
+    clips = []
+    for drops in (100, 80, 60, 40):
+        x = 0.003 * rng.standard_normal(n)
+        for t0 in rng.integers(0, n - 1200, drops):
+            x[t0 : t0 + 1000] += ping
+        clips.append(x)
+    clips += [s * rng.standard_normal(n) for s in (0.02, 0.01, 0.005, 0.002)]
+    return np.stack(clips).astype(np.float32), np.arange(8) < 4
+
+
+def tuning_phases(smi: str, corpus: np.ndarray, truth: np.ndarray) -> dict:
+    """Phases 36-40: the threshold-tuning path on phase 31's corpus.  K10
+    against its plain version, the spectral sweep, the gradient fits and the
+    tuned profile, the RoE sweep and fit, the native bridge and the
+    two-pass wrapper.  Returns the launches of the driven paths and K10's
+    numbers for the kernels line."""
+    import torch
+
+    from audio_processing_tools_tpu_torch import _kernels
+    from audio_processing_tools_tpu_torch.config import DEFAULT_MODE_BANDS
+    from audio_processing_tools_tpu_torch.models import roe
+    from audio_processing_tools_tpu_torch.models.spectral_noise import RainDetectorProcessor
+    from audio_processing_tools_tpu_torch.ops import sweep
+    from audio_processing_tools_tpu_torch.parallel import Mesh
+    from audio_processing_tools_tpu_torch.tuning import (
+        TUNED_ACCURACY_V1,
+        apply_profile,
+        call_native,
+        classification_algo,
+        dsp_integ,
+    )
+    from audio_processing_tools_tpu_torch.tuning.gradient import (
+        ROE_TUNABLE_SCALARS,
+        fit_spectral_thresholds,
+        gradient_tune_thresholds,
+        roe_gradient_tune_thresholds,
+    )
+    from audio_processing_tools_tpu_torch.tuning.grid_search import (
+        combo_counts,
+        combo_sweep_params,
+        generate_param_combinations,
+        grid_search_vmapped,
+        roe_grid_search_vmapped,
+        spectral_threshold_features,
+    )
+    from audio_processing_tools_tpu_torch.utils.corpus import make_hard_corpus
+
+    dev = torch.device("cuda", 0)
+    zeros = {k: 0 for k in _kernels.LAUNCHES}
+    front = {"spectrogram_power": 1, "noise_psd_track": 1, "causal_low_quantile_baseline": 1}
+    # the corpus as int16 PCM, on the card and on the host as the same
+    # float32 values (IEEE division by a 0-dim tensor on both)
+    pcm = np.round(corpus.astype(np.float64) * 32767.0).astype(np.int16)
+    x = torch.from_numpy(pcm).to(dev).to(torch.float32) / torch.tensor(32767.0, device=dev)
+    pick = np.arange(0, BATCH, BATCH // N_AGREE)
+    x_cpu = torch.from_numpy(pcm[pick]).to(torch.float32) / torch.tensor(32767.0)
+    x16 = x[torch.as_tensor(pick, device=dev)]
+    B, T = x.shape[0], int(x.shape[1]) // 128 + 1
+
+    # ---- 36. K10 against its plain version ----------------------------------------
+    feats, base = spectral_threshold_features(x, TUNE_BASE, device=dev)
+    check(all(tuple(v.shape) == (B, T) and bool(torch.isfinite(v).all()) for v in feats.values()),
+          f"sweep features {[tuple(v.shape) for v in feats.values()]}")
+    combos = generate_param_combinations(TUNE_GRID)
+    params = combo_sweep_params(combos, base, dev)
+    C = len(combos)
+    check(C == 4096 and params.primary_flux_min.dtype == torch.float32
+          and params.min_support_count.dtype == torch.int32, f"{C} combos")
+    ops = sweep.k10_operands(feats, params)
+    got = sweep._launch_k10(*ops)
+    ref = sweep._decision_counts_plain(feats, params)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"K10 counts differ from the plain version on "
+                                 f"{int((got != ref).sum())} of {got.numel()}")
+    bad = {k: v.clone() for k, v in feats.items()}
+    bad["primary"][1] = float("nan")  # a row of NaN frames
+    bad["s1"][2, ::7] = float("nan")
+    bad["s2"][3, ::11] = float("inf")
+    bad["primary"][4, ::3] = float("inf")
+    bad["td_crest"][5, ::5] = float("nan")
+    got_bad = sweep._decision_counts_cuda(bad, params)
+    ref_bad = sweep._decision_counts_plain(bad, params)
+    torch.cuda.synchronize()
+    check(torch.equal(got_bad, ref_bad) and int(got_bad[:, 1].abs().sum()) == 0,
+          "K10 on NaN and inf frames differs from the plain version")
+    del bad, got_bad, ref_bad
+    k10_ms = graph_ms(lambda: sweep._launch_k10(*ops))
+    k10_call, k10_plain = in_turns(lambda: sweep._decision_counts_plain(feats, params),
+                                   lambda: sweep._decision_counts_cuda(feats, params), 2, 10)
+    evals = C * B * T
+    # bytes: the five planes read and the counts written (the thresholds are
+    # 24 bytes a combo); operations: 11 one-lane operations a (combo, clip,
+    # frame) triple (5 compares, 3 adds, a compare, an and, an add), each a
+    # lane's clock, which is half an FMA's two at 67 TFLOP/s
+    k10_work = (4 * (5 * B * T + C * B) + 24 * C, 2 * 11 * evals)
+    k10_bound, k10_by = bound_of(*k10_work)
+    rain_max = int(got.max())
+    print(f"phase 36 K10 decision_sweep on {smi}: {C:,} combos x {B} clips x {T} frames "
+          f"({evals:.3e} evaluations), counts identical to the plain version (max {rain_max} "
+          f"rain frames), and on NaN and inf frames (a NaN row counts 0); {k10_ms:.4f} ms per launch "
+          f"in a graph of 20 ({k10_call:.4f} ms per host-launched call with its log planes, "
+          f"n=20; plain {k10_plain:.3f} ms, n=4); bound {k10_bound:.4f} ms by {k10_by} "
+          f"({k10_bound / k10_ms:.1%} of it)")
+    del got, ref, ops
+
+    # ---- 37. the spectral sweep end to end ------------------------------------------
+    res, l_sweep, sweep_s = launches_of(
+        lambda: grid_search_vmapped(x, truth, TUNE_GRID, TUNE_BASE, device=dev))
+    check(l_sweep == {**zeros, **front, "decision_sweep": 1}, f"sweep launches {l_sweep}")
+    check(len(res) == C and [r["parameters"] for r in res] == combos, "sweep results")
+    best = max(res, key=lambda r: r["overall_accuracy"])
+    default = next(r for r in res if r["parameters"] == {
+        "new_rain_primary_flux_min": 1.8, "new_rain_mode1_flux_min": 2.6,
+        "new_rain_mode2_flux_min": 2.6, "new_rain_mode3_flux_min": 3.0,
+        "new_rain_min_support_count": 2, "td_gate_threshold": 2.5, "clip_rain_min_frames": 3})
+    feat_ms = float(np.median(cuda_times(
+        lambda: spectral_threshold_features(x, TUNE_BASE, device=dev), 10)))
+    sweep_ms = float(np.median(cuda_times(lambda: combo_counts(feats, combos, base), 10)))
+    card16 = grid_search_vmapped(x16, truth[pick], TUNE_SUBGRID, TUNE_BASE, device=dev)
+    cpu16 = grid_search_vmapped(x_cpu, truth[pick], TUNE_SUBGRID, TUNE_BASE, device="cpu")
+    check(len(card16) == 64 and card16 == cpu16,
+          "the 64-combo sweep on 16 clips: predictions differ between the card and the CPU")
+    mesh4 = Mesh([dev] * 4, ("files",))
+    sharded, l_mesh, _ = launches_of(
+        lambda: grid_search_vmapped(x, truth, TUNE_GRID, TUNE_BASE, mesh=mesh4, device=dev))
+    check(sharded == res and l_mesh["decision_sweep"] == 4,
+          f"the sweep over a 4-entry mesh differs from the unsharded one ({l_mesh})")
+    print(f"phase 37 spectral sweep on {smi}: {B} x {CLIP_SEC:.0f} s of phase 31's corpus from "
+          f"int16 on the card, {C:,} combos: launches "
+          f"{ {k: v for k, v in l_sweep.items() if v} }; features {feat_ms:.3f} ms (median of "
+          f"10, CUDA events), counts {sweep_ms:.3f} ms (params from the combos, K10, counts to "
+          f"the host; median of 10), the whole call {sweep_s * 1e3:.1f} ms on the host clock; "
+          f"best combo accuracy {best['overall_accuracy']:.4f} ({best['parameters']}), the "
+          f"default thresholds {default['overall_accuracy']:.4f}; 64 combos x {N_AGREE} clips "
+          f"identical to the CPU; the sweep on 4 entries of {dev} (K10 x4) equal to the unsharded")
+
+    # ---- 38. the gradient fits and the tuned profile -----------------------------------
+    hclips, hlabels, hkinds = make_hard_corpus(seed=17, per_class=8)
+    hx = torch.from_numpy(hclips).to(dev)
+    fit_h, l_fit, fit_h_s = launches_of(
+        lambda: gradient_tune_thresholds(hx, hlabels, FIT_BASE, device=dev, **FIT_KW))
+    check(l_fit == {**zeros, **front, "decision_sweep": 2}, f"fit launches {l_fit}")
+    hfeats, hbase = spectral_threshold_features(hx, FIT_BASE, device=dev)
+    cpu_h = fit_spectral_thresholds({k: v.cpu() for k, v in hfeats.items()}, hlabels, hbase,
+                                    **FIT_KW)
+    gap_h = max(abs(fit_h["thresholds"][k] - cpu_h["thresholds"][k]) for k in cpu_h["thresholds"])
+    check(gap_h <= 0.05 and fit_h["accuracy"] == cpu_h["accuracy"]
+          and fit_h["init_accuracy"] == cpu_h["init_accuracy"]
+          and bool(np.isfinite(fit_h["loss_history"]).all()),
+          f"hard corpus: the card's fit is {gap_h:.3e} from the CPU's, accuracy "
+          f"{fit_h['accuracy']} against {cpu_h['accuracy']}")
+    check(fit_h["init_accuracy"] < 0.7 and fit_h["accuracy"] >= fit_h["init_accuracy"] + 0.15
+          and fit_h["thresholds"]["new_rain_primary_flux_min"] < 3.5,
+          f"the hard-corpus fit does not recover: {fit_h['init_accuracy']} -> {fit_h['accuracy']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_c = fit_spectral_thresholds(feats, truth, FIT_BASE, **FIT_KW)
+    torch.cuda.synchronize()
+    fit_c_s = time.perf_counter() - t0
+    # the 128-clip fit is chaotic in float32 once the anneal sharpens the
+    # surrogate: the card's run is held to the CPU's over its first 100
+    # steps, and its end is set beside the CPU's and beside a CPU run on
+    # features scaled by 1 + 2^-23 (one float32 ulp), which moves it as far
+    feats_cpu = {k: v.cpu() for k, v in feats.items()}
+    cpu_c = fit_spectral_thresholds(feats_cpu, truth, FIT_BASE, **FIT_KW)
+    ulp_c = fit_spectral_thresholds({k: v * (1 + 2.0**-23) for k, v in feats_cpu.items()}, truth,
+                                    FIT_BASE, **FIT_KW)
+    rel = np.abs(fit_c["loss_history"] - cpu_c["loss_history"]) / np.abs(cpu_c["loss_history"])
+    gap_c = max(abs(fit_c["thresholds"][k] - cpu_c["thresholds"][k]) for k in cpu_c["thresholds"])
+    gap_u = max(abs(ulp_c["thresholds"][k] - cpu_c["thresholds"][k]) for k in cpu_c["thresholds"])
+    apart = int(np.argmax(rel > 1e-4)) if bool((rel > 1e-4).any()) else len(rel)
+    check(float(rel[:100].max()) <= 1e-4 and bool(np.isfinite(fit_c["loss_history"]).all()),
+          f"corpus fit: the card's first 100 losses are {float(rel[:100].max()):.3e} from the "
+          f"CPU's")
+    n20 = device_kernels(lambda: fit_spectral_thresholds(feats, truth, FIT_BASE, **{
+        **FIT_KW, "steps": 20}))[0]
+    n40 = device_kernels(lambda: fit_spectral_thresholds(feats, truth, FIT_BASE, **{
+        **FIT_KW, "steps": 40}))[0]
+    per_step = (n40 - n20) / 20
+    steps = FIT_KW["steps"]
+    lines = [f"hard corpus 32 x 2 s: accuracy {fit_h['init_accuracy']:.4f} -> "
+             f"{fit_h['accuracy']:.4f} (the CPU's {cpu_h['accuracy']:.4f}), "
+             f"{fit_h_s * 1e3 / steps:.3f} ms a step (host clock, front end and hard scoring "
+             f"included), thresholds within {gap_h:.3e} of the CPU's",
+             f"corpus {B} x {CLIP_SEC:.0f} s: accuracy {fit_c['init_accuracy']:.4f} -> "
+             f"{fit_c['accuracy']:.4f} (the CPU's {cpu_c['accuracy']:.4f}, one ulp off "
+             f"{ulp_c['accuracy']:.4f}), {fit_c_s * 1e3 / steps:.3f} ms a step, losses within "
+             f"{float(rel[:100].max()):.3e} of the CPU's over steps 0-99 and apart by more than "
+             f"1e-4 from step {apart}, final thresholds {gap_c:.3e} from the CPU's (the CPU one "
+             f"ulp off: {gap_u:.3e})"]
+    proc = RainDetectorProcessor(device=dev)
+    default_p = {"sample_rate": FS, "detector": {"mode_bands": list(DEFAULT_MODE_BANDS)},
+                 "classifier_only_mode": True, "clip_rain_min_frames": 3}
+
+    def per_class(params):
+        pred = np.array([m["clip_is_rain"] for m, _ in proc.run_batch(hclips, params)])
+        return {kind: int(sum(pred[i] == hlabels[i] for i, k in enumerate(hkinds) if k == kind))
+                for kind in sorted(set(hkinds))}
+
+    pc_default = per_class(default_p)
+    pc_tuned = per_class(apply_profile(default_p, TUNED_ACCURACY_V1))
+    check(pc_default == {"rain_faint": 7, "drizzle": 6, "rain_in_wind": 6, "wind_gusty": 5}
+          and pc_tuned == {"rain_faint": 7, "drizzle": 8, "rain_in_wind": 6, "wind_gusty": 7},
+          f"profiles on the hard corpus: default {pc_default}, tuned {pc_tuned}")
+    print(f"phase 38 gradient fits on {smi}, {FIT_KW['steps']} Adam steps from "
+          f"new_rain_primary_flux_min 4.0: " + "; ".join(lines) + f"; {per_step:.1f} CUDA "
+          f"kernels a step (torch.profiler, 40 steps less 20); launches of the hard-corpus call "
+          f"{ {k: v for k, v in l_fit.items() if v} }; tuned-accuracy-v1 through "
+          f"RainDetectorProcessor {sum(pc_tuned.values())}/32, the default "
+          f"{sum(pc_default.values())}/32")
+
+    # ---- 39. the RoE sweep and fit ----------------------------------------------------------
+    roe_res, l_roe, roe_s = launches_of(
+        lambda: roe_grid_search_vmapped(x, truth, ROE_GRID, ROE_BASE, device=dev))
+    check(l_roe == {**zeros, "spectrogram_power": 1, "cascade_sosfilt": 2},
+          f"RoE sweep launches {l_roe}")
+    check(len(roe_res) == 64, f"{len(roe_res)} RoE results")
+    x_np = x.cpu().numpy()
+    for r in roe_res[:4]:
+        for i in pick[:8]:
+            mod, _, _ = roe.rain_detection_algo(x_np[i], device=dev, return_spectra=False,
+                                                **{**ROE_BASE, **r["parameters"]})
+            check(mod == r["rain_drop_count_mod"][i],
+                  f"RoE sweep against the engine, {r['parameters']}, clip {i}: "
+                  f"{r['rain_drop_count_mod'][i]} != {mod}")
+    roe_card16 = roe_grid_search_vmapped(x16, truth[pick], ROE_GRID, ROE_BASE, device=dev)
+    roe_cpu16 = roe_grid_search_vmapped(x_cpu, truth[pick], ROE_GRID, ROE_BASE, device="cpu")
+    check(roe_card16 == roe_cpu16, "the RoE sweep on 16 clips: counts differ between the card and "
+                                   "the CPU")
+    roe_best = max(roe_res, key=lambda r: r["overall_accuracy"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    roe_fit = roe_gradient_tune_thresholds(x, truth, ROE_BASE, device=dev, **ROE_FIT_KW)
+    torch.cuda.synchronize()
+    roe_fit_s = time.perf_counter() - t0
+    check(bool(np.isfinite(roe_fit["loss_history"]).all())
+          and len(roe_fit["thresholds"]["harmonic_threshold"]) == 6
+          and all(np.isfinite(roe_fit["thresholds"][k]) for k in ROE_TUNABLE_SCALARS),
+          "RoE fit: non-finite loss or thresholds")
+    print(f"phase 39 RoE sweep on {smi}: {B} x {CLIP_SEC:.0f} s, 64 combos, launches "
+          f"{ {k: v for k, v in l_roe.items() if v} }, {roe_s * 1e3:.1f} ms on the host clock "
+          f"(front end once, then roe_apply_thresholds combo by combo); 4 combos x 8 clips equal to "
+          f"rain_detection_algo, 64 combos x {N_AGREE} clips identical to the CPU; best accuracy "
+          f"{roe_best['overall_accuracy']:.4f}; the RoE fit ({ROE_FIT_KW['steps']} steps from "
+          f"tests/test_tuning.py's detuned start): accuracy {roe_fit['init_accuracy']:.4f} -> "
+          f"{roe_fit['accuracy']:.4f}, {roe_fit_s * 1e3:.0f} ms (host clock, front end included)")
+
+    # ---- 40. the native bridge and the two-pass wrapper ----------------------------------
+    t0 = time.perf_counter()
+    lib = call_native.load_native_library()
+    build_s = time.perf_counter() - t0
+    version = call_native.get_version(lib)
+    check("tpu-native-roe" in version, f"native version {version!r}")
+    nclips, nlabels = native_clips()
+    agree, counts = [], []
+    t_py = t_c = 0.0
+    for clip, label in zip(nclips, nlabels):
+        t0 = time.perf_counter()
+        py = classification_algo.python_classifier_wrapper(clip, device=dev, **NATIVE_PARAMS)
+        t1 = time.perf_counter()
+        cc = classification_algo.c_classifier_wrapper(clip, lib=lib, **NATIVE_PARAMS)
+        t2 = time.perf_counter()
+        t_py, t_c = t_py + t1 - t0, t_c + t2 - t1
+        agree.append(py == cc == bool(label))
+        card_di = dsp_integ.rain_detection_algo(clip, device=dev)
+        cpu_di = dsp_integ.rain_detection_algo(clip, device="cpu")
+        counts.append((card_di[0], cpu_di[0]))
+    check(all(agree), f"port RoE on the card and the native library disagree: {agree}")
+    check(all(a == b for a, b in counts), f"dsp_integ counts card against CPU: {counts}")
+    print(f"phase 40 native bridge: g++ build and load {build_s:.2f} s, version {version!r}; "
+          f"8 clips x 10 s, python_classifier_wrapper on {dev} and c_classifier_wrapper agree "
+          f"with each other and the labels ({t_py / 8 * 1e3:.1f} ms a clip on the card, "
+          f"{t_c / 8 * 1e3:.1f} ms natively, host clock); dsp_integ counts card = CPU "
+          f"{[a for a, _ in counts]}")
+    return {"launches": {"spectral sweep (phase 37)": l_sweep,
+                         "gradient fit, hard corpus (phase 38)": l_fit,
+                         "RoE sweep (phase 39)": l_roe},
+            "k10": {"ms": k10_ms, "plain_ms": k10_plain, "work": k10_work}}
+
 
 
 if __name__ == "__main__":

@@ -207,7 +207,10 @@ def test_viz_plots_render():
     for fn in (viz.plot_audio_signal, viz.plot_audio_fft, viz.plot_audio_spectrogram):
         fig = fn(x, FS)
         assert fig.axes and fig.axes[0].get_title()
-    assert viz.__all__ == ["plot_audio_signal", "plot_audio_fft", "plot_audio_spectrogram"]
+    assert viz.__all__ == ["plot_audio_signal", "plot_audio_fft", "plot_audio_spectrogram",
+                           "show_noise_processing_results", "frames_to_df",
+                           "plot_frame_classifier_debug", "plot_frame_classifier_tuning",
+                           "plot_noise_suppressor_debug"]
 
 
 def test_timer_timed_and_device_trace(tmp_path):

@@ -1,7 +1,7 @@
 """Import guard: every module of the port, and ``chip_smoke.py``, imports in
 a process where JAX, the JAX package and the host libraries the card's
-machine lacks (pandas, pyarrow, matplotlib, psutil, boto3, sqlalchemy)
-cannot be imported.  A meta-path finder refuses them; one subprocess
+machine lacks (pandas, pyarrow, matplotlib, psutil, boto3, sqlalchemy,
+IPython, ipywidgets, requests) cannot be imported.  A meta-path finder refuses them; one subprocess
 imports each module in turn and reports each one's outcome, one case per
 module."""
 
@@ -17,7 +17,7 @@ import audio_processing_tools_tpu_torch as pkg
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "audio_processing_tools_tpu", "pandas", "pyarrow", "matplotlib",
-           "psutil", "boto3", "sqlalchemy")
+           "psutil", "boto3", "sqlalchemy", "IPython", "ipywidgets", "requests")
 MODULES = sorted([pkg.__name__] + [m.name for m in pkgutil.walk_packages(
     pkg.__path__, pkg.__name__ + ".")]) + ["chip_smoke"]
 
@@ -55,7 +55,11 @@ def test_walk_finds_the_slice():
     new = {"parallel", "parallel.mesh", "parallel.sequence", "cli.backfill", "cli.corpus",
            "cli.header_parser", "cli.audio_parser", "framework.batch", "framework.parquet_io",
            "utils", "utils.corpus", "utils.profiling", "io.tabular", "postprocess",
-           "postprocess.rain", "postprocess.noise", "evaluation", "viz", "viz.visualize_audio"}
+           "postprocess.rain", "postprocess.noise", "evaluation", "viz", "viz.visualize_audio",
+           "ops.sweep", "tuning", "tuning.profiles", "tuning.grid_search", "tuning.gradient",
+           "tuning.call_native", "tuning.classification_algo", "tuning.dsp_integ",
+           "tuning.device_backend", "tuning.visualization_utils", "viz.visualize_noise_output",
+           "labeler"}
     assert {f"{pkg.__name__}.{m}" for m in new} <= set(MODULES)
 
 
