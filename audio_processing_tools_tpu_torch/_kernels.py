@@ -9,7 +9,7 @@ source, and links them into one shared library::
     nvcc -shared -o libapt_torch_kernels.so *.o
 
 The library is built at first use, never at import, into
-``build/apt_torch_kernels/<hash of sources and flags>/`` under the
+``build/apt_torch_kernels/<hash of sources, headers and flags>/`` under the
 repository root (a directory git ignores), and loaded with ``ctypes``.  A
 changed source gets a new directory, so a stale library is never loaded.
 
@@ -65,7 +65,7 @@ _SIGNATURES = {
                                          _F, _P, _P, _P, _P, _P),
     "apt_gain_time_smooth": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
     "apt_sosfilt_zi": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
-    "apt_streaming_suppressor": (_P, _P, _I, _P),
+    "apt_streaming_suppressor": (_P, _P, _P),
     "apt_cascade_sosfilt": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
     "apt_band_noise_scan": (_P, _P, _P),
     "apt_select_peaks_by_distance": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -121,7 +121,7 @@ def build() -> KernelLibrary:
     if _LIBRARY is not None:
         return _LIBRARY
     sources = sorted(CSRC.glob("*.cu"))
-    out_dir = BUILD_ROOT / _source_hash(sources)
+    out_dir = BUILD_ROOT / _source_hash(sources + sorted(CSRC.glob("*.cuh")))
     lib_path = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     seconds = 0.0

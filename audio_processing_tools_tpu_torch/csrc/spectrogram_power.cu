@@ -53,6 +53,8 @@
 
 #include <cstdint>
 
+#include "stockham_fft.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -73,84 +75,6 @@ size_t smem_bytes_for(int n_fft, int hop, int frame_tile) {
          4 * (size_t)(M + 1) * tile_stride(frame_tile, G);
 }
 
-__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 3) & 15); }
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-__device__ __forceinline__ void bfly(float2& a, float2& b) {
-  const float2 t = a;
-  a = make_float2(t.x + b.x, t.y + b.y);
-  b = make_float2(t.x - b.x, t.y - b.y);
-}
-__device__ __forceinline__ float2 mul_neg_i(float2 a) { return make_float2(a.y, -a.x); }
-
-// In-register DFTs, natural order in and out.
-template <int R>
-__device__ __forceinline__ void dft(float2* a);
-
-template <>
-__device__ __forceinline__ void dft<2>(float2* a) {
-  bfly(a[0], a[1]);
-}
-
-template <>
-__device__ __forceinline__ void dft<4>(float2* a) {
-  bfly(a[0], a[2]);
-  bfly(a[1], a[3]);
-  a[3] = mul_neg_i(a[3]);
-  bfly(a[0], a[1]);
-  bfly(a[2], a[3]);
-  const float2 t = a[1];  // a = X0, X2, X1, X3
-  a[1] = a[2];
-  a[2] = t;
-}
-
-template <>
-__device__ __forceinline__ void dft<8>(float2* a) {
-  constexpr float h = 0.70710678118654752440f;
-  bfly(a[0], a[4]);
-  bfly(a[1], a[5]);
-  bfly(a[2], a[6]);
-  bfly(a[3], a[7]);
-  a[5] = make_float2(h * (a[5].x + a[5].y), h * (a[5].y - a[5].x));   // * e^{-i pi/4}
-  a[6] = mul_neg_i(a[6]);                                             // * e^{-i pi/2}
-  a[7] = make_float2(h * (a[7].y - a[7].x), -h * (a[7].x + a[7].y));  // * e^{-3i pi/4}
-  dft<4>(a);      // X0, X2, X4, X6
-  dft<4>(a + 4);  // X1, X3, X5, X7
-  const float2 u1 = a[1], u2 = a[2], u3 = a[3];
-  a[1] = a[4];
-  a[2] = u1;
-  a[4] = u2;
-  a[3] = a[5];
-  a[5] = a[6];
-  a[6] = u3;
-}
-
-template <int G>
-__device__ __forceinline__ void group_sync() {
-  if constexpr (G <= 32) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
-}
-
-// Per-thread twiddles of a Stockham pass of radix R after NS points:
-// value q*R + r multiplies input r of butterfly j = t + q*G by
-// e^{-2 pi i (j % NS) r / (NS R)} = table[2 (j % NS) r M / (NS R)].
-template <int M, int R, int NS>
-__device__ __forceinline__ void pass_twiddles(const float2* __restrict__ table, int t,
-                                              float2 (&tw)[8]) {
-  constexpr int G = M / 8;
-#pragma unroll
-  for (int q = 0; q < 8 / R; ++q) {
-    const int j = t + q * G;
-#pragma unroll
-    for (int r = 0; r < R; ++r) tw[q * R + r] = __ldg(table + 2 * ((j % NS) * r * (M / (NS * R))));
-  }
-}
-
 // Pass 1 (radix 8, NS = 1): windowed, packed samples of one frame.
 template <int M>
 __device__ __forceinline__ void first_pass(const float* frame, float2* buf, int t,
@@ -162,34 +86,7 @@ __device__ __forceinline__ void first_pass(const float* frame, float2* buf, int 
     const float2 s = *reinterpret_cast<const float2*>(frame + 2 * (t + r * G));
     v[r] = make_float2(s.x * win[r].x, s.y * win[r].y);
   }
-  dft<8>(v);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) buf[swz(8 * t + r)] = v[r];
-  group_sync<G>();
-}
-
-template <int M, int R, int NS>
-__device__ __forceinline__ void stockham_pass(float2* buf, int t, const float2 (&tw)[8]) {
-  constexpr int G = M / 8;
-  constexpr int Q = 8 / R;
-  float2 v[8];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[q * R + r] = buf[swz(t + q * G + r * (M / R))];
-  }
-  group_sync<G>();
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-#pragma unroll
-    for (int r = 1; r < R; ++r) v[q * R + r] = cmul(v[q * R + r], tw[q * R + r]);
-    dft<R>(v + q * R);
-    const int j = t + q * G;
-    const int dst = (j / NS) * NS * R + j % NS;
-#pragma unroll
-    for (int r = 0; r < R; ++r) buf[swz(dst + r * NS)] = v[q * R + r];
-  }
-  group_sync<G>();
+  first_radix8<M>(v, buf, t);
 }
 
 // Power of bins k = t + q*G (and k = M by thread 0) from Z in `buf`.

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from audio_processing_tools_tpu_torch import _kernels
-from audio_processing_tools_tpu_torch.ops._device import device_constant
+from audio_processing_tools_tpu_torch.ops._device import device_constant, sorted_keys
 from audio_processing_tools_tpu_torch.ops.filters import butter_sos, cascade_sosfilt, sosfilt_zi
 from audio_processing_tools_tpu_torch.ops.spectrogram import spectrogram_power
 from audio_processing_tools_tpu_torch.ops.stats import (
@@ -714,7 +714,7 @@ def band_noise_process(x, cfg: BandNoiseEstimatorConfig,
     x_h, x_bp, _, _ = _filters(cfg, x, _seed(hpf, x0), _seed(bpf, x0))
     inputs = _per_frame_inputs(x_h, x_bp, cfg, x.shape[-1] // cfg.frame_len)
     out, _ = _run_band_scan(cfg, _scan_carry_init(cfg, x.shape[0], x.device), inputs)
-    return {k: v[0] for k, v in out.items()} if single else out
+    return sorted_keys({k: v[0] for k, v in out.items()} if single else out)
 
 
 def band_noise_process_chunk(x, cfg: BandNoiseEstimatorConfig, state: State):
@@ -737,7 +737,7 @@ def band_noise_process_chunk(x, cfg: BandNoiseEstimatorConfig, state: State):
     inputs = _per_frame_inputs(x_h, x_bp, cfg, x.shape[-1] // cfg.frame_len)
     out, scan = _run_band_scan(cfg, state["scan"], inputs)
     new = {"seeded": torch.ones_like(state["seeded"]), "zi_h": zf_h, "zi_b": zf_b, "scan": scan}
-    return out, new
+    return sorted_keys(out), sorted_keys(new)
 
 
 # ---------------------------------------------------------------------------

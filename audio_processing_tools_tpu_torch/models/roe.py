@@ -42,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
-from audio_processing_tools_tpu_torch.ops._device import f32, f32_recip
+from audio_processing_tools_tpu_torch.ops._device import f32, f32_recip, sorted_keys
 from audio_processing_tools_tpu_torch.ops.filters import butter_sos, sosfilt
 from audio_processing_tools_tpu_torch.ops.framing import frame_signal
 from audio_processing_tools_tpu_torch.ops.peaks import local_maxima
@@ -655,4 +655,4 @@ def roe_detect_batch(audio_matrix, device: str | torch.device = "cuda", **kwargs
     the JAX package's output dict, NumPy arrays with a leading clip axis."""
     kwargs.setdefault("return_spectra", False)  # keep batch payloads small
     cfg = build_roe_config(**kwargs)
-    return _to_numpy(_roe_batch(_as_batch(audio_matrix, device), cfg))
+    return _to_numpy(sorted_keys(_roe_batch(_as_batch(audio_matrix, device), cfg)))

@@ -47,7 +47,7 @@ from audio_processing_tools_tpu_torch.models.frame_classifier import (
     detect_from_band,
     td_prefilter_sos,
 )
-from audio_processing_tools_tpu_torch.ops._device import device_constant
+from audio_processing_tools_tpu_torch.ops._device import device_constant, sorted_keys
 from audio_processing_tools_tpu_torch.ops.filters import sosfiltfilt
 from audio_processing_tools_tpu_torch.ops.spectrogram import spectrogram_power
 from audio_processing_tools_tpu_torch.ops.stats import quantile_linear
@@ -515,7 +515,7 @@ class SpectralNoiseEngine:
         else:
             xt = torch.as_tensor(np.asarray(x, np.float32).reshape(1, -1), device=self.device)
         out = self._run(xt, sr)
-        return _to_numpy(out, index=0)
+        return _to_numpy(sorted_keys(out), index=0)
 
     def process_batch(self, xb, sr: Optional[int] = None) -> Dict[str, Any]:
         """A ``(B, N)`` batch; returns tensors on the batch's device."""
@@ -524,7 +524,7 @@ class SpectralNoiseEngine:
             xb = torch.as_tensor(np.asarray(xb, np.float32), device=self.device)
         if xb.dim() != 2:
             raise ValueError(f"expected a (B, N) batch, got shape {tuple(xb.shape)}")
-        return self._run(xb, sr)
+        return sorted_keys(self._run(xb, sr))
 
 
 def _to_numpy(tree, index: Optional[int] = None):

@@ -19,7 +19,9 @@ for leaf.  Per chunk on the card:
     all 1 + n_modes rows in one launch;
   * the causal TD prefilter, ``sosfilt`` with ``zi``: kernel K7;
   * with audio out, the suppressor's per-frame scan: kernel K8
-    (``csrc/streaming.cu``), whose plain loop is :func:`_suppressor_plain`.
+    (``csrc/streaming.cu``: a walk over the frames that writes the gain,
+    then a frame pass over all frames at once for the FFTs and the
+    overlap-add), whose plain loop is :func:`_suppressor_plain`.
 
 **Chunk invariance is bitwise**: any cut of a stream into hop-multiple
 chunks, and any number of streams in a batch, gives the same bits as one
@@ -30,7 +32,7 @@ that walks frames or samples in order, or a sum in a fixed order
 JAX package reduces with a matrix product (the mode flux), a mean (crest
 factor, kurtosis) or a sum (the SNR gate): a library reduction chooses its
 order by shape, on the card by the number of outputs.  K8 computes its own
-forward DFT, so no library FFT sits on the audio path on the card.
+FFTs (K1's transform), so no library FFT sits on the audio path on the card.
 """
 
 from __future__ import annotations
@@ -53,10 +55,10 @@ from audio_processing_tools_tpu_torch.models.spectral_noise import (
     gain_freq_stage,
     gain_time_step,
 )
-from audio_processing_tools_tpu_torch.ops._device import device_constant
+from audio_processing_tools_tpu_torch.ops._device import device_constant, sorted_keys
 from audio_processing_tools_tpu_torch.ops.filters import sosfilt
 from audio_processing_tools_tpu_torch.ops.framing import frame_signal
-from audio_processing_tools_tpu_torch.ops.spectrogram import spectrogram_power
+from audio_processing_tools_tpu_torch.ops.spectrogram import N_FFTS, kernel_tables, spectrogram_power
 from audio_processing_tools_tpu_torch.ops.stats import nan_to_num, tree_sum
 from audio_processing_tools_tpu_torch.ops.stft import fft_frequencies
 from audio_processing_tools_tpu_torch.ops.trackers import (
@@ -160,7 +162,7 @@ class _SupIO(ctypes.Structure):
         ("tracker", _p), ("scale", _p), ("prev_n", _p), ("wcount", _p), ("rain_ema", _p),
         ("is_first", _p), ("g_prev", _p), ("ola", _p), ("y", _p),
         ("o_tracker", _p), ("o_scale", _p), ("o_prev_n", _p), ("o_wcount", _p),
-        ("o_rain_ema", _p), ("o_g_prev", _p), ("o_ola", _p), ("g_out", _p),
+        ("o_rain_ema", _p), ("o_is_first", _p), ("o_g_prev", _p), ("o_ola", _p), ("gain", _p),
     ]
 
 
@@ -176,12 +178,17 @@ def _freq_taps(cfg: NoiseConfig) -> np.ndarray:
     return kernel
 
 
-def _sup_smem_bytes(n_fft: int, hop: int, K: int, n_taps: int, n_snr: int) -> int:
-    """Shared memory of one K8 block, as ``smem_floats`` in its source."""
-    F = n_fft // 2 + 1
-    m = 1 << max(0, n_snr - 1).bit_length()  # pow2_at_least(n_snr)
-    return 4 * (4 * n_fft + hop + 2 * F + (K + 2 * (n_taps // 2)) + 2 * K + 2 * m
-                + 2 * (n_fft - hop))
+def k8_check_geometry(n_fft: int, hop: int, K: int, n_taps: int, n_snr: int) -> None:
+    """``ValueError`` for a geometry K8 does not take, as its launcher
+    refuses it: an n_fft of K1's ``N_FFTS`` (K1 computes the band power K8
+    reads) with ``hop = n_fft / 2``, 1 to n_fft / 2 + 1 band bins, at most
+    9 taps, at most K SNR columns."""
+    if (n_fft not in N_FFTS or 2 * hop != n_fft or not 1 <= K <= n_fft // 2 + 1
+            or not 0 <= n_taps <= _K8_MAX_TAPS or not 0 <= n_snr <= K):
+        raise ValueError(f"streaming_suppressor: the CUDA kernel takes n_fft in {N_FFTS} with "
+                         f"hop = n_fft / 2, 1 to n_fft / 2 + 1 band bins, at most "
+                         f"{_K8_MAX_TAPS} taps and at most K SNR columns; got n_fft {n_fft}, "
+                         f"hop {hop}, K {K}, {n_taps} taps, {n_snr} columns")
 
 
 class Suppressor:
@@ -198,13 +205,13 @@ class Suppressor:
                              f"smoothing taps; got {self.taps.size}")
 
     def tables(self, device) -> torch.Tensor:
-        """K8's tables: window | 1/sum w^2 | cos | sin (float64, rounded)."""
+        """K8's tables: window | 1/sum w^2 | twiddles ``e^{-2 pi i k / n_fft}``
+        as (re, im) pairs, K1's (float64, rounded)."""
         n = self.st.n_fft
 
         def make():
-            ang = 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
             return np.concatenate([self.audio.window, self.audio.inv_ws,
-                                   np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)])
+                                   kernel_tables(n)[1].reshape(-1)])
 
         return device_constant(("k8_tables", n, self.st.hop), device, make)
 
@@ -312,7 +319,8 @@ def _suppressor_plain(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
 def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
                      frame_class: torch.Tensor, noise_conf: torch.Tensor,
                      frame_idx: torch.Tensor, carry: SupCarry, want_gain: bool = False):
-    """K8 on the card; returns what :func:`_suppressor_plain` returns, the
+    """K8 on the card, its two launches (the walk, then the frame pass)
+    counted as one; returns what :func:`_suppressor_plain` returns, the
     gain only when ``want_gain``."""
     st = sup.st
     B, T = frame_class.shape
@@ -334,10 +342,11 @@ def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
         (wc, B, torch.int32), (rema, B, torch.float32), (first, B, torch.bool),
         (G_prev, B * K, torch.float32), (ola, B * (n_fft - hop), torch.float32))]
     cin[5] = cin[5].view(torch.uint8)
+    c = sup.consts(B, T)
+    k8_check_geometry(n_fft, hop, K, int(sup.taps.size), c.n_snr)
     y = torch.empty((B, T * hop), dtype=torch.float32, device=dev)
-    out = [torch.empty_like(v) for v in cin[:5]] + [torch.empty_like(cin[6]),
-                                                    torch.empty_like(cin[7])]
-    g_out = torch.empty((B, K, T), dtype=torch.float32, device=dev) if want_gain else None
+    out = [torch.empty_like(v) for v in cin]
+    gain = torch.empty((B, K, T), dtype=torch.float32, device=dev)  # the walk's output, scratch
     tables = sup.tables(dev)
     snr = sup.audio.snr_cols
     snr_t = None
@@ -352,22 +361,19 @@ def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
         wcount=cin[3].data_ptr(), rain_ema=cin[4].data_ptr(), is_first=cin[5].data_ptr(),
         g_prev=cin[6].data_ptr(), ola=cin[7].data_ptr(), y=y.data_ptr(),
         o_tracker=out[0].data_ptr(), o_scale=out[1].data_ptr(), o_prev_n=out[2].data_ptr(),
-        o_wcount=out[3].data_ptr(), o_rain_ema=out[4].data_ptr(), o_g_prev=out[5].data_ptr(),
-        o_ola=out[6].data_ptr(), g_out=None if g_out is None else g_out.data_ptr(),
+        o_wcount=out[3].data_ptr(), o_rain_ema=out[4].data_ptr(), o_is_first=out[5].data_ptr(),
+        o_g_prev=out[6].data_ptr(), o_ola=out[7].data_ptr(), gain=gain.data_ptr(),
     )
-    c = sup.consts(B, T)
-    smem = _sup_smem_bytes(n_fft, hop, K, int(sup.taps.size), c.n_snr)
     lib = _kernels.build()
     with torch.cuda.device(dev):
-        err = lib.lib.apt_streaming_suppressor(ctypes.addressof(io), ctypes.addressof(c), smem,
+        err = lib.lib.apt_streaming_suppressor(ctypes.addressof(io), ctypes.addressof(c),
                                                _kernels.stream_of(xa))
     lib.check(err, "streaming_suppressor")
     _kernels.count("streaming_suppressor")
     lane, clip = trk.shape, wc.shape
     psd = (out[0].reshape(lane), out[1].reshape(lane), out[2].reshape(lane),
-           out[3].reshape(clip), out[4].reshape(clip),
-           torch.zeros(clip, dtype=torch.bool, device=dev))
-    return y, (psd, out[5].reshape(lane), out[6].reshape(ola.shape)), g_out
+           out[3].reshape(clip), out[4].reshape(clip), out[5].view(torch.bool).reshape(clip))
+    return y, (psd, out[6].reshape(lane), out[7].reshape(ola.shape)), gain if want_gain else None
 
 
 def streaming_suppressor(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
@@ -685,7 +691,7 @@ class StreamingRainDetector:
         }
         if y is not None:
             out["y"] = y
-        return {k: new[k] for k in state}, out
+        return {k: new[k] for k in sorted(state)}, sorted_keys(out)
 
     # ------------------------------------------------------------------
     def _as_batch(self, chunks) -> torch.Tensor:

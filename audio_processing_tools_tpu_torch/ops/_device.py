@@ -4,7 +4,8 @@ Filter and DFT constants are designed in NumPy on the host.  Copying them
 to the card on every call would be a synchronous host-to-device copy each
 time, so each is copied once per device and kept.  :func:`f32` and
 :func:`f32_recip` make the 0-dim float32 constants that code matching the
-JAX package's bits operates with.
+JAX package's bits operates with.  :func:`sorted_keys` gives an output
+dict the key order JAX's ``jit`` returns it in.
 """
 
 from __future__ import annotations
@@ -53,3 +54,11 @@ def f32_recip(value, device, times=1.0) -> torch.Tensor:
     with constants ``times`` and ``value`` (``jnp.mean`` included), and a
     product gives the same bits on the CPU and the card."""
     return torch.tensor(np.float32(times) * (np.float32(1) / np.float32(value)), device=device)
+
+
+def sorted_keys(tree):
+    """A nested dict with every level's keys in sorted order, the order in
+    which JAX's ``jit`` returns a dict; other values are kept as they are."""
+    if isinstance(tree, dict):
+        return {k: sorted_keys(tree[k]) for k in sorted(tree)}
+    return tree

@@ -43,7 +43,9 @@ Phases, one line each:
      against one call, and K8 (the streaming suppressor) at 64 streams x 174
      frames against its plain loop (gain and carries bit for bit, audio to
      float rounding), in five suppressor configurations (two raise the SNR
-     gate to a power);
+     gate to a power), and at n_fft 64 and 1,024; the device ms of K8's two
+     launches (the walk, the frame pass) at 64 x 174 frames and at the
+     low-latency profile's 16 x 4 and 16 x 8 frames;
  13. the live streaming path, 64 streams x 2 s x 15 chunks from int16 on the
      card through ``StreamingRainDetector.process_chunk_batch``, detector
      only and with denoised audio out, and the low-latency profile of 16
@@ -65,6 +67,7 @@ Phases, one line each:
      10 s from the seed states, and at 8 x 10 s from a nonzero state, y and
      the final state, at a whole and a partial last block; 512 x 17-sample
      chunks against one call; 128 x 10 s within 1e-5 of scipy in float64;
+     the device ms of each of K4's three launches (drifts, walk, outputs);
  18. K6 (the band-noise estimator's scan) against its plain loop bit for bit
      at 128 clips x 218 frames, in four estimator configurations;
  19. the band-noise batch path: 128 synthetic 10 s clips (noise and 520 Hz
@@ -83,7 +86,8 @@ Phases, one line each:
      for bit: the order-8 operating band-pass (8 sections) over the 640
      chunk rows of 128 x 10 s (640 x 22,324) and the order-4 pulse
      band-pass over its padded output (640 x 22,580), both within 1e-5 of
-     scipy in float64; K1 at (640, 22,324) against ``stft_power``;
+     scipy in float64, with the device ms of each of K4's launches; K1 at
+     (640, 22,324) against ``stft_power``;
  22. the RoE classifier at full width: 128 synthetic 10 s clips through
      ``roe_detect_batch(x, device="cuda")``, launches K1 1 and K4 2, 16
      clips against the port's CPU path (counts and ``frain_mean``
@@ -292,6 +296,28 @@ def graph_ms(fn, launches: int = 20, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / launches)
     return float(np.median(times))
+
+
+def launch_breakdown(fn, calls: int = 20) -> dict:
+    """Device ms per launch of each CUDA kernel one call of ``fn`` runs,
+    from torch.profiler over ``calls`` calls after a warm-up call, by the
+    kernel's name up to its template arguments or parameters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.removeprefix("void ")[:60]
+            out[name] = round(e.self_device_time_total / 1e3 / e.count, 4)
+    return out
 
 
 def same_bits(got, ref):
@@ -970,7 +996,10 @@ def main() -> int:
          "launches": launches_all["streaming_suppressor"],
          "max_abs_err": stream["err"]["streaming_suppressor"],
          "ms": stream["ms"]["streaming_suppressor"],
-         "plain_ms": stream["plain_ms"]["streaming_suppressor"], **bound("streaming_suppressor")},
+         "plain_ms": stream["plain_ms"]["streaming_suppressor"], **bound("streaming_suppressor"),
+         # the walk's and the frame pass's device ms, and K8 at the
+         # low-latency profile's chunks
+         "launches_ms": stream["k8_launches_ms"], "low_latency_ms": stream["k8_low_latency_ms"]},
         {"name": "cascade_sosfilt", "route": "cuda", "source": pkg + "cascade.cu",
          "replaces": "audio_processing_tools_tpu/ops/filters.py:518",
          "launches": launches_all["cascade_sosfilt"],
@@ -978,7 +1007,7 @@ def main() -> int:
          "ms": band["ms"]["cascade_sosfilt"], "plain_ms": band["plain_ms"]["cascade_sosfilt"],
          **bound("cascade_sosfilt"),
          # K4's time at each path's shapes (the entry's own ms is band noise's)
-         "shapes": more["k4_shapes"]},
+         "shapes": more["k4_shapes"], "launches_ms": band["k4_launches_ms"]},
         {"name": "band_noise_scan", "route": "cuda", "source": pkg + "band_noise.cu",
          "replaces": "audio_processing_tools_tpu/models/band_noise.py:358",
          "launches": launches_all["band_noise_scan"], "max_abs_err": band["err"]["band_noise_scan"],
@@ -1110,6 +1139,37 @@ def streaming_phases(smi: str) -> dict:
     print(f"  cuFFT rfft of the same frames at other batch shapes than {tuple(frames.shape[:2])} "
           f"gives the same bits: {same_fft}")
 
+    def k8_args(dv, state, x):
+        """K8's arguments for chunk ``x`` of the audio-out detector ``dv`` from
+        ``state``, with the detector's own step: ``(args, new_state, out)``."""
+        st_ = dv._static()
+        xa = torch.cat([state["raw_tail"], x], dim=1)
+        P = spectrogram_power(xa, n_fft=st_.n_fft, hop=st_.hop, center=False)
+        carry = (tsm._seed_psd(state["sup_psd"], P[:, st_.rows, 0], dv.cfg.eps),
+                 state["gain_prev"], state["ola_tail"])
+        new, out = dv.process_chunk_batch(state, x)
+        return (dv.suppressor(), xa, P, out["frame_class"], out["noise_conf"],
+                state["frame_idx"], carry), new, out
+
+    def k8_against_plain(label, args, y_det=None):
+        """K8 against its plain loop on ``args``: the gain and the carries
+        bit for bit, y and the overlap-add tail within 1e-4 of max."""
+        y_k, c_k, g_k = tsm._suppressor_cuda(*args, want_gain=True)
+        y_p, c_p, g_p = tsm._suppressor_plain(*args)
+        torch.cuda.synchronize()
+        if y_det is not None:
+            check(torch.equal(y_k, y_det), f"K8 {label}: the detector's y is not K8's")
+        same_g, _ = same_bits(g_k, g_p)
+        same_c = all(same_bits(a.float(), b.float())[0] for a, b in zip(c_k[0][:5], c_p[0][:5]))
+        same_c = same_c and same_bits(c_k[1], c_p[1])[0]
+        d = float((y_k - y_p).abs().max())
+        r = d / float(y_p.abs().max())
+        r_ola = rel_err(c_k[2].cpu().numpy(), c_p[2].cpu().numpy())
+        check(same_g and same_c and r <= 1e-4 and r_ola <= 1e-4,
+              f"K8 {label}: gain bits {same_g}, carry bits {same_c}, y max|d|/max {r:.3e}, "
+              f"overlap-add tail {r_ola:.3e} (bound 1e-4)")
+        return d, r
+
     k8_abs = k8_rel = 0.0
     k8_case = None
     variants = (("default", {}), ("SNR gate", {"snr_gating_enable": True}),
@@ -1120,37 +1180,43 @@ def streaming_phases(smi: str) -> dict:
                                                   "gain_freq_smooth_enable": False}))
     for label, extra in variants:
         dv = detector({**STREAM_AUDIO, **extra})
-        sup = dv.suppressor()
         state = dv.init_state_batch(STREAMS)
         for c in range(2):  # the stream's first chunk, then a carried one
-            x = chunk(c)
-            xa = torch.cat([state["raw_tail"], x], dim=1)
-            P = spectrogram_power(xa, center=False)
-            carry = (tsm._seed_psd(state["sup_psd"], P[:, st.rows, 0], dv.cfg.eps),
-                     state["gain_prev"], state["ola_tail"])
-            new, out = dv.process_chunk_batch(state, x)
-            args = (sup, xa, P, out["frame_class"], out["noise_conf"], state["frame_idx"], carry)
-            y_k, c_k, g_k = tsm._suppressor_cuda(*args, want_gain=True)
-            y_p, c_p, g_p = tsm._suppressor_plain(*args)
-            torch.cuda.synchronize()
-            check(torch.equal(y_k, out["y"]), f"K8 {label}: the detector's y is not K8's")
-            same_g, _ = same_bits(g_k, g_p)
-            same_c = all(same_bits(a.float(), b.float())[0] for a, b in zip(c_k[0][:5], c_p[0][:5]))
-            same_c = same_c and same_bits(c_k[1], c_p[1])[0]
-            d = float((y_k - y_p).abs().max())
-            r = d / float(y_p.abs().max())
-            r_ola = rel_err(c_k[2].cpu().numpy(), c_p[2].cpu().numpy())
-            check(same_g and same_c and r <= 1e-4 and r_ola <= 1e-4,
-                  f"K8 {label}, chunk {c}: gain bits {same_g}, carry bits {same_c}, y max|d|/max "
-                  f"{r:.3e}, overlap-add tail {r_ola:.3e} (bound 1e-4)")
+            args, new, out = k8_args(dv, state, chunk(c))
+            d, r = k8_against_plain(f"{label}, chunk {c}", args, out["y"])
             print(f"  K8 {label}, chunk {c} ({STREAMS} streams x {T} frames): gain and carries the "
                   f"plain loop's bits, y max|d| {d:.3e}, max|d|/max {r:.3e} (bound 1e-4)")
             k8_abs, k8_rel = max(k8_abs, d), max(k8_rel, r)
             if label == "default" and c == 1:
                 k8_case = args
             state = new
+    # the two ends of K8's transform sizes (K1's plan in the detector takes
+    # 64 to 1,024; at 1,024 the band has 285 bins), the default variant
+    for n_fft in (64, 1024):
+        dv = detector({**STREAM_AUDIO, "n_fft": n_fft, "hop": n_fft // 2})
+        L = CHUNK // n_fft * n_fft
+        state = dv.init_state_batch(STREAMS)
+        for c in range(2):
+            args, state, out = k8_args(dv, state, chunk(c, length=L))
+            d, r = k8_against_plain(f"n_fft {n_fft}, chunk {c}", args, out["y"])
+            k8_abs, k8_rel = max(k8_abs, d), max(k8_rel, r)
+        print(f"  K8 at n_fft {n_fft} ({STREAMS} streams x {args[3].shape[1]} frames, "
+              f"{args[0].K} band bins): gain and carries the plain loop's bits, y max|d|/max "
+              f"{r:.3e} (bound 1e-4)")
+    # the low-latency profile's shapes, where the launches themselves dominate
+    k8_lowlat = {}
+    for L in LOWLAT[1]:
+        dv = detector(STREAM_AUDIO)
+        args, _, _ = k8_args(dv, dv.init_state_batch(LOWLAT[0]), chunk(0, LOWLAT[0], L))
+        k8_against_plain(f"{LOWLAT[0]} x {L}", args)
+        k8_lowlat[L] = (graph_ms(lambda: tsm._suppressor_cuda(*args)),
+                        launch_breakdown(lambda: tsm._suppressor_cuda(*args)))
+    k8_parts = launch_breakdown(lambda: tsm._suppressor_cuda(*k8_case))
     print(f"phase 12 streaming kernels on the card: K7 and K2/K3 carries bit for bit, K8 y within "
-          f"{k8_rel:.3e} of its maximum, gain and carries bit for bit")
+          f"{k8_rel:.3e} of its maximum, gain and carries bit for bit (n_fft 64, 256, 1,024); K8 "
+          f"device ms per launch at {STREAMS} x {T} frames {k8_parts}, at "
+          + ", ".join(f"{LOWLAT[0]} x {L // st.hop} frames {parts}"
+                      for L, (_, parts) in k8_lowlat.items()))
 
     # ---- 13. the live streaming path -----------------------------------------
     def drive(params, B, L, n_chunks):
@@ -1321,8 +1387,10 @@ def streaming_phases(smi: str) -> dict:
     k8_ms = graph_ms(lambda: tsm._suppressor_cuda(*k8_case))
     k8_plain = float(np.median(cuda_times(lambda: tsm._suppressor_plain(*k8_case), 2)))
     print(f"  timings on {smi}: K7 {k7_ms:.4f} ms per launch at {tuple(x0.shape)} (plain loop "
-          f"{k7_plain:.1f} ms, n=1); K8 {k8_ms:.4f} ms per launch at {STREAMS} x {T} frames "
-          f"(plain loop {k8_plain:.1f} ms, n=2)")
+          f"{k7_plain:.1f} ms, n=1); K8 {k8_ms:.4f} ms per call at {STREAMS} x {T} frames "
+          f"(plain loop {k8_plain:.1f} ms, n=2); at the low-latency profile's "
+          + ", ".join(f"{LOWLAT[0]} x {L // st.hop} frames {ms:.4f} ms"
+                      for L, (ms, _) in k8_lowlat.items()))
     # bounds: K7 reads x and zi and writes y and zf, 9 float operations per
     # sample and section; K8 reads the carried samples and the chunk, the
     # band power, the classes and confidences and writes the audio, and does
@@ -1336,6 +1404,8 @@ def streaming_phases(smi: str) -> dict:
         "err": {"sosfilt_zi": k7_abs, "streaming_suppressor": k8_abs},
         "ms": {"sosfilt_zi": k7_ms, "streaming_suppressor": k8_ms},
         "plain_ms": {"sosfilt_zi": k7_plain, "streaming_suppressor": k8_plain},
+        "k8_launches_ms": k8_parts,
+        "k8_low_latency_ms": {f"{LOWLAT[0]} x {L}": ms for L, (ms, _) in k8_lowlat.items()},
         "work": {
             "sosfilt_zi": (4 * (2 * x0.numel() + 2 * zi.numel()), 9 * S * x0.numel()),
             "streaming_suppressor": (
@@ -1404,6 +1474,7 @@ def band_noise_phases(smi: str) -> dict:
     # the path's shapes: the high-pass over the clips from their seed states,
     # then the band-pass over its output; the kernels line's error is these
     k4_abs = 0.0
+    k4_parts = {}  # device ms of each of K4's launches at the path's shapes
     xs = xT
     for label, sos in (("high-pass", hpf), ("band-pass", bpf)):
         zi = tbn._seed(sos, xT[:, 0]).reshape(BATCH, -1).contiguous()
@@ -1412,6 +1483,9 @@ def band_noise_phases(smi: str) -> dict:
         check(same_y and same_z, f"K4 {label} at {tuple(xs.shape)}: not the plain version's "
                                  f"bits (y {d:.3e}, zf {dz:.3e})")
         k4_abs = max(k4_abs, d, dz)
+        flat, _ = k4_tables(sos, xs.shape[-1], dev)
+        k4_parts[label] = launch_breakdown(
+            lambda: tfl._cascade_sosfilt_cuda(flat, xs, zi, sos.shape[0]))
         xs = y_k
     x8 = xT[:8]
     for label, sos in (("high-pass", hpf), ("band-pass", bpf)):
@@ -1445,7 +1519,7 @@ def band_noise_phases(smi: str) -> dict:
               f"chunks give one call's bits; {tuple(x.shape)} against scipy in float64: y "
               f"max|d|/max {r_y:.3e}, zf {r_z:.3e} (bound 1e-5)")
     print("phase 17 K4 cascade_sosfilt on the card: the plain version's bits, chunk invariant, "
-          "within 1e-5 of scipy")
+          f"within 1e-5 of scipy; device ms per launch at {tuple(xT.shape)}: {k4_parts}")
 
     # ---- 18. K6 against its plain loop -------------------------------------------
     k6_abs = 0.0
@@ -1644,7 +1718,7 @@ def band_noise_phases(smi: str) -> dict:
     k6_ms = graph_ms(lambda: tbn._band_scan_cuda(c6, carry6, inputs6))
     k6_plain = float(np.median(cuda_times(lambda: tbn._band_scan_plain(c6, carry6, inputs6), 1)))
     print(f"  timings on {smi}: K4 " + ", ".join(
-        f"{label} {ms:.4f} ms per launch (plain {pm:.1f} ms, n=2)"
+        f"{label} {ms:.4f} ms per call (plain {pm:.1f} ms, n=2)"
         for label, (ms, pm, _) in k4.items())
           + f" at {tuple(xT.shape)}; K6 {k6_ms:.4f} ms per launch at {BATCH} x {T} frames (plain "
             f"loop {k6_plain:.1f} ms, n=1)")
@@ -1677,6 +1751,7 @@ def band_noise_phases(smi: str) -> dict:
     return {
         "launches": launches,
         "err": {"cascade_sosfilt": k4_abs, "band_noise_scan": k6_abs},
+        "k4_launches_ms": k4_parts,
         # K4: per launch, the mean of the batch's two launches
         "ms": {"cascade_sosfilt": float(np.mean([v[0] for v in k4.values()])),
                "band_noise_scan": k6_ms},
@@ -1764,14 +1839,16 @@ def roe_mel_alac_phases(smi: str) -> dict:
         k4_err = max(k4_err, d, dz)
         flat, tabs = k4_tables(sos, xs.shape[-1], dev)
         ms = graph_ms(lambda: tfl._cascade_sosfilt_cuda(flat, xs, zi, sos.shape[0]))
+        parts = launch_breakdown(lambda: tfl._cascade_sosfilt_cuda(flat, xs, zi, sos.shape[0]))
         plain = float(np.median(cuda_times(lambda: tfl._cascade_sosfilt_plain(tabs, xs, zi), 2)))
         b_ms, b_by = bound_of(*k4_work(xs, sos.shape[0]))
         k4_shapes.append({"path": label, "rows": xs.shape[0], "samples": xs.shape[1],
                           "sections": sos.shape[0], "ms": ms, "plain_ms": plain,
-                          "bound_ms": b_ms, "bound_by": b_by})
+                          "bound_ms": b_ms, "bound_by": b_by, "launches_ms": parts})
         print(f"  K4 {label}, {sos.shape[0]} sections, {tuple(xs.shape)}: the plain version's "
               f"bits (y and zf), within {r_sp:.3e} of scipy float64 (bound 1e-5); {ms:.4f} ms "
-              f"per launch in a graph of 20 (bound {b_ms:.4f} by {b_by}; plain {plain:.1f} ms, n=2)")
+              f"per call in a graph of 20, per launch {parts} (bound {b_ms:.4f} by {b_by}; plain "
+              f"{plain:.1f} ms, n=2)")
         if y8 is None:
             y8 = y_k
     P_k = spectrogram_power(y8, n_fft=cfg.frame_length, hop=cfg.hop_length)
@@ -1779,8 +1856,9 @@ def roe_mel_alac_phases(smi: str) -> dict:
     k1_rel = rel_err(P_k.cpu().numpy(), P_p.cpu().numpy())
     check(k1_rel < 1e-5, f"K1 at {tuple(y8.shape)}: max|d|/max {k1_rel:.3e}")
     print(f"phase 21 K4 at the RoE shapes on {smi}: 8 and 4 sections, the plain version's bits, "
-          f"within 1e-5 of scipy; K1 {tuple(y8.shape)} -> {tuple(P_k.shape)} within {k1_rel:.3e} "
-          f"of stft_power's max (bound 1e-5)")
+          f"within 1e-5 of scipy, device ms per launch "
+          f"{ {sh['sections']: sh['launches_ms'] for sh in k4_shapes} }; K1 {tuple(y8.shape)} -> "
+          f"{tuple(P_k.shape)} within {k1_rel:.3e} of stft_power's max (bound 1e-5)")
     del P_k, P_p
     del rows, y8
 

@@ -287,9 +287,31 @@ def test_k8_arguments_mirror_the_source(struct):
     assert [f[0] for f in py._fields_] == _c_struct(struct)
 
 
-def test_k8_shared_memory_mirrors_the_source():
+def test_k8_geometry_limits_mirror_the_source():
+    """``k8_check_geometry`` refuses what K8's launcher refuses: the same
+    n_fft range and tap count (the kernel runs only on the card)."""
     src = (Path(ts.__file__).resolve().parent.parent / "csrc" / "streaming.cu").read_text()
-    assert ("return 4 * c.n_fft + c.hop + 2 * F + (c.K + 2 * pad) + 2 * c.K + "
-            "2 * pow2_at_least(c.n_snr) +\n         2 * (c.n_fft - c.hop);") in src
-    assert ts._sup_smem_bytes(256, 128, 71, 3, 0) == 4 * (1024 + 128 + 258 + 73 + 142 + 2 + 256)
-    assert ts._sup_smem_bytes(256, 128, 71, 0, 40) == 4 * (1024 + 128 + 258 + 71 + 142 + 128 + 256)
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (consts["kMinFft"], consts["kMaxFft"]) == (min(ts.N_FFTS), max(ts.N_FFTS))
+    assert consts["kMaxTaps"] == ts._K8_MAX_TAPS
+
+
+@pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024])
+def test_k8_geometry_takes_every_size_k1_takes(n_fft):
+    """Every n_fft K1 takes (K1 computes the band power K8 reads), with all
+    n_fft / 2 + 1 bins as band bins, the most taps and SNR columns."""
+    F = n_fft // 2 + 1
+    assert ts.k8_check_geometry(n_fft, n_fft // 2, F, 9, F) is None
+
+
+@pytest.mark.parametrize("n_fft, hop, K, taps, snr", [
+    (2048, 1024, 71, 3, 0), (32, 16, 10, 3, 0), (4, 2, 2, 0, 0), (256, 64, 71, 3, 0),
+    (96, 48, 10, 3, 0), (2, 1, 1, 0, 0), (256, 128, 130, 3, 0), (256, 128, 0, 3, 0),
+    (256, 128, 71, 10, 0), (256, 128, 71, 3, 72)])
+def test_k8_check_geometry_refuses_what_the_kernel_does_not_take(n_fft, hop, K, taps, snr):
+    """n_fft outside 64-1024 or not a power of two (below 64 K1, which
+    computes the band power, refuses it too), a hop not n_fft / 2, band bins
+    outside 1 to n_fft / 2 + 1, more than 9 taps, more SNR columns than
+    band bins."""
+    with pytest.raises(ValueError, match="streaming_suppressor"):
+        ts.k8_check_geometry(n_fft, hop, K, taps, snr)

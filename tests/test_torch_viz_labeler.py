@@ -3,8 +3,9 @@ and the labeler (``labeler.py``), the counterparts of
 ``tests/test_viz_labeler.py`` on the port engine's CPU output, matplotlib on
 Agg.
 
-Tolerances against JAX: ``frames_to_df`` has JAX's columns (``time_s``
-first, the others in the port's ``det_debug`` order);
+Tolerances against JAX: ``frames_to_df`` has JAX's columns in JAX's order
+(``time_s`` first, then ``det_debug``'s keys, sorted as JAX's ``jit``
+returns them);
 its decision columns (frame class, gate masks) are identical and its float
 columns within 1e-4 of each column's maximum (the dB-domain bound of
 ROADMAP R4); ``generate_uid`` and ``str_to_bool`` are identical.
@@ -66,8 +67,8 @@ def jax_out(clip):
 def test_frames_to_df_matches_jax(engine_out, jax_out):
     df = frames_to_df(engine_out["det_debug"], engine_out["times"])
     ref = jax_frames_to_df(jax_out["det_debug"], jax_out["times"])
-    # the same columns; the det_debug dicts list them in another order
-    assert sorted(df.columns) == sorted(ref.columns) and len(df) == len(ref)
+    # the same columns in the same order: det_debug's keys are JAX's order
+    assert list(df.columns) == list(ref.columns) and len(df) == len(ref)
     assert df.columns[0] == ref.columns[0] == "time_s"
     assert "td_crest_factor" in df.columns and "time_s" in df.columns
     for col in df.columns:
