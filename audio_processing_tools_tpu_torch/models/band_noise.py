@@ -606,19 +606,21 @@ def _band_scan_cuda(cfg: BandNoiseEstimatorConfig, carry: Dict[str, torch.Tensor
     if not (1 <= S <= K6_MAX_S and S <= W <= K6_MAX_W):
         raise ValueError(f"band_noise_scan: the CUDA kernel takes 1 <= S <= {K6_MAX_S} "
                          f"subframes and S <= W <= {K6_MAX_W} slots; got S={S}, W={W}")
+    # the bool tensors (the valid flags, the sub mask) go in and out as their
+    # bytes, so that they need no conversion
     name = "band_noise_scan(carry)"
     cf = torch.stack([_kernels.carry_vector(name, carry[k], subE, B, torch.float32)
                       for k in _CARRY_F], dim=1).contiguous()
     ci = torch.stack([_kernels.carry_vector(name, carry[k], subE, B, torch.int32)
                       for k in _CARRY_I], dim=1).contiguous()
     buf = _kernels.carry_vector(name, carry["buf"], subE, B * W, torch.float32)
-    valid = _kernels.carry_vector(name, carry["valid"], subE, B * W, torch.uint8)
+    valid = _kernels.carry_vector(name, carry["valid"], subE, B * W, torch.bool)
     bidx = _kernels.carry_vector(name, carry["buf_frame_idx"], subE, B * W, torch.int32)
     o_cf, o_ci = torch.empty_like(cf), torch.empty_like(ci)
     o_buf, o_valid, o_bidx = torch.empty_like(buf), torch.empty_like(valid), torch.empty_like(bidx)
     of = torch.empty((len(_OUT_F), B, T), dtype=torch.float32, device=dev)
     oi = torch.empty((len(_OUT_I), B, T), dtype=torch.int32, device=dev)
-    om = torch.empty((B, T, S), dtype=torch.uint8, device=dev)
+    om = torch.empty((B, T, S), dtype=torch.bool, device=dev)  # the kernel writes 0 and 1 bytes
     io = _BandIO(*(t.data_ptr() for t in (subE, subEhpf, rain_sum, primary, Eb, Mb, cf, ci, buf,
                                           valid, bidx, o_cf, o_ci, o_buf, o_valid, o_bidx, of,
                                           oi, om)))
@@ -632,12 +634,13 @@ def _band_scan_cuda(cfg: BandNoiseEstimatorConfig, carry: Dict[str, torch.Tensor
     out = {key: of[i] for i, key in enumerate(_OUT_F)}
     out.update({key: oi[i] for i, key in enumerate(_OUT_I)})
     out["fft_rain_frame"] = out["fft_rain_frame"].bool()
-    out["rain_submask"] = om.bool()
+    out["rain_submask"] = om
     new = {key: o_cf[:, i] for i, key in enumerate(_CARRY_F)}
-    new.update({key: (o_ci[:, i].bool() if key in _CARRY_BOOL else o_ci[:, i])
+    flags = o_ci[:, : len(_CARRY_BOOL)].bool()  # _CARRY_I begins with the bool scalars
+    new.update({key: (flags[:, i] if key in _CARRY_BOOL else o_ci[:, i])
                 for i, key in enumerate(_CARRY_I)})
     new["buf"] = o_buf.reshape(B, W)
-    new["valid"] = o_valid.reshape(B, W).bool()
+    new["valid"] = o_valid.reshape(B, W)
     new["buf_frame_idx"] = o_bidx.reshape(B, W)
     return out, new
 

@@ -37,8 +37,10 @@ Phases, one line each:
      against CPU;
  11. timings of K5 beside its plain loop and of the two suppressor batches;
  12. the streaming kernels against their plain versions: K7 (the causal
-     prefilter with state, ``sosfilt`` with ``zi``) bit for bit at 64 x 2,048
-     and within 1e-5 of scipy in float64 at 64 x 22,272, K2 and K3 with
+     prefilter with state, ``sosfilt`` with ``zi``) bit for bit at 64 x
+     22,272 and 64 x 22,271 (2 sections) and at 64 x 8,191 with 1, 4 and 8
+     sections, zi nonzero, and within 1e-5 of scipy in float64 at 64 x
+     22,272, K2 and K3 with
      their carries threaded over 1-, 4- and 174-frame chunks bit for bit
      against one call, and K8 (the streaming suppressor) at 64 streams x 174
      frames against its plain loop (gain and carries bit for bit, audio to
@@ -69,7 +71,10 @@ Phases, one line each:
      chunks against one call; 128 x 10 s within 1e-5 of scipy in float64;
      the device ms of each of K4's three launches (drifts, walk, outputs);
  18. K6 (the band-noise estimator's scan) against its plain loop bit for bit
-     at 128 clips x 218 frames, in four estimator configurations;
+     (outputs and carry) at 128 clips x 218 frames, in five estimator
+     configurations (one with a 64-slot ring, a 5-frame TTL and the
+     replenish) and in two of them again with NaN, infinite and zero
+     subframe energies, which its sorted view leaves to the rank count;
  19. the band-noise batch path: 128 synthetic 10 s clips (noise and 520 Hz
      bursts) through ``BandNoiseEstimatorProcessor.run_batch`` with launch
      counts (K1 1, K4 2, K6 1), 16 clips' FFT rain frames and rain subframes
@@ -1073,12 +1078,24 @@ def streaming_phases(smi: str) -> dict:
     S = st.td_sos.shape[0]
     coef = torch.from_numpy(tfl._sos_coefficients(st.td_sos)).to(dev)
     zi = 0.01 * torch.randn((STREAMS, S, 2), generator=gen, device=dev)
-    xs = x0[:, :2048].contiguous()
-    y_k, zf_k = tfl._sosfilt_zi_cuda(coef, xs, zi)
-    y_p, zf_p = tfl._sosfilt_zi_plain(coef, xs, zi)
-    torch.cuda.synchronize()
-    (same_y, k7_abs), (same_z, _) = same_bits(y_k, y_p), same_bits(zf_k, zf_p)
-    check(same_y and same_z, f"K7 at {tuple(xs.shape)}: not the plain loop's bits ({k7_abs:.3e})")
+    # the plain loop's bits at the live shape, at a length that is neither a
+    # multiple of 4 nor of a tile, and at 1, 4 and 8 sections (a high-pass of
+    # twice the order) over 8,191 samples, zi nonzero throughout
+    k7_cases = [(coef, x0, zi), (coef, x0[:, : CHUNK - 1].contiguous(), zi)]
+    for n_sec in (1, 4, 8):
+        c = torch.from_numpy(tfl._sos_coefficients(
+            tfl.butter_sos(2 * n_sec, 350.0 / (0.5 * FS), "highpass"))).to(dev)
+        k7_cases.append((c, x0[:, :8191].contiguous(),
+                         0.01 * torch.randn((STREAMS, n_sec, 2), generator=gen, device=dev)))
+    k7_abs = 0.0
+    for c, xs, z in k7_cases:
+        y_k, zf_k = tfl._sosfilt_zi_cuda(c, xs, z)
+        y_p, zf_p = tfl._sosfilt_zi_plain(c, xs, z)
+        torch.cuda.synchronize()
+        (same_y, d), (same_z, dz) = same_bits(y_k, y_p), same_bits(zf_k, zf_p)
+        check(same_y and same_z, f"K7 at {tuple(xs.shape)}, {c.shape[0]} sections: not the plain "
+                                 f"loop's bits (y {d:.3e}, zf {dz:.3e})")
+        k7_abs = max(k7_abs, d, dz)
     y_k, zf_k = tfl._sosfilt_zi_cuda(coef, x0, zi)
     y_sp, zf_sp = ss.sosfilt(st.td_sos, x0.double().cpu().numpy(), axis=-1,
                              zi=zi.double().cpu().numpy().transpose(1, 0, 2))
@@ -1086,9 +1103,10 @@ def streaming_phases(smi: str) -> dict:
     k7_zrel = rel_err(zf_k.cpu().numpy(), zf_sp.transpose(1, 0, 2))
     check(k7_rel <= 1e-5 and k7_zrel <= 1e-5,
           f"K7 at {tuple(x0.shape)} against scipy float64: y {k7_rel:.3e}, zf {k7_zrel:.3e}")
-    print(f"  K7 sosfilt_zi {tuple(xs.shape)}, {S} sections: the plain loop's bits (y and zf); "
-          f"{tuple(x0.shape)} against scipy in float64: y max|d|/max {k7_rel:.3e}, zf "
-          f"{k7_zrel:.3e} (bound 1e-5)")
+    print(f"  K7 sosfilt_zi: the plain loop's bits (y and zf) at {tuple(x0.shape)} and "
+          f"{(STREAMS, CHUNK - 1)} ({S} sections) and at {(STREAMS, 8191)} with 1, 4 and 8 "
+          f"sections, zi nonzero; {tuple(x0.shape)} against scipy in float64: y max|d|/max "
+          f"{k7_rel:.3e}, zf {k7_zrel:.3e} (bound 1e-5)")
 
     xa0 = torch.cat([torch.zeros((STREAMS, st.n_fft - st.hop), device=dev), x0], dim=1)
     P0 = spectrogram_power(xa0, center=False)
@@ -1418,13 +1436,50 @@ def streaming_phases(smi: str) -> dict:
 
 BN_SEED = 17
 BN_CHUNK = 512 * 17  # odd chunking of the band-noise streams, 17 frames
-BN_CONFIGS = {  # tests/test_band_noise.py:235-239, and both detector triggers
+BN_CONFIGS = {  # tests/test_band_noise.py:235-239, both detector triggers, K6's widest ring
     "default": {},
     "smooth N_E": {"smooth_N_E": True},
     "replenish, TTL 20": {"noise_replenish_from_all_subframes": True,
                           "noise_buffer_ttl_frames": 20},
     "D and dE triggers": {"det.use_D_trigger": True, "det.use_dE_over_Ehpf": True},
+    "W 64, replenish, TTL 5": {"W": 64, "noise_replenish_from_all_subframes": True,
+                               "noise_buffer_ttl_frames": 5},
 }
+
+
+def with_nonfinite_energies(inputs):
+    """K6's per-frame inputs with NaN, +inf, -inf and zero subframe energies
+    (and a NaN high-passed energy and band energy) in eight lanes, so that
+    its ring holds values its sorted view does not order."""
+    subE, subEhpf, *rest = (t.clone() for t in inputs)
+    nan, inf = float("nan"), float("inf")
+    subE[0, 50, 1] = nan
+    subE[1, 60, 2] = inf
+    subE[2, 70:75, 0] = nan
+    subE[3, 80, 3] = -inf
+    subE[4, 90:120, :] = inf
+    subE[5, 100, :] = 0.0
+    subEhpf[6, 40, 0] = nan
+    rest[2][7, 30] = nan  # Eb
+    return (subE, subEhpf, *rest)
+
+
+def k6_mismatches(got, ref) -> tuple:
+    """K6's outputs or carry (dicts of tensors) against the plain loop's:
+    the keys whose values differ (floats by ``same_bits``, the rest exactly)
+    and max|d| where both are finite."""
+    import torch
+
+    bad, err = [], 0.0
+    for key in ref:
+        if ref[key].dtype.is_floating_point:
+            same, d = same_bits(got[key], ref[key])
+            err = max(err, d)
+        else:
+            same = torch.equal(got[key], ref[key])
+        if not same:
+            bad.append(key)
+    return bad, err
 
 
 def band_noise_clips(n_clips: int, seed: int = BN_SEED):
@@ -1531,25 +1586,24 @@ def band_noise_phases(smi: str) -> dict:
         x_h, x_bp, _, _ = tbn._filters(c, xT, tbn._seed(h, x0), tbn._seed(b, x0))
         inputs = tbn._per_frame_inputs(x_h, x_bp, c, T)
         carry = tbn._scan_carry_init(c, BATCH, dev)
-        out_k, carry_k = tbn._band_scan_cuda(c, carry, inputs)
-        out_p, carry_p = tbn._band_scan_plain(c, carry, inputs)
-        torch.cuda.synchronize()
-        for key in out_p:
-            a, b_ = out_k[key], out_p[key]
-            if a.dtype.is_floating_point:
-                same, d = same_bits(a, b_)
-                k6_abs = max(k6_abs, d)
-            else:
-                same = torch.equal(a, b_)
-            check(same, f"K6 {label}: {key} is not the plain loop's")
-        for key in carry_p:
-            check(torch.equal(carry_k[key], carry_p[key]), f"K6 {label}: carry {key} differs")
-        rain = float(out_k["fft_rain_frame"].float().mean())
-        print(f"  K6 {label} ({BATCH} lanes x {T} frames): outputs and carry the plain loop's "
-              f"bits; fft_rain_frame on {rain:.3f} of frames")
+        runs = [("", inputs)]
+        if label in ("default", "W 64, replenish, TTL 5"):
+            runs.append((", non-finite subframe energies", with_nonfinite_energies(inputs)))
+        for what, ins in runs:
+            out_k, carry_k = tbn._band_scan_cuda(c, carry, ins)
+            out_p, carry_p = tbn._band_scan_plain(c, carry, ins)
+            torch.cuda.synchronize()
+            (bad, d), (bad_c, dc) = k6_mismatches(out_k, out_p), k6_mismatches(carry_k, carry_p)
+            check(not bad and not bad_c, f"K6 {label}{what}: not the plain loop's {bad}, carry "
+                                         f"{bad_c}")
+            k6_abs = max(k6_abs, d, dc)
+            rain = float(out_k["fft_rain_frame"].float().mean())
+            print(f"  K6 {label}{what} ({BATCH} lanes x {T} frames, W {c.W}): outputs and carry "
+                  f"the plain loop's bits; fft_rain_frame on {rain:.3f} of frames")
         if label == "default":
             k6_case = (c, carry, inputs)
-    print(f"phase 18 K6 band_noise_scan: {len(BN_CONFIGS)} configurations, the plain loop's bits")
+    print(f"phase 18 K6 band_noise_scan: {len(BN_CONFIGS)} configurations and 2 with non-finite "
+          "subframe energies, the plain loop's bits")
 
     # ---- 19. the band-noise batch path -------------------------------------------
     params = {"sample_rate": FS}

@@ -201,6 +201,96 @@ def test_masked_quantile_rankselect_matches_jax(case):
         assert got[i].numpy().tobytes() == np.asarray(ref).tobytes()
 
 
+class _SortedRing:
+    """NumPy model of K6's ring buffer (``csrc/band_noise.cu``, ``Ring``):
+    the slot-ordered ring and, beside it, its valid values in ascending order
+    at positions 0..n-1 (float32's maximum past them), each with its slot.
+    A frame's pushes go in as one merge, as the kernel's ``Ring::push`` does
+    them: the overwritten slots' entries go out, a surviving entry moves to
+    the survivors before it plus the new values below it, a new value to the
+    survivors not above it plus the new values before it; an expiry
+    compacts the survivors."""
+
+    def __init__(self, W):
+        self.W, self.P = W, 32 * -(-W // 32)
+        self.bv = np.zeros(W, np.float32)
+        self.bi = np.full(W, -1)
+        self.valid = np.zeros(W, bool)
+        self.sk = np.full(self.P, np.finfo(np.float32).max, np.float32)
+        self.ss = np.full(self.P, -1)
+        self.wr = 0
+
+    def push_batch(self, values, frame):
+        m, W, wr0 = len(values), self.W, self.wr
+        pos, n = np.arange(self.P), int(self.valid.sum())
+        slots = (wr0 + np.arange(m)) % W
+        surv = (pos < n) & ((self.ss - wr0) % W >= m)
+        key, slot = np.full(self.P, np.nan, np.float32), np.full(self.P, -2)
+        u = np.float32(values)
+        for l in np.flatnonzero(surv):
+            d = int(surv[:l].sum()) + int((u < self.sk[l]).sum())
+            key[d], slot[d] = self.sk[l], self.ss[l]
+        for s in range(m):
+            d = int((surv & (self.sk <= u[s])).sum())
+            d += int(((u < u[s]) | ((u == u[s]) & (np.arange(m) < s))).sum())
+            key[d], slot[d] = u[s], slots[s]
+        n_new = int(surv.sum()) + m
+        key[n_new:], slot[n_new:] = np.finfo(np.float32).max, -1
+        assert not np.isnan(key).any() and (slot != -2).all()  # a permutation
+        self.sk, self.ss = key, slot
+        self.bv[slots], self.bi[slots], self.valid[slots] = u, frame, True
+        self.wr = (wr0 + m) % W
+
+    def expire(self, frame, ttl):
+        stale = self.valid & (frame - self.bi > ttl)
+        n = int(self.valid.sum())
+        keep = (np.arange(self.P) < n) & ~stale[np.clip(self.ss, 0, self.W - 1)]
+        kept = int(keep.sum())
+        self.sk[:kept], self.ss[:kept] = self.sk[keep], self.ss[keep]
+        self.sk[kept:], self.ss[kept:] = np.finfo(np.float32).max, -1
+        self.valid &= ~stale
+        self.bv[stale], self.bi[stale] = 0.0, -1
+
+    def quantile(self, q):
+        """The order statistics at the sorted view's positions lo and hi."""
+        count = int(self.valid.sum())
+        h = np.float32(q) * np.float32(max(count - 1, 0))
+        lo, hi = int(np.floor(h)), int(np.ceil(h))
+        frac = h - np.float32(lo)
+        v_lo, v_hi = self.sk[lo], self.sk[hi]
+        return v_lo + frac * (v_hi - v_lo) if count > 0 else np.float32(0.0)
+
+
+@pytest.mark.parametrize("W", [8, 30, 64])
+def test_k6_sorted_ring_reads_the_rank_counts_quantile(W):
+    """K6 reads the buffer's quantile from its sorted view: over frames of 0
+    to 8 pushes (values with many ties; a single push is a replenish) and TTL
+    expiry, the view holds the valid values in order, each with its slot, and
+    the value it reads has the bits of masked_quantile_rankselect, the
+    port's and JAX's."""
+    rng = np.random.default_rng(W)
+    ring = _SortedRing(W)
+    levels = rng.random(6).astype(np.float32) + np.float32(1e-3)
+    ttl = int(rng.integers(3, 12))
+    for frame in range(1, 121):
+        ring.expire(frame, ttl)
+        pushes = [levels[rng.integers(6)] if rng.random() < 0.6 else rng.random()
+                  for _ in range(int(rng.choice([0, 0, 1, 4, 8])))]
+        if pushes:
+            ring.push_batch(pushes, frame)
+        n = int(ring.valid.sum())
+        assert np.array_equal(ring.sk[:n], np.sort(ring.bv[ring.valid]))
+        assert np.array_equal(np.sort(ring.ss[:n]), np.flatnonzero(ring.valid))
+        assert np.array_equal(ring.bv[ring.ss[:n]], ring.sk[:n])
+        q = np.float32(rng.random())
+        got = np.float32(ring.quantile(q))
+        ref_t = tstats.masked_quantile_rankselect(torch.from_numpy(ring.bv),
+                                                  torch.from_numpy(ring.valid), float(q))
+        ref_j = np.asarray(jstats.masked_quantile_rankselect(jnp.asarray(ring.bv),
+                                                             jnp.asarray(ring.valid), q))
+        assert got.tobytes() == ref_t.numpy().tobytes() == ref_j.tobytes()
+
+
 # ---------------------------------------------------------------------------
 # The estimator against JAX
 # ---------------------------------------------------------------------------
