@@ -69,7 +69,7 @@ _SIGNATURES = {
     "apt_cascade_sosfilt": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
     "apt_band_noise_scan": (_P, _P, _P),
     "apt_select_peaks_by_distance": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "apt_decision_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "apt_decision_sweep": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -24,19 +24,40 @@
 // (NaN * 0 and inf * 0 are NaN), which never counts.  The counts are
 // integers: the kernel gives the plain version's values exactly.
 //
-// What bounds it on this card: issue.  Bytes are five planes read and the
-// counts written, 2.2 MB + 2.1 MB at 4,096 combos x 128 clips x 873 frames
-// (1.3 us at 3.35 TB/s); the rule is 11 one-lane operations for each of the
-// 4.6e8 (combo, clip, frame) triples (5 compares, 3 adds, a compare, an and,
-// an add), 0.15 ms at one operation a lane a clock (132 SMs x 128 lanes x
-// 1.98 GHz).
+// What bounds it on this card.  A grid repeats each threshold many times:
+// the sweep's 4,096 combos hold 8 + 4 + 4 + 2 distinct flux thresholds and 4
+// gate thresholds.  So the work these inputs need is one compare a distinct
+// threshold and frame per clip, and one word operation a combo and 32 frames
+// per clip (1.7e7 at 4,096 x 128 x 873, 0.5 us at one operation a lane a
+// clock); the bytes are the five planes read once and the counts written
+// once (2.2 MB + 2.1 MB, 1.3 us at 3.35 TB/s), which bind.
 //
-// Design: one block of 256 threads per (clip, slice of 256 combos).  The
-// block stages its clip's five planes in shared memory (20 bytes a frame:
-// 17.5 KB at 873 frames).  Each warp takes 32 combos in four passes of
-// eight; in a pass its lanes split the frames, each lane reads a frame's
-// five values once and evaluates the pass's eight combos on them, and a
-// warp-wide integer reduce gives each combo's count.
+// Design: bit-sliced counts.
+//  * The wrapper (ops/sweep.py::k10_plan) cuts the combos into slices of S
+//    and finds, for each slice and each of the four flux axes, the distinct
+//    (gate threshold, flux threshold) pairs of its combos (by bit pattern,
+//    so a NaN threshold stays itself) and each combo's row among them.  It
+//    picks the largest slice that still gives a block an SM and whose rows
+//    fit 48 KB of shared memory: the sweep's 4,096 combos go in 2 slices of
+//    2,048 with 56 rows each; a grid whose every threshold is distinct in
+//    slices of 64 with 256 rows.
+//  * One block per (slice, clip).  It loads its clip's frames for the
+//    words its warp takes and its slice's rows.  Masks: for each row and
+//    each word of 32 frames, a warp's lanes take the word's frames and one
+//    __ballot_sync gives the frames where v_k >= thr, v_k being L_k or 0 *
+//    L_k as the row's gate opens or closes on that frame: the rule's own
+//    float compares, once a pair, not once a combo.  A warp takes up to
+//    kWordsPerWarp words at a time, their frames' five values in
+//    registers; frames past T give zero bits.  Mask rows live in shared
+//    memory at an odd pitch of words.
+//  * Counts: a combo's four pass words per 32 frames; hits >= msc is read
+//    from the bit-sliced sum of the three support words (s0 = the xor,
+//    s1 = the majority): msc <= 0 all frames, 1 s0 | s1, 2 s1, 3 s0 & s1,
+//    >= 4 none.  Then an and with the primary word, __popc and an add.
+//    One thread takes a combo and walks its words, with no reduction (the
+//    rows a warp reads fall on distinct banks, the pitch being odd); a warp
+//    a combo, its lanes over the words and a warp reduce, took 4.8 times as
+//    long on the sweep (tools/time_k5_k10.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,85 +66,135 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPass = 8;                                  // combos per frame read
-constexpr int kCombosPerWarp = 32;
-constexpr int kCombosPerBlock = kWarps * kCombosPerWarp;  // 256
-constexpr int kMaxSharedBytes = 232448;                   // 227 KB a block
+constexpr int kWordsPerWarp = 4;         // words a warp's lanes hold in registers at a time
+constexpr int kMaxSharedBytes = 232448;  // 227 KB a block
+
+// words of 32 frames, and the pitch of a mask row: odd, so that rows r and
+// r' of one word fall on distinct banks unless r - r' is a multiple of 32
+__host__ __device__ inline int words_of(int T) { return (T + 31) / 32; }
+__host__ __device__ inline int pitch_of(int T) { return words_of(T) | 1; }
+
+// shared bytes of a block: P mask rows and their (gate, flux) pairs
+size_t shared_bytes(int P, int T) { return (size_t)P * (4 * (size_t)pitch_of(T) + sizeof(float2)); }
+
+// [hits >= msc] from the support words: s0 (hits odd), s1 (hits >= 2),
+// all = ~0 where msc <= 0, x = ~0 where msc == 1, two = msc == 2
+__device__ __forceinline__ uint32_t rain_word(uint32_t p0, uint32_t p1, uint32_t p2, uint32_t p3,
+                                              uint32_t all, uint32_t x, bool two) {
+  const uint32_t s0 = p1 ^ p2 ^ p3;
+  const uint32_t s1 = (p1 & p2) | (p1 & p3) | (p2 & p3);
+  // msc 1: s0 | s1, msc 3: s0 & s1 (the majority of s0, s1 and x)
+  const uint32_t ge = two ? s1 : ((s0 & s1) | (x & (s0 | s1)));
+  return p0 & (ge | all);
+}
 
 __global__ void __launch_bounds__(kThreads)
 decision_sweep_kernel(const float* __restrict__ logs,   // (4, B, T): L0..L3
                       const float* __restrict__ crest,  // (B, T)
-                      const float* __restrict__ thr,    // (C, 5): pm, m1, m2, m3, tdg
+                      const float2* __restrict__ rows,  // (n_slices, P): (tdg, thr)
+                      const int* __restrict__ offs,     // (n_slices, 5): axis starts, count
+                      const int4* __restrict__ index,   // (n_slices * S,): a combo's rows
                       const int* __restrict__ msc,      // (C,)
                       int* __restrict__ counts,         // (C, B)
-                      int B, int T, int C) {
-  extern __shared__ float s[];  // crest, L0, L1, L2, L3: T values each
-  const int b = blockIdx.x;
+                      int B, int T, int C, int S, int P) {
+  extern __shared__ float2 smem[];
+  const int W = words_of(T), pitch = pitch_of(T);
+  float2* const tab = smem;                                          // [P]
+  uint32_t* const masks = reinterpret_cast<uint32_t*>(smem + P);     // [P][pitch]
+  const int s = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int off[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) off[k] = offs[s * 5 + k];
+
+  // this warp's first words of frames, loaded before the rows' barrier
   const size_t plane = (size_t)B * T;
   const size_t row = (size_t)b * T;
-  for (int t = threadIdx.x; t < T; t += kThreads) {
-    s[t] = crest[row + t];
+  float cr[kWordsPerWarp], l[kWordsPerWarp][4];
+  bool in[kWordsPerWarp];
+  auto load_words = [&](int w0) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) s[(k + 1) * T + t] = logs[k * plane + row + t];
+    for (int u = 0; u < kWordsPerWarp; ++u) {
+      const int t = (w0 + u) * 32 + lane;
+      in[u] = w0 + u < W && t < T;
+      cr[u] = in[u] ? crest[row + t] : 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) l[u][k] = in[u] ? logs[k * plane + row + t] : 0.f;
+    }
+  };
+  int w0 = warp * kWordsPerWarp;
+  if (w0 < W) load_words(w0);
+  for (int i = threadIdx.x; i < off[4]; i += kThreads) tab[i] = rows[(size_t)s * P + i];
+  __syncthreads();
+
+  // ---- masks: a ballot a (row, word) --------------------------------------
+  for (; w0 < W; w0 += kWarps * kWordsPerWarp) {
+    if (w0 != warp * kWordsPerWarp) load_words(w0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float z[kWordsPerWarp];  // the closed gate's values: +-0, NaN for NaN or inf
+#pragma unroll
+      for (int u = 0; u < kWordsPerWarp; ++u) z[u] = __fmul_rn(l[u][k], 0.f);
+#pragma unroll 2
+      for (int r = off[k]; r < off[k + 1]; ++r) {
+        const float2 p = tab[r];  // (tdg, thr), the same for every lane
+        uint32_t bits[kWordsPerWarp];
+#pragma unroll
+        for (int u = 0; u < kWordsPerWarp; ++u) {
+          const float v = cr[u] > p.x ? l[u][k] : z[u];
+          bits[u] = __ballot_sync(0xffffffffu, in[u] && v >= p.y);
+        }
+        // lane u stores word w0 + u of the row
+        uint32_t mine = bits[0];
+#pragma unroll
+        for (int u = 1; u < kWordsPerWarp; ++u) mine = lane == u ? bits[u] : mine;
+        if (lane < kWordsPerWarp && w0 + lane < W) masks[(size_t)r * pitch + w0 + lane] = mine;
+      }
+    }
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c_warp = blockIdx.y * kCombosPerBlock + warp * kCombosPerWarp;
-  for (int p = 0; p < kCombosPerWarp; p += kPass) {
-    const int c0 = c_warp + p;
-    if (c0 >= C) break;
-    float pm[kPass], m1[kPass], m2[kPass], m3[kPass], tdg[kPass];
-    int ms[kPass], cnt[kPass];
-#pragma unroll
-    for (int j = 0; j < kPass; ++j) {
-      const int c = min(c0 + j, C - 1);  // past C: the last combo again, not written
-      pm[j] = thr[c * 5 + 0];
-      m1[j] = thr[c * 5 + 1];
-      m2[j] = thr[c * 5 + 2];
-      m3[j] = thr[c * 5 + 3];
-      tdg[j] = thr[c * 5 + 4];
-      ms[j] = msc[c];
-      cnt[j] = 0;
-    }
-    for (int t = lane; t < T; t += 32) {
-      const float cr = s[t];
-      const float l0 = s[T + t], l1 = s[2 * T + t], l2 = s[3 * T + t], l3 = s[4 * T + t];
-      // the closed gate's values: +-0, NaN where L is NaN or inf
-      const float z0 = __fmul_rn(l0, 0.f), z1 = __fmul_rn(l1, 0.f);
-      const float z2 = __fmul_rn(l2, 0.f), z3 = __fmul_rn(l3, 0.f);
-#pragma unroll
-      for (int j = 0; j < kPass; ++j) {
-        const bool open = cr > tdg[j];
-        const float v0 = open ? l0 : z0, v1 = open ? l1 : z1;
-        const float v2 = open ? l2 : z2, v3 = open ? l3 : z3;
-        const int hits = (int)(v1 >= m1[j]) + (int)(v2 >= m2[j]) + (int)(v3 >= m3[j]);
-        cnt[j] += (int)((v0 >= pm[j]) & (hits >= ms[j]));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPass; ++j) {
-      const int total = __reduce_add_sync(0xffffffffu, cnt[j]);
-      if (lane == 0 && c0 + j < C) counts[(size_t)(c0 + j) * B + b] = total;
-    }
+  // ---- counts --------------------------------------------------------------
+  const int c0 = s * S;
+  for (int i = threadIdx.x; i < S && c0 + i < C; i += kThreads) {
+    const int c = c0 + i;
+    const int4 ix = index[c];
+    const int ms = msc[c];
+    const uint32_t all = ms <= 0 ? 0xffffffffu : 0u, x = ms == 1 ? 0xffffffffu : 0u;
+    const bool two = ms == 2;
+    const uint32_t* const r0 = masks + (size_t)ix.x * pitch;
+    const uint32_t* const r1 = masks + (size_t)ix.y * pitch;
+    const uint32_t* const r2 = masks + (size_t)ix.z * pitch;
+    const uint32_t* const r3 = masks + (size_t)ix.w * pitch;
+    int cnt = 0;
+#pragma unroll 4
+    for (int w = 0; w < W; ++w) cnt += __popc(rain_word(r0[w], r1[w], r2[w], r3[w], all, x, two));
+    counts[(size_t)c * B + b] = ms >= 4 ? 0 : cnt;
   }
 }
 
 }  // namespace
 
-extern "C" int apt_decision_sweep(const float* logs, const float* crest, const float* thr,
-                                  const int* msc, int* counts, int B, int T, int C,
-                                  void* stream) {
-  const long long grid_y = ((long long)C + kCombosPerBlock - 1) / kCombosPerBlock;
-  const long long shared = 5LL * 4 * T;
-  if (B <= 0 || T <= 0 || C <= 0 || grid_y > 65535 || shared > kMaxSharedBytes)
+// logs (4, B, T), crest (B, T), rows (n_slices, P, 2), offs (n_slices, 5),
+// index (n_slices * S, 4) int32, msc (C,), counts (C, B): the tables of
+// ops/sweep.py::k10_plan for slices of S combos; refused when P rows do not
+// fit a block's shared memory.
+extern "C" int apt_decision_sweep(const float* logs, const float* crest, const float* rows,
+                                  const int* offs, const int* index, const int* msc,
+                                  int* counts, int B, int T, int C, int S, int P, void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0 || S <= 0 || P < 4 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  const size_t shared = shared_bytes(P, T);
+  if (shared > (size_t)kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+  const long long n_slices = ((long long)C + S - 1) / S;
   if (shared > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         decision_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
     if (err != cudaSuccess) return (int)err;
   }
-  decision_sweep_kernel<<<dim3(B, (unsigned)grid_y), kThreads, (size_t)shared,
-                          (cudaStream_t)stream>>>(logs, crest, thr, msc, counts, B, T, C);
+  decision_sweep_kernel<<<dim3((unsigned)n_slices, (unsigned)B), kThreads, shared,
+                          (cudaStream_t)stream>>>(
+      logs, crest, reinterpret_cast<const float2*>(rows), offs,
+      reinterpret_cast<const int4*>(index), msc, counts, B, T, C, S, P);
   return (int)cudaGetLastError();
 }

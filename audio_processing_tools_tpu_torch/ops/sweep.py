@@ -19,20 +19,32 @@ counts come from kernel K10 (``csrc/sweep.cu``), which takes the log planes
 counts; on a CPU tensor from :func:`_decision_counts_plain`, the JAX
 expression written out over a combo axis.  Both give the same integers.
 The rule is only ever scored, so there is no gradient.
+
+K10 counts bit-sliced.  :func:`k10_tables` cuts the combos into slices
+and finds, per slice and flux axis, the distinct (gate threshold, flux
+threshold) pairs by bit pattern and each combo's row among them, with a
+fixed number of NumPy operations on the host whatever the number of combos
+(the thresholds are copied from the card once); :func:`k10_plan` picks the
+largest slice that still gives the card enough blocks and whose pairs fit
+the shared memory a block aims at.  The kernel turns each pair into frame
+bitmasks once and counts every combo with word logic and popcounts.
 """
 
 from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from audio_processing_tools_tpu_torch import _kernels
 
 FEATURES = ("primary", "s1", "s2", "s3", "td_crest")
 PLAIN_CHUNK_BYTES = 256 * 2**20  # one (chunk, B, T) float32 plane of the plain version
-K10_MAX_FRAMES = 232448 // 20  # csrc/sweep.cu: five float32 planes a clip in 227 KB
-
+K10_SMEM_BYTES = 232448  # csrc/sweep.cu: shared memory a block may hold (227 KB)
+K10_SLICE_BYTES = 48 * 1024  # shared memory a K10 block aims at: four blocks an SM
+K10_TARGET_BLOCKS = 132  # K10 blocks a launch aims at: one an SM of an H100
+K10_MAX_FRAMES = 14432  # the most frames at which 32 combos with distinct pairs fit a block
 
 class SweepParams(NamedTuple):
     """One value per combo: the four flux thresholds and the TD gate as
@@ -107,42 +119,152 @@ def log_planes(feats: Dict[str, torch.Tensor]) -> torch.Tensor:
                         for k in ("primary", "s1", "s2", "s3")]).contiguous()
 
 
+def _k10_row_bytes(T: int) -> int:
+    """Shared bytes a pair of a K10 slice takes at ``T`` frames: a mask row of
+    ``ceil(T / 32) | 1`` words and its (gate, flux) thresholds
+    (``csrc/sweep.cu::shared_bytes``)."""
+    return 4 * ((-(-T // 32)) | 1) + 8
+
+
+def _k10_keys(thr: np.ndarray) -> np.ndarray:
+    """(4, C) uint64: each combo's (td gate, flux threshold) bit patterns on
+    the four flux axes, the gate's in the high word."""
+    bits = np.ascontiguousarray(thr, np.float32).view(np.uint32).T.astype(np.uint64)
+    return (bits[4:5] << np.uint64(32)) | bits[:4]
+
+
+def k10_tables(thr: np.ndarray, S: int):
+    """K10's pair tables for slices of ``S`` combos (the last one padded
+    with the last combo), from ``thr`` (C, 5) float32: pm, m1, m2, m3, tdg.
+
+    * ``rows`` (n_slices, P, 2) float32: a slice's distinct (td gate, flux
+      threshold) pairs, axis after axis (pm, m1, m2, m3), then zeros; P is
+      the most rows a slice has;
+    * ``offs`` (n_slices, 5) int32: where each axis's rows start, and the
+      slice's row count;
+    * ``index`` (n_slices * S, 4) int32: each combo's row on each axis.
+
+    Pairs are told apart by their bit patterns, so a NaN threshold stays
+    itself and -0 and +0 are two pairs (which compare alike).  Per slice and
+    axis the keys are sorted, their first occurrences numbered by a
+    cumulative sum, and the numbers put back to the combos.
+    """
+    C = thr.shape[0]
+    n_slices = -(-C // S)
+    keys = _k10_keys(thr)[:, np.minimum(np.arange(n_slices * S), C - 1)]
+    keys = np.ascontiguousarray(keys.reshape(4, n_slices, S).transpose(1, 0, 2))
+    order = np.argsort(keys, axis=-1)
+    sorted_keys = np.take_along_axis(keys, order, -1)
+    first = np.ones(keys.shape, bool)
+    first[..., 1:] = sorted_keys[..., 1:] != sorted_keys[..., :-1]
+    rank = np.cumsum(first, -1) - 1
+    offs = np.zeros((n_slices, 5), np.int64)
+    offs[:, 1:] = np.cumsum(rank[..., -1] + 1, -1)
+    index = np.empty_like(rank)
+    np.put_along_axis(index, order, rank + offs[:, :4, None], -1)
+    rows = np.zeros((n_slices, int(offs[:, 4].max()), 2), np.uint32)
+    sl, ax, _ = np.nonzero(first)
+    at = offs[sl, ax] + rank[first]
+    rows[sl, at, 0] = (sorted_keys[first] >> np.uint64(32)).astype(np.uint32)
+    rows[sl, at, 1] = (sorted_keys[first] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return (rows.view(np.float32), offs.astype(np.int32),
+            index.transpose(0, 2, 1).reshape(n_slices * S, 4).astype(np.int32))
+
+
+def k10_plan(thr: np.ndarray, T: int, B: int):
+    """``(S, k10_tables(thr, S))``: the largest power-of-two slice (at most
+    the number of combos) that gives at least :data:`K10_TARGET_BLOCKS`
+    blocks over ``B`` clips and whose pairs fit :data:`K10_SLICE_BYTES` of
+    shared memory at ``T`` frames, halved until they do (a slice of one
+    combo, four rows, always fits up to :data:`K10_MAX_FRAMES`).  A slice's
+    row count at any size comes from each combo's previous combo with the
+    same pair: a combo adds a row where that one lies before its slice."""
+    C = thr.shape[0]
+    S = 1
+    while 2 * S <= C and -(-C // (2 * S)) * B >= K10_TARGET_BLOCKS:
+        S *= 2
+    keys = _k10_keys(thr)
+    order = np.argsort(keys, axis=-1, kind="stable")
+    sorted_keys = np.take_along_axis(keys, order, -1)
+    prev = np.full(keys.shape, -1, np.int64)  # the combo before with the same pair, or -1
+    same = sorted_keys[:, 1:] == sorted_keys[:, :-1]
+    np.put_along_axis(prev, order[:, 1:], np.where(same, order[:, :-1], -1), -1)
+    combo = np.arange(C)
+    while S > 1:
+        new_row = prev < combo // S * S
+        most = np.bincount(np.nonzero(new_row)[1] // S, minlength=-(-C // S)).max()
+        if most * _k10_row_bytes(T) <= K10_SLICE_BYTES:
+            break
+        S //= 2
+    return S, k10_tables(thr, S)
+
+
 def k10_operands(feats: Dict[str, torch.Tensor], params: SweepParams):
     """K10's operands: the log planes (4, B, T), the TD crest (B, T), the
-    float thresholds (C, 5) as pm, m1, m2, m3, tdg, and the support counts
-    (C,) int32, each contiguous."""
-    thr = torch.stack([params.primary_flux_min, params.mode1_flux_min, params.mode2_flux_min,
-                       params.mode3_flux_min, params.td_gate_threshold], dim=1).contiguous()
-    return (log_planes(feats), feats["td_crest"].contiguous(), thr,
-            params.min_support_count.contiguous())
-
-
-def _launch_k10(logs: torch.Tensor, crest: torch.Tensor, thr: torch.Tensor,
-                msc: torch.Tensor) -> torch.Tensor:
-    """One launch of K10 (``csrc/sweep.cu``) on :func:`k10_operands`:
-    one 256-thread block per clip and slice of 256 combos, the clip's
-    planes staged in shared memory.  Returns the (C, B) int32 counts."""
+    slice size S, :func:`k10_plan`'s tables on the features' device (one
+    copy to the card), and the support counts (C,) int32, each contiguous.
+    The thresholds are copied to the host for the tables (one
+    synchronisation)."""
+    crest = feats["td_crest"].contiguous()
     B, T = crest.shape
-    C = thr.shape[0]
+    logs = log_planes(feats)
+    msc = params.min_support_count.contiguous()
+    if msc.shape[0] == 0:
+        return logs, crest, 1, None, None, None, msc
+    thr = torch.stack([params.primary_flux_min, params.mode1_flux_min, params.mode2_flux_min,
+                       params.mode3_flux_min, params.td_gate_threshold], 1).cpu().numpy()
+    S, (rows, offs, index) = k10_plan(thr, T, max(B, 1))
+    # one int32 buffer: the index (int4 loads), then the rows (float2 loads),
+    # each at a multiple of 4 words, then the offsets
+    parts = (index, rows.view(np.int32), offs)
+    buf = torch.from_numpy(np.concatenate([p.reshape(-1) for p in parts])).to(crest.device)
+    at = np.cumsum([0] + [p.size for p in parts])
+    index_d, rows_d, offs_d = (buf[a:b].view(p.shape) for a, b, p in zip(at, at[1:], parts))
+    return logs, crest, S, rows_d.view(torch.float32), offs_d, index_d, msc
+
+
+def _launch_k10(logs: torch.Tensor, crest: torch.Tensor, S: int, rows, offs, index,
+                msc: torch.Tensor) -> torch.Tensor:
+    """One launch of K10 (``csrc/sweep.cu``) on :func:`k10_operands`: one
+    block per (slice of S combos, clip) builds its pair masks in shared
+    memory and counts the slice's combos.  Returns the (C, B) int32
+    counts."""
+    B, T = crest.shape
+    C = msc.shape[0]
     _kernels.require_cuda("decision_counts(td_crest)", crest, torch.float32, 2)
     _kernels.require_cuda("decision_counts(log planes)", logs, torch.float32, 3)
-    _kernels.require_cuda("decision_counts(thresholds)", thr, torch.float32, 2)
     _kernels.require_cuda("decision_counts(support counts)", msc, torch.int32, 1)
-    if tuple(logs.shape) != (4, B, T) or tuple(thr.shape) != (C, 5) or msc.shape[0] != C:
-        raise ValueError(f"decision_counts: operands {tuple(logs.shape)}, {tuple(thr.shape)}, "
-                         f"{tuple(msc.shape)} do not fit crest {tuple(crest.shape)}")
+    if tuple(logs.shape) != (4, B, T):
+        raise ValueError(f"decision_counts: log planes {tuple(logs.shape)} do not fit crest "
+                         f"{tuple(crest.shape)}")
     if T > K10_MAX_FRAMES:
-        raise ValueError(f"decision_counts: the CUDA kernel stages at most {K10_MAX_FRAMES} "
-                         f"frames a clip in shared memory; got {T}")
+        raise ValueError(f"decision_counts: the CUDA kernel takes at most {K10_MAX_FRAMES} "
+                         f"frames a clip; got {T}")
+    if B > 65535:
+        raise ValueError(f"decision_counts: the CUDA kernel takes at most 65,535 clips; got {B}")
     counts = torch.empty((C, B), dtype=torch.int32, device=crest.device)
     if C == 0 or B == 0:
         return counts
     if T == 0:
         return counts.zero_()
+    n_slices = -(-C // S)
+    _kernels.require_cuda("decision_counts(pair rows)", rows, torch.float32, 3)
+    _kernels.require_cuda("decision_counts(row offsets)", offs, torch.int32, 2)
+    _kernels.require_cuda("decision_counts(pair index)", index, torch.int32, 2)
+    P = rows.shape[1]
+    if (tuple(rows.shape) != (n_slices, P, 2) or tuple(offs.shape) != (n_slices, 5)
+            or tuple(index.shape) != (n_slices * S, 4)):
+        raise ValueError(f"decision_counts: pair tables {tuple(rows.shape)}, "
+                         f"{tuple(offs.shape)}, {tuple(index.shape)} do not fit {C} combos "
+                         f"in slices of {S}")
+    if P * _k10_row_bytes(T) > K10_SMEM_BYTES:
+        raise ValueError(f"decision_counts: {P} pair rows of {T} frames do not fit a block's "
+                         f"shared memory")
     lib = _kernels.build()
     with torch.cuda.device(crest.device):
-        err = lib.lib.apt_decision_sweep(logs.data_ptr(), crest.data_ptr(), thr.data_ptr(),
-                                         msc.data_ptr(), counts.data_ptr(), B, T, C,
+        err = lib.lib.apt_decision_sweep(logs.data_ptr(), crest.data_ptr(), rows.data_ptr(),
+                                         offs.data_ptr(), index.data_ptr(), msc.data_ptr(),
+                                         counts.data_ptr(), B, T, C, S, P,
                                          _kernels.stream_of(crest))
     lib.check(err, "decision_sweep")
     _kernels.count("decision_sweep")

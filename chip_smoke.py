@@ -24,8 +24,11 @@ Phases, one line each:
   6. timings with CUDA events: each kernel's device time per launch (a CUDA
      graph of back-to-back launches) and per host-launched call beside its
      plain version, and the main-path batch;
-  7. K5 (gain smoothing) against its plain loop at the suppressor's shape,
-     adaptive and not, on the gain the suppressor makes from the phase-4 clips;
+  7. K5 (gain smoothing) against its plain loop bit for bit, adaptive and
+     not, on the gain the suppressor makes from the phase-4 clips at its shape
+     (128, 71, 873) with random noise confidences and with the engine's own,
+     on gains with inf, -inf and NaN and confidences exactly 0.7, and at
+     (3, 71, 873), (2, 5, 1), (5, 7, 65) and (4, 33, 200);
   8. the engine's default configuration (the suppressor, no outputs beyond
      the decisions and noise-floor metrics) through ``run_batch`` on the same
      128 clips, with launch counts, and 16 clips against the CPU path;
@@ -166,7 +169,11 @@ Phases, one line each:
  36. K10 (the threshold sweep's decision counts) against its plain version
      on phase 37's features: 4,096 combos x 128 clips x 873 frames, counts
      identical, and identical on a copy with a row of NaN frames and
-     scattered NaN and inf; its time from a graph of 20 beside its bound;
+     scattered NaN and inf, on 4,096 combos with every threshold distinct,
+     on non-positive and NaN thresholds with support counts -1 to 4, on one
+     combo, and at T = 1, 31, 33 and the most frames it takes; its time from
+     a graph of 20 (the sweep, every threshold distinct, one combo) beside
+     its bound, the work these inputs need;
  37. the spectral sweep end to end (``grid_search_vmapped``) on phase 31's
      corpus from int16 on the card: launches K1/K2/K3/K10 1/1/1/1, the
      features' and the counts' times, the best combo's accuracy; a 64-combo
@@ -740,21 +747,40 @@ def main() -> int:
         cfg_sup, dbg["debug"]["P_band_all"],
         torch.minimum(dbg["debug"]["N_band_all"], dbg["debug"]["P_band_all"]),
         dbg["noise_conf"]).contiguous()
-    del dbg
     nc_rand = torch.rand((BATCH, T), generator=gen, device=dev)
+    nc_eng = torch.clamp(dbg["noise_conf"], 0.0, 1.0).contiguous()  # as compute_gain clips it
+    del dbg
     cfg_fixed = build_noise_config(FS, {**DEFAULT_PARAMS, "adaptive_gain_enable": False})
-    k5_abs = k5_rel = 0.0
-    for label, c in (("adaptive", cfg_sup), ("non-adaptive", cfg_fixed)):
-        got = tsn._gain_time_smooth_cuda(G_freq, nc_rand, c)
-        ref = tsn._gain_time_smooth_plain(G_freq, nc_rand, c)
-        torch.cuda.synchronize()
-        d = float((got - ref).abs().max())
-        r = d / max(float(ref.abs().max()), 1e-30)
-        print(f"  K5 {label}: max|d| = {d:.3e}, max|d|/max = {r:.3e}")
-        k5_abs, k5_rel = max(k5_abs, d), max(k5_rel, r)
-    check(k5_rel <= 1e-6, f"K5 max|d|/max {k5_rel:.3e} > 1e-6")
-    print(f"phase 7 K5 gain_time_smooth {tuple(G_freq.shape)}: max|d|/max = {k5_rel:.3e} "
-          f"(bound 1e-6)")
+    # non-finite gains, and noise confidences exactly at the 0.7 threshold
+    G_odd = G_freq[:8].clone()
+    G_odd[0, 3, 100:110], G_odd[1, 0, 0] = float("inf"), float("nan")
+    G_odd[2, 5, 17:19], G_odd[3, K - 1, T - 1] = float("-inf"), float("nan")
+    G_odd[4, 7, ::50] = float("inf")
+    nc_odd = nc_rand[:8].clone()
+    nc_odd[:, ::3] = 0.7
+    nc_odd[5, :] = 0.7
+    k5_cases = [
+        ("main, random noise_conf", G_freq, nc_rand),
+        ("main, the engine's noise_conf", G_freq, nc_eng),
+        ("8 clips, inf/-inf/NaN gains, noise_conf 0.7", G_odd, nc_odd),
+        ("3 clips x 71 x 873", G_freq[:3].contiguous(), nc_rand[:3].contiguous()),
+        ("2 clips x 5 x 1", G_freq[:2, :5, :1].contiguous(), nc_rand[:2, :1].contiguous()),
+        ("5 clips x 7 x 65 (one tile + 1)", G_freq[:5, :7, :65].contiguous(),
+         nc_rand[:5, :65].contiguous()),
+        ("4 clips x 33 x 200", G_freq[:4, :33, :200].contiguous(), nc_eng[:4, :200].contiguous()),
+    ]
+    k5_abs = 0.0
+    for label, G_c, nc_c in k5_cases:
+        for mode, c in (("adaptive", cfg_sup), ("non-adaptive", cfg_fixed)):
+            got = tsn._gain_time_smooth_cuda(G_c, nc_c, c)
+            ref = tsn._gain_time_smooth_plain(G_c, nc_c, c)
+            torch.cuda.synchronize()
+            same, d = same_bits(got, ref)
+            check(same, f"K5 {label}, {mode}: not the plain loop's bits (max|d| {d:.3e})")
+            k5_abs = max(k5_abs, d)
+        print(f"  K5 {label} {tuple(G_c.shape)}: adaptive and non-adaptive the plain loop's bits")
+    print(f"phase 7 K5 gain_time_smooth {tuple(G_freq.shape)} and {len(k5_cases) - 1} other "
+          f"cases: the plain loop's bits where values are numbers, NaN in the same places")
 
     # ---- 8. default configuration: the suppressor ---------------------------
     proc.run_batch(x[:2], DEFAULT_PARAMS)  # warm the engine cache
@@ -952,7 +978,8 @@ def main() -> int:
     # tensor cores; the larger binds.  Operations per item: K1 per frame the
     # window (n_fft), the half-length FFT (5 M log2 M, M = n_fft/2) and the
     # split and power (13 per bin); K2 20, K3 12, K5 8 per lane and frame;
-    # K10 11 one-lane operations per (combo, clip, frame), counted as 22.
+    # K10 per clip one compare a distinct threshold and frame and one word
+    # operation a combo and 32 frames, each counted as 2 (phase 36).
     M = 128
     work = {
         "spectrogram_power": (4 * (x.numel() + P_kernel.numel()),
@@ -1029,7 +1056,9 @@ def main() -> int:
          "replaces": "audio_processing_tools_tpu/tuning/grid_search.py:231",
          "launches": launches_all["decision_sweep"], "max_abs_err": 0.0,
          "ms": tune["k10"]["ms"], "plain_ms": tune["k10"]["plain_ms"],
-         **bound("decision_sweep")},
+         **bound("decision_sweep"),
+         # K10 on 4,096 combos with every threshold distinct, and on one combo
+         "distinct_ms": tune["k10"]["distinct_ms"], "one_combo_ms": tune["k10"]["one_combo_ms"]},
     ]
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
@@ -2869,24 +2898,81 @@ def tuning_phases(smi: str, corpus: np.ndarray, truth: np.ndarray) -> dict:
     check(torch.equal(got_bad, ref_bad) and int(got_bad[:, 1].abs().sum()) == 0,
           "K10 on NaN and inf frames differs from the plain version")
     del bad, got_bad, ref_bad
+    # grids the sweep's does not hold: every threshold distinct (each slice
+    # at its most pairs), non-positive and NaN thresholds with support
+    # counts 0-4, one combo; and frame counts around a word and at the most
+    # the kernel takes
+    gen = torch.Generator(device=dev).manual_seed(36)
+
+    def rand(lo, hi, n=C):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+
+    distinct = sweep.SweepParams(rand(0.0, 4.0), rand(-0.5, 3.5), rand(-0.5, 3.5), rand(-0.5, 4.0),
+                                 torch.randint(0, 5, (C,), generator=gen, device=dev,
+                                               dtype=torch.int32), rand(-0.5, 5.0))
+    odd = combo_sweep_params(generate_param_combinations({
+        "new_rain_primary_flux_min": [0.0, -0.0, 1.8, float("nan")],
+        "new_rain_mode1_flux_min": [-1.0, 2.6], "new_rain_mode2_flux_min": [0.0, 2.3],
+        "new_rain_mode3_flux_min": [float("nan"), 3.0],
+        "new_rain_min_support_count": [-1, 0, 1, 2, 3, 4],
+        "td_gate_threshold": [-1.0, 0.0, 2.5, float("nan")]}), base, dev)
+    one = combo_sweep_params([combos[1234]], base, dev)
+    Tm = sweep.K10_MAX_FRAMES
+    n_long = max(1, B * T // Tm)  # the features' frames cut into rows of Tm
+    long_f = {k: v.reshape(-1).repeat(-(-n_long * Tm // v.numel()))[: n_long * Tm]
+              .reshape(n_long, Tm) for k, v in feats.items()}
+    k10_grids = [
+        (f"{C:,} combos, every threshold distinct", feats, distinct),
+        (f"{odd.min_support_count.shape[0]} combos, non-positive and NaN thresholds, "
+         f"support counts -1 to 4", feats, odd),
+        ("one combo", feats, one),
+        *((f"T = {t}, {which} combos", {k: v[:, :t].contiguous() for k, v in feats.items()}, p_t)
+          for t in (1, 31, 33) for which, p_t in (("the sweep's", params), ("the odd", odd))),
+        (f"T = {Tm} (the most), {n_long} clips, the odd combos", long_f, odd),
+    ]
+    for label, f_g, p_g in k10_grids:
+        got_g = sweep._decision_counts_cuda(f_g, p_g)
+        ref_g = sweep._decision_counts_plain(f_g, p_g)
+        torch.cuda.synchronize()
+        check(torch.equal(got_g, ref_g), f"K10 on {label}: counts differ from the plain version "
+                                         f"on {int((got_g != ref_g).sum())} of {got_g.numel()}")
+        print(f"  K10 {label}: {tuple(got_g.shape)} counts identical (max {int(got_g.max())})")
+    del long_f
     k10_ms = graph_ms(lambda: sweep._launch_k10(*ops))
+    ops_distinct = sweep.k10_operands(feats, distinct)
+    k10_distinct_ms = graph_ms(lambda: sweep._launch_k10(*ops_distinct))
+    ops_one = sweep.k10_operands(feats, one)
+    k10_one_ms = graph_ms(lambda: sweep._launch_k10(*ops_one))
     k10_call, k10_plain = in_turns(lambda: sweep._decision_counts_plain(feats, params),
                                    lambda: sweep._decision_counts_cuda(feats, params), 2, 10)
+    k10_one_call = float(np.median(cuda_times(lambda: sweep._decision_counts_cuda(feats, one), 20)))
     evals = C * B * T
     # bytes: the five planes read and the counts written (the thresholds are
-    # 24 bytes a combo); operations: 11 one-lane operations a (combo, clip,
-    # frame) triple (5 compares, 3 adds, a compare, an and, an add), each a
-    # lane's clock, which is half an FMA's two at 67 TFLOP/s
-    k10_work = (4 * (5 * B * T + C * B) + 24 * C, 2 * 11 * evals)
+    # 24 bytes a combo); operations: the work these inputs need, one compare
+    # a distinct threshold (by axis: primary, three support, gate) and frame
+    # per clip, and one word operation a combo and 32 frames per clip, each
+    # a lane's clock, which is half an FMA's two at 67 TFLOP/s.  (The rule as
+    # written is 11 one-lane operations a (combo, clip, frame) triple.)
+    n_distinct = sum(int(torch.unique(t.contiguous().view(torch.int32)).numel())
+                     for t in (params.primary_flux_min, params.mode1_flux_min,
+                               params.mode2_flux_min, params.mode3_flux_min,
+                               params.td_gate_threshold))
+    words = -(-T // 32)
+    k10_ops = B * (n_distinct * T + C * words)
+    k10_work = (4 * (5 * B * T + C * B) + 24 * C, 2 * k10_ops)
     k10_bound, k10_by = bound_of(*k10_work)
     rain_max = int(got.max())
     print(f"phase 36 K10 decision_sweep on {smi}: {C:,} combos x {B} clips x {T} frames "
-          f"({evals:.3e} evaluations), counts identical to the plain version (max {rain_max} "
-          f"rain frames), and on NaN and inf frames (a NaN row counts 0); {k10_ms:.4f} ms per launch "
-          f"in a graph of 20 ({k10_call:.4f} ms per host-launched call with its log planes, "
-          f"n=20; plain {k10_plain:.3f} ms, n=4); bound {k10_bound:.4f} ms by {k10_by} "
-          f"({k10_bound / k10_ms:.1%} of it)")
-    del got, ref, ops
+          f"({evals:.3e} evaluations of the rule), counts identical to the plain version (max "
+          f"{rain_max} rain frames), and on NaN and inf frames (a NaN row counts 0) and the "
+          f"{len(k10_grids)} grids above; {k10_ms:.4f} ms per launch in a graph of 20 "
+          f"({k10_call:.4f} ms per host-launched call with its log planes and pair tables, "
+          f"n=20; plain {k10_plain:.3f} ms, n=4); every threshold distinct {k10_distinct_ms:.4f} "
+          f"ms; one combo {k10_one_ms:.4f} ms ({k10_one_call:.4f} ms a host-launched call, "
+          f"n=20); the work these inputs need: {n_distinct} distinct thresholds x {T} frames + "
+          f"{C:,} combos x {words} words, per clip, = {k10_ops:.4e} operations; bound "
+          f"{k10_bound:.4f} ms by {k10_by} ({k10_bound / k10_ms:.1%} of it)")
+    del got, ref, ops, ops_distinct, ops_one
 
     # ---- 37. the spectral sweep end to end ------------------------------------------
     res, l_sweep, sweep_s = launches_of(
@@ -3060,7 +3146,8 @@ def tuning_phases(smi: str, corpus: np.ndarray, truth: np.ndarray) -> dict:
     return {"launches": {"spectral sweep (phase 37)": l_sweep,
                          "gradient fit, hard corpus (phase 38)": l_fit,
                          "RoE sweep (phase 39)": l_roe},
-            "k10": {"ms": k10_ms, "plain_ms": k10_plain, "work": k10_work}}
+            "k10": {"ms": k10_ms, "plain_ms": k10_plain, "work": k10_work,
+                    "distinct_ms": k10_distinct_ms, "one_combo_ms": k10_one_ms}}
 
 
 

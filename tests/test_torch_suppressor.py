@@ -173,6 +173,71 @@ def test_compute_gain_matches_jax(adaptive):
     assert got.min() >= 0.05 and got.max() <= 0.97
 
 
+def _jax_time_smooth(jcfg, G, nc):
+    """The temporal part of JAX ``compute_gain`` (``spectral_noise.py:165-
+    178``) on a given ``G_freq`` (K, T), jitted as the engine runs it."""
+    import jax
+
+    def run(G, nc):
+        nc = jnp.clip(nc, 0.0, 1.0)
+        _, rest = jax.lax.scan(jsn.gain_time_step(jcfg), G[:, 0],
+                               (jnp.moveaxis(G[:, 1:], -1, 0), nc[1:]), unroll=8)
+        G_time = jnp.concatenate([G[:, :1], jnp.moveaxis(rest, 0, -1)], axis=-1)
+        return jnp.clip(G_time, jcfg.gain_floor, jcfg.gain_ceil)
+
+    return np.asarray(jax.jit(run)(jnp.asarray(G), jnp.asarray(nc)))
+
+
+@pytest.mark.parametrize("case", ["time scan, inf and NaN gains", "compute_gain, NaN frames"])
+@pytest.mark.parametrize("adaptive", [True, False], ids=["adaptive", "fixed"])
+def test_gain_time_smooth_nonfinite_matches_jax(case, adaptive):
+    """K5's plain loop against JAX on non-finite gains (inf, -inf and NaN
+    in ``G_freq``; through the whole ``compute_gain``, NaN power frames
+    make NaN gains) with noise confidences exactly 0.7 and NaN.  NaN and
+    the clipped infinities land in the same places.  XLA CPU contracts the
+    EMA ``alpha * G + (1 - alpha) * G_f`` into a fused multiply-add, which
+    the port (and K5) does not, so finite values are held within 1e-6
+    relative: always when not adaptive, and when adaptive wherever a frame
+    had alpha > 0 (noise confidence above 0.7).  With every confidence at
+    or below 0.7 (alpha 0 throughout, nothing to contract) the adaptive
+    gain is JAX's, value for value."""
+    rng = np.random.default_rng(23)
+    B, K, T = 3, 9, 140
+    nc = rng.choice([0.0, 0.5, 0.7, 0.8, 0.95, 1.0], (B, T)).astype(np.float32)
+    nc[:, ::4] = 0.7
+    nc[2, 30:33] = np.nan
+    nc[0, 70] = np.nan
+    params = {"detector": DET, "adaptive_gain_enable": adaptive, "gain_smooth_alpha": 0.8,
+              "gain_floor": 0.05, "gain_ceil": 0.97}
+    cfg, jcfg = build_noise_config(FS, params), jbuild(FS, params)
+    if case.startswith("time scan"):
+        G = rng.uniform(0.0, 1.2, (B, K, T)).astype(np.float32)
+        G[0, 2, 10:13], G[1, 0, 0], G[2, 4, 50] = np.inf, np.nan, -np.inf
+        G[0, 8, T - 1], G[1, 5, ::17], G[2, 1, 90:] = np.nan, np.inf, -np.inf
+        got = tsn.gain_time_smooth(torch.from_numpy(G), torch.from_numpy(np.clip(nc, 0, 1)),
+                                   cfg).numpy()
+        ref = np.stack([_jax_time_smooth(jcfg, G[b], nc[b]) for b in range(B)])
+        assert np.isinf(G).any() and np.isinf(got).sum() == 0  # clipped to the ceiling
+    else:
+        P = (rng.gamma(1.0, 1.0, (B, K, T)) ** 2).astype(np.float32)
+        N = (P * rng.uniform(0.0, 1.2, (B, K, T))).astype(np.float32)
+        P[0, :, 20], N[1, 3, 40:44], P[2, 6, 100] = np.nan, np.nan, np.nan
+        got = tsn.compute_gain(cfg, torch.from_numpy(P), torch.from_numpy(N),
+                               torch.from_numpy(nc)).numpy()
+        ref = np.stack([np.asarray(jsn.compute_gain(jcfg, jnp.asarray(P[b]), jnp.asarray(N[b]),
+                                                    jnp.asarray(nc[b]))) for b in range(B)])
+    assert got.shape == ref.shape and np.isnan(ref).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(got[~fin], ref[~fin])
+    assert _rel(got[fin], ref[fin]) <= 1e-6
+    if adaptive and case.startswith("time scan"):
+        low = np.where(nc > 0.7, 0.7, nc)  # NaN stays NaN
+        got = tsn.gain_time_smooth(torch.from_numpy(G), torch.from_numpy(low), cfg).numpy()
+        ref = np.stack([_jax_time_smooth(jcfg, G[b], low[b]) for b in range(B)])
+        np.testing.assert_array_equal(got, ref)
+
+
 def test_processor_metrics_and_state_match_jax(clips):
     params = {"sample_rate": FS, "clip_rain_min_frames": 3, "detector": DET}
     ref = jsn.RainDetectorProcessor().run_batch(clips, params)

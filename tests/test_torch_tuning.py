@@ -239,6 +239,176 @@ def test_decision_counts_nan_and_inf_frames(hard_jax_features):
     assert (cmin == [max(1, c["clip_rain_min_frames"]) for c in combos]).all()
 
 
+def _popcount32(w: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (as ``__popc``), by the SWAR sums on its
+    unsigned value held in int64."""
+    v = w.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _thresholds(params):
+    """(C, 5) float32 NumPy: pm, m1, m2, m3, tdg, as ``k10_operands`` copies them."""
+    return torch.stack([params.primary_flux_min, params.mode1_flux_min, params.mode2_flux_min,
+                        params.mode3_flux_min, params.td_gate_threshold], 1).numpy()
+
+
+def _k10_model(feats, params, S=None):
+    """K10 (``csrc/sweep.cu``) modelled in torch on the CPU: the wrapper's
+    slices and pair tables (``k10_plan``, or ``k10_tables`` for a given
+    slice size), one bitmask of int32 words per (slice, row, clip) from the
+    rule's own compares (``where(gate, L, 0 * L) >= thr``, frames past T
+    zero), the count's word logic (the support words' xor and majority,
+    ``hits >= msc`` picked from them, the primary word) as bitwise
+    operations, and popcounts.  (C, B) int32."""
+    logs = tsw.log_planes(feats)
+    crest = feats["td_crest"]
+    B, T = crest.shape
+    C = params.primary_flux_min.shape[0]
+    thr = _thresholds(params)
+    if S is None:
+        S, tables = tsw.k10_plan(thr, T, B)
+    else:
+        tables = tsw.k10_tables(thr, S)
+    rows, offs, index = (torch.from_numpy(t) for t in tables)
+    W = -(-T // 32)
+    # a mask row for every table row: (n_slices, P, B, W), axis after axis
+    axis = torch.zeros(rows.shape[:2], dtype=torch.long)
+    for k in range(1, 4):
+        axis += (torch.arange(rows.shape[1]) >= offs[:, k:k + 1]).long()
+    L = logs[axis]  # (n_slices, P, B, T)
+    tdg, thr_r = rows[..., 0, None, None], rows[..., 1, None, None]
+    v = torch.where(crest > tdg, L, L * 0)
+    bits = torch.nn.functional.pad(v >= thr_r, (0, 32 * W - T))
+    weights = torch.tensor([1 << i for i in range(32)], dtype=torch.int64)
+    masks = (bits.reshape(*bits.shape[:-1], W, 32).to(torch.int64) * weights).sum(-1)
+    masks = torch.where(masks >= 2**31, masks - 2**32, masks).to(torch.int32)
+    # each combo's four pass words: (4, C, B, W)
+    combo = torch.arange(C)
+    p = torch.stack([masks[combo // S, index[combo, k].long()] for k in range(4)])
+    msc = params.min_support_count[:, None, None]
+    s0 = p[1] ^ p[2] ^ p[3]
+    s1 = (p[1] & p[2]) | (p[1] & p[3]) | (p[2] & p[3])
+    ones = torch.tensor(-1, dtype=torch.int32)
+    x = torch.where(msc == 1, ones, 0)
+    ge = torch.where(msc == 2, s1, (s0 & s1) | (x & (s0 | s1)))
+    rain = p[0] & (ge | torch.where(msc <= 0, ones, 0))
+    counts = _popcount32(rain).sum(-1)
+    return torch.where(params.min_support_count[:, None] >= 4, 0, counts).to(torch.int32)
+
+
+def _random_params(rng, C):
+    """A grid whose every threshold is distinct, some non-positive, support
+    counts -1 to 4."""
+    def f(lo, hi):
+        return rng.uniform(lo, hi, C)
+
+    return tsw.sweep_params(f(0.0, 4.0), f(-0.5, 3.5), f(-0.5, 3.5), f(-0.5, 4.0),
+                            rng.integers(-1, 5, C), f(-0.5, 5.0), "cpu")
+
+
+def test_k10_pair_tables_index_every_combo():
+    """The wrapper's dedup: per slice and flux axis, the table holds the
+    distinct (gate, flux) bit patterns of the slice's combos once each, and
+    each combo's row on each axis holds its own pair; the plan's slices give
+    the card enough blocks and fit the shared memory a block aims at."""
+    rng = np.random.default_rng(13)
+    combos = tgs.generate_param_combinations(FULL_GRID)
+    grids = {"full grid": tgs.combo_sweep_params(combos, {}, "cpu"),
+             "random": _random_params(rng, 300),
+             "nan and signed zeros": tsw.sweep_params(
+                 [0.0, -0.0, np.nan, np.nan, 0.0], [1.0] * 5, [np.nan, 2.0, np.nan, 2.0, -0.0],
+                 [3.0] * 5, [2, 2, 0, 4, 3], [np.nan, 2.5, np.nan, 2.5, 2.5], "cpu")}
+    for name, params in grids.items():
+        thr = _thresholds(params)
+        C = thr.shape[0]
+        for S in (1, 7, 64, C):
+            rows, offs, index = tsw.k10_tables(thr, S)
+            n_slices = -(-C // S)
+            P = rows.shape[1]
+            assert rows.shape == (n_slices, P, 2) and rows.dtype == np.float32
+            assert offs.shape == (n_slices, 5) and offs.dtype == np.int32
+            assert index.shape == (n_slices * S, 4) and index.dtype == np.int32
+            assert P == offs[:, 4].max() and (np.diff(offs, axis=1) >= 1).all()
+            for c in range(n_slices * S):
+                s, src = c // S, min(c, C - 1)  # the last slice is padded with the last combo
+                for k in range(4):
+                    r = int(index[c, k])
+                    assert offs[s, k] <= r < offs[s, k + 1], (name, S, c, k)
+                    want = np.array([thr[src, 4], thr[src, k]], np.float32).view(np.uint32)
+                    assert (rows[s, r].view(np.uint32) == want).all(), (name, S, c, k)
+            for s in range(n_slices):
+                for k in range(4):
+                    pairs = {tuple(rows[s, r].view(np.uint32)) for r in range(offs[s, k],
+                                                                              offs[s, k + 1])}
+                    assert len(pairs) == offs[s, k + 1] - offs[s, k], (name, S, s, k)
+    sweep = _thresholds(tgs.combo_sweep_params(tgs.generate_param_combinations({
+        "new_rain_primary_flux_min": [1.2, 1.5, 1.8, 2.1, 2.4, 2.7, 3.0, 4.0],
+        "new_rain_mode1_flux_min": [2.0, 2.3, 2.6, 2.9], "new_rain_mode2_flux_min": [2.0, 2.3, 2.6, 2.9],
+        "new_rain_mode3_flux_min": [2.5, 3.0], "new_rain_min_support_count": [1, 2],
+        "td_gate_threshold": [2.0, 2.5, 3.0, 3.75], "clip_rain_min_frames": [1, 3]}), {}, "cpu"))
+    S, (rows, offs, _) = tsw.k10_plan(sweep, 873, 128)
+    assert (S, rows.shape[1]) == (2048, 56) and (offs[:, 4] == 56).all()
+    distinct = _thresholds(_random_params(rng, 4096))
+    S, (rows, _, _) = tsw.k10_plan(distinct, 873, 128)
+    assert S == 64 and rows.shape[1] == 256
+    assert tsw.k10_plan(sweep[:1], 873, 128)[0] == 1
+    for T in (1, 873, tsw.K10_MAX_FRAMES):
+        for thr_g in (sweep, distinct):
+            S, (rows, _, _) = tsw.k10_plan(thr_g, T, 128)
+            assert S * 128 >= tsw.K10_TARGET_BLOCKS or S == 1
+            assert S == 1 or rows.shape[1] * tsw._k10_row_bytes(T) <= tsw.K10_SLICE_BYTES
+    # at the most frames, 32 combos whose pairs are all distinct still fit a block
+    assert 4 * 32 * tsw._k10_row_bytes(tsw.K10_MAX_FRAMES) <= tsw.K10_SMEM_BYTES
+    assert 4 * 32 * tsw._k10_row_bytes(tsw.K10_MAX_FRAMES + 64) > tsw.K10_SMEM_BYTES
+
+
+@pytest.mark.parametrize("case", ["full grid", "nan and inf frames", "random thresholds",
+                                  "odd frame counts"])
+def test_k10_bit_sliced_model_equals_the_plain_counts(case, hard, hard_jax_features,
+                                                      hard_jax_sweep):
+    """The bit-sliced design of K10, modelled on the CPU, gives
+    ``_decision_counts_plain``'s integers, and on JAX's features the JAX
+    sweep's predictions (``eval_combo``)."""
+    f = {k: v.copy() for k, v in hard_jax_features[0].items()}
+    rng = np.random.default_rng(5)
+    combos = tgs.generate_param_combinations(FULL_GRID)
+    params = tgs.combo_sweep_params(combos, {}, "cpu")
+    slices = [None, 7, 192]
+    if case == "nan and inf frames":  # test_decision_counts_nan_and_inf_frames's frames
+        f["primary"][3, :] = np.nan
+        f["s1"][5, rng.integers(0, 175, 40)] = np.nan
+        f["s2"][7, rng.integers(0, 175, 40)] = np.inf
+        f["primary"][9, rng.integers(0, 175, 40)] = np.inf
+        f["td_crest"][11, rng.integers(0, 175, 40)] = np.nan
+        combos = tgs.generate_param_combinations({
+            **FULL_GRID, "new_rain_mode1_flux_min": [-1.0, 2.6],
+            "td_gate_threshold": [-1.0, 2.5], "new_rain_min_support_count": [0, 1, 2, 3, 4]})
+        params = tgs.combo_sweep_params(combos, {}, "cpu")
+    elif case == "random thresholds":
+        params = _random_params(rng, 500)
+        slices = [None, 64, 129]
+    elif case == "odd frame counts":
+        params = _random_params(rng, 200)
+        f = {k: np.concatenate([v, v[:, :50]], 1)[:, :203] for k, v in f.items()}  # 203 frames
+    feats = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in f.items()}
+    ref = tsw._decision_counts_plain(feats, params)
+    for S in slices:
+        assert torch.equal(_k10_model(feats, params, S), ref), (case, S)
+    for t in (1, 31, 33):
+        short = {k: v[:, :t].contiguous() for k, v in feats.items()}
+        assert torch.equal(_k10_model(short, params), tsw._decision_counts_plain(short, params))
+    if case == "full grid":
+        labels = hard[1]
+        counts = _k10_model(feats, params).numpy()
+        cmin = np.array([max(1, c["clip_rain_min_frames"]) for c in combos])
+        got = [{"parameters": c, **tgs._confusion(counts[i] >= cmin[i], labels)}
+               for i, c in enumerate(combos)]
+        assert got == hard_jax_sweep
+
+
 @pytest.mark.parametrize("case", ["tuning clips", "hard corpus grid"])
 def test_grid_search_vmapped_matches_jax(case, tuning_clips, hard):
     if case == "tuning clips":  # tests/test_tuning.py:49-77
