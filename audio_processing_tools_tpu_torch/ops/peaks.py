@@ -131,7 +131,7 @@ def peak_widths_rel(x: torch.Tensor, is_peak: torch.Tensor,
     return torch.where(is_peak, right_ip - left_ip, 0.0)
 
 
-K9_MAX_LENGTH = 1024  # csrc/peaks.cu: 128 threads a row, at most 8 positions each
+K9_MAX_LENGTH = 1024  # csrc/peaks.cu: a warp a row, a 32-bit word of covered positions a lane
 
 
 def _select_peaks_by_distance_plain(x: torch.Tensor, is_peak: torch.Tensor, distance: int,
@@ -159,7 +159,10 @@ def _select_peaks_by_distance_plain(x: torch.Tensor, is_peak: torch.Tensor, dist
 
 def _select_peaks_by_distance_cuda(x: torch.Tensor, is_peak: torch.Tensor, distance: int,
                                    max_peaks: int) -> torch.Tensor:
-    """K9 (``csrc/peaks.cu``): one 128-thread block a row."""
+    """K9 (``csrc/peaks.cu``): one warp a row.  The loop's step count
+    ``min(max_peaks, n)`` is clamped at 0, as ``range`` and ``fori_loop``
+    run no step for a negative cap; a distance outside ``[0, n]`` clears
+    what its end of that range clears."""
     R, n = x.shape
     _kernels.require_cuda("select_peaks_by_distance", x, torch.float32, 2)
     _kernels.require_cuda("select_peaks_by_distance(is_peak)", is_peak, torch.bool, 2)
@@ -172,11 +175,12 @@ def _select_peaks_by_distance_cuda(x: torch.Tensor, is_peak: torch.Tensor, dista
     out = torch.empty_like(is_peak)
     if R == 0 or n == 0:
         return out
+    steps = min(max(int(max_peaks), 0), n)
     lib = _kernels.build()
     with torch.cuda.device(x.device):
         err = lib.lib.apt_select_peaks_by_distance(
-            x.data_ptr(), is_peak.data_ptr(), out.data_ptr(), R, n, int(distance),
-            min(int(max_peaks), n), _kernels.stream_of(x))
+            x.data_ptr(), is_peak.data_ptr(), out.data_ptr(), R, n,
+            min(max(int(distance), 0), n), steps, _kernels.stream_of(x))
     lib.check(err, "select_peaks_by_distance")
     _kernels.count("select_peaks_by_distance")
     return out

@@ -116,9 +116,14 @@ Phases, one line each:
      pulse list and gust times, EAC and pitch within 1e-5;
  26. K9 (the stage-2 confirmer's distance filter over peaks) against its
      plain loop bit for bit: on the confirmer's own rows of one phase-4
-     clip (871 windows x 384, d = 45) and on rows of 3 to 1,024 positions
-     with more than 64 maxima, equal heights, plateaus and no peak, at d
-     1, 7, 45 and caps 3, 64, 5,000; its time from a graph of 20;
+     clip (871 windows x 384, d = 45), also with non-finite peaks, and on
+     rows of 3 to 1,024 positions with more than 64 maxima, equal heights,
+     plateaus and no peak, at d 1, 7, 45 and caps 3, 64, 5,000, some at
+     pointers that are not 16-byte aligned; on non-finite and signed-zero
+     peaks, caps that fall among -inf and NaN ties, exactly 64 and 65
+     peaks, rows of 1, 2 and 33 positions, distances from -5 to 10^6 and
+     caps 0, -1 and -100; ``select_peaks_by_distance`` with max_peaks 0
+     and -1 gives is_peak; its time from a graph of 20;
  27. the time-domain confirmer (five mode bands, stage 1 from phase 4's
      rain frames) on 16 clips, card against CPU (masks, counts and peak
      indices identical, crest and kurtosis within 1e-5), then the 128
@@ -2122,6 +2127,88 @@ def k9_rows(seed: int, n: int):
     return np.tile(rows, (40, 1)), rng.random((5 * 40, n)) < 0.05
 
 
+def k9_confirmer_rows(clip: np.ndarray, dev):
+    """K9's inputs in the confirmer, captured from one clip without a mask:
+    ``(x, is_peak, distance)``; 871 windows of 384 samples and d = 45 for a
+    10 s clip."""
+    from audio_processing_tools_tpu_torch.models import time_domain as ttd
+
+    captured = []
+    real_select = ttd.select_peaks_by_distance
+
+    def capture(x, is_peak, distance, max_peaks=64):
+        captured.append((x.clone(), is_peak.clone(), distance))
+        return real_select(x, is_peak, distance, max_peaks)
+
+    ttd.select_peaks_by_distance = capture
+    try:
+        ttd.TimeDomainRainDetector(ttd.build_time_domain_config(PARAMS), device=dev).process(clip)
+    finally:
+        ttd.select_peaks_by_distance = real_select
+    return captured[0]
+
+
+def with_nonfinite_peaks(x: np.ndarray, is_peak: np.ndarray, seed: int) -> np.ndarray:
+    """A copy of rows ``x`` whose peaks are -inf (10% of them), NaN of either
+    sign (5%) or a zero of either sign (20%, so that -0 and +0 peaks tie)."""
+    u = np.where(is_peak, np.random.default_rng(seed).random(x.shape), 1.0)
+    x = x.astype(np.float32).copy()
+    x[u < 0.10] = -np.inf
+    x[(u >= 0.10) & (u < 0.13)] = np.nan
+    x[(u >= 0.13) & (u < 0.15)] = -np.nan
+    x[(u >= 0.15) & (u < 0.25)] = 0.0
+    x[(u >= 0.25) & (u < 0.35)] = -0.0
+    return x
+
+
+def k9_edge_cases(seed: int = 26) -> list:
+    """Rows and settings that reach each path of K9, ``(label, x, is_peak,
+    distance, max_peaks)`` on the host: non-finite and signed-zero peaks;
+    caps that fall among the -inf ties, where non-peaks use up steps, and
+    among NaN peaks; exactly 64 and 65 peaks; rows of 1, 2 and 33
+    positions; distances below 2, at and past the row's length, and
+    negative."""
+    rng = np.random.default_rng(seed)
+    out = []
+    x = rng.random((40, 384)).astype(np.float32)
+    pk = rng.random(x.shape) < 0.25
+    x = with_nonfinite_peaks(x, pk, seed)
+    out += [("non-finite and signed-zero peaks", x, pk, d, cap)
+            for d in (1, 7, 45) for cap in (64, 200, 5000)]
+    # rows of -inf with f finite peaks, m peaks at -inf, 4 NaN peaks and 4
+    # NaN non-peaks (non-peaks count as -inf): fewer peaks than one pass of
+    # ranks (64), then more
+    for n, f, m in ((256, 12, 30), (384, 20, 100)):
+        x = np.full((8, n), -np.inf, np.float32)
+        pk = np.zeros((8, n), bool)
+        for r in range(8):
+            pos = rng.permutation(n)
+            x[r, pos[:f]] = rng.random(f)
+            pk[r, pos[: f + m + 4]] = True
+            x[r, pos[f + m : f + m + 8]] = np.nan
+        out += [(f"caps among -inf and NaN ties, {f + m + 4} peaks", x, pk, d, cap)
+                for d in (3, 20)
+                for cap in (f, f + 1, f + 8, f + 28, f + m + 3, n - 4, n - 2, n)]
+    for peaks in (64, 65):
+        x = rng.random((16, 384)).astype(np.float32)
+        pk = np.zeros(x.shape, bool)
+        for r in range(16):
+            pk[r, rng.choice(384, peaks, replace=False)] = True
+        out += [(f"exactly {peaks} peaks", x, pk, d, cap)
+                for d in (3, 45) for cap in (63, 64, 65, 66)]
+    for n in (1, 2, 33):
+        x = rng.random((24, n)).astype(np.float32)
+        x[::2] = np.round(x[::2] * 2)  # ties
+        pk = rng.random(x.shape) < 0.5
+        out += [(f"rows of {n}", x, pk, d, cap) for d in (0, 1, 2, 45) for cap in (1, 64)]
+    for n in (384, 1024):
+        x = rng.random((16, n)).astype(np.float32)
+        pk = rng.random(x.shape) < 0.3
+        out += [(f"distance {d} at n {n}", x, pk, d, cap)
+                for d in (-5, 0, 1, n - 1, n, n + 7, 10**6) for cap in (64, 5000)]
+    return out
+
+
 def rain_minutes(n_clips: int, seconds: float, seed: int):
     """Noise and loud 520 Hz drops, 40 a minute (``tests/test_dsd_transform.py:24-30``),
     float32 in [-1, 1]."""
@@ -2207,46 +2294,57 @@ def confirmer_dsd_etl_phases(smi: str, pcm: np.ndarray, stage1: np.ndarray) -> d
     # ---- 26. K9 against its plain version -------------------------------------------
     # the confirmer's own rows: K9's inputs captured from one clip without a
     # mask (871 windows of 384 samples, d = 45)
-    captured = []
-    real_select = ttd.select_peaks_by_distance
-
-    def capture(x, is_peak, distance, max_peaks=64):
-        captured.append((x.clone(), is_peak.clone(), distance))
-        return real_select(x, is_peak, distance, max_peaks)
-
-    ttd.select_peaks_by_distance = capture
-    try:
-        ttd.TimeDomainRainDetector(td_cfg, device=dev).process(clips[1])
-    finally:
-        ttd.select_peaks_by_distance = real_select
-    env, is_max, dist = captured[0]
+    env, is_max, dist = k9_confirmer_rows(clips[1], dev)
     check(tuple(env.shape) == (871, 384) and dist == 45, f"K9's rows {tuple(env.shape)}, d {dist}")
-    k9_ok = 0
-    cases = [(env, is_max, dist, 64)]
+    cases = [("the confirmer's rows", env, is_max, dist, 64),
+             ("the confirmer's rows, non-finite peaks",
+              torch.from_numpy(with_nonfinite_peaks(env.cpu().numpy(), is_max.cpu().numpy(), 26))
+              .to(dev), is_max, dist, 64)]
     for n in (384, 1024, 3, 100):
         xr, flip = k9_rows(n, n)
         xr = torch.from_numpy(xr).to(dev)
         pk = tpk.local_maxima(xr) ^ torch.from_numpy(flip).to(dev)
-        cases += [(xr, pk, d, cap) for d in (1, 7, 45) for cap in (64, 3, 5000)]
-    for xr, pk, d, cap in cases:
+        cases += [(f"adversarial rows of {n}", xr, pk, d, cap)
+                  for d in (1, 7, 45) for cap in (64, 3, 5000)]
+        if n in (384, 100):  # the same rows at a pointer 4 (x) and 1 (is_peak) bytes off
+            xu = torch.empty(xr.numel() + 1, device=dev)[1:].view(xr.shape).copy_(xr)
+            pku = torch.empty(pk.numel() + 1, dtype=torch.bool, device=dev)[1:].view(pk.shape)
+            pku.copy_(pk)
+            cases += [(f"unaligned rows of {n}", xu, pku, d, cap) for d in (7, 45)
+                      for cap in (64, 5000)]
+            cases += [(f"rows of {n}, only x unaligned", xu, pk, 45, 64)]
+    cases += [(label, torch.from_numpy(x).to(dev), torch.from_numpy(pk).to(dev), d, cap)
+              for label, x, pk, d, cap in k9_edge_cases()]
+    # caps of 0 and below run no step (the loop's range is empty): is_peak
+    cases += [(f"cap {cap}", env, is_max, dist, cap) for cap in (0, -1, -100)]
+    k9_ok = 0
+    for label, xr, pk, d, cap in cases:
         got = tpk._select_peaks_by_distance_cuda(xr, pk, d, cap)
         ref = tpk._select_peaks_by_distance_plain(xr, pk, d, cap)
         torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"K9 at {tuple(xr.shape)}, d {d}, cap {cap}: "
+        check(torch.equal(got, ref), f"K9, {label}, at {tuple(xr.shape)}, d {d}, cap {cap}: "
                                      f"{int((got != ref).sum())} positions differ")
         k9_ok += 1
+    for cap in (0, -1):
+        check(torch.equal(tpk.select_peaks_by_distance(env, is_max, dist, cap), is_max),
+              f"select_peaks_by_distance on the card with max_peaks {cap}: not is_peak")
     k9_ms = graph_ms(lambda: tpk._select_peaks_by_distance_cuda(env, is_max, dist, 64))
     k9_plain = float(np.median(cuda_times(
         lambda: tpk._select_peaks_by_distance_plain(env, is_max, dist, 64), 3)))
     # K9's work: x and the mask read once and the mask written (6 bytes a
-    # position); each step it takes compares the row's keys once, and a
-    # row takes one step more than its candidates up to the 64-step cap
-    steps = torch.clamp(is_max.sum(-1) + 1, max=64).sum().item()
-    k9_work = (6 * env.numel(), steps * env.shape[-1])
+    # position); a row of P peaks ranks them against each other (P^2
+    # compares) and walks its candidates, up to the 64-step cap, with about
+    # ten integer operations on each lane's word of 32 positions a step
+    peaks = is_max.sum(-1).to(torch.float64)
+    k9_work = (6 * env.numel(), (peaks**2 + 10 * 32 * torch.clamp(peaks, max=64)).sum().item())
     k9_bound, k9_by = bound_of(*k9_work)
     print(f"phase 26 K9 select_peaks_by_distance on {smi}: {k9_ok} cases the plain version's bits "
-          f"(the confirmer's {tuple(env.shape)}, d = {dist}, and adversarial rows of 3-1,024 "
-          f"positions, d 1/7/45, caps 3/64/5000); {k9_ms:.4f} ms per launch in a graph of 20, "
+          f"(the confirmer's {tuple(env.shape)}, d = {dist}, also with non-finite peaks; "
+          f"adversarial rows of 3-1,024 positions, d 1/7/45, caps 3/64/5000, some at unaligned "
+          f"pointers; non-finite and signed-zero peaks, caps among -inf and NaN ties, exactly "
+          f"64 and 65 peaks, rows of 1, 2 and 33, d -5 to 10^6, caps 0, -1 and -100; and "
+          f"max_peaks 0 and -1 through select_peaks_by_distance); "
+          f"{k9_ms:.4f} ms per launch in a graph of 20, "
           f"bound {k9_bound:.5f} by {k9_by}; plain {k9_plain:.3f} ms (n=3)")
 
     # ---- 27. the confirmer, card against CPU, then 128 clips on the card --------

@@ -4,7 +4,11 @@ K9's plain loop on the CPU) against the JAX package.
 
 Tolerances against JAX:
 
-  * the distance filter: the JAX loop's bits, the 64-step cap included;
+  * the distance filter: the JAX loop's bits, the 64-step cap included,
+    and so does a NumPy model of kernel K9's algorithm (candidates by rank
+    among all positions, then a walk over words of covered positions) on
+    non-finite and signed-zero peaks, caps among -inf and NaN ties, caps of
+    0 and -1, short rows and distances below 2 and past the row;
   * the confirmer's ``confirmed_mask``, ``confirmed_counts``,
     ``candidate_peaks``, ``run_mask`` and each detail's peak indices:
     identical;
@@ -26,6 +30,8 @@ from audio_processing_tools_tpu.models import time_domain as jtd
 from audio_processing_tools_tpu.ops.peaks import local_maxima as jlocal_maxima
 from audio_processing_tools_tpu.ops.peaks import select_peaks_by_distance as jselect
 from audio_processing_tools_tpu.utils.corpus import synth_clip
+
+from chip_smoke import with_nonfinite_peaks
 
 from audio_processing_tools_tpu_torch import _kernels
 from audio_processing_tools_tpu_torch.config import DEFAULT_MODE_BANDS
@@ -136,6 +142,108 @@ def test_select_peaks_cuda_tensor_never_falls_back():
     x, is_peak = _peak_rows(3)
     with pytest.raises(ValueError, match="CUDA tensor"):
         _select_peaks_by_distance_cuda(torch.from_numpy(x), torch.from_numpy(is_peak), 7, 64)
+
+
+def _k9_model(x, is_peak, distance, max_peaks):
+    """A NumPy model of K9's algorithm (``csrc/peaks.cu``) on rows (R, n):
+    the candidates are the peaks ranked below ``min(max_peaks, n)`` among
+    all positions in the JAX order (tallest first, ties to the larger index,
+    non-peaks as -inf, -0 equal to +0, NaN last); in rank order, a candidate
+    not yet covered covers the positions of ``(p - d, p + d)`` but its own,
+    in 32-bit words; the output is ``is_peak & ~covered``."""
+    R, n = x.shape
+    steps = max(min(max_peaks, n), 0)
+    idx = np.arange(n)
+    out = np.zeros((R, n), bool)
+    for r in range(R):
+        v = np.where(is_peak[r], x[r], np.float32(-np.inf)).astype(np.float64)
+        nan = np.isnan(v)
+        v = np.where(nan, -np.inf, v)
+        # descending: numbers before NaN, then value (lexsort holds -0 equal
+        # to +0), then index
+        order = np.lexsort((idx, v, ~nan))[::-1]
+        rank = np.empty(n, int)
+        rank[order] = idx
+        cand = sorted((int(rank[i]), int(i)) for i in np.flatnonzero(is_peak[r]) if rank[i] < steps)
+        covered = np.zeros((n + 31) // 32, np.uint32)
+        for _, p in cand:
+            if (covered[p // 32] >> np.uint32(p % 32)) & 1:
+                continue
+            for i in range(max(p - distance + 1, 0), min(p + distance, n)):
+                if i != p:
+                    covered[i // 32] |= np.uint32(1 << (i % 32))
+        bits = (covered[idx // 32] >> (idx % 32).astype(np.uint32)) & 1
+        out[r] = is_peak[r] & (bits == 0)
+    return out
+
+
+def _k9_case(name):
+    """``[(x, is_peak, distance, max_peaks), ...]`` for one of K9's paths."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("peak rows"):
+        d = int(name.split()[-1])
+        return [(*_peak_rows(d), d, 64)]
+    if name == "non-finite peaks":
+        x, pk = _peak_rows(5)
+        return [(with_nonfinite_peaks(x, pk, 5), pk, 7, cap) for cap in (64, 1000)]
+    if name == "caps among -inf and NaN ties":
+        # rows of -inf: 10 finite peaks, 70 peaks at -inf, 4 NaN peaks and 4
+        # NaN non-peaks; non-peaks (as -inf) use up steps among the -inf ties
+        n = 200
+        x = np.full((4, n), -np.inf, np.float32)
+        pk = np.zeros((4, n), bool)
+        for r in range(4):
+            pos = rng.permutation(n)
+            x[r, pos[:10]] = rng.random(10)
+            pk[r, pos[:84]] = True
+            x[r, pos[80:88]] = np.nan
+        return [(x, pk, 3, cap) for cap in (10, 18, 83, 197, 198, 200)]
+    if name == "distances":
+        x, pk = _peak_rows(8)
+        return [(x, pk, d, 64) for d in (-5, 0, 2, 383, 384, 391)]
+    if name == "short rows":
+        out = []
+        for n in (1, 2, 33):
+            x = np.round(rng.random((6, n)) * 2).astype(np.float32)
+            out += [(x, rng.random(x.shape) < 0.5, d, 64) for d in (1, 2, 45)]
+        return out
+    assert name == "exactly 64 and 65 peaks"
+    out = []
+    for peaks in (64, 65):
+        x = rng.random((3, 384)).astype(np.float32)
+        pk = np.zeros(x.shape, bool)
+        for r in range(3):
+            pk[r, rng.choice(384, peaks, replace=False)] = True
+        out += [(x, pk, 45, cap) for cap in (64, 65)]
+    return out
+
+
+@pytest.mark.parametrize("name", ["peak rows 1", "peak rows 7", "peak rows 45",
+                                  "non-finite peaks", "caps among -inf and NaN ties",
+                                  "distances", "short rows", "exactly 64 and 65 peaks"])
+def test_k9_algorithm_model_matches_jax(name):
+    """K9's algorithm (candidates by rank among all positions, then the walk
+    over covered words) gives JAX's bits, on the rows and settings that
+    reach each of its paths; so does the port's plain loop."""
+    for x, pk, d, cap in _k9_case(name):
+        ref = np.asarray(jax.jit(jax.vmap(jselect, in_axes=(0, 0, None, None)),
+                                 static_argnums=(2, 3))(jnp.asarray(x), jnp.asarray(pk), d, cap))
+        np.testing.assert_array_equal(_k9_model(x, pk, d, cap), ref, err_msg=f"d {d}, cap {cap}")
+        got = select_peaks_by_distance(torch.from_numpy(x), torch.from_numpy(pk), d, cap)
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=f"d {d}, cap {cap}")
+
+
+@pytest.mark.parametrize("max_peaks", [0, -1])
+def test_select_peaks_no_step_for_caps_below_one(max_peaks):
+    """A cap of 0 or below runs no step, in JAX's ``fori_loop`` and the
+    port's plain loop alike: the output is ``is_peak``."""
+    x, is_peak = _peak_rows(13)
+    ref = np.asarray(jax.vmap(lambda r, p: jselect(r, p, 7, max_peaks))(jnp.asarray(x),
+                                                                     jnp.asarray(is_peak)))
+    got = select_peaks_by_distance(torch.from_numpy(x), torch.from_numpy(is_peak), 7,
+                                   max_peaks=max_peaks)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(ref, is_peak)
 
 
 @pytest.mark.parametrize("bands,n", [(None, FS), (DEFAULT_MODE_BANDS, FS),
