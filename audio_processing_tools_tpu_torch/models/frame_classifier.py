@@ -4,8 +4,9 @@ Counterpart of ``audio_processing_tools_tpu/models/frame_classifier.py``:
 ``FrameClass`` (``:49-54``), ``build_prefilter_sos`` (``:57-65``),
 ``_align_to_frames`` (``:68-75``), ``_mode_flux`` (``:78-103``),
 ``_peak_gate`` (``:106-170``), ``rain_frame_decision`` (``:173-191``),
-``assign_td_soft_label`` (``:194-208``) and ``detect_rain_over_time``
-(``:211-606``):
+``assign_td_soft_label`` (``:194-208``), ``detect_rain_over_time``
+(``:211-606``) and the reference mixin ``RainFrameClassifierMixin``
+(``:608-624``):
 
   * t-vs-(t-2) positive spectral flux per mode band,
   * the causal low-quantile normalization of the combined and per-mode flux
@@ -569,3 +570,25 @@ def _sparse_dump(cfg: NoiseConfig, src: torch.Tensor, raw: Dict[str, torch.Tenso
         vals = torch.gather(raw[name], -1, gather_idx)
         out[f"sparse_{name}"] = torch.where(valid, vals, 0.0)
     return out
+
+
+class RainFrameClassifierMixin:
+    """Compat surface of the reference mixin (``frame_classifier.py:608-624``;
+    reference ``rain_frame_classifier.py:114-148, 290``): host classes expose
+    ``self.cfg`` (a :class:`NoiseConfig`) and call
+    ``self._detect_rain_over_time(P, freqs, ...)``; the body delegates to
+    :func:`detect_rain_over_time` on ``P``'s device."""
+
+    cfg: NoiseConfig
+
+    def _detect_rain_over_time(self, P, freqs=None,
+                               detector_frame_times=None, input_audio=None,
+                               raw_power=None, work_dtype=None):
+        del freqs, detector_frame_times, work_dtype  # derived from cfg
+        P = torch.as_tensor(P, dtype=torch.float32)
+        if input_audio is None:
+            x = torch.zeros((int(self.cfg.dget("n_fft", 256)),), dtype=torch.float32,
+                            device=P.device)
+        else:
+            x = torch.as_tensor(input_audio, dtype=torch.float32, device=P.device)
+        return detect_rain_over_time(self.cfg, P, x, raw_power=raw_power)

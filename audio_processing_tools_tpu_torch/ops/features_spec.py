@@ -25,6 +25,17 @@ from audio_processing_tools_tpu_torch.config import DEFAULT_MODE_BANDS
 from audio_processing_tools_tpu_torch.ops._device import device_constant
 from audio_processing_tools_tpu_torch.ops.stft import fft_frequencies
 
+
+def resolve_np_dtype(process_dtype):
+    """Name/dtype -> NumPy scalar type (``features_spec.py:30-38``; reference
+    ``feature_extraction.py:55``)."""
+    if process_dtype in ("float32", np.float32):
+        return np.float32
+    if process_dtype in ("float64", np.float64):
+        return np.float64
+    return np.dtype(process_dtype).type
+
+
 RAW_SPECTRAL_FEATURE_NAMES = (
     "raw_spectral_centroid_hz",
     "raw_spectral_bandwidth_hz",

@@ -7,7 +7,8 @@ O(N^2) forms, and :func:`select_peaks_by_distance` (``:185-208``), the
 stage-2 confirmer's distance filter (``models/time_domain.py``), whose
 ``fori_loop`` is kernel K9 on the card (``csrc/peaks.cu``).
 ``torch.cummax`` takes the place of ``lax.cummax``, its ``reverse=True``
-form through ``flip``.  ``find_peaks`` has no caller in the JAX package.
+form through ``flip``.  :func:`find_peaks` (``:166-182``) is the masked
+``find_peaks`` over the first two; nothing in the JAX package calls it.
 """
 
 from __future__ import annotations
@@ -81,6 +82,26 @@ def peak_prominences(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
 
     prom = x - torch.maximum(left_base, right_base)
     return torch.where(is_peak, prom, 0.0)
+
+
+def find_peaks(x: torch.Tensor, height: torch.Tensor | float | None = None,
+               prominence: float | None = None):
+    """Masked ``find_peaks`` over the last axis (``ops/peaks.py:166-182``):
+    returns ``(is_peak, prominences)``, the prominences 0 off the peaks.
+
+    ``height`` and ``prominence`` filter like scipy's scalar lower bounds.
+    The prominences are computed before the height filter only when
+    ``prominence`` is given (pass 0.0 to have them without filtering)."""
+    mask = local_maxima(x)
+    prom = None
+    if prominence is not None:
+        prom = peak_prominences(x, mask)
+        mask = mask & (prom >= prominence)
+    if height is not None:
+        mask = mask & (x >= height)
+    if prom is None:
+        prom = peak_prominences(x, mask)
+    return mask, torch.where(mask, prom, 0.0)
 
 
 def _pick_at(xj: torch.Tensor, jj: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -195,6 +195,19 @@ Phases, one line each:
  40. the native RoE library built by g++ with its version, its booleans
      against the port's RoE on the card on 8 clips, and the two-pass
      ``dsp_integ`` counts card against CPU.
+ 41. the dry-run entry (``audio_processing_tools_tpu_torch/entry.py``):
+     ``entry()``'s forward step on its (2, 2 s) zero batch on the card, and
+     on 4 phase-4 clips against its CPU run (frames identical, noise floors
+     within 1e-5 relative); then ``dryrun_multichip(4)`` on four entries of
+     the one card, every assert of the JAX dry run, with its launches;
+ 42. the three stage profiles of ``tools/profile_torch_stages.py`` at
+     their geometries (spectral 128 x 10 s, RoE 32 x 3 s, band noise 32 x
+     10 s), 8 chained steps and 1 trial: each stage's graph ms (or why
+     none) and eager ms; then each stage's scalar on 2 clips, card
+     against the port's CPU run, within 1e-4 of the CPU's (absolute below 1);
+ 43. the block-int4 wire: ``block4_decode`` on the card bit for bit against
+     ``block4_decode_np`` on the 128 clips' PCM, and every ``edge`` shim
+     imported with its names.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -968,8 +981,10 @@ def main() -> int:
     td = confirmer_dsd_etl_phases(smi, pcm, fc == int(FrameClass.RAIN))
     fleet = backfill_phases(smi)
     tune = tuning_phases(smi, fleet["corpus"], fleet["truth"])
+    surface = surface_phases(smi, pcm)
 
-    paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"]}
+    paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"],
+             **surface["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
@@ -3247,6 +3262,127 @@ def tuning_phases(smi: str, corpus: np.ndarray, truth: np.ndarray) -> dict:
             "k10": {"ms": k10_ms, "plain_ms": k10_plain, "work": k10_work,
                     "distinct_ms": k10_distinct_ms, "one_combo_ms": k10_one_ms}}
 
+
+
+STAGE_CLIPS = 2  # clips of each profile's stage scalars held card against CPU
+STAGE_BOUND = 1e-4  # relative, absolute below 1: the TD features' bound (tools/tpu_checks.py:113)
+DRY_KERNELS = ("spectrogram_power", "noise_psd_track", "causal_low_quantile_baseline",
+               "cascade_sosfilt", "band_noise_scan", "decision_sweep")  # K1-K4, K6, K10
+
+
+def load_tool(name: str):
+    """The script ``tools/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def surface_phases(smi: str, pcm: np.ndarray) -> dict:
+    """Phases 41-43: the dry-run entry and the dry run, the stage profiles,
+    the block-int4 wire and the ``edge`` shims."""
+    import importlib
+    import pkgutil
+
+    import torch
+
+    import audio_processing_tools_tpu_torch.edge as edge
+    from audio_processing_tools_tpu_torch import entry as tentry
+    from audio_processing_tools_tpu_torch.ops import wire as tw
+
+    dev = torch.device("cuda", 0)
+
+    # ---- 41. the dry-run entry ----------------------------------------------------
+    fn, (x0,) = tentry.entry()
+    out0, l_entry, entry_s = launches_of(lambda: fn(x0))
+    T0 = 1 + x0.shape[-1] // 128
+    check(x0.device.type == "cuda" and tuple(x0.shape) == (2, 2 * FS) and not bool(x0.any()),
+          f"entry() example args {tuple(x0.shape)} on {x0.device}")
+    check(sorted(out0) == ["frame_class", "mean_noise_floor_db", "noise_conf", "rain_conf"]
+          and tuple(out0["frame_class"].shape) == (2, T0)
+          and all(bool(torch.isfinite(v.to(torch.float32)).all()) for v in out0.values()),
+          f"entry() outputs {[(k, tuple(v.shape)) for k, v in out0.items()]}")
+    pick = np.r_[0, 2, 1, 3]  # two noise clips, two ping clips
+    xs = torch.from_numpy(pcm[pick]).to(torch.float32) / torch.tensor(32767.0)
+    card = to_host(fn(xs.to(dev)))
+    cpu = to_host(tentry.entry(device="cpu")[0](xs))
+    frac = float((card["frame_class"] == cpu["frame_class"]).mean())
+    conf_rel = max(rel_err(card[k], cpu[k]) for k in ("rain_conf", "noise_conf"))
+    floor_rel = float(np.max(np.abs(card["mean_noise_floor_db"] - cpu["mean_noise_floor_db"])
+                             / np.abs(cpu["mean_noise_floor_db"])))
+    check(frac == 1.0 and floor_rel <= 1e-5,
+          f"entry() card against CPU: frames {frac:.6f}, noise floors {floor_rel:.3e} relative")
+    line, l_dry, dry_s = launches_of(lambda: tentry.dryrun_multichip(4))
+    check(line.startswith("dryrun_multichip OK on 4 devices"), line)
+    check(all(l_dry[k] > 0 for k in DRY_KERNELS), f"dry-run launches {l_dry}")
+    print(f"phase 41 entry() on {smi}: (2, {2 * FS}) zeros -> frame_class (2, {T0}), launches "
+          f"{ {k: v for k, v in l_entry.items() if v} }, {entry_s * 1e3:.1f} ms; {len(pick)} "
+          f"clips x {CLIP_SEC:.0f} s against the CPU: frames identical, rain and noise "
+          f"confidences within {conf_rel:.3e} of max, noise floors within {floor_rel:.3e} "
+          f"relative (bound 1e-5); dryrun_multichip(4) on four entries of {dev} in "
+          f"{dry_s:.1f} s, launches { {k: v for k, v in l_dry.items() if v} }")
+
+    # ---- 42. the stage profiles ---------------------------------------------------
+    tool = load_tool("profile_torch_stages")
+    l_prof = {}
+    prof_s = 0.0
+    for model in tool.MODELS:
+        rec, l_m, sec = launches_of(lambda: tool.run(model, iters=8, trials=1, log=lambda _: None))
+        l_prof = {k: l_prof.get(k, 0) + v for k, v in l_m.items()}
+        prof_s += sec
+        for name, st in [*rec["stages"].items(), ("floor", rec["floor"])]:
+            check(np.isfinite(st["eager_ms"])
+                  and (st["graph_ms"] is None) == bool(st["graph_reason"])
+                  and (st["graph_ms"] is None or np.isfinite(st["graph_ms"])),
+                  f"stage profile {model}/{name}: {st}")
+        # busy_ms is not printed: torch.profiler in this process, after the
+        # phases before, missed the hand kernels' launches (the tool run in a
+        # process of its own counts them)
+        print(f"phase 42 stage profile {model} ({rec['batch']} x {rec['clip_sec']:.0f} s, 8 "
+              f"steps, 1 trial; ms a step, graph / eager): " + "; ".join(
+                  f"{name} {'-' if st['graph_ms'] is None else format(st['graph_ms'], '.4f')} / "
+                  f"{st['eager_ms']:.4f}"
+                  for name, st in [*rec["stages"].items(), ("floor", rec["floor"])]))
+        for name, st in rec["stages"].items():
+            if st["graph_reason"]:
+                print(f"  {model}/{name}: no graph: {st['graph_reason']}")
+    worst = {}
+    for model in tool.MODELS:
+        on_card = tool.build_profile(model, STAGE_CLIPS, CLIP_SEC, "cuda")
+        on_cpu = tool.build_profile(model, STAGE_CLIPS, CLIP_SEC, "cpu")
+        for name, body in on_card.stages.items():
+            a, b = float(body(on_card.x)), float(on_cpu.stages[name](on_cpu.x))
+            d = abs(a - b) / max(abs(b), 1.0)
+            check(d <= STAGE_BOUND, f"stage {model}/{name}: card {a!r} against CPU {b!r}")
+            worst[f"{model}/{name}"] = d
+    top = max(worst, key=worst.get)
+    print(f"phase 42 stage scalars on {STAGE_CLIPS} clips, card against CPU: all "
+          f"{len(worst)} within {STAGE_BOUND:g} (largest {worst[top]:.3e}, {top}); the three "
+          f"profiles {prof_s:.1f} s, launches { {k: v for k, v in l_prof.items() if v} }")
+
+    # ---- 43. the block-int4 wire and the edge shims -------------------------------
+    n64 = pcm.shape[-1] // 64 * 64
+    packed, scales = tw.block4_encode(pcm[:, :n64])
+    ref = tw.block4_decode_np(packed, scales)
+    got = tw.block4_decode(torch.from_numpy(packed).to(dev), torch.from_numpy(scales).to(dev))
+    check(got.device.type == "cuda", f"block4_decode ran on {got.device}")
+    got = got.cpu().numpy()
+    check(got.shape == ref.shape and np.array_equal(got.view(np.int32), ref.view(np.int32)),
+          "block4_decode on the card differs from block4_decode_np")
+    shims = sorted([edge.__name__] + [m.name for m in pkgutil.walk_packages(
+        edge.__path__, edge.__name__ + ".")])
+    mods = {m: importlib.import_module(m) for m in shims}
+    names = {m: [k for k in vars(mod) if not k.startswith("_")] for m, mod in mods.items()}
+    # every shim but the two package markers re-exports names
+    check(len(shims) == 13 and all(names[m] for m, mod in mods.items()
+                                   if not hasattr(mod, "__path__")), f"edge shims {names}")
+    print(f"phase 43 block4_decode {tuple(packed.shape)} codes -> {got.shape} on {dev}: the "
+          f"host decode's bits; {len(shims)} edge shims import ("
+          f"{sum(len(v) for v in names.values())} names)")
+    return {"launches": {"entry() (phase 41)": l_entry, "dry run (phase 41)": l_dry,
+                         "stage profiles (phase 42)": l_prof}}
 
 
 if __name__ == "__main__":
