@@ -54,6 +54,19 @@
 // runs without a branch to the rare paths.  The next tile's inputs are
 // loaded while this one is walked.
 //
+// Any other ring and subframe count (S > 8, W > 64 or W < S) takes a second
+// kernel, band_scan_general: one block of kGenThreads a lane, the ring in
+// the lane's carry-out arrays in device memory (value, valid byte, frame
+// index), the frame's scalar chain (the FFT decision, the subframe steps,
+// the replenish, the adaptive q, the EMA, the telemetry and the gain) on
+// thread 0, and the ring's work spread over the block's threads, slot by
+// slot: the expiry, the frame's pushes as the JAX program's one-hot
+// push_many (band_noise.py:402-429: with W < S the colliding values are
+// summed into their slot, left to right, and count_valid grows by every
+// push that found its slot invalid before the frame, so it may pass W),
+// and the rank count of the buffer's quantile.  It is the plain loop's
+// step in its order, so it gives its bits too.
+//
 // Arithmetic follows the plain loop (models/band_noise.py::_band_scan_plain)
 // step for step: every product, sum and quotient is rounded on its own
 // (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn, never contracted into an
@@ -825,6 +838,307 @@ band_scan(const BandIO io, const BandConsts c) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Every other geometry: a block a lane, the ring in device memory
+// ---------------------------------------------------------------------------
+
+constexpr int kGenThreads = 128;
+
+// shared scalars of the general kernel
+enum { kShStale, kShCount, kShLo, kShHi, kShSlotLo, kShSlotHi, kShDo, kShInts };
+
+__global__ void __launch_bounds__(kGenThreads)
+band_scan_general(const BandIO io, const BandConsts c) {
+  extern __shared__ float gsm[];
+  const int S = c.S, W = c.W, T = c.T, b = blockIdx.x, tid = threadIdx.x;
+  float* const s_val = gsm;                                  // [S] the frame's push values
+  float* const s_srt = s_val + S;                            // [S] the replenish sort
+  int* const s_pos = reinterpret_cast<int*>(s_srt + S);      // [S] each push's slot, -1: none
+  __shared__ int sh[kShInts];
+  __shared__ int sh_frame;
+  const long long plane = (long long)c.B * T;
+  float* const buf = io.o_buf + (long long)b * W;
+  uint8_t* const valid = io.o_valid + (long long)b * W;
+  int* const bidx = io.o_bidx + (long long)b * W;
+  for (int w = tid; w < W; w += kGenThreads) {
+    const long long g = (long long)b * W + w;
+    buf[w] = io.buf[g];
+    valid[w] = io.valid[g] != 0;
+    bidx[w] = io.bidx[g];
+  }
+
+  // the carried scalars, thread 0's
+  const float* cf = io.cf + (long long)b * kCF;
+  const int* ci = io.ci + (long long)b * kCI;
+  float prev_rain = cf[0], prev_prim = cf[1], prev_Eb = cf[2], prev_Lb = cf[3], prev_Lh = cf[4],
+        ema = cf[5], q_eff = cf[6], ne_smooth = cf[7], e_noise = cf[8], e_rain = cf[9],
+        e_total = cf[10];
+  bool have_fft = ci[0] != 0, have_Eb = ci[1] != 0, have_L = ci[2] != 0;
+  int hold = ci[3], wr = ci[4], count_valid = ci[5], fsnu = ci[6], frame_idx = ci[7],
+      n_noise = ci[8], n_rain = ci[9], n_total = ci[10], min_valid = ci[11], underflow = ci[12],
+      learned_total = ci[13], replenish_total = ci[14];
+  bool fft_rain = false;
+  unsigned any_rain = 0;
+  int learned = 0;
+  float rain_e = 0.f, dry_e = 0.f;
+  if (tid == 0) {
+    sh[kShStale] = 0;
+    sh[kShCount] = 0;
+  }
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const long long ft = (long long)b * T + t;
+    const float* const sE = io.subE + ft * S;
+    if (tid == 0) {
+      frame_idx += 1;
+      sh_frame = frame_idx;
+      // ---- FFT rain decision ----
+      const float rs = io.rain_sum[ft], pr = io.primary[ft];
+      fft_rain = have_fft && rs > __fmul_rn(__fadd_rn(prev_rain, c.eps12), c.M_ratio) &&
+                 pr > __fmul_rn(__fadd_rn(prev_prim, c.eps12), c.N_ratio);
+      prev_rain = rs;
+      prev_prim = pr;
+      have_fft = true;
+      // ---- the subframes' mask, the push values and the rain and dry sums ----
+      const float* const sEh = io.subEhpf + ft * S;
+      any_rain = 0;
+      for (int s = 0; s < S; ++s) {
+        const float Eb_s = max_nan(sE[s], c.eps12);
+        bool m = hold > 0;
+        if (m) hold -= 1;
+        const float Eh_s = sEh[s];
+        const bool ok = Eh_s >= c.min_Ehpf && Eb_s >= c.min_Eband;
+        const float Lb = __fmul_rn(10.f, log10f(__fadd_rn(Eb_s, c.eps12)));
+        const float Lh = __fmul_rn(10.f, log10f(__fadd_rn(Eh_s, c.eps12)));
+        const float dLb = __fsub_rn(Lb, prev_Lb), dLh = __fsub_rn(Lh, prev_Lh);
+        bool trig = ok && have_L && dLb >= c.band_rise_db && __fsub_rn(dLb, dLh) >= c.excess_rise_db;
+        if (ok) {
+          prev_Lb = Lb;
+          prev_Lh = Lh;
+        }
+        have_L = ok;
+        if (c.use_dE) {
+          const float dE = max_nan(__fsub_rn(Eb_s, prev_Eb), 0.f);
+          const float metric = __fdiv_rn(dE, __fadd_rn(max_nan(Eh_s, c.eps12), c.eps12));
+          trig = trig || (have_Eb && metric >= c.dE_thr);
+        }
+        if (c.use_D) trig = trig || (have_Eb && Eb_s > __fmul_rn(__fadd_rn(prev_Eb, c.eps12), c.D_ratio));
+        m = m || trig;
+        if (trig) hold = max(hold, c.hold_k);
+        prev_Eb = Eb_s;
+        have_Eb = true;
+        const bool sub = m || fft_rain;
+        io.om[ft * S + s] = sub;
+        any_rain |= sub;
+        const float e = sE[s];
+        rain_e = s == 0 ? (sub ? e : 0.f) : __fadd_rn(rain_e, sub ? e : 0.f);
+        dry_e = s == 0 ? (sub ? 0.f : e) : __fadd_rn(dry_e, sub ? 0.f : e);
+        s_val[s] = max_nan(e, c.eps);
+        s_srt[s] = e;
+        s_pos[s] = (c.learn_all || !sub) ? 1 : -1;  // the learn flag; the slot comes below
+      }
+    }
+    __syncthreads();
+    const int frame = sh_frame;
+
+    // ---- expiry before learning ----
+    if (c.ttl > 0) {
+      int n = 0;
+      for (int w = tid; w < W; w += kGenThreads) n += valid[w] && frame - bidx[w] > c.ttl;
+      if (n) atomicAdd(&sh[kShStale], n);
+      __syncthreads();
+      if (tid == 0) {
+        sh[kShDo] = count_valid > 0;
+        if (count_valid > 0) count_valid = max(count_valid - sh[kShStale], 0);
+        sh[kShStale] = 0;
+      }
+      __syncthreads();
+      if (sh[kShDo]) {
+        for (int w = tid; w < W; w += kGenThreads) {
+          if (valid[w] && frame - bidx[w] > c.ttl) {
+            valid[w] = 0;
+            buf[w] = 0.f;
+            bidx[w] = -1;
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- learning: the pushes' slots, and the count of pushes that find
+    // their slot invalid before the frame ----
+    if (tid == 0) {
+      int offs = 0, added = 0;
+      for (int s = 0; s < S; ++s) {
+        if (s_pos[s] < 0) continue;
+        int pos = (wr + offs) % W;
+        s_pos[s] = pos;
+        added += valid[pos] ? 0 : 1;
+        ++offs;
+      }
+      learned = offs;
+      count_valid += added;
+      wr = (wr + offs) % W;
+    }
+    __syncthreads();
+    // each slot takes the sum of the values pushed into it, left to right
+    int n_valid = 0;
+    for (int w = tid; w < W; w += kGenThreads) {
+      float acc = 0.f;
+      bool hit = false;
+      for (int s = 0; s < S; ++s) {
+        const bool h = s_pos[s] == w;
+        acc = __fadd_rn(acc, h ? s_val[s] : 0.f);
+        hit = hit || h;
+      }
+      if (hit) {
+        buf[w] = acc;
+        valid[w] = 1;
+        bidx[w] = frame;
+      }
+      n_valid += valid[w];
+    }
+    if (n_valid) atomicAdd(&sh[kShCount], n_valid);
+    __syncthreads();
+
+    if (tid == 0) {
+      int count = sh[kShCount];
+      sh[kShCount] = 0;
+      // ---- the replenish push ----
+      int replenish = 0;
+      if (c.replenish && learned == 0 && (!c.replenish_not_full || count_valid < W)) {
+        // quantile_linear over the S energies: an insertion sort, interpolated
+        for (int i = 1; i < S; ++i) {
+          const float v = s_srt[i];
+          int j = i - 1;
+          while (j >= 0 && s_srt[j] > v) {
+            s_srt[j + 1] = s_srt[j];
+            --j;
+          }
+          s_srt[j + 1] = v;
+        }
+        const float v = max_nan(lerp_rn(s_srt[c.rq_lo], s_srt[c.rq_hi], c.rq_frac), c.eps);
+        const bool was_valid = valid[wr] != 0;
+        buf[wr] = v;
+        valid[wr] = 1;
+        bidx[wr] = frame;
+        if (!was_valid) {
+          count_valid += 1;
+          count += 1;
+        }
+        wr = wr + 1 == W ? 0 : wr + 1;
+        replenish = 1;
+      }
+      learned_total += learned;
+      replenish_total += replenish;
+      fsnu = learned + replenish > 0 ? 0 : fsnu + 1;
+      // ---- adaptive q ----
+      if (c.q_adapt) {
+        float q = q_eff;
+        if (replenish > 0) q = __fadd_rn(__fmul_rn(q, c.ra_keep), c.ra_add);
+        if (learned > 0) q = __fadd_rn(__fmul_rn(q, c.na_keep), c.na_add);
+        q_eff = clamp_nan(q, c.q_min, c.q_max);
+      }
+      // ---- the quantile's ranks ----
+      const float h = __fmul_rn(q_eff, (float)max(count - 1, 0));
+      sh[kShLo] = (int)floorf(h);
+      sh[kShHi] = (int)ceilf(h);
+      sh[kShSlotLo] = sh[kShSlotHi] = INT_MAX;
+      sh[kShCount] = count;  // read back below, then cleared
+    }
+    __syncthreads();
+    // the rank count of masked_quantile_rankselect: ties by slot, invalid
+    // slots as FLT_MAX; the first slot holding each rank
+    {
+      const int lo = sh[kShLo], hi = sh[kShHi];
+      for (int w = tid; w < W; w += kGenThreads) {
+        const float xw = valid[w] ? buf[w] : FLT_MAX;
+        int rank = 0;
+        for (int s2 = 0; s2 < W; ++s2) {
+          const float xs = valid[s2] ? buf[s2] : FLT_MAX;
+          rank += (xs < xw || (xs == xw && s2 < w)) ? 1 : 0;
+        }
+        if (rank == lo) atomicMin(&sh[kShSlotLo], w);
+        if (rank == hi) atomicMin(&sh[kShSlotHi], w);
+      }
+    }
+    __syncthreads();
+
+    if (tid == 0) {
+      const int count = sh[kShCount];
+      sh[kShCount] = 0;
+      const int slo = sh[kShSlotLo] == INT_MAX ? 0 : sh[kShSlotLo];
+      const int shi = sh[kShSlotHi] == INT_MAX ? 0 : sh[kShSlotHi];
+      const float v_lo = valid[slo] ? buf[slo] : FLT_MAX, v_hi = valid[shi] ? buf[shi] : FLT_MAX;
+      const float h = __fmul_rn(q_eff, (float)max(count - 1, 0));
+      const float frac = __fsub_rn(h, (float)sh[kShLo]);
+      const float qv = count > 0 ? lerp_rn(v_lo, v_hi, frac) : 0.f;
+      // ---- the noise scalar (warm-up semantics) and its smoothing ----
+      const bool warm = count_valid >= c.W_min;
+      const float ema_new = __fadd_rn(__fmul_rn(c.ema_keep, ema), __fmul_rn(c.ema_a, qv));
+      ema = warm ? ema_new : 0.f;
+      if (!warm) ne_smooth = 0.f;
+      const float n_sub = warm ? ema : 0.f;
+      const float ne_raw = __fmul_rn(c.S_f, n_sub);
+      float ne = ne_raw;
+      if (c.smooth) {
+        const float up = any_rain ? c.wet : c.dry;
+        const float alpha = ne_raw > ne_smooth ? up : c.release;
+        ne_smooth = __fadd_rn(__fmul_rn(__fsub_rn(1.f, alpha), ne_smooth), __fmul_rn(alpha, ne_raw));
+        ne = ne_smooth;
+      }
+      // ---- telemetry ----
+      const float Eb = io.Eb[ft];
+      e_total = __fadd_rn(e_total, max_nan(Eb, 0.f));
+      e_rain = __fadd_rn(e_rain, rain_e);
+      e_noise = __fadd_rn(e_noise, min_nan(max_nan(ne, 0.f), max_nan(dry_e, 0.f)));
+      min_valid = n_total == 0 ? count_valid : min(min_valid, count_valid);
+      n_total += 1;
+      underflow += count_valid < c.W_min ? 1 : 0;
+      n_rain += any_rain ? 1 : 0;
+      n_noise += any_rain ? 0 : 1;
+      // ---- Wiener gain ----
+      const float num = max_nan(__fsub_rn(Eb, __fmul_rn(c.beta, ne)), 0.f);
+      const float g_pow = __fdiv_rn(num, __fadd_rn(Eb, c.eps));
+      const float g = clamp_nan(__fsqrt_rn(clamp_nan(g_pow, 0.f, 1.f)), c.gain_floor, 1.f);
+      const long long o = ft;
+      const float fo[kOF] = {ne, ne_raw, g, __fmul_rn(io.Mb[ft], g), n_sub, e_noise, e_rain,
+                             e_total, q_eff};
+      const int io_[kOI] = {fft_rain, n_noise, n_rain, n_total, count_valid, min_valid,
+                            underflow, fsnu, learned_total, replenish_total};
+#pragma unroll
+      for (int k = 0; k < kOF; ++k) io.of[k * plane + o] = fo[k];
+#pragma unroll
+      for (int k = 0; k < kOI; ++k) io.oi[k * plane + o] = io_[k];
+    }
+    __syncthreads();
+  }
+
+  if (tid == 0) {
+    const float fo[kCF] = {prev_rain, prev_prim, prev_Eb, prev_Lb, prev_Lh, ema, q_eff, ne_smooth,
+                           e_noise, e_rain, e_total};
+    const int io_[kCI] = {have_fft, have_Eb, have_L, hold, wr, count_valid, fsnu, frame_idx,
+                          n_noise, n_rain, n_total, min_valid, underflow, learned_total,
+                          replenish_total};
+#pragma unroll
+    for (int i = 0; i < kCF; ++i) io.o_cf[(long long)b * kCF + i] = fo[i];
+#pragma unroll
+    for (int i = 0; i < kCI; ++i) io.o_ci[(long long)b * kCI + i] = io_[i];
+  }
+}
+
+cudaError_t launch_general(const BandIO& io, const BandConsts& c, cudaStream_t st) {
+  const size_t smem = 12 * (size_t)c.S;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        band_scan_general, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  band_scan_general<<<c.B, kGenThreads, smem, st>>>(io, c);
+  return cudaGetLastError();
+}
+
 template <int SPL, int S>
 cudaError_t launch(const BandIO& io, const BandConsts& c, cudaStream_t st) {
   band_scan<SPL, S><<<c.B, 32, 0, st>>>(io, c);
@@ -848,13 +1162,16 @@ cudaError_t launch_s(const BandIO& io, const BandConsts& c, cudaStream_t st) {
 }  // namespace
 
 // io: BandIO, consts: BandConsts (models/band_noise.py::_BandIO,
-// _BandConsts); 1 <= S <= 8, S <= W <= 64, B >= 1, T >= 0.
+// _BandConsts); S >= 1, W >= 1, B >= 1, T >= 0.  1 <= S <= 8 and
+// S <= W <= 64 take the warp kernel, every other geometry the general one
+// (models/band_noise.py::k6_route says the same).
 extern "C" int apt_band_noise_scan(const void* io_ptr, const void* consts_ptr, void* stream) {
   const BandIO& io = *static_cast<const BandIO*>(io_ptr);
   const BandConsts& c = *static_cast<const BandConsts*>(consts_ptr);
-  if (c.S < 1 || c.S > kMaxS || c.W < c.S || c.W > 64 || c.B < 1 || c.T < 0 || c.rq_lo < 0 ||
-      c.rq_hi >= c.S)
+  if (c.S < 1 || c.W < 1 || c.B < 1 || c.T < 0 || c.rq_lo < 0 || c.rq_hi >= c.S ||
+      12LL * c.S > 232448)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (c.S > kMaxS || c.W < c.S || c.W > 64) return (int)launch_general(io, c, st);
   return (int)(c.W <= 32 ? launch_s<1>(io, c, st) : launch_s<2>(io, c, st));
 }

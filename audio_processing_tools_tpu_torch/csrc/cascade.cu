@@ -55,6 +55,16 @@
 // A single launch would run the walk's 872 steps after the drifts of the
 // whole clip in one place; three keep each part as wide as it is.
 //
+// Width.  The three kernels are instantiated for every state width 2S up to
+// kMaxState = 32 (S <= 16 sections), the state in registers and a walk lane
+// per component.  A wider cascade takes the same three passes with the
+// width a run-time value (the *_wide kernels): the drifts four components a
+// warp at a time, the walk one block a clip with the state in shared memory
+// (double-buffered, a barrier a block step), the outputs reading their
+// block-start states and Zmat from device memory; the sums are the same
+// left-to-right sums in the same order, so every width gives the plain
+// version's bits.
+//
 // Arithmetic: every dot product is a left-to-right sum of separately rounded
 // products (__fmul_rn / __fadd_rn, never contracted into an FMA) in the
 // order of the plain version (ops/filters.py::_cascade_sosfilt_plain), so
@@ -67,7 +77,7 @@
 namespace {
 
 constexpr int kBlock = 128;      // samples per block of the cascade form
-constexpr int kMaxState = 16;    // 2 S, S <= 8 sections
+constexpr int kMaxState = 32;    // 2 S in registers, S <= 16 sections; wider: the *_wide kernels
 constexpr int kLanes = 32;       // blocks per CUDA block in the drift and output passes
 constexpr int kRow = kBlock + 4; // floats per staged block: x[u] at 3 + u, so x[1 + 4i] is 16-byte aligned
 constexpr int kDriftThreads = 256;  // warp w < 2S / 4: state components 4w .. 4w + 3
@@ -325,6 +335,158 @@ cascade_out(const float* __restrict__ x, const float* __restrict__ tab,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Cascades wider than kMaxState: the state width a run-time value
+// ---------------------------------------------------------------------------
+
+constexpr int kWideWalkThreads = 256;
+
+__global__ void __launch_bounds__(kDriftThreads)
+cascade_drifts_wide(const float* __restrict__ x, const float* __restrict__ tab,
+                    float* __restrict__ c, long long T, int nb, long long n_items, int N) {
+  __shared__ __align__(16) float xs[kLanes * kRow];
+  __shared__ long long src[kLanes];
+  __shared__ int lim[kLanes];
+  const long long g0 = (long long)blockIdx.x * kLanes;
+  stage_blocks<kDriftThreads>(x, xs, src, lim, g0, n_items, T, nb);
+  __syncthreads();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* xr = xs + lane * kRow + 3;
+  const long long g = g0 + lane;
+  const float* const K = tab + off_K();
+  for (int c0 = 4 * w; c0 < N; c0 += 4 * (kDriftThreads / 32)) {
+    const int nc = min(4, N - c0);
+    const float x0 = xr[0];
+    float a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = i < nc ? __fmul_rn(x0, __ldg(K + c0 + i)) : 0.f;
+    for (int u = 1; u < kBlock; ++u) {
+      const float xu = xr[u];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < nc) a[i] = __fadd_rn(a[i], __fmul_rn(xu, __ldg(K + u * N + c0 + i)));
+    }
+    if (g < n_items) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < nc) c[g * N + c0 + i] = a[i];
+    }
+  }
+}
+
+// sum_s M[t][s] z[s], left to right, M's row t read from device memory
+__device__ __forceinline__ float row_dot_wide(const float* __restrict__ mrow, const float* z,
+                                              int N) {
+  float acc = __fmul_rn(z[0], __ldg(mrow));
+  for (int s = 1; s < N; ++s) acc = __fadd_rn(acc, __fmul_rn(z[s], __ldg(mrow + s)));
+  return acc;
+}
+
+__global__ void __launch_bounds__(kWideWalkThreads)
+cascade_walk_wide(const float* __restrict__ x, const float* __restrict__ tab,
+                  const float* __restrict__ zi, const float* __restrict__ c,
+                  float* __restrict__ zs, float* __restrict__ zf, long long T, int nb, int P,
+                  int N) {
+  extern __shared__ float zsh[];  // [2][N]: the state, by block parity
+  const int r = blockIdx.x;
+  const float* const A = tab + off_A(N);
+  const float* const cr = c + (long long)r * nb * N;
+  float* const zr = zs + (long long)r * nb * N;
+  for (int t = threadIdx.x; t < N; t += blockDim.x) zsh[t] = zi[(long long)r * N + t];
+  __syncthreads();
+  const int steps = P == kBlock ? nb : nb - 1;
+  int cur = 0;
+  for (int j = 0; j < nb; ++j) {
+    const float* const z = zsh + cur * N;
+    for (int t = threadIdx.x; t < N; t += blockDim.x) {
+      zr[(long long)j * N + t] = z[t];
+      if (j < steps) zsh[(cur ^ 1) * N + t] = __fadd_rn(row_dot_wide(A + t * N, z, N),
+                                                        cr[(long long)j * N + t]);
+    }
+    __syncthreads();
+    if (j < steps) cur ^= 1;
+  }
+  const float* const z = zsh + cur * N;
+  if (P == kBlock) {
+    for (int t = threadIdx.x; t < N; t += blockDim.x) zf[(long long)r * N + t] = z[t];
+    return;
+  }
+  // z is the last block's start state: advance it exactly P samples
+  const float* xl = x + (long long)r * T + (long long)(nb - 1) * kBlock;
+  const float* K = tab + off_K() + (kBlock - P) * N;
+  for (int t = threadIdx.x; t < N; t += blockDim.x) {
+    float d = __fmul_rn(xl[0], K[t]);
+    for (int u = 1; u < P; ++u) d = __fadd_rn(d, __fmul_rn(xl[u], K[u * N + t]));
+    zf[(long long)r * N + t] = __fadd_rn(row_dot_wide(tab + off_Ap(N) + t * N, z, N), d);
+  }
+}
+
+__global__ void __launch_bounds__(kOutThreads)
+cascade_out_wide(const float* __restrict__ x, const float* __restrict__ tab,
+                 const float* __restrict__ zs, float* __restrict__ y, long long T, int nb,
+                 long long n_items, int N) {
+  __shared__ __align__(16) float xs[kLanes * kRow];  // the blocks' x, then their y
+  __shared__ __align__(16) float toe[kBlock];
+  __shared__ long long src[kLanes];
+  __shared__ int lim[kLanes];
+  const long long g0 = (long long)blockIdx.x * kLanes;
+  for (int i = threadIdx.x; i < kBlock; i += kOutThreads) toe[i] = tab[i];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long g = g0 + lane;
+  const float* const z = zs + (g < n_items ? g : 0) * N;
+  stage_blocks<kOutThreads>(x, xs, src, lim, g0, n_items, T, nb);
+  __syncthreads();
+  const float* xr = xs + lane * kRow + 3;
+  float out[2][kWin];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i0 = kWin * (h == 0 ? w : kWins - 1 - w);
+    toeplitz_window(xr, toe, i0, out[h]);
+#pragma unroll
+    for (int j = 0; j < kWin; ++j) {
+      const float* zr = tab + off_Z(N) + (i0 + j) * N;
+      float acc2 = __fmul_rn(z[0], __ldg(zr));
+      for (int s = 1; s < N; ++s) acc2 = __fadd_rn(acc2, __fmul_rn(z[s], __ldg(zr + s)));
+      out[h][j] = __fadd_rn(out[h][j], acc2);
+    }
+  }
+  __syncthreads();
+  float* const ys = xs + lane * kRow + 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i0 = kWin * (h == 0 ? w : kWins - 1 - w);
+#pragma unroll
+    for (int j = 0; j < kWin; ++j) ys[i0 + j] = out[h][j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kLanes * kBlock; i += kOutThreads) {
+    const int l = i / kBlock, u = i % kBlock;
+    if (u < lim[l]) y[src[l] + u] = xs[l * kRow + 3 + u];
+  }
+}
+
+cudaError_t launch_wide(const float* x, const float* tables, const float* zi, float* y,
+                        float* zf, float* c, float* zs, int R, long long T, int nb, int P, int N,
+                        cudaStream_t st) {
+  const long long n_items = (long long)R * nb;
+  const long long tiles = (n_items + kLanes - 1) / kLanes;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cascade_drifts_wide<<<(int)tiles, kDriftThreads, 0, st>>>(x, tables, c, T, nb, n_items, N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem = 2 * N * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(cascade_walk_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int threads = min(kWideWalkThreads, (N + 31) / 32 * 32);
+  cascade_walk_wide<<<R, threads, smem, st>>>(x, tables, zi, c, zs, zf, T, nb, P, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cascade_out_wide<<<(int)tiles, kOutThreads, 0, st>>>(x, tables, zs, y, T, nb, n_items, N);
+  return cudaGetLastError();
+}
+
 template <int N>
 cudaError_t launch(const float* x, const float* tables, const float* zi, float* y, float* zf,
                    float* c, float* zs, int R, long long T, int nb, int P, cudaStream_t st) {
@@ -346,13 +508,15 @@ cudaError_t launch(const float* x, const float* tables, const float* zi, float* 
 
 // x, y: (R, T) contiguous; zi, zf: (R, 2S); tables: _k4_flat_tables for
 // P = T - 128 (nb - 1); c, zs: (R, nb, 2S) scratch (the drifts and the
-// block-start states).  1 <= S <= 8.
+// block-start states).  S >= 1: up to 16 sections the state in registers,
+// more the *_wide kernels.
 extern "C" int apt_cascade_sosfilt(const float* x, const float* tables, const float* zi, float* y,
                                    float* zf, float* c, float* zs, int R, long long T, int S,
                                    void* stream) {
-  if (R <= 0 || T <= 0 || S < 1 || 2 * S > kMaxState) return (int)cudaErrorInvalidValue;
+  if (R <= 0 || T <= 0 || S < 1 || 2LL * S * 2 * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const long long nbl = (T + kBlock - 1) / kBlock;
-  if (nbl * kMaxState > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (nbl * 2 * S > 0x7fffffffLL || 2 * S * (long long)sizeof(float) * 2 > 232448)
+    return (int)cudaErrorInvalidValue;
   const int nb = (int)nbl;
   const int P = (int)(T - (long long)(nb - 1) * kBlock);
   const cudaStream_t st = (cudaStream_t)stream;
@@ -364,6 +528,15 @@ extern "C" int apt_cascade_sosfilt(const float* x, const float* tables, const fl
     case 5: return (int)launch<10>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
     case 6: return (int)launch<12>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
     case 7: return (int)launch<14>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
-    default: return (int)launch<16>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    case 8: return (int)launch<16>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    case 9: return (int)launch<18>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    case 10: return (int)launch<20>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    case 11: return (int)launch<22>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    case 12: return (int)launch<24>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    case 13: return (int)launch<26>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    case 14: return (int)launch<28>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    case 15: return (int)launch<30>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    case 16: return (int)launch<32>(x, tables, zi, y, zf, c, zs, R, T, nb, P, st);
+    default: return (int)launch_wide(x, tables, zi, y, zf, c, zs, R, T, nb, P, 2 * S, st);
   }
 }

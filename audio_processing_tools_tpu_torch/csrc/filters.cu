@@ -10,11 +10,10 @@
 //
 // What bounds it on this card.  At the live batch (64 streams x 22,272
 // samples, a 2 s chunk) the bytes are 5.7 MB in and 5.7 MB out, 3.4 us at
-// 3.35 TB/s.  But each sample of a section waits for the one before:
-// z0 -> y = b0 x + z0 -> a1 y -> (b1 x - a1 y) -> + z1 -> z0 is four
-// dependent float operations, 17 cycles on the H100 (tools/time_k6_k7.py
-// times one thread's step), so one stream takes ~22,272 x 17 cycles, about
-// 0.19 ms at 1.98 GHz, whatever the card's width.  The chain sets the time.
+// 3.35 TB/s.  But each sample of a section waits for the one before: the
+// state's chain z0 -> a1 z0 -> z1 - a1 z0 -> + bv0 x -> z0 is three
+// dependent operations a sample, so one stream takes ~22,272 chain steps
+// whatever the card's width.  The chain sets the time.
 //
 // Design: one block per stream, its sections pipelined over tiles of the
 // row in a shared-memory ring.  Warp 0 is the loader: it brings each tile of
@@ -25,7 +24,7 @@
 // sections) over a tile in place, reading and writing four samples at a time
 // (ld.shared.v4 / st.shared.v4), then arrives on the tile's next mbarrier;
 // walker w takes tile k while walker w - 1 takes tile k + 1.  So a walker
-// issues ~10 instructions a sample under its 17-cycle chain, and the loads,
+// issues ~10 instructions a sample under its chain, and the loads,
 // stores and other sections stay off it; a row takes about (tiles + walkers
 // - 1) tiles' chains.  The ring holds walkers + 2 tiles, so the loader
 // fills tile k + walkers + 1 while tile k - 1 is stored.
@@ -35,15 +34,23 @@
 // chunks: chunk invariance holds bit for bit at every cut, which the JAX
 // blocked scan, anchored at the chunk start, does not give.
 //
-// Arithmetic: Direct Form II transposed, as scipy and the plain PyTorch
-// loop (ops/filters.py::_sosfilt_zi_plain) write it,
+// Arithmetic: Direct Form II transposed in the JAX package's state-space
+// form and order (filters.py:297-300, 340-349),
 //     y  = b0 x + z0
-//     z0 = (b1 x - a1 y) + z1
-//     z1 = b2 x - a2 y
-// every product and sum rounded on its own (__fmul_rn / __fadd_rn /
-// __fsub_rn, never contracted into an FMA), with the coefficients rounded to
-// float as the JAX package rounds them; so the kernel gives the plain
-// loop's bits.
+//     z0 = (z1 - a1 z0) + bv0 x
+//     z1 = bv1 x - a2 z0          (the z0 before the step)
+// with bv0 = b1 - a1 b0 and bv1 = b2 - a2 b0 formed in double on the host
+// and rounded to float, as the JAX package forms them: scipy's own form
+// (b1 x - a1 y) + z1 cancels a high-pass's b1 against a1 b0 in float and
+// loses the state's low bits (1e-4 of zf's maximum at 100 Hz).  The state
+// is float up to kMaxSections sections, one launch; a longer cascade runs
+// in groups of kMaxSections chained by the caller, with the state in double
+// (Z = double; each section's output still rounded to float), since past
+// 8 sections the float state's rounding reaches 1e-5 of zf's maximum.
+// Every product and sum is rounded on its own (__fmul_rn / __dmul_rn ...,
+// never contracted into an FMA), as the plain PyTorch loop
+// (ops/filters.py::_sosfilt_zi_plain) does it, so the kernel gives its
+// bits.
 
 #include <cuda_runtime.h>
 
@@ -115,17 +122,25 @@ __device__ __forceinline__ TileSpan span_of(long long k, int tile, int lead, lon
 // Walker w's G sections (s0 .. s0 + G - 1) over every tile of row r, in
 // place; the sections' state stays in registers, and the loop over a tile
 // has no branch but its own.
-template <int G>
+// products and sums rounded on their own, in the state's type
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+template <typename Z, int G>
 __device__ __forceinline__ void walk(float* ring, uint64_t* bars, int nb, int tile, int lead,
                                      long long n_tiles, long long n, const float* coef,
-                                     const float* zi, float* zf, int r, int S, int w, int s0) {
-  float b0[G], b1[G], b2[G], a1[G], a2[G], z0[G], z1[G];
+                                     const Z* zi, Z* zf, int r, int S, int w, int s0) {
+  Z b0[G], bv0[G], bv1[G], a1[G], a2[G], z0[G], z1[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const int s = s0 + g;
     b0[g] = coef[5 * s];
-    b1[g] = coef[5 * s + 1];
-    b2[g] = coef[5 * s + 2];
+    bv0[g] = coef[5 * s + 1];
+    bv1[g] = coef[5 * s + 2];
     a1[g] = coef[5 * s + 3];
     a2[g] = coef[5 * s + 4];
     z0[g] = zi[((long long)r * S + s) * 2];
@@ -135,10 +150,12 @@ __device__ __forceinline__ void walk(float* ring, uint64_t* bars, int nb, int ti
   auto step = [&](float v) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float out = __fadd_rn(__fmul_rn(b0[g], v), z0[g]);
-      z0[g] = __fadd_rn(__fsub_rn(__fmul_rn(b1[g], v), __fmul_rn(a1[g], out)), z1[g]);
-      z1[g] = __fsub_rn(__fmul_rn(b2[g], v), __fmul_rn(a2[g], out));
-      v = out;
+      const Z u = (Z)v;
+      const Z out = add_rn(mul_rn(b0[g], u), z0[g]);
+      const Z z1n = sub_rn(mul_rn(bv1[g], u), mul_rn(a2[g], z0[g]));
+      z0[g] = add_rn(sub_rn(z1[g], mul_rn(a1[g], z0[g])), mul_rn(bv0[g], u));
+      z1[g] = z1n;
+      v = (float)out;
     }
     return v;
   };
@@ -174,11 +191,13 @@ __device__ __forceinline__ void walk(float* ring, uint64_t* bars, int nb, int ti
   }
 }
 
-// x, y: (R, n); coef: (S, 5); zi, zf: (R, S, 2).  One block per row: warp 0
-// loads and stores, warp 1 + w walks sections w * kSectionsPerWalker on.
+// x, y: (R, n); coef: (S, 5); zi, zf: (R, S, 2) of the state's type Z.  One
+// block per row: warp 0 loads and stores, warp 1 + w walks sections
+// w * kSectionsPerWalker on.
+template <typename Z>
 __global__ void __launch_bounds__(32 * (kMaxWalkers + 1))
 sosfilt_zi(const float* __restrict__ x, const float* __restrict__ coef,
-           const float* __restrict__ zi, float* __restrict__ y, float* __restrict__ zf,
+           const Z* __restrict__ zi, float* __restrict__ y, Z* __restrict__ zf,
            long long n, int S, int walkers, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = walkers + 2;  // ring slots
@@ -252,23 +271,30 @@ sosfilt_zi(const float* __restrict__ x, const float* __restrict__ coef,
   const int s0 = w * kSectionsPerWalker;
   const int ns = min(kSectionsPerWalker, S - s0);
   if (kSectionsPerWalker == 2 && ns == 2)
-    walk<2>(ring, bars, nb, tile, lead, n_tiles, n, coef, zi, zf, r, S, w, s0);
+    walk<Z, 2>(ring, bars, nb, tile, lead, n_tiles, n, coef, zi, zf, r, S, w, s0);
   else
-    walk<1>(ring, bars, nb, tile, lead, n_tiles, n, coef, zi, zf, r, S, w, s0);
+    walk<Z, 1>(ring, bars, nb, tile, lead, n_tiles, n, coef, zi, zf, r, S, w, s0);
 }
 
 }  // namespace
 
-// x, y: (R, n) contiguous; coef: (S, 5) = b0, b1, b2, a1, a2 per section
-// (a0 = 1); zi, zf: (R, S, 2) contiguous.  1 <= S <= 8.
-extern "C" int apt_sosfilt_zi(const float* x, const float* coef, const float* zi, float* y,
-                              float* zf, int R, long long n, int S, void* stream) {
+// x, y: (R, n) contiguous; coef: (S, 5) = b0, bv0, bv1, a1, a2 per section
+// (a0 = 1); zi, zf: (R, S, 2) contiguous, float, or double where
+// `double_state` is set.  1 <= S <= 8.
+extern "C" int apt_sosfilt_zi(const float* x, const float* coef, const void* zi, float* y,
+                              void* zf, int R, long long n, int S, int double_state,
+                              void* stream) {
   if (R <= 0 || n < 0 || S < 1 || S > kMaxSections) return (int)cudaErrorInvalidValue;
   const int walkers = (S + kSectionsPerWalker - 1) / kSectionsPerWalker;
   const int tile = n >= kLongRow ? kTileLong : kTileShort;
   const size_t shared = (size_t)(walkers + 2) * tile * sizeof(float) +
                         (size_t)(walkers + 1) * (walkers + 2) * sizeof(uint64_t);
-  sosfilt_zi<<<R, 32 * (walkers + 1), shared, (cudaStream_t)stream>>>(x, coef, zi, y, zf, n, S,
-                                                                      walkers, tile);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (double_state)
+    sosfilt_zi<double><<<R, 32 * (walkers + 1), shared, s>>>(
+        x, coef, (const double*)zi, y, (double*)zf, n, S, walkers, tile);
+  else
+    sosfilt_zi<float><<<R, 32 * (walkers + 1), shared, s>>>(
+        x, coef, (const float*)zi, y, (float*)zf, n, S, walkers, tile);
   return (int)cudaGetLastError();
 }

@@ -59,6 +59,16 @@
 //     output is is_peak & ~covered.
 //  5. Stores of the mask, a byte a position.
 //
+// Rows longer than 1,024 positions take a second kernel, one block a row
+// (select_peaks_long): every position's key order_key(value) << 32 | index
+// (a non-peak's value -inf, as in the JAX order) sorted in descending order
+// by a bitonic network, in shared memory up to kLongSmemKeys keys and in
+// device scratch beyond; the first `steps` keys are the loop's order, each
+// marked with its peak bit by a parallel pass; then one warp walks them
+// over a bitmap of covered positions (a word for 32 positions, in shared
+// memory up to kLongSmemWords words), a step a candidate: the test of p's
+// bit, and where p is a kept peak the lanes OR the words of its window.
+//
 // No arithmetic on values: the result is the JAX loop's bits.
 
 #include <cuda_runtime.h>
@@ -260,7 +270,144 @@ select_peaks_by_distance_kernel(const float* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Rows longer than kMaxLength: one block a row
+// ---------------------------------------------------------------------------
+
+constexpr int kLongThreads = 256;
+constexpr int kLongSmemKeys = 16384;   // keys sorted in shared memory (128 KB), a power of two
+constexpr int kLongSmemWords = 16384;  // bitmap words in shared memory (64 KB)
+
+// mirrored by ops/peaks.py::k9_long_plan
+struct LongPlan {
+  int np2;  // keys sorted: n rounded up to a power of two
+  bool keys_shared, bits_shared;
+  size_t smem;
+};
+
+LongPlan long_plan(int n) {
+  LongPlan p;
+  p.np2 = 1;
+  while (p.np2 < n) p.np2 *= 2;
+  const int words = (n + 31) / 32;
+  p.keys_shared = p.np2 <= kLongSmemKeys;
+  p.bits_shared = words <= kLongSmemWords;
+  p.smem = (p.keys_shared ? 8 * (size_t)p.np2 : 0) + (p.bits_shared ? 4 * (size_t)words : 0);
+  return p;
+}
+
+__global__ void __launch_bounds__(kLongThreads)
+select_peaks_long(const float* __restrict__ x, const uint8_t* __restrict__ is_peak,
+                  uint8_t* __restrict__ out, int n, int np2, int keys_shared, int bits_shared,
+                  int distance, int steps, unsigned long long* key_scratch,
+                  unsigned* bit_scratch) {
+  extern __shared__ unsigned long long smem[];
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int words = (n + 31) / 32;
+  unsigned long long* const keys = keys_shared ? smem : key_scratch + (size_t)row * np2;
+  unsigned* const covered = bits_shared
+                                ? reinterpret_cast<unsigned*>(keys_shared ? smem + np2 : smem)
+                                : bit_scratch + (size_t)row * words;
+  const float* const xr = x + (size_t)row * n;
+  const uint8_t* const pr = is_peak + (size_t)row * n;
+  uint8_t* const orow = out + (size_t)row * n;
+  const float neg_inf = -__int_as_float(0x7f800000);
+
+  // every position's key, zero past the row (below every key)
+  for (int i = tid; i < np2; i += kLongThreads) {
+    unsigned long long key = 0ull;
+    if (i < n) key = ((unsigned long long)order_key(pr[i] ? xr[i] : neg_inf) << 32) | (unsigned)i;
+    keys[i] = key;
+  }
+  for (int w = tid; w < words; w += kLongThreads) covered[w] = 0u;
+  __syncthreads();
+
+  // bitonic sort, descending
+  for (int k = 2; k <= np2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int q = tid; q < np2 / 2; q += kLongThreads) {
+        const int i = 2 * j * (q / j) + (q % j), l = i + j;
+        const unsigned long long a = keys[i], b = keys[l];
+        const bool desc = (i & k) == 0;
+        if (desc ? a < b : a > b) {
+          keys[i] = b;
+          keys[l] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // the candidates: the first `steps` positions of the order, each with its
+  // peak bit (bit 31 of the low word)
+  for (int k = tid; k < steps; k += kLongThreads) {
+    const unsigned p = (unsigned)keys[k];
+    keys[k] = (unsigned long long)(p | (pr[p] ? 0x80000000u : 0u));
+  }
+  __syncthreads();
+
+  // the walk: warp 0, a step a candidate
+  if (tid < 32) {
+    const int lane = tid;
+    const int d = distance < 0 ? 0 : distance > n ? n : distance;
+    for (int k0 = 0; k0 < steps; k0 += 32) {
+      const unsigned mine = k0 + lane < steps ? (unsigned)keys[k0 + lane] : 0u;
+      const int m = min(32, steps - k0);
+      for (int j = 0; j < m; ++j) {
+        const unsigned c = __shfl_sync(kFull, mine, j);
+        if (!(c & 0x80000000u)) continue;  // a non-peak: the step changes nothing
+        const int p = (int)(c & 0x7fffffffu);
+        if ((covered[p >> 5] >> (p & 31)) & 1u) continue;  // cleared already
+        const int lo = max(p - d + 1, 0), hi = min(p + d - 1, n - 1);
+        if (lo <= hi) {
+          for (int w = (lo >> 5) + lane; w <= (hi >> 5); w += 32) {
+            const int a = max(lo - 32 * w, 0), b = min(hi - 32 * w, 31);
+            unsigned win = (kFull >> (31 - b)) & (kFull << a);
+            if ((p >> 5) == w) win &= ~(1u << (p & 31));
+            covered[w] |= win;
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+
+  // stores: is_peak & ~covered
+  for (int i = tid; i < n; i += kLongThreads)
+    orow[i] = (uint8_t)(pr[i] != 0 && !((covered[i >> 5] >> (i & 31)) & 1u));
+}
+
 }  // namespace
+
+// Rows of more than 1,024 positions: key_scratch rows * np2 keys where the
+// keys do not fit shared memory, bit_scratch rows * ceil(n / 32) words
+// where the bitmap does not (ops/peaks.py::k9_long_plan), else null.
+extern "C" int apt_select_peaks_long(const float* x, const uint8_t* is_peak, uint8_t* out,
+                                     int rows, int n, int distance, int steps,
+                                     unsigned long long* key_scratch, unsigned* bit_scratch,
+                                     void* stream) {
+  if (rows <= 0 || n <= kMaxLength || steps < 0 || steps > n) return (int)cudaErrorInvalidValue;
+  const LongPlan p = long_plan(n);
+  if ((!p.keys_shared && key_scratch == nullptr) || (!p.bits_shared && bit_scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  static int dev_set = -1;
+  static size_t smem_set = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != dev_set || p.smem > smem_set) {
+    err = cudaFuncSetAttribute(select_peaks_long, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)p.smem);
+    if (err != cudaSuccess) return (int)err;
+    dev_set = dev;
+    smem_set = p.smem;
+  }
+  select_peaks_long<<<rows, kLongThreads, p.smem, (cudaStream_t)stream>>>(
+      x, is_peak, out, n, p.np2, p.keys_shared, p.bits_shared, distance, steps, key_scratch,
+      bit_scratch);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int apt_select_peaks_by_distance(const float* x, const uint8_t* is_peak,
                                             uint8_t* out, int rows, int n,

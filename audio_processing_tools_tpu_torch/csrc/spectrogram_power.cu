@@ -48,11 +48,24 @@
 //    stored with t fastest (coalesced); (B, F, T) rows of T floats are not
 //    16-byte multiples in general, so there is no bulk store.
 // No library call: the transform is this kernel's own code.
+//
+// The DFT route (apt_spectrogram_power_dft) takes every other geometry the
+// JAX package runs, any n_fft >= 1 and hop >= 1: the TPU kernel's own
+// window-and-DFT product (dft.cuh), one block a tile of frames of one clip.
+// The tile's windowed samples and the twiddle table sit in shared memory,
+// frame-fastest, and each thread sums bin k for FPT frames at once, n_fft
+// FMAs a frame and part, from the twiddles (k m) mod n_fft of the table.
+// The function's own bound is the FFT route's, by bytes (at 128 x 10 s,
+// 57 MB in and about 58 MB out at either 384/192 or 2,048/1,024: ~0.034 ms
+// at 3.35 TB/s); this route does the DFT's 4 n_fft FLOP a bin and frame,
+// so it runs far above that bound.  It serves the sizes the FFT does not
+// take.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "dft.cuh"
 #include "stockham_fft.cuh"
 
 namespace {
@@ -249,7 +262,113 @@ cudaError_t launch(const float* x, const float* window, const float* twiddle, fl
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The DFT route: one block a tile of FPT * G frames of one clip; thread u
+// sums bin u % F for frames (u / F) FPT .. + FPT - 1, and the next units.
+// ---------------------------------------------------------------------------
+
+// frames a block holds and whether the twiddles fit beside them; the last
+// plan, one frame's samples, sets ops/spectrogram.py::DFT_MAX_N_FFT
+struct DftPlan {
+  int fpt, groups;
+  bool tw_shared;
+  size_t smem;
+};
+
+__host__ __device__ constexpr size_t dft_samples_bytes(int n_fft, int frames) {
+  return (4 * (size_t)n_fft * frames + 15) / 16 * 16;  // the twiddles start 16-byte aligned
+}
+
+DftPlan dft_plan_for(int n_fft) {
+  const size_t n = (size_t)n_fft;
+  const DftPlan plans[4] = {{8, 2, true, dft_samples_bytes(n_fft, 16) + 8 * n},
+                            {8, 1, true, dft_samples_bytes(n_fft, 8) + 8 * n},
+                            {1, 1, true, dft_samples_bytes(n_fft, 1) + 8 * n},
+                            {1, 1, false, dft_samples_bytes(n_fft, 1)}};
+  for (const DftPlan& p : plans)
+    if (p.smem <= (size_t)kSmemLimit) return p;
+  return {0, 0, false, 0};
+}
+
+template <int FPT, int G, bool kTwShared>
+__global__ void __launch_bounds__(kThreads)
+spectrogram_power_dft(const float* __restrict__ x, const float* __restrict__ window,
+                      const float2* __restrict__ twiddle, float* __restrict__ out, int N,
+                      int T, int n_fft, int hop, int pad, int n_tiles) {
+  constexpr int FTB = FPT * G;
+  extern __shared__ float4 smem4[];
+  float* const xs = reinterpret_cast<float*>(smem4);  // [n_fft][FTB]
+  float2* const tws =
+      reinterpret_cast<float2*>(reinterpret_cast<char*>(smem4) + dft_samples_bytes(n_fft, FTB));
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x - b * n_tiles) * FTB;
+  const float* const xb = x + (size_t)b * N;
+  for (int i = threadIdx.x; i < n_fft * FTB; i += kThreads) {
+    const int f = i / n_fft, m = i - f * n_fft;
+    const long long s = (long long)(t0 + f) * hop + m - pad;
+    const float v = (t0 + f < T && s >= 0 && s < N) ? xb[s] : 0.f;
+    xs[m * FTB + f] = v * __ldg(window + m);
+  }
+  if constexpr (kTwShared)
+    for (int i = threadIdx.x; i < n_fft; i += kThreads) tws[i] = twiddle[i];
+  __syncthreads();
+  const float2* const tw = kTwShared ? tws : twiddle;
+  const int F = n_fft / 2 + 1;
+  for (int u = threadIdx.x; u < F * G; u += kThreads) {
+    const int g = u / F, k = u - g * F;
+    float re[FPT], im[FPT];
+    dft_forward<FPT>(xs, FTB, g * FPT, tw, n_fft, k, re, im);
+    float* const o = out + ((size_t)b * F + k) * T + t0 + g * FPT;
+#pragma unroll
+    for (int f = 0; f < FPT; ++f)
+      if (t0 + g * FPT + f < T) o[f] = re[f] * re[f] + im[f] * im[f];
+  }
+}
+
+template <int FPT, int G, bool kTwShared>
+cudaError_t launch_dft(const float* x, const float* window, const float* twiddle, float* out,
+                       int B, int N, int T, int n_fft, int hop, int pad, size_t smem,
+                       cudaStream_t stream) {
+  static int dev_set = -1;
+  static size_t smem_set = 0;
+  auto kernel = spectrogram_power_dft<FPT, G, kTwShared>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != dev_set || smem > smem_set) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dev_set = dev;
+    smem_set = smem;
+  }
+  const int n_tiles = (T + FPT * G - 1) / (FPT * G);
+  if ((long long)B * n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<B * n_tiles, kThreads, smem, stream>>>(x, window,
+                                                   reinterpret_cast<const float2*>(twiddle), out,
+                                                   N, T, n_fft, hop, pad, n_tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The DFT route: any n_fft >= 1 and hop >= 1 whose plan fits (dft_plan_for);
+// tables as for the FFT route.
+extern "C" int apt_spectrogram_power_dft(const float* x, const float* window,
+                                         const float* twiddle, float* out, int B, int N, int T,
+                                         int n_fft, int hop, int pad, void* stream) {
+  if (n_fft < 1 || hop < 1 || B <= 0 || T <= 0 || N < 0 || pad < 0)
+    return (int)cudaErrorInvalidValue;
+  const DftPlan p = dft_plan_for(n_fft);
+  if (p.fpt == 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (p.groups == 2)
+    return (int)launch_dft<8, 2, true>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, p.smem, s);
+  if (p.fpt == 8)
+    return (int)launch_dft<8, 1, true>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, p.smem, s);
+  if (p.tw_shared)
+    return (int)launch_dft<1, 1, true>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, p.smem, s);
+  return (int)launch_dft<1, 1, false>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, p.smem, s);
+}
 
 // window: n_fft floats; twiddle: n_fft (re, im) pairs, e^{-2 pi i k / n_fft};
 // frame_tile and smem_bytes: the plan of ops/spectrogram.py::launch_plan,

@@ -30,7 +30,7 @@
 // two launches on the caller's stream:
 //
 //  A. the walk: one block per stream, one thread per band bin (as many warps
-//     as the K band bins need), walks the frames in order with the
+//     as the K band bins need; past 1,024 bins two or four a thread), walks the frames in order with the
 //     tracker, the SNR gate, the gain and the EMA, and writes the clipped
 //     gain G (B, K, T) and the carries.  It reads only the band power K1
 //     computed, the classes and the confidences, a round ahead.  A round
@@ -48,9 +48,14 @@
 //     1 / sum(w^2), written as one contiguous run of y.  A tile's first
 //     frame overlaps the frame before the tile, which the block computes
 //     again by the same code (or takes from the carried tail at frame 0);
-//     the block holding frame T - 1 writes the new tail.  It takes n_fft
-//     from 64 to 1024, as K1 does, which computes the band power the walk
-//     reads (below 64 a group of n_fft / 16 threads would be under 4).
+//     the block holding frame T - 1 writes the new tail.  This FFT route
+//     takes n_fft from 64 to 1024, a power of two, as K1's FFT does (below
+//     64 a group of n_fft / 16 threads would be under 4).
+//  B'. the DFT frame pass, for every other n_fft = 2 hop: the same tiles,
+//     staging and overlap-add, with K1's direct DFT (dft.cuh) in place of
+//     the FFT: the tile's windowed frames frame-fastest in shared memory,
+//     each thread one bin (forward) or one sample (inverse) of four frames,
+//     the twiddles (k m) mod n_fft from the table in shared memory.
 //
 // Arithmetic.  The walk follows the plain loop
 // (models/streaming.py::_suppressor_plain) operation for operation: every
@@ -68,11 +73,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dft.cuh"
 #include "stockham_fft.cuh"
 
 namespace {
 
-constexpr int kMaxTaps = 9;
 constexpr int kMinFft = 64;
 constexpr int kMaxFft = 1024;
 constexpr int kMaxWalkThreads = 1024;
@@ -107,8 +112,7 @@ struct SupConsts {
   // the gain
   int adaptive_gain, wiener;
   float th, denom, oversub_base, oversub_span, gain_floor, gain_ceil;
-  int n_taps;  // 0: no frequency smoothing
-  float taps[kMaxTaps];
+  int n_taps;  // 0: no frequency smoothing; the taps are SupIO::taps
   float alpha_base, one_minus_alpha_base;
   // geometry: n_fft = 2 hop; band bins row0 .. row0 + K - 1
   int n_fft, hop, K, row0, n_frames, n_streams;
@@ -140,12 +144,18 @@ struct SupIO {
   uint8_t* o_is_first;
   float *o_g_prev, *o_ola;
   float* gain;  // (B, K, T): the clipped gain per frame, from the walk to the frame pass
+  const float* taps;  // (n_taps,): the frequency smoothing kernel
 };
 
 __host__ __device__ inline int pow2_at_least(int n) {
   int m = 1;
   while (m < n) m *= 2;
   return m;
+}
+
+// band bins a walk thread takes: 1, 2 or 4, so that a stream's bins fit one block
+__host__ __device__ inline int walk_bins_per_thread(int K) {
+  return K <= kMaxWalkThreads ? 1 : K <= 2 * kMaxWalkThreads ? 2 : 4;
 }
 
 // The launch plan of a geometry.
@@ -155,12 +165,15 @@ struct Plan {
 
 Plan plan_for(const SupConsts& c) {
   const int M = c.n_fft / 2, pad = c.n_taps / 2;
-  const int fpr = kFrameThreads / (M / 8);  // frames a round of the frame pass
+  const int fpr = kFrameThreads / max(M / 8, 1);  // frames a round of the FFT frame pass
   Plan p;
-  p.walk_threads = 32 * ((c.K + 31) / 32);
+  const int bpt = walk_bins_per_thread(c.K);
+  p.walk_threads = 32 * (((c.K + bpt - 1) / bpt + 31) / 32);
   // per frame of a round: the padded gain row twice, P and N_eff per band
   // bin, the two SNR trees
-  p.walk_smem = 4 * kFrames * (2 * (c.K + 2 * pad) + 2 * c.K + 2 * pow2_at_least(c.n_snr));
+  // and the taps
+  p.walk_smem = 4 * kFrames * (2 * (c.K + 2 * pad) + 2 * c.K + 2 * pow2_at_least(c.n_snr)) +
+                4 * c.n_taps;
   p.slots = fpr >= kMinSlots ? fpr : kMinSlots;
   // exchange buffers | samples | frames | gains | Nyquist bins
   p.frame_smem = 4 * (2 * fpr * (M + 8) + (p.slots - 1) * c.hop + c.n_fft + p.slots * c.n_fft +
@@ -171,22 +184,225 @@ Plan plan_for(const SupConsts& c) {
 // ---------------------------------------------------------------------------
 // A. the walk
 // ---------------------------------------------------------------------------
+//
+// Two kernels share every step below: suppressor_walk, one band bin a
+// thread (K <= 1,024, the main path), and suppressor_walk_wide<BPT>, band
+// bin tid + j nt the thread's j-th (j < BPT, two or four).  The steps are
+// inlined into both, so the arithmetic is written once; the kernels differ
+// only in how a thread holds its bins.
+
+// A walk block's shared memory.
+struct WalkSmem {
+  float *sG;    // [2][F][pad zeros | K gains | pad zeros], by round parity
+  float *sP;    // [F][K]
+  float *sNe;   // [F][K]
+  float *red;   // [F][2][m]
+  float *sTaps; // [n_taps]
+  int grow, pad, m;
+};
+
+__device__ __forceinline__ WalkSmem walk_smem(float* sm, const SupConsts& c) {
+  constexpr int F = kFrames;
+  WalkSmem w;
+  w.pad = c.n_taps / 2;
+  w.m = pow2_at_least(c.n_snr);
+  w.grow = c.K + 2 * w.pad;
+  w.sG = sm;
+  w.sP = w.sG + 2 * F * w.grow;
+  w.sNe = w.sP + F * c.K;
+  w.red = w.sNe + F * c.K;
+  w.sTaps = w.red + 2 * F * w.m;
+  return w;
+}
+
+// the taps, and the zero pads of the gain rows (before the first barrier)
+__device__ __forceinline__ void walk_smem_init(const WalkSmem& w, const SupIO& io,
+                                               const SupConsts& c, int tid, int nt) {
+  for (int i = tid; i < c.n_taps; i += nt) w.sTaps[i] = io.taps[i];
+  for (int i = tid; i < 2 * kFrames * w.pad; i += nt) {
+    const int r = i / w.pad, j = i - r * w.pad;
+    w.sG[r * w.grow + j] = w.sG[r * w.grow + w.pad + c.K + j] = 0.f;
+  }
+}
+
+// a frame's tracker steps up and down, from the stream's rain EMA
+__device__ __forceinline__ void psd_steps(const SupConsts& c, float rain_ema, float& up,
+                                          float& down) {
+  const float q_eff = clamp(__fsub_rn(c.q, __fmul_rn(c.q_minus_aq_min, rain_ema)), c.aq_min, c.q);
+  up = c.adaptive_q ? q_eff : c.q;
+  down = c.adaptive_q ? -__fsub_rn(1.f, q_eff) : c.neg_one_minus_q;
+}
+
+// One band bin's PSD step over one frame of power pt: the tracker, its
+// scale and the N EMA, changed only where the frame is live; returns N_eff.
+__device__ __forceinline__ float psd_bin(const SupConsts& c, float pt, float& tracker,
+                                         float& scale, float& prev_n, bool first, bool allow,
+                                         bool seed, bool live, float up, float down,
+                                         float one_minus_up, float one_minus_down) {
+  const float err = __fsub_rn(pt, tracker);
+  const float scale_new = __fadd_rn(__fmul_rn(c.scale_alpha, scale),
+                                    __fmul_rn(c.one_minus_scale_alpha, fabsf(err)));
+  const float step = __fmul_rn(c.eta, nan_max(scale_new, c.step_floor));
+  const float delta = __fmul_rn((pt >= tracker) ? up : down, step);
+  const float candidate = nan_max(__fadd_rn(tracker, delta), 0.f);
+  const float tracker_new = (first || !allow) ? tracker : candidate;
+  const float scale_out = first ? scale : scale_new;
+  const bool rising = tracker_new > prev_n;
+  const float n_ema = __fadd_rn(__fmul_rn(rising ? c.ema_up : c.ema_down, prev_n),
+                                __fmul_rn(rising ? one_minus_up : one_minus_down, tracker_new));
+  float n = first ? tracker_new : n_ema;
+  n = nan_max(nan_min(n, __fmul_rn(c.track_maxr, pt)), 0.f);
+  const float n_used = (c.use_lagged && !seed) ? prev_n : n;
+  const float n_eff = nan_min(n_used, __fmul_rn(c.maxr, pt));
+  if (live) {
+    tracker = tracker_new;
+    scale = scale_out;
+    prev_n = n;
+  }
+  return n_eff;
+}
+
+// the stream's warm-up count, rain EMA and first flag after a live frame
+__device__ __forceinline__ void psd_advance(const SupConsts& c, bool rain, bool allow,
+                                            int& wcount, float& rain_ema, bool& first) {
+  wcount += allow ? 1 : 0;
+  rain_ema = __fadd_rn(__fmul_rn(c.aq_alpha, rain_ema),
+                       __fmul_rn(c.one_minus_aq_alpha, rain ? 1.f : 0.f));
+  first = false;
+}
+
+// The round's SNR gates, once every thread has stored its bins' P and
+// N_eff in sP and sNe: per frame the two sums as a tree, element i + h
+// onto i, the round's frames side by side.
+__device__ __forceinline__ void snr_gates(const WalkSmem& w, const SupIO& io,
+                                          const SupConsts& c, int tid, int nt,
+                                          float (&gate)[kFrames]) {
+  constexpr int F = kFrames;
+  const int K = c.K, m = w.m;
+  float* const red = w.red;
+  __syncthreads();
+  for (int i = tid; i < F * m; i += nt) {
+    const int f = i / m, j = i - f * m;
+    const bool in = j < c.n_snr;
+    const int col = in ? __ldg(io.snr_cols + j) : 0;
+    red[2 * f * m + j] = in ? w.sP[f * K + col] : 0.f;
+    red[2 * f * m + m + j] = in ? w.sNe[f * K + col] : 0.f;
+  }
+  __syncthreads();
+  for (int h = m / 2; h >= 1; h /= 2) {
+    for (int i = tid; i < F * h; i += nt) {
+      const int f = i / h, j = i - f * h;
+      float* const rf = red + 2 * f * m;
+      rf[j] = __fadd_rn(rf[j], rf[j + h]);
+      rf[m + j] = __fadd_rn(rf[m + j], rf[m + j + h]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const float snr = __fdiv_rn(red[2 * f * m], __fadd_rn(red[2 * f * m + m], c.eps));
+    float g = __fdiv_rn(snr, __fadd_rn(snr, c.snr1));
+    // gate ** p as exp(p log gate) in double, rounded once to float, as
+    // the plain loop computes it (models/streaming.py::_gate_power)
+    if (c.snr_pow) g = (float)exp(__dmul_rn(log((double)clamp(g, 0.f, 1.f)), (double)c.snr_pwr));
+    gate[f] = clamp(g, 0.f, 1.f);
+  }
+}
+
+// gain_freq_stage's per-frame terms: the clipped confidence, the
+// oversubtraction and the EMA's alpha, the round's frames independent
+__device__ __forceinline__ void gain_terms(const SupConsts& c, bool gated,
+                                           const float (&na)[kFrames],
+                                           const float (&gate)[kFrames], float (&ncc)[kFrames],
+                                           float (&over)[kFrames], float (&alpha)[kFrames]) {
+  constexpr int F = kFrames;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    ncc[f] = clamp(na[f], 0.f, 1.f);
+    over[f] = c.oversub_base;
+    alpha[f] = na[f] < c.th ? 0.f : __fmul_rn(c.alpha_base, __fdiv_rn(__fsub_rn(na[f], c.th), c.denom));
+  }
+  if (c.adaptive_gain) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const float eff = clamp(__fdiv_rn(__fsub_rn(ncc[f], c.th), c.denom), 0.f, 1.f);
+      over[f] = __fadd_rn(__fmul_rn(eff, c.oversub_span), c.oversub_base);
+      if (gated) over[f] = __fmul_rn(over[f], __fsub_rn(1.f, clamp(gate[f], 0.f, 1.f)));
+    }
+  }
+}
+
+// one band bin's raw gains of the round (sqrt-sub or Wiener)
+__device__ __forceinline__ void raw_gains(const SupConsts& c, const float (&p)[kFrames],
+                                          const float (&n_eff)[kFrames],
+                                          const float (&over)[kFrames], float (&g)[kFrames]) {
+  constexpr int F = kFrames;
+  if (c.wiener) {
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      g[f] = __fdiv_rn(nan_max(__fsub_rn(p[f], __fmul_rn(over[f], n_eff[f])), 0.f),
+                       __fadd_rn(p[f], c.eps));
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const float ratio = clamp(__fdiv_rn(n_eff[f], __fadd_rn(p[f], c.eps)), 0.f, 1.f);
+      g[f] = __fsub_rn(1.f, __fmul_rn(over[f], __fsqrt_rn(ratio)));
+    }
+  }
+}
+
+// One band bin kk's gains of the round, from the round's raw gain rows
+// sGr: the smoothing over frequency (frames independent), then the EMA over
+// time frame after frame; each live frame's clipped gain goes to out[f]
+// where the thread holds the bin.
+__device__ __forceinline__ void smooth_and_ema(const WalkSmem& w, const float* sGr,
+                                               const SupConsts& c, int kk, bool lane, int nf,
+                                               const float (&na)[kFrames],
+                                               const float (&ncc)[kFrames],
+                                               const float (&alpha)[kFrames],
+                                               const bool (&seed)[kFrames], float& g_prev,
+                                               float* out) {
+  constexpr int F = kFrames;
+  float gf[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) gf[f] = sGr[f * w.grow + w.pad + kk];
+  if (c.n_taps > 0) {
+    float conv[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) conv[f] = 0.f;
+    for (int i = 0; i < c.n_taps; ++i) {
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        conv[f] = __fadd_rn(conv[f], __fmul_rn(w.sTaps[i], sGr[f * w.grow + kk + i]));
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      if (!c.adaptive_gain || ncc[f] >= c.th) gf[f] = conv[f];
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    float gt;
+    if (c.adaptive_gain) {
+      gt = __fadd_rn(__fmul_rn(alpha[f], g_prev), __fmul_rn(__fsub_rn(1.f, alpha[f]), gf[f]));
+      if (na[f] < c.th) gt = nan_max(gt, gf[f]);
+    } else {
+      gt = __fadd_rn(__fmul_rn(c.alpha_base, g_prev), __fmul_rn(c.one_minus_alpha_base, gf[f]));
+    }
+    if (seed[f]) gt = gf[f];
+    if (f < nf) {
+      g_prev = gt;
+      if (lane) out[f] = clamp(gt, c.gain_floor, c.gain_ceil);
+    }
+  }
+}
 
 __global__ void __launch_bounds__(kMaxWalkThreads) suppressor_walk(SupIO io, SupConsts c) {
   extern __shared__ float sm[];
   constexpr int F = kFrames;
-  const int K = c.K, T = c.n_frames, pad = c.n_taps / 2, m = pow2_at_least(c.n_snr);
-  const int grow = K + 2 * pad;
-  float* const sG = sm;                // [2][F][pad zeros | K gains | pad zeros], by round parity
-  float* const sP = sG + 2 * F * grow;  // [F][K]
-  float* const sNe = sP + F * K;        // [F][K]
-  float* const red = sNe + F * K;       // [F][2][m]
-
+  const WalkSmem w = walk_smem(sm, c);
+  const int K = c.K, T = c.n_frames;
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < 2 * F * pad; i += nt) {
-    const int r = i / pad, j = i - r * pad;
-    sG[r * grow + j] = sG[r * grow + pad + K + j] = 0.f;
-  }
+  walk_smem_init(w, io, c, tid, nt);
 
   const bool lane = tid < K;
   const int kk = lane ? tid : 0;  // a band bin the thread may read for
@@ -236,152 +452,46 @@ __global__ void __launch_bounds__(kMaxWalkThreads) suppressor_walk(SupIO io, Sup
     float n_eff[F], gate[F];
     bool seed[F];
 
-    // ---- the PSD steps and N_eff, frame after frame (band bin tid) ----
+    // ---- the PSD steps and N_eff, frame after frame ----
 #pragma unroll
     for (int f = 0; f < F; ++f) {
       const bool live = f < nf;
       const bool rain = ca[f] != 0;
-      const float pt = pa[f];
       seed[f] = frame0 + t0 + f == 0;
       const bool allow = (wcount < c.warmup_need) || !rain;
-      const float err = __fsub_rn(pt, tracker);
-      const float scale_new = __fadd_rn(__fmul_rn(c.scale_alpha, scale),
-                                        __fmul_rn(c.one_minus_scale_alpha, fabsf(err)));
-      const float step = __fmul_rn(c.eta, nan_max(scale_new, c.step_floor));
-      const float q_eff = clamp(__fsub_rn(c.q, __fmul_rn(c.q_minus_aq_min, rain_ema)), c.aq_min, c.q);
-      const float up = c.adaptive_q ? q_eff : c.q;
-      const float down = c.adaptive_q ? -__fsub_rn(1.f, q_eff) : c.neg_one_minus_q;
-      const float delta = __fmul_rn((pt >= tracker) ? up : down, step);
-      const float candidate = nan_max(__fadd_rn(tracker, delta), 0.f);
-      const float tracker_new = (first || !allow) ? tracker : candidate;
-      const float scale_out = first ? scale : scale_new;
-      const bool rising = tracker_new > prev_n;
-      const float n_ema = __fadd_rn(__fmul_rn(rising ? c.ema_up : c.ema_down, prev_n),
-                                    __fmul_rn(rising ? one_minus_up : one_minus_down, tracker_new));
-      float n = first ? tracker_new : n_ema;
-      n = nan_max(nan_min(n, __fmul_rn(c.track_maxr, pt)), 0.f);
-      const float n_used = (c.use_lagged && !seed[f]) ? prev_n : n;
-      n_eff[f] = nan_min(n_used, __fmul_rn(c.maxr, pt));
-      if (live) {
-        tracker = tracker_new;
-        scale = scale_out;
-        prev_n = n;
-        wcount += allow ? 1 : 0;
-        rain_ema = __fadd_rn(__fmul_rn(c.aq_alpha, rain_ema),
-                             __fmul_rn(c.one_minus_aq_alpha, rain ? 1.f : 0.f));
-        first = false;
-      }
+      float up, down;
+      psd_steps(c, rain_ema, up, down);
+      n_eff[f] = psd_bin(c, pa[f], tracker, scale, prev_n, first, allow, seed[f], live, up, down,
+                         one_minus_up, one_minus_down);
+      if (live) psd_advance(c, rain, allow, wcount, rain_ema, first);
       gate[f] = 0.f;
     }
 
-    // ---- the SNR gates: per frame the two sums as a tree, element i + h
-    // onto i, the round's frames side by side ----
+    // ---- the SNR gates ----
     if (gated) {
       if (lane) {
 #pragma unroll
         for (int f = 0; f < F; ++f) {
-          sP[f * K + tid] = pa[f];
-          sNe[f * K + tid] = n_eff[f];
+          w.sP[f * K + tid] = pa[f];
+          w.sNe[f * K + tid] = n_eff[f];
         }
       }
-      __syncthreads();
-      for (int i = tid; i < F * m; i += nt) {
-        const int f = i / m, j = i - f * m;
-        const bool in = j < c.n_snr;
-        const int col = in ? __ldg(io.snr_cols + j) : 0;
-        red[2 * f * m + j] = in ? sP[f * K + col] : 0.f;
-        red[2 * f * m + m + j] = in ? sNe[f * K + col] : 0.f;
-      }
-      __syncthreads();
-      for (int h = m / 2; h >= 1; h /= 2) {
-        for (int i = tid; i < F * h; i += nt) {
-          const int f = i / h, j = i - f * h;
-          float* const rf = red + 2 * f * m;
-          rf[j] = __fadd_rn(rf[j], rf[j + h]);
-          rf[m + j] = __fadd_rn(rf[m + j], rf[m + j + h]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const float snr = __fdiv_rn(red[2 * f * m], __fadd_rn(red[2 * f * m + m], c.eps));
-        float g = __fdiv_rn(snr, __fadd_rn(snr, c.snr1));
-        // gate ** p as exp(p log gate) in double, rounded once to float, as
-        // the plain loop computes it (models/streaming.py::_gate_power)
-        if (c.snr_pow) g = (float)exp(__dmul_rn(log((double)clamp(g, 0.f, 1.f)), (double)c.snr_pwr));
-        gate[f] = clamp(g, 0.f, 1.f);
-      }
+      snr_gates(w, io, c, tid, nt, gate);
     }
 
     // ---- gain_freq_stage: the raw gains, the round's frames independent ----
-    float ncc[F], over[F], alpha[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      ncc[f] = clamp(na[f], 0.f, 1.f);
-      over[f] = c.oversub_base;
-      alpha[f] = na[f] < c.th ? 0.f : __fmul_rn(c.alpha_base, __fdiv_rn(__fsub_rn(na[f], c.th), c.denom));
-    }
-    if (c.adaptive_gain) {
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const float eff = clamp(__fdiv_rn(__fsub_rn(ncc[f], c.th), c.denom), 0.f, 1.f);
-        over[f] = __fadd_rn(__fmul_rn(eff, c.oversub_span), c.oversub_base);
-        if (gated) over[f] = __fmul_rn(over[f], __fsub_rn(1.f, clamp(gate[f], 0.f, 1.f)));
-      }
-    }
-    float* const sGr = sG + (round & 1) * F * grow;
-    float g[F];
-    if (c.wiener) {
-#pragma unroll
-      for (int f = 0; f < F; ++f)
-        g[f] = __fdiv_rn(nan_max(__fsub_rn(pa[f], __fmul_rn(over[f], n_eff[f])), 0.f),
-                         __fadd_rn(pa[f], c.eps));
-    } else {
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const float ratio = clamp(__fdiv_rn(n_eff[f], __fadd_rn(pa[f], c.eps)), 0.f, 1.f);
-        g[f] = __fsub_rn(1.f, __fmul_rn(over[f], __fsqrt_rn(ratio)));
-      }
-    }
+    float ncc[F], over[F], alpha[F], g[F];
+    gain_terms(c, gated, na, gate, ncc, over, alpha);
+    float* const sGr = w.sG + (round & 1) * F * w.grow;
+    raw_gains(c, pa, n_eff, over, g);
     if (lane) {
 #pragma unroll
-      for (int f = 0; f < F; ++f) sGr[f * grow + pad + tid] = clamp(g[f], c.gain_floor, c.gain_ceil);
+      for (int f = 0; f < F; ++f) sGr[f * w.grow + w.pad + tid] = clamp(g[f], c.gain_floor, c.gain_ceil);
     }
     __syncthreads();
 
-    // ---- smoothing over frequency (frames independent), then the EMA over
-    // time, frame after frame ----
-    float gf[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) gf[f] = sGr[f * grow + pad + kk];
-    if (c.n_taps > 0) {
-      float conv[F];
-#pragma unroll
-      for (int f = 0; f < F; ++f) conv[f] = 0.f;
-      for (int i = 0; i < c.n_taps; ++i) {
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          conv[f] = __fadd_rn(conv[f], __fmul_rn(c.taps[i], sGr[f * grow + kk + i]));
-      }
-#pragma unroll
-      for (int f = 0; f < F; ++f)
-        if (!c.adaptive_gain || ncc[f] >= c.th) gf[f] = conv[f];
-    }
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float gt;
-      if (c.adaptive_gain) {
-        gt = __fadd_rn(__fmul_rn(alpha[f], g_prev), __fmul_rn(__fsub_rn(1.f, alpha[f]), gf[f]));
-        if (na[f] < c.th) gt = nan_max(gt, gf[f]);
-      } else {
-        gt = __fadd_rn(__fmul_rn(c.alpha_base, g_prev), __fmul_rn(c.one_minus_alpha_base, gf[f]));
-      }
-      if (seed[f]) gt = gf[f];
-      if (f < nf) {
-        g_prev = gt;
-        if (lane) grow_out[t0 + f] = clamp(gt, c.gain_floor, c.gain_ceil);
-      }
-    }
+    // ---- the smoothing over frequency, then the EMA over time ----
+    smooth_and_ema(w, sGr, c, kk, lane, nf, na, ncc, alpha, seed, g_prev, grow_out + t0);
 #pragma unroll
     for (int f = 0; f < F; ++f) {
       pa[f] = pn[f];
@@ -395,6 +505,152 @@ __global__ void __launch_bounds__(kMaxWalkThreads) suppressor_walk(SupIO io, Sup
     io.o_scale[lk] = scale;
     io.o_prev_n[lk] = prev_n;
     io.o_g_prev[lk] = g_prev;
+  }
+  if (tid == 0) {
+    io.o_wcount[b] = wcount;
+    io.o_rain_ema[b] = rain_ema;
+    io.o_is_first[b] = 0;
+  }
+}
+
+template <int BPT>
+__global__ void __launch_bounds__(kMaxWalkThreads) suppressor_walk_wide(SupIO io, SupConsts c) {
+  extern __shared__ float sm[];
+  constexpr int F = kFrames;
+  const WalkSmem w = walk_smem(sm, c);
+  const int K = c.K, T = c.n_frames;
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  walk_smem_init(w, io, c, tid, nt);
+
+  bool lane[BPT];
+  int kk[BPT];  // a band bin the thread may read for
+  long long lk[BPT];
+  float tracker[BPT], scale[BPT], prev_n[BPT], g_prev[BPT];
+  const float* prow[BPT];
+  float* grow_out[BPT];
+#pragma unroll
+  for (int j = 0; j < BPT; ++j) {
+    const int k = tid + j * nt;
+    lane[j] = k < K;
+    kk[j] = lane[j] ? k : 0;
+    lk[j] = (long long)b * K + k;
+    tracker[j] = scale[j] = prev_n[j] = g_prev[j] = 0.f;
+    if (lane[j]) {
+      tracker[j] = io.tracker[lk[j]];
+      scale[j] = io.scale[lk[j]];
+      prev_n[j] = io.prev_n[lk[j]];
+      g_prev[j] = io.g_prev[lk[j]];
+    }
+    prow[j] = io.P + (long long)b * io.p_clip + (long long)(c.row0 + kk[j]) * io.p_row;
+    grow_out[j] = io.gain + lk[j] * T;
+  }
+  int wcount = io.wcount[b];
+  float rain_ema = io.rain_ema[b];
+  bool first = io.is_first[b] != 0;
+  const int frame0 = io.frame_idx[b];
+  const int8_t* const crow = io.frame_class + (long long)b * T;
+  const float* const nrow = io.noise_conf + (long long)b * T;
+  const float one_minus_up = __fsub_rn(1.f, c.ema_up);
+  const float one_minus_down = __fsub_rn(1.f, c.ema_down);
+  const bool gated = c.n_snr > 0;
+
+  // the next round's inputs are loaded while this round runs
+  float pa[BPT][F], na[F];
+  int ca[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) pa[j][f] = lane[j] && f < T ? prow[j][f] : 0.f;
+    ca[f] = f < T ? crow[f] : 0;
+    na[f] = f < T ? nrow[f] : 0.f;
+  }
+  __syncthreads();
+
+  for (int t0 = 0, round = 0; t0 < T; t0 += F, ++round) {
+    float pn[BPT][F], nn[F];
+    int cn[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const int t = t0 + F + f;
+#pragma unroll
+      for (int j = 0; j < BPT; ++j) pn[j][f] = lane[j] && t < T ? prow[j][t] : 0.f;
+      cn[f] = t < T ? crow[t] : 0;
+      nn[f] = t < T ? nrow[t] : 0.f;
+    }
+    const int nf = min(F, T - t0);
+    float n_eff[BPT][F], gate[F];
+    bool seed[F];
+
+    // ---- the PSD steps and N_eff, frame after frame (the thread's bins) ----
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const bool live = f < nf;
+      const bool rain = ca[f] != 0;
+      seed[f] = frame0 + t0 + f == 0;
+      const bool allow = (wcount < c.warmup_need) || !rain;
+      float up, down;
+      psd_steps(c, rain_ema, up, down);
+#pragma unroll
+      for (int j = 0; j < BPT; ++j)
+        n_eff[j][f] = psd_bin(c, pa[j][f], tracker[j], scale[j], prev_n[j], first, allow, seed[f],
+                              live, up, down, one_minus_up, one_minus_down);
+      if (live) psd_advance(c, rain, allow, wcount, rain_ema, first);
+      gate[f] = 0.f;
+    }
+
+    // ---- the SNR gates ----
+    if (gated) {
+#pragma unroll
+      for (int j = 0; j < BPT; ++j) {
+        if (lane[j]) {
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            w.sP[f * K + kk[j]] = pa[j][f];
+            w.sNe[f * K + kk[j]] = n_eff[j][f];
+          }
+        }
+      }
+      snr_gates(w, io, c, tid, nt, gate);
+    }
+
+    // ---- gain_freq_stage: the raw gains, the round's frames independent ----
+    float ncc[F], over[F], alpha[F];
+    gain_terms(c, gated, na, gate, ncc, over, alpha);
+    float* const sGr = w.sG + (round & 1) * F * w.grow;
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      float g[F];
+      raw_gains(c, pa[j], n_eff[j], over, g);
+      if (lane[j]) {
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          sGr[f * w.grow + w.pad + kk[j]] = clamp(g[f], c.gain_floor, c.gain_ceil);
+      }
+    }
+    __syncthreads();
+
+    // ---- the smoothing over frequency, then the EMA over time ----
+#pragma unroll
+    for (int j = 0; j < BPT; ++j)
+      smooth_and_ema(w, sGr, c, kk[j], lane[j], nf, na, ncc, alpha, seed, g_prev[j],
+                     grow_out[j] + t0);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+#pragma unroll
+      for (int j = 0; j < BPT; ++j) pa[j][f] = pn[j][f];
+      ca[f] = cn[f];
+      na[f] = nn[f];
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < BPT; ++j) {
+    if (lane[j]) {
+      io.o_tracker[lk[j]] = tracker[j];
+      io.o_scale[lk[j]] = scale[j];
+      io.o_prev_n[lk[j]] = prev_n[j];
+      io.o_g_prev[lk[j]] = g_prev[j];
+    }
   }
   if (tid == 0) {
     io.o_wcount[b] = wcount;
@@ -568,6 +824,113 @@ suppressor_frames(SupIO io, SupConsts c, int slots, int n_tiles) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// B'. the DFT frame pass
+// ---------------------------------------------------------------------------
+
+constexpr int kDftFpt = 4;  // frames a thread sums at once
+
+// shared bytes of a DFT frame-pass block holding `slots` frames: the windowed
+// frames (then their inverses) | the spectra | the twiddles | the gains
+__host__ __device__ inline int dft_frame_smem(int n_fft, int K, int slots) {
+  return 4 * n_fft * slots + 8 * (n_fft / 2 + 1) * slots + 8 * n_fft + 4 * slots * K;
+}
+
+// the most slots (a multiple of kDftFpt, at most 16, at least 4) that fit
+int dft_slots(int n_fft, int K) {
+  for (int slots = 16; slots >= kDftFpt; slots -= kDftFpt)
+    if (dft_frame_smem(n_fft, K, slots) <= kSmemLimit) return slots;
+  return 0;
+}
+
+__global__ void __launch_bounds__(kFrameThreads)
+suppressor_frames_dft(SupIO io, SupConsts c, int slots, int n_tiles) {
+  extern __shared__ float4 smem4[];
+  constexpr int FPT = kDftFpt;
+  const int N = c.n_fft, hop = c.hop, M = N / 2, K = c.K, T = c.n_frames;
+  const int b = blockIdx.x / n_tiles;
+  const int FT = slots - 1;
+  const int t0 = (blockIdx.x - b * n_tiles) * FT;
+  float* const xs = reinterpret_cast<float*>(smem4);  // [N][slots], then rec [slots][N]
+  float* const rec = xs;
+  float2* const X = reinterpret_cast<float2*>(xs + N * slots);  // [M + 1][slots]
+  float2* const tw = X + (M + 1) * slots;                       // [N]
+  float* const gains = reinterpret_cast<float*>(tw + N);        // [slots][K]
+  const float* const window = io.tables;
+  const float* const inv_ws = io.tables + N;
+  const float2* const twg = reinterpret_cast<const float2*>(io.tables + N + hop);
+  const int tid = threadIdx.x;
+
+  // ---- stage the tile's windowed frames (slot s: frame t0 - 1 + s), the
+  // twiddles and the gains ----
+  const float* const xrow = io.xa + (long long)b * io.xa_len;
+  for (int i = tid; i < slots * N; i += kFrameThreads) {
+    const int sl = i / N, m = i - sl * N;
+    const long long s = (long long)(t0 - 1 + sl) * hop + m;
+    const float v = (s >= 0 && s < io.xa_len) ? xrow[s] : 0.f;
+    xs[m * slots + sl] = v * __ldg(window + m);
+  }
+  for (int i = tid; i < N; i += kFrameThreads) tw[i] = twg[i];
+  const float* const grow = io.gain + (long long)b * K * T;
+  for (int i = tid; i < slots * K; i += kFrameThreads) {
+    const int k = i / slots, sl = i - k * slots;
+    const int t = t0 - 1 + sl;
+    gains[sl * K + k] = (t >= 0 && t < T) ? grow[(long long)k * T + t] : 0.f;
+  }
+  __syncthreads();
+
+  // ---- forward: X[k] of every slot, the band rows scaled by the gain ----
+  const int groups = slots / FPT;
+  for (int u = tid; u < (M + 1) * groups; u += kFrameThreads) {
+    const int g = u / (M + 1), k = u - g * (M + 1);
+    float re[FPT], im[FPT];
+    dft_forward<FPT>(xs, slots, g * FPT, tw, N, k, re, im);
+    const int kb = k - c.row0;
+    const bool band = kb >= 0 && kb < K;
+#pragma unroll
+    for (int f = 0; f < FPT; ++f) {
+      const int sl = g * FPT + f;
+      float2 v = make_float2(re[f], im[f]);
+      if (band) {
+        const float gv = gains[sl * K + kb];
+        v = make_float2(__fmul_rn(v.x, gv), __fmul_rn(v.y, gv));
+      }
+      X[k * slots + sl] = v;
+    }
+  }
+  __syncthreads();  // every read of the frames is done: their place takes the inverses
+
+  // ---- inverse: the windowed inverse of every live slot; at frame 0 the
+  // carried tail in slot 0's second half ----
+  const float inv_n = 1.f / (float)N;
+  for (int u = tid; u < N * groups; u += kFrameThreads) {
+    const int g = u / N, m = u - g * N;
+    float y[FPT];
+    dft_inverse_real<FPT>(X, slots, g * FPT, tw, N, m, y);
+#pragma unroll
+    for (int f = 0; f < FPT; ++f) {
+      const int sl = g * FPT + f;
+      const int tf = t0 - 1 + sl;
+      if (tf >= 0 && tf < T) rec[sl * N + m] = (y[f] * inv_n) * __ldg(window + m);
+    }
+  }
+  if (t0 == 0)
+    for (int i = tid; i < N - hop; i += kFrameThreads) rec[hop + i] = io.ola[(long long)b * (N - hop) + i];
+  __syncthreads();
+
+  // ---- the overlap-add of frames t0 .. t0 + nf - 1: one run of y ----
+  const int nf = min(FT, T - t0);
+  float* const yb = io.y + (long long)b * T * hop + (long long)t0 * hop;
+  for (int i = tid; i < nf * hop; i += kFrameThreads) {
+    const int f = i / hop, n = i - f * hop;  // frame t0 + f is slot f + 1
+    yb[i] = __fmul_rn(__fadd_rn(rec[(f + 1) * N + n], rec[f * N + hop + n]), __ldg(inv_ws + n));
+  }
+  if (t0 + FT >= T) {  // frame T - 1 is here: its tail is the next chunk's
+    const float* const last = rec + (T - t0) * N + hop;
+    for (int i = tid; i < N - hop; i += kFrameThreads) io.o_ola[(long long)b * (N - hop) + i] = last[i];
+  }
+}
+
 // Let `kernel` take `bytes` of dynamic shared memory on the current device;
 // `dev_set` and `smem_set` remember what was set last, per kernel.
 cudaError_t allow_smem(const void* kernel, int bytes, int& dev_set, int& smem_set) {
@@ -594,32 +957,70 @@ cudaError_t launch_frames(const SupIO& io, const SupConsts& c, const Plan& p, cu
   return cudaGetLastError();
 }
 
+template <typename Kernel>
+cudaError_t launch_walk_with(Kernel kernel, const SupIO& io, const SupConsts& c, const Plan& p,
+                             cudaStream_t s, int& dev_set, int& smem_set) {
+  const cudaError_t err = allow_smem((const void*)kernel, p.walk_smem, dev_set, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<c.n_streams, p.walk_threads, p.walk_smem, s>>>(io, c);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_walk(const SupIO& io, const SupConsts& c, const Plan& p, cudaStream_t s) {
+  static int dev1 = -1, smem1 = 0, dev2 = -1, smem2 = 0, dev4 = -1, smem4 = 0;
+  switch (walk_bins_per_thread(c.K)) {
+    case 1: return launch_walk_with(suppressor_walk, io, c, p, s, dev1, smem1);
+    case 2: return launch_walk_with(suppressor_walk_wide<2>, io, c, p, s, dev2, smem2);
+    default: return launch_walk_with(suppressor_walk_wide<4>, io, c, p, s, dev4, smem4);
+  }
+}
+
+cudaError_t launch_frames_dft(const SupIO& io, const SupConsts& c, cudaStream_t s) {
+  static int dev_set = -1, smem_set = 0;
+  const int slots = dft_slots(c.n_fft, c.K);
+  if (slots == 0) return cudaErrorInvalidValue;
+  const int smem = dft_frame_smem(c.n_fft, c.K, slots);
+  const cudaError_t err = allow_smem((const void*)suppressor_frames_dft, smem, dev_set, smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (c.n_frames + slots - 2) / (slots - 1);
+  if ((long long)n_tiles * c.n_streams > 0x7fffffffLL) return cudaErrorInvalidValue;
+  suppressor_frames_dft<<<n_tiles * c.n_streams, kFrameThreads, smem, s>>>(io, c, slots, n_tiles);
+  return cudaGetLastError();
+}
+
+// the FFT frame pass takes a power of two from kMinFft to kMaxFft
+bool fft_route(int n_fft) {
+  return n_fft >= kMinFft && n_fft <= kMaxFft && (n_fft & (n_fft - 1)) == 0;
+}
+
 }  // namespace
 
 // One chunk of B streams; see SupIO and SupConsts.  Refuses what the
 // kernels do not take (models/streaming.py::k8_check_geometry says the
-// same): n_fft not a power of two from 64 to 1024 or not 2 hop, band bins
-// outside the spectrum, more than 9 taps, more SNR columns than band bins.
+// same): n_fft not 2 hop, band bins outside the spectrum or more than 4,096
+// of them (four a walk thread), more SNR columns than band bins, shared
+// memory past a block's.  The FFT frame pass takes a power-of-two n_fft
+// from 64 to 1024, the DFT frame pass every other.
 // (The structures are passed as untyped pointers: a function whose
 // parameter types lie in an unnamed namespace gets internal linkage.)
 extern "C" int apt_streaming_suppressor(const void* io_ptr, const void* c_ptr, void* stream) {
   const SupIO* io = static_cast<const SupIO*>(io_ptr);
   const SupConsts* c = static_cast<const SupConsts*>(c_ptr);
   const int N = c->n_fft;
-  if (N < kMinFft || N > kMaxFft || (N & (N - 1)) || c->hop * 2 != N || c->K < 1 || c->row0 < 0 ||
-      c->row0 + c->K > N / 2 + 1 || c->n_taps < 0 || c->n_taps > kMaxTaps || c->n_snr < 0 ||
+  if (N < 2 || c->hop * 2 != N || c->K < 1 || c->K > 4 * kMaxWalkThreads || c->row0 < 0 ||
+      c->row0 + c->K > N / 2 + 1 ||
+      c->n_taps < 0 || (c->n_taps > 0 && io->taps == nullptr) || c->n_snr < 0 ||
       c->n_snr > c->K || c->n_frames < 1 || c->n_streams < 1 || io->gain == nullptr)
     return (int)cudaErrorInvalidValue;
+  const bool fft = fft_route(N);
   const Plan p = plan_for(*c);
-  if (p.walk_threads > kMaxWalkThreads || p.walk_smem > kSmemLimit || p.frame_smem > kSmemLimit)
+  if (p.walk_threads > kMaxWalkThreads || p.walk_smem > kSmemLimit ||
+      (fft && p.frame_smem > kSmemLimit) || (!fft && dft_slots(N, c->K) == 0))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  static int dev_set = -1, smem_set = 0;
-  cudaError_t err = allow_smem((const void*)suppressor_walk, p.walk_smem, dev_set, smem_set);
+  cudaError_t err = launch_walk(*io, *c, p, s);
   if (err != cudaSuccess) return (int)err;
-  suppressor_walk<<<c->n_streams, p.walk_threads, p.walk_smem, s>>>(*io, *c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (!fft) return (int)launch_frames_dft(*io, *c, s);
   switch (N) {
     case 64: return (int)launch_frames<32>(*io, *c, p, s);
     case 128: return (int)launch_frames<64>(*io, *c, p, s);

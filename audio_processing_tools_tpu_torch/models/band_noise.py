@@ -376,9 +376,13 @@ def _scan_consts(cfg: BandNoiseEstimatorConfig, S: int) -> _ScanConsts:
 def _band_scan_plain(cfg: BandNoiseEstimatorConfig, carry: Dict[str, torch.Tensor], inputs):
     """K6's plain loop: the step of ``band_noise.py:431-618`` over the frames
     of B lanes, operation for operation as the kernel does it.  Sums over
-    subframes run left to right; the ring buffer takes a frame's pushes one
-    after another (the JAX one-hot push writes the same slots, which are
-    distinct while S <= W).  Returns ``(outs, carry)`` with K6's outputs."""
+    subframes run left to right.  A frame's noise subframes go into the ring
+    buffer as the JAX program's one-hot ``push_many`` (``:402-429``) puts
+    them: while S <= W they land in distinct slots, which is one push after
+    another; with more subframes than slots the colliding values are summed
+    into their slot (left to right) and ``count_valid`` grows by every push
+    that found its slot invalid before the frame, so it may pass W.
+    Returns ``(outs, carry)`` with K6's outputs."""
     subE, subEhpf, rain_sum, primary, Eb, Mb = inputs[:6]
     det = cfg.det
     B, T, S = subE.shape
@@ -389,6 +393,21 @@ def _band_scan_plain(cfg: BandNoiseEstimatorConfig, carry: Dict[str, torch.Tenso
     slots = torch.arange(W, device=dev)
     lane = torch.arange(B, device=dev)
     outs = {key: [] for key in (*_OUT_F, *_OUT_I, "rain_submask")}
+
+    def push_many(vals, dos):  # (B, S) each: one frame's pushes
+        d32 = dos.to(torch.int32)
+        pos = (c["wr"][:, None] + torch.cumsum(d32, dim=-1) - d32) % W
+        onehot = dos[:, :, None] & (slots[None, None, :] == pos[:, :, None])  # (B, S, W)
+        hit = onehot.any(dim=1)
+        overwrote = (onehot & c["valid"][:, None, :]).any(dim=-1)
+        acc = torch.where(onehot[:, 0], vals[:, 0:1], 0.0)
+        for s in range(1, onehot.shape[1]):
+            acc = acc + torch.where(onehot[:, s], vals[:, s:s + 1], 0.0)
+        c["buf"] = torch.where(hit, acc, c["buf"])
+        c["valid"] = c["valid"] | hit
+        c["buf_frame_idx"] = torch.where(hit, c["frame_idx"][:, None], c["buf_frame_idx"])
+        c["count_valid"] = c["count_valid"] + (dos & ~overwrote).sum(dim=-1).to(torch.int32)
+        c["wr"] = (c["wr"] + d32.sum(dim=-1).to(torch.int32)) % W
 
     def push(v, do):
         j = c["wr"].long()
@@ -456,8 +475,7 @@ def _band_scan_plain(cfg: BandNoiseEstimatorConfig, carry: Dict[str, torch.Tenso
         # ---- learning ----
         learn = torch.ones_like(sub) if k.learn_all else ~sub
         vals = torch.clamp(sE, min=float(cfg.eps))
-        for s in range(S):
-            push(vals[:, s], learn[:, s])
+        push_many(vals, learn)
         learned = learn.sum(dim=-1).to(torch.int32)
         replenish = torch.zeros_like(learned)
         if k.replenish:
@@ -541,9 +559,18 @@ def _band_scan_plain(cfg: BandNoiseEstimatorConfig, carry: Dict[str, torch.Tenso
     return {key: torch.stack(v, dim=1) for key, v in outs.items()}, c
 
 
-#: lanes K6 takes in its ring buffer and subframes
+#: the ring and subframe counts K6's warp kernel takes; every other
+#: geometry takes its general kernel
 K6_MAX_W = 64
 K6_MAX_S = 8
+
+
+def k6_route(S: int, W: int) -> str:
+    """K6's kernel for ``S`` subframes a frame and a ring of ``W`` slots:
+    ``"warp"`` (a warp a lane, the ring in registers, for 1 <= S <= 8 and
+    S <= W <= 64) or ``"general"`` (a block a lane, the ring in device
+    memory, any S and W, with the JAX collision form where W < S)."""
+    return "warp" if 1 <= S <= K6_MAX_S and S <= W <= K6_MAX_W else "general"
 
 
 class _BandConsts(ctypes.Structure):
@@ -590,7 +617,8 @@ def _band_consts(cfg: BandNoiseEstimatorConfig, B: int, T: int, S: int) -> _Band
 
 
 def _band_scan_cuda(cfg: BandNoiseEstimatorConfig, carry: Dict[str, torch.Tensor], inputs):
-    """K6 on the card; returns what :func:`_band_scan_plain` returns."""
+    """K6 on the card, the kernel of :func:`k6_route`; returns what
+    :func:`_band_scan_plain` returns."""
     subE, subEhpf, rain_sum, primary, Eb, Mb = (t.contiguous() for t in inputs[:6])
     B, T, S = subE.shape
     W = int(cfg.W)
@@ -603,9 +631,9 @@ def _band_scan_cuda(cfg: BandNoiseEstimatorConfig, carry: Dict[str, torch.Tensor
                              f"{B} x {T} frames")
     if subEhpf.shape != subE.shape:
         raise ValueError("band_noise_scan: subE and subEhpf differ in shape")
-    if not (1 <= S <= K6_MAX_S and S <= W <= K6_MAX_W):
-        raise ValueError(f"band_noise_scan: the CUDA kernel takes 1 <= S <= {K6_MAX_S} "
-                         f"subframes and S <= W <= {K6_MAX_W} slots; got S={S}, W={W}")
+    if S < 1 or W < 1:
+        raise ValueError(f"band_noise_scan: needs S >= 1 subframes and W >= 1 slots; "
+                         f"got S={S}, W={W}")
     # the bool tensors (the valid flags, the sub mask) go in and out as their
     # bytes, so that they need no conversion
     name = "band_noise_scan(carry)"

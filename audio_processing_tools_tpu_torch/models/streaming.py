@@ -56,7 +56,7 @@ from audio_processing_tools_tpu_torch.models.spectral_noise import (
     gain_time_step,
 )
 from audio_processing_tools_tpu_torch.ops._device import device_constant, sorted_keys
-from audio_processing_tools_tpu_torch.ops.filters import sosfilt
+from audio_processing_tools_tpu_torch.ops.filters import k7_state_dtype, sosfilt
 from audio_processing_tools_tpu_torch.ops.framing import frame_signal
 from audio_processing_tools_tpu_torch.ops.spectrogram import N_FFTS, kernel_tables, spectrogram_power
 from audio_processing_tools_tpu_torch.ops.stats import nan_to_num, tree_sum
@@ -129,7 +129,11 @@ def _kurtosis(frames: torch.Tensor) -> torch.Tensor:
 # K8: the streaming suppressor's per-frame scan
 # ---------------------------------------------------------------------------
 
-_K8_MAX_TAPS = 9
+#: band bins K8 takes: up to four a walk thread of 1,024 (csrc/streaming.cu:
+#: kMaxWalkThreads, walk_bins_per_thread)
+K8_MAX_BINS = 4096
+#: shared memory a K8 block may hold (csrc/streaming.cu: kSmemLimit)
+_K8_SMEM_LIMIT = 232448
 
 
 class _SupConsts(ctypes.Structure):
@@ -145,7 +149,7 @@ class _SupConsts(ctypes.Structure):
         ("snr_pwr", _f), ("snr_pow", _i),
         ("adaptive_gain", _i), ("wiener", _i), ("th", _f), ("denom", _f),
         ("oversub_base", _f), ("oversub_span", _f), ("gain_floor", _f), ("gain_ceil", _f),
-        ("n_taps", _i), ("taps", _f * _K8_MAX_TAPS), ("alpha_base", _f),
+        ("n_taps", _i), ("alpha_base", _f),
         ("one_minus_alpha_base", _f),
         ("n_fft", _i), ("hop", _i), ("K", _i), ("row0", _i), ("n_frames", _i), ("n_streams", _i),
     ]
@@ -163,6 +167,7 @@ class _SupIO(ctypes.Structure):
         ("is_first", _p), ("g_prev", _p), ("ola", _p), ("y", _p),
         ("o_tracker", _p), ("o_scale", _p), ("o_prev_n", _p), ("o_wcount", _p),
         ("o_rain_ema", _p), ("o_is_first", _p), ("o_g_prev", _p), ("o_ola", _p), ("gain", _p),
+        ("taps", _p),
     ]
 
 
@@ -178,17 +183,46 @@ def _freq_taps(cfg: NoiseConfig) -> np.ndarray:
     return kernel
 
 
+def k8_route(n_fft: int) -> str:
+    """K8's frame pass for an ``n_fft``: ``"fft"`` (K1's shared-memory FFT,
+    a power of two from 64 to 1024) or ``"dft"`` (the direct DFT)."""
+    return "fft" if n_fft in N_FFTS else "dft"
+
+
+def k8_dft_slots(n_fft: int, K: int) -> int:
+    """Frames a block of K8's DFT frame pass holds (``dft_slots`` in the
+    kernel's source): the most of 16, 12, 8, 4 whose windowed frames,
+    spectra, twiddles and gains fit a block's shared memory, else 0."""
+    for slots in (16, 12, 8, 4):
+        smem = 4 * n_fft * slots + 8 * (n_fft // 2 + 1) * slots + 8 * n_fft + 4 * slots * K
+        if smem <= _K8_SMEM_LIMIT:
+            return slots
+    return 0
+
+
+def k8_walk_smem(K: int, n_taps: int, n_snr: int) -> int:
+    """Shared bytes of K8's walk (``plan_for`` in the kernel's source): per
+    frame of a round the padded gain row twice, P and N_eff per band bin and
+    the two SNR trees, then the taps."""
+    pad, m = n_taps // 2, 1 << max(n_snr - 1, 0).bit_length()
+    return 4 * 4 * (2 * (K + 2 * pad) + 2 * K + 2 * m) + 4 * n_taps
+
+
 def k8_check_geometry(n_fft: int, hop: int, K: int, n_taps: int, n_snr: int) -> None:
     """``ValueError`` for a geometry K8 does not take, as its launcher
-    refuses it: an n_fft of K1's ``N_FFTS`` (K1 computes the band power K8
-    reads) with ``hop = n_fft / 2``, 1 to n_fft / 2 + 1 band bins, at most
-    9 taps, at most K SNR columns."""
-    if (n_fft not in N_FFTS or 2 * hop != n_fft or not 1 <= K <= n_fft // 2 + 1
-            or not 0 <= n_taps <= _K8_MAX_TAPS or not 0 <= n_snr <= K):
-        raise ValueError(f"streaming_suppressor: the CUDA kernel takes n_fft in {N_FFTS} with "
-                         f"hop = n_fft / 2, 1 to n_fft / 2 + 1 band bins, at most "
-                         f"{_K8_MAX_TAPS} taps and at most K SNR columns; got n_fft {n_fft}, "
-                         f"hop {hop}, K {K}, {n_taps} taps, {n_snr} columns")
+    refuses it: ``hop != n_fft / 2`` (the JAX package refuses it too), band
+    bins outside 1 to n_fft / 2 + 1, more SNR columns than band bins; and
+    beyond what the JAX package refuses, more than :data:`K8_MAX_BINS` band
+    bins, a walk or a DFT frame pass whose smallest tile does not fit a
+    block's shared memory.  Any number of taps that fits."""
+    if (n_fft < 2 or 2 * hop != n_fft or not 1 <= K <= n_fft // 2 + 1 or n_taps < 0
+            or not 0 <= n_snr <= K or K > K8_MAX_BINS
+            or k8_walk_smem(K, n_taps, n_snr) > _K8_SMEM_LIMIT
+            or (k8_route(n_fft) == "dft" and k8_dft_slots(n_fft, K) == 0)):
+        raise ValueError(f"streaming_suppressor: the CUDA kernel takes hop = n_fft / 2, 1 to "
+                         f"min(n_fft / 2 + 1, {K8_MAX_BINS}) band bins and at most K SNR "
+                         f"columns; got n_fft {n_fft}, hop {hop}, K {K}, {n_taps} taps, "
+                         f"{n_snr} columns")
 
 
 class Suppressor:
@@ -200,9 +234,6 @@ class Suppressor:
         self.K = st.rows.stop - st.rows.start
         self.maxr = float(np.clip(cfg.noise_psd_max_ratio, 0.0, 1.0))
         self.taps = _freq_taps(cfg)
-        if self.taps.size > _K8_MAX_TAPS:
-            raise ValueError(f"the streaming suppressor takes at most {_K8_MAX_TAPS} frequency "
-                             f"smoothing taps; got {self.taps.size}")
 
     def tables(self, device) -> torch.Tensor:
         """K8's tables: window | 1/sum w^2 | twiddles ``e^{-2 pi i k / n_fft}``
@@ -240,8 +271,6 @@ class Suppressor:
             n_fft=self.st.n_fft, hop=self.st.hop, K=self.K, row0=self.st.rows.start,
             n_frames=T, n_streams=B,
         )
-        for i, v in enumerate(self.taps):
-            c.taps[i] = float(v)
         return c
 
 
@@ -348,6 +377,9 @@ def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
     out = [torch.empty_like(v) for v in cin]
     gain = torch.empty((B, K, T), dtype=torch.float32, device=dev)  # the walk's output, scratch
     tables = sup.tables(dev)
+    taps = None
+    if sup.taps.size:
+        taps = device_constant(("k8_taps", sup.taps.tobytes()), dev, lambda: sup.taps)
     snr = sup.audio.snr_cols
     snr_t = None
     if snr is not None:
@@ -363,6 +395,7 @@ def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
         o_tracker=out[0].data_ptr(), o_scale=out[1].data_ptr(), o_prev_n=out[2].data_ptr(),
         o_wcount=out[3].data_ptr(), o_rain_ema=out[4].data_ptr(), o_is_first=out[5].data_ptr(),
         o_g_prev=out[6].data_ptr(), o_ola=out[7].data_ptr(), gain=gain.data_ptr(),
+        taps=None if taps is None else taps.data_ptr(),
     )
     lib = _kernels.build()
     with torch.cuda.device(dev):
@@ -556,7 +589,8 @@ class StreamingRainDetector:
             "all_base": (full(), full()),
         }
         if st.td_sos is not None:
-            state["td_zi"] = zeros(st.td_sos.shape[0], 2)
+            S = st.td_sos.shape[0]
+            state["td_zi"] = zeros(S, 2, dtype=k7_state_dtype(S))
         if self.emit_audio:
             self.suppressor()  # validates the configuration now
             state["sup_psd"] = psd()

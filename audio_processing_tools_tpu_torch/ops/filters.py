@@ -27,9 +27,9 @@ Counterpart of ``audio_processing_tools_tpu/ops/filters.py``.
   causal prefilter (``:669-712``, whose per-section blocked scan is
   ``_sosfilt_section_pscan``, ``:290-411``): on a CUDA tensor the
   hand-written kernel K7 (``csrc/filters.cu``), one thread per stream
-  walking the samples in order; its plain version :func:`_sosfilt_zi_plain`
-  walks them the same way.  Both give the same bits for any cut of a stream
-  into chunks.
+  walking the samples in order in JAX's state-space form (the state in
+  float64 past 8 sections); its plain version :func:`_sosfilt_zi_plain` walks them the same way.  Both give the
+  same bits for any cut of a stream into chunks.
 """
 
 from __future__ import annotations
@@ -463,8 +463,15 @@ def _sosfilt_cascade_matmul(sos: np.ndarray, x: torch.Tensor,
 
 #: samples per block of the cascade form that kernel K4 takes
 K4_BLOCK = 128
-#: second-order sections K4 takes (a state of 2 S <= 16 values)
-K4_MAX_SECTIONS = 8
+#: the most sections whose state K4 keeps in registers (2 S <= 32 values);
+#: a longer cascade takes its wide kernels, the state in shared memory
+K4_REGISTER_SECTIONS = 16
+
+
+def k4_route(n_sections: int) -> str:
+    """K4's kernels for a cascade: ``"registers"`` (a width instantiated per
+    2 S, up to :data:`K4_REGISTER_SECTIONS` sections) or ``"wide"``."""
+    return "registers" if n_sections <= K4_REGISTER_SECTIONS else "wide"
 
 
 def cascade_scan_tables(sos: np.ndarray, block: int, P: int):
@@ -546,9 +553,9 @@ def _cascade_sosfilt_cuda(tables: torch.Tensor, x: torch.Tensor, zi: torch.Tenso
     if zi.shape != (R, n) or zi.device != x.device or tables.device != x.device:
         raise ValueError(f"cascade_sosfilt: zi must be ({R}, {n}) on {x.device}; "
                          f"got {tuple(zi.shape)} on {zi.device}")
-    if not 1 <= n_sections <= K4_MAX_SECTIONS:
-        raise ValueError(f"cascade_sosfilt: the CUDA kernel takes 1 to {K4_MAX_SECTIONS} "
-                         f"sections; got {n_sections}")
+    if n_sections < 1:
+        raise ValueError(f"cascade_sosfilt: a cascade needs at least one section; "
+                         f"got {n_sections}")
     nb = -(-T // K4_BLOCK)
     y = torch.empty_like(x)
     zf = torch.empty_like(zi)
@@ -600,43 +607,70 @@ def cascade_sosfilt(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor):
 
 
 def _sos_coefficients(sos: np.ndarray) -> np.ndarray:
-    """``(S, 5)`` b0, b1, b2, a1, a2 per section, rounded to float32 as the
-    JAX package's scan rounds its Python-float constants."""
-    return np.ascontiguousarray(np.asarray(sos, np.float64)[:, [0, 1, 2, 4, 5]], np.float32)
+    """``(S, 5)`` float32 b0, bv0 = b1 - a1 b0, bv1 = b2 - a2 b0, a1, a2 per
+    section: the JAX package's section-scan constants (``filters.py:705-708``),
+    formed in float64 and rounded to float32 as it rounds its Python-float
+    constants.  Forming ``bv`` ahead keeps the cancellation of ``b1 x``
+    against ``a1 b0 x`` (a high-pass near -2 g against -2 g) out of float32."""
+    sos = np.asarray(sos, np.float64)
+    b0, b1, b2, a1, a2 = (sos[:, i] for i in (0, 1, 2, 4, 5))
+    return np.ascontiguousarray(np.stack([b0, b1 - a1 * b0, b2 - a2 * b0, a1, a2], axis=1),
+                                np.float32)
+
+
+#: sections one K7 launch takes; a longer cascade is consecutive launches
+K7_MAX_SECTIONS = 8
+
+
+def k7_state_dtype(n_sections: int) -> torch.dtype:
+    """The dtype of K7's state (``zi``, ``zf`` and the recurrence) for a
+    cascade of ``n_sections``: float32 up to :data:`K7_MAX_SECTIONS`
+    sections (one launch), float64 beyond, where the float32 state's
+    rounding reaches 1e-5 of ``zf``'s maximum."""
+    return torch.float32 if n_sections <= K7_MAX_SECTIONS else torch.float64
 
 
 def _sosfilt_zi_plain(coef: torch.Tensor, x: torch.Tensor, zi: torch.Tensor):
-    """Direct Form II transposed over ``x`` (R, n) from ``zi`` (R, S, 2),
-    sample by sample, every product and sum rounded on its own:
+    """Direct Form II transposed over float32 ``x`` (R, n) from ``zi``
+    (R, S, 2), in the JAX package's state-space form and order
+    (``filters.py:297-300, 340-349``), sample by sample, in ``zi``'s dtype
+    (:func:`k7_state_dtype`), every product and sum rounded on its own:
 
-        y = b0 x + z0;  z0 = (b1 x - a1 y) + z1;  z1 = b2 x - a2 y
+        y = b0 x + z0;  z0 = (z1 - a1 z0) + bv0 x;  z1 = bv1 x - a2 z0
 
-    The sections run as a wavefront (section s filters sample t - s at step
-    t), which is the same arithmetic in fewer steps.  Returns ``(y, zf)``."""
+    (``z1`` from the ``z0`` before the step), each section's output ``y``
+    rounded to float32, the next section's input.  The sections run as a
+    wavefront (section s filters sample t - s at step t), which is the same
+    arithmetic in fewer steps.  Returns ``(y, zf)``, ``zf`` in ``zi``'s
+    dtype."""
     R, n = x.shape
     S = coef.shape[0]
+    zd = zi.dtype
     z0 = zi[..., 0].clone()
     z1 = zi[..., 1].clone()
-    u = x.new_zeros(R, S)   # each section's input at this step
-    yy = x.new_zeros(R, S)  # each section's output at this step
-    t1 = x.new_empty(R, S)
-    t2 = x.new_empty(R, S)
+    u = x.new_zeros(R, S, dtype=zd)    # each section's input at this step
+    yy = x.new_zeros(R, S, dtype=zd)   # each section's output at this step
+    yf = x.new_zeros(R, S)             # the same, rounded to float32
+    t1 = x.new_empty(R, S, dtype=zd)
+    t2 = x.new_empty(R, S, dtype=zd)
     y = x.new_empty(R, n)
     xT = x.t()
     # views made once: the loop's own indexing would cost more than its work
-    u_in, u_first, y_prev, y_last = u[:, 1:], u[:, 0], yy[:, :-1], yy[:, S - 1]
-    full = (*coef.unbind(1), u, yy, z0, z1, t1, t2)
+    u_in, u_first, y_prev, y_last = u[:, 1:], u[:, 0], yf[:, :-1], yf[:, S - 1]
+    full = (*coef.to(zd).unbind(1), u, yy, yf, z0, z1, t1, t2)
 
-    def step(b0, b1, b2, a1, a2, u, yy, z0, z1, t1, t2):
+    def step(b0, bv0, bv1, a1, a2, u, yy, yf, z0, z1, t1, t2):
         torch.mul(b0, u, out=yy)
         yy += z0
-        torch.mul(b1, u, out=t1)
-        torch.mul(a1, yy, out=t2)
-        t1 -= t2
-        torch.add(t1, z1, out=z0)
-        torch.mul(b2, u, out=t1)
-        torch.mul(a2, yy, out=t2)
-        torch.sub(t1, t2, out=z1)
+        yf.copy_(yy)
+        torch.mul(bv1, u, out=t1)
+        torch.mul(a2, z0, out=t2)
+        t1 -= t2                    # the new z1
+        torch.mul(a1, z0, out=t2)
+        torch.sub(z1, t2, out=z0)
+        torch.mul(bv0, u, out=t2)
+        z0 += t2
+        z1.copy_(t1)
 
     for t in range(n + S - 1):
         u_in.copy_(y_prev)
@@ -652,24 +686,45 @@ def _sosfilt_zi_plain(coef: torch.Tensor, x: torch.Tensor, zi: torch.Tensor):
     return y, torch.stack([z0, z1], dim=-1)
 
 
+def k7_groups(n_sections: int):
+    """K7's launches for a cascade of ``n_sections``: consecutive groups of
+    at most :data:`K7_MAX_SECTIONS` sections, as ``(first, end)`` pairs.
+    Each section's arithmetic reads only its own input and state, so the
+    groups chained (a group's output the next one's input, each with its
+    slice of ``zi`` and ``zf``, the state in one dtype) give the bits of one
+    pass over all."""
+    return [(a, min(a + K7_MAX_SECTIONS, n_sections))
+            for a in range(0, n_sections, K7_MAX_SECTIONS)]
+
+
 def _sosfilt_zi_cuda(coef: torch.Tensor, x: torch.Tensor, zi: torch.Tensor):
-    """K7: ``(y, zf)`` on the card."""
+    """K7: ``(y, zf)`` on the card, one launch per group of
+    :func:`k7_groups`, the state in :func:`k7_state_dtype`."""
     R, n = x.shape
     S = coef.shape[0]
     _kernels.require_cuda("sosfilt", x, torch.float32, 2)
-    _kernels.require_cuda("sosfilt(zi)", zi, torch.float32, 3)
+    _kernels.require_cuda("sosfilt(coef)", coef, torch.float32, 2)
+    _kernels.require_cuda("sosfilt(zi)", zi, k7_state_dtype(S), 3)
     if zi.shape != (R, S, 2) or zi.device != x.device or coef.device != x.device:
         raise ValueError(f"sosfilt: zi must be ({R}, {S}, 2) on {x.device}; got {tuple(zi.shape)}")
-    if not 1 <= S <= 8:
-        raise ValueError(f"sosfilt: the CUDA kernel takes 1 to 8 sections; got {S}")
-    y = torch.empty_like(x)
+    if S < 1:
+        raise ValueError(f"sosfilt: a cascade needs at least one section; got {S}")
     zf = torch.empty_like(zi)
     lib = _kernels.build()
-    with torch.cuda.device(x.device):
-        err = lib.lib.apt_sosfilt_zi(x.data_ptr(), coef.data_ptr(), zi.data_ptr(), y.data_ptr(),
-                                     zf.data_ptr(), R, n, S, _kernels.stream_of(x))
-    lib.check(err, "sosfilt_zi")
-    _kernels.count("sosfilt_zi")
+    for a, b in k7_groups(S):
+        cg, zg = (coef, zi) if (a, b) == (0, S) else (coef[a:b].contiguous(),
+                                                     zi[:, a:b].contiguous())
+        y = torch.empty_like(x)
+        zfg = zf if (a, b) == (0, S) else torch.empty_like(zg)
+        with torch.cuda.device(x.device):
+            err = lib.lib.apt_sosfilt_zi(x.data_ptr(), cg.data_ptr(), zg.data_ptr(),
+                                         y.data_ptr(), zfg.data_ptr(), R, n, b - a,
+                                         int(zi.dtype == torch.float64), _kernels.stream_of(x))
+        lib.check(err, "sosfilt_zi")
+        _kernels.count("sosfilt_zi")
+        if zfg is not zf:
+            zf[:, a:b] = zfg
+        x = y
     return y, zf
 
 
@@ -681,8 +736,10 @@ def sosfilt(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor | None = None):
     sequential boundary, :func:`cascade_sosfilt` (kernel K4 on a CUDA
     tensor); returns ``y``.  With ``zi`` ((S, 2) or (..., S, 2)): returns
     ``(y, zf)``, kernel K7 on a CUDA tensor and its plain loop on a CPU
-    tensor, the streaming detector's prefilter; carrying ``zf`` into the
-    next call as ``zi`` gives the bits of one call over the whole stream."""
+    tensor, the streaming detector's prefilter.  ``zi`` is taken in, and
+    ``zf`` returned in, :func:`k7_state_dtype` (float32 up to 8 sections,
+    float64 beyond); carrying ``zf`` into the next call as ``zi`` gives the
+    bits of one call over the whole stream."""
     sos = np.asarray(sos, dtype=np.float64)
     x = x.to(torch.float32)
     if zi is None:
@@ -690,7 +747,7 @@ def sosfilt(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor | None = None):
     S = sos.shape[0]
     lead, n = x.shape[:-1], x.shape[-1]
     xr = x.reshape(-1, n).contiguous()
-    zir = zi.to(torch.float32).expand(lead + (S, 2)).reshape(-1, S, 2).contiguous()
+    zir = zi.to(k7_state_dtype(S)).expand(lead + (S, 2)).reshape(-1, S, 2).contiguous()
     coef = device_constant(("sos_coefficients", sos.tobytes()), x.device,
                            lambda: _sos_coefficients(sos))
     if x.device.type == "cpu":

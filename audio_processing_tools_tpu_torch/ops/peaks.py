@@ -152,7 +152,25 @@ def peak_widths_rel(x: torch.Tensor, is_peak: torch.Tensor,
     return torch.where(is_peak, right_ip - left_ip, 0.0)
 
 
-K9_MAX_LENGTH = 1024  # csrc/peaks.cu: a warp a row, a 32-bit word of covered positions a lane
+K9_MAX_LENGTH = 1024  # csrc/peaks.cu: the warp route's rows, a 32-bit word of covered positions a lane
+K9_LONG_SMEM_KEYS = 16384  # csrc/peaks.cu: keys a long row sorts in shared memory
+K9_LONG_SMEM_WORDS = 16384  # csrc/peaks.cu: bitmap words a long row keeps in shared memory
+
+
+def k9_route(n: int) -> str:
+    """K9's kernel for rows of ``n`` positions: ``"warp"`` (a warp a row) up
+    to :data:`K9_MAX_LENGTH`, ``"block"`` (a block a row, the positions
+    sorted by a bitonic network) beyond."""
+    return "warp" if n <= K9_MAX_LENGTH else "block"
+
+
+def k9_long_plan(n: int):
+    """The block route's ``(np2, keys in shared memory, bitmap in shared
+    memory)`` for rows of ``n``, as ``long_plan`` in the kernel's source: the
+    keys sorted (``n`` rounded up to a power of two) and where each array
+    lives; what does not fit shared memory lives in device scratch."""
+    np2 = 1 << max(n - 1, 0).bit_length()
+    return np2, np2 <= K9_LONG_SMEM_KEYS, -(-n // 32) <= K9_LONG_SMEM_WORDS
 
 
 def _select_peaks_by_distance_plain(x: torch.Tensor, is_peak: torch.Tensor, distance: int,
@@ -180,7 +198,8 @@ def _select_peaks_by_distance_plain(x: torch.Tensor, is_peak: torch.Tensor, dist
 
 def _select_peaks_by_distance_cuda(x: torch.Tensor, is_peak: torch.Tensor, distance: int,
                                    max_peaks: int) -> torch.Tensor:
-    """K9 (``csrc/peaks.cu``): one warp a row.  The loop's step count
+    """K9 (``csrc/peaks.cu``): one warp a row up to :data:`K9_MAX_LENGTH`
+    positions, one block a row beyond (:func:`k9_route`).  The loop's step count
     ``min(max_peaks, n)`` is clamped at 0, as ``range`` and ``fori_loop``
     run no step for a negative cap; a distance outside ``[0, n]`` clears
     what its end of that range clears."""
@@ -190,18 +209,27 @@ def _select_peaks_by_distance_cuda(x: torch.Tensor, is_peak: torch.Tensor, dista
     if is_peak.shape != x.shape or is_peak.device != x.device:
         raise ValueError(f"select_peaks_by_distance: is_peak {tuple(is_peak.shape)} on "
                          f"{is_peak.device} does not match x {tuple(x.shape)} on {x.device}")
-    if n > K9_MAX_LENGTH:
-        raise ValueError(f"select_peaks_by_distance: the CUDA kernel takes rows of at most "
-                         f"{K9_MAX_LENGTH} positions; got {n}")
     out = torch.empty_like(is_peak)
     if R == 0 or n == 0:
         return out
     steps = min(max(int(max_peaks), 0), n)
+    d = min(max(int(distance), 0), n)
     lib = _kernels.build()
     with torch.cuda.device(x.device):
-        err = lib.lib.apt_select_peaks_by_distance(
-            x.data_ptr(), is_peak.data_ptr(), out.data_ptr(), R, n,
-            min(max(int(distance), 0), n), steps, _kernels.stream_of(x))
+        if k9_route(n) == "warp":
+            err = lib.lib.apt_select_peaks_by_distance(
+                x.data_ptr(), is_peak.data_ptr(), out.data_ptr(), R, n, d, steps,
+                _kernels.stream_of(x))
+        else:
+            np2, keys_shared, bits_shared = k9_long_plan(n)
+            keys = None if keys_shared else torch.empty((R, np2), dtype=torch.int64,
+                                                        device=x.device)
+            bits = None if bits_shared else torch.empty((R, -(-n // 32)), dtype=torch.int32,
+                                                        device=x.device)
+            err = lib.lib.apt_select_peaks_long(
+                x.data_ptr(), is_peak.data_ptr(), out.data_ptr(), R, n, d, steps,
+                None if keys is None else keys.data_ptr(),
+                None if bits is None else bits.data_ptr(), _kernels.stream_of(x))
     lib.check(err, "select_peaks_by_distance")
     _kernels.count("select_peaks_by_distance")
     return out

@@ -7,8 +7,11 @@ window, the real DFT and the power into one pass.  Here that kernel is
 is :func:`~audio_processing_tools_tpu_torch.ops.stft.stft_power`.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the kernel or
-raises: there is no fallback.  The kernel takes a power-of-two ``n_fft``
-from 64 to 1024 and any ``hop`` that is a multiple of 4.
+raises: there is no fallback.  The kernel has two routes, picked from the
+geometry alone by :func:`k1_route`: the FFT for a power-of-two ``n_fft``
+from 64 to 1024 with a ``hop`` that is a multiple of 4 (the main path's
+256/128), and the direct DFT (the TPU kernel's window-and-DFT product) for
+every other ``n_fft >= 1`` and ``hop >= 1`` up to :data:`DFT_MAX_N_FFT`.
 """
 
 from __future__ import annotations
@@ -29,6 +32,27 @@ THREADS = 256
 SMEM_LIMIT = 232_448
 #: n_fft the kernel supports
 N_FFTS = (64, 128, 256, 512, 1024)
+
+
+#: the largest n_fft of the DFT route: one frame's samples in shared memory,
+#: the last plan of ``dft_plan_for`` in the kernel's source
+DFT_MAX_N_FFT = SMEM_LIMIT // 4
+
+
+def k1_route(n_fft: int, hop: int) -> str:
+    """K1's route for a geometry: ``"fft"`` (the shared-memory FFT, whose plan
+    is :func:`launch_plan`) or ``"dft"`` (the direct DFT, whose plan the
+    kernel's source picks: ``dft_plan_for``).
+    Raises ``ValueError`` where neither takes it: ``n_fft`` or ``hop`` below
+    1, or ``n_fft`` above :data:`DFT_MAX_N_FFT`."""
+    if n_fft < 1 or hop < 1:
+        raise ValueError(f"spectrogram_power needs n_fft >= 1 and hop >= 1; got {n_fft}, {hop}")
+    if n_fft in N_FFTS and hop % 4 == 0:
+        return "fft"
+    if n_fft > DFT_MAX_N_FFT:
+        raise ValueError(f"the CUDA spectrogram kernel takes n_fft up to {DFT_MAX_N_FFT}; "
+                         f"got {n_fft}")
+    return "dft"
 
 
 class LaunchPlan(NamedTuple):
@@ -88,7 +112,8 @@ def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
     if x.device.type == "cpu":
         return stft_power(x, n_fft=n_fft, hop=hop, center=center, window=window)
     analysis_window(window, 1)  # an unknown window raises here, before the launch
-    plan = launch_plan(n_fft, hop)
+    route = k1_route(n_fft, hop)
+    plan = launch_plan(n_fft, hop) if route == "fft" else None
     x = x.to(torch.float32).contiguous()
     lead = x.shape[:-1]
     n = x.shape[-1]
@@ -104,11 +129,16 @@ def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
                                    lambda: kernel_tables(n_fft, window))
     lib = _kernels.build()
     with torch.cuda.device(x.device):
-        err = lib.lib.apt_spectrogram_power(
-            xb.data_ptr(), win.data_ptr(), twiddle.data_ptr(), out.data_ptr(),
-            xb.shape[0], n, T, n_fft, hop, pad, plan.frame_tile, plan.smem_bytes,
-            _kernels.stream_of(xb),
-        )
+        if plan is None:
+            err = lib.lib.apt_spectrogram_power_dft(
+                xb.data_ptr(), win.data_ptr(), twiddle.data_ptr(), out.data_ptr(),
+                xb.shape[0], n, T, n_fft, hop, pad, _kernels.stream_of(xb))
+        else:
+            err = lib.lib.apt_spectrogram_power(
+                xb.data_ptr(), win.data_ptr(), twiddle.data_ptr(), out.data_ptr(),
+                xb.shape[0], n, T, n_fft, hop, pad, plan.frame_tile, plan.smem_bytes,
+                _kernels.stream_of(xb),
+            )
     lib.check(err, "spectrogram_power")
     _kernels.count("spectrogram_power")
     return out.reshape(lead + (F, T))

@@ -44,7 +44,8 @@ PLAIN_CHUNK_BYTES = 256 * 2**20  # one (chunk, B, T) float32 plane of the plain 
 K10_SMEM_BYTES = 232448  # csrc/sweep.cu: shared memory a block may hold (227 KB)
 K10_SLICE_BYTES = 48 * 1024  # shared memory a K10 block aims at: four blocks an SM
 K10_TARGET_BLOCKS = 132  # K10 blocks a launch aims at: one an SM of an H100
-K10_MAX_FRAMES = 14432  # the most frames at which 32 combos with distinct pairs fit a block
+K10_MAX_FRAMES = 14432  # the most frames a launch takes: 32 combos with distinct pairs fit a block
+K10_MAX_CLIPS = 65535  # the most clips a launch takes (gridDim.y)
 
 class SweepParams(NamedTuple):
     """One value per combo: the four flux thresholds and the TD gate as
@@ -213,7 +214,8 @@ def k10_operands(feats: Dict[str, torch.Tensor], params: SweepParams):
         return logs, crest, 1, None, None, None, msc
     thr = torch.stack([params.primary_flux_min, params.mode1_flux_min, params.mode2_flux_min,
                        params.mode3_flux_min, params.td_gate_threshold], 1).cpu().numpy()
-    S, (rows, offs, index) = k10_plan(thr, T, max(B, 1))
+    # the plan of one launch: a segment of frames over a block of clips
+    S, (rows, offs, index) = k10_plan(thr, min(T, K10_MAX_FRAMES), max(min(B, K10_MAX_CLIPS), 1))
     # one int32 buffer: the index (int4 loads), then the rows (float2 loads),
     # each at a multiple of 4 words, then the offsets
     parts = (index, rows.view(np.int32), offs)
@@ -238,10 +240,11 @@ def _launch_k10(logs: torch.Tensor, crest: torch.Tensor, S: int, rows, offs, ind
         raise ValueError(f"decision_counts: log planes {tuple(logs.shape)} do not fit crest "
                          f"{tuple(crest.shape)}")
     if T > K10_MAX_FRAMES:
-        raise ValueError(f"decision_counts: the CUDA kernel takes at most {K10_MAX_FRAMES} "
+        raise ValueError(f"decision_counts: one K10 launch takes at most {K10_MAX_FRAMES} "
                          f"frames a clip; got {T}")
-    if B > 65535:
-        raise ValueError(f"decision_counts: the CUDA kernel takes at most 65,535 clips; got {B}")
+    if B > K10_MAX_CLIPS:
+        raise ValueError(f"decision_counts: one K10 launch takes at most {K10_MAX_CLIPS} "
+                         f"clips; got {B}")
     counts = torch.empty((C, B), dtype=torch.int32, device=crest.device)
     if C == 0 or B == 0:
         return counts
@@ -271,9 +274,43 @@ def _launch_k10(logs: torch.Tensor, crest: torch.Tensor, S: int, rows, offs, ind
     return counts
 
 
+def k10_segments(T: int):
+    """K10's frame segments of a clip of ``T`` frames: ``(first, end)`` pairs
+    of at most :data:`K10_MAX_FRAMES` frames.  The rule decides frame by
+    frame, so a clip's count is the sum of its segments' counts."""
+    return [(a, min(a + K10_MAX_FRAMES, T)) for a in range(0, T, K10_MAX_FRAMES)]
+
+
+def k10_clip_blocks(B: int):
+    """K10's blocks of clips, ``(first, end)`` pairs of at most
+    :data:`K10_MAX_CLIPS` clips: one launch a block and segment."""
+    return [(a, min(a + K10_MAX_CLIPS, B)) for a in range(0, B, K10_MAX_CLIPS)]
+
+
 def _decision_counts_cuda(feats: Dict[str, torch.Tensor], params: SweepParams) -> torch.Tensor:
-    """K10 on the log planes this wrapper computes with torch."""
-    return _launch_k10(*k10_operands(feats, params))
+    """K10 on the log planes this wrapper computes with torch: one launch,
+    or one a block of clips and segment of frames with the segments' counts
+    added on the card."""
+    return _launch_k10_segments(*k10_operands(feats, params))
+
+
+def _launch_k10_segments(logs: torch.Tensor, crest: torch.Tensor, *tables) -> torch.Tensor:
+    """K10 on :func:`k10_operands`: one launch where the clips and frames fit
+    one, else one a block of :func:`k10_clip_blocks` and segment of
+    :func:`k10_segments`, each on its slice of the planes."""
+    B, T = crest.shape
+    segments, blocks = k10_segments(T), k10_clip_blocks(B)
+    if len(segments) <= 1 and len(blocks) <= 1:
+        return _launch_k10(logs, crest, *tables)
+    parts = []
+    for b0, b1 in blocks:
+        total = None
+        for t0, t1 in segments:
+            got = _launch_k10(logs[:, b0:b1, t0:t1].contiguous(),
+                              crest[b0:b1, t0:t1].contiguous(), *tables)
+            total = got if total is None else total + got
+        parts.append(total)
+    return torch.cat(parts, dim=1)
 
 
 def decision_counts(feats: Dict[str, torch.Tensor], params: SweepParams) -> torch.Tensor:

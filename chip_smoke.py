@@ -207,7 +207,20 @@ Phases, one line each:
      against the port's CPU run, within 1e-4 of the CPU's (absolute below 1);
  43. the block-int4 wire: ``block4_decode`` on the card bit for bit against
      ``block4_decode_np`` on the 128 clips' PCM, and every ``edge`` shim
-     imported with its names.
+     imported with its names;
+ 44. configurations the JAX package runs beyond the main path's, each
+     through its hand kernel (its launch count read, every plain version
+     watched and never called) and against its plain version on the card:
+     K1 at 384/192, 2048/1024, 256/100, 400/200, 640/320 and 768/384 over
+     the 128 x 10 s batch (within 1e-5 of ``stft_power``'s maximum), the
+     classifier-only engine at 384/192 over the batch (frames against the
+     CPU path on 16 clips); K8 at 384/192 and 2048/1024 and with an 11-tap
+     smoother (gain bits, y within 1e-4 of its maximum; 384/192 chunk
+     invariant); K9 on rows of 1,152, 4,224 and 30,000 at caps 64 and 5,000
+     (bits); K10 at 14,433 and 52,322 frames and 70,000 clips (counts
+     exact); K4 at 9, 10, 16 and 24 sections, K7 at 9 and 16, K6 at W 100,
+     S 13, S 16, W 3 with S 4 and W 4 with S 7 (bits); each route printed
+     with its device time from a CUDA graph.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -351,17 +364,18 @@ def launch_breakdown(fn, calls: int = 20) -> dict:
 
 
 def same_bits(got, ref):
-    """Whether two float32 tensors hold the same bits wherever either holds a
-    number (the sign of zero included) and NaN in the same places, and
-    max|got - ref| where both are finite.  NaN payloads are not compared:
-    the compiler may canonicalise them."""
+    """Whether two float32 (or two float64) tensors hold the same bits
+    wherever either holds a number (the sign of zero included) and NaN in
+    the same places, and max|got - ref| where both are finite.  NaN payloads
+    are not compared: the compiler may canonicalise them."""
     import torch
 
-    if got.shape != ref.shape:
+    if got.shape != ref.shape or got.dtype != ref.dtype:
         return False, float("inf")
     nan = torch.isnan(got)
+    word = torch.int64 if got.dtype == torch.float64 else torch.int32
     same = torch.equal(nan, torch.isnan(ref)) and torch.equal(
-        got.contiguous().view(torch.int32)[~nan], ref.contiguous().view(torch.int32)[~nan])
+        got.contiguous().view(word)[~nan], ref.contiguous().view(word)[~nan])
     fin = torch.isfinite(got) & torch.isfinite(ref)
     return same, float((got - ref)[fin].abs().max()) if bool(fin.any()) else 0.0
 
@@ -982,9 +996,10 @@ def main() -> int:
     fleet = backfill_phases(smi)
     tune = tuning_phases(smi, fleet["corpus"], fleet["truth"])
     surface = surface_phases(smi, pcm)
+    geo = geometry_phases(smi, x, pcm)
 
     paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"],
-             **surface["launches"]}
+             **surface["launches"], "configurations the JAX package runs (phase 44)": geo["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
@@ -1080,6 +1095,14 @@ def main() -> int:
          # K10 on 4,096 combos with every threshold distinct, and on one combo
          "distinct_ms": tune["k10"]["distinct_ms"], "one_combo_ms": tune["k10"]["one_combo_ms"]},
     ]
+    main_route = {"spectrogram_power": "fft", "cascade_sosfilt": "registers",
+                  "band_noise_scan": "warp", "select_peaks_by_distance": "warp",
+                  "streaming_suppressor": "fft", "sosfilt_zi": "1 group",
+                  "decision_sweep": "one launch"}
+    for k in kernels:
+        # the route the entry's own numbers are of, and phase 44's routes
+        k["routes"] = ([{"route": main_route.get(k["name"], "cuda"), "geometry": "main path"}]
+                       + geo["routes"].get(k["name"], []))
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
               f"({k['bound_ms'] / k['ms']:.1%} of it)")
@@ -1836,15 +1859,16 @@ def band_noise_phases(smi: str) -> dict:
     flat_l, _ = k4_tables(td, CHUNK, dev)
     coef_l = torch.from_numpy(tfl._sos_coefficients(td)).to(dev)
     y4, _ = tfl._cascade_sosfilt_cuda(flat_l, xl, zl, td.shape[0])
-    y7, _ = tfl._sosfilt_zi_cuda(coef_l, xl, zl.reshape(STREAMS, -1, 2))
+    zl7 = zl.reshape(STREAMS, -1, 2).to(tfl.k7_state_dtype(td.shape[0]))
+    y7, _ = tfl._sosfilt_zi_cuda(coef_l, xl, zl7)
     r47 = rel_err(y4.cpu().numpy(), y7.cpu().numpy())
     check(r47 <= 1e-5, f"K4 against K7 at {tuple(xl.shape)}: max|d|/max {r47:.3e}")
     k4_live = graph_ms(lambda: tfl._cascade_sosfilt_cuda(flat_l, xl, zl, td.shape[0]))
-    k7_live = graph_ms(lambda: tfl._sosfilt_zi_cuda(coef_l, xl, zl.reshape(STREAMS, -1, 2)))
+    k7_live = graph_ms(lambda: tfl._sosfilt_zi_cuda(coef_l, xl, zl7))
     k7_band = []
     for label, sos, xs in (("high-pass", hpf, xT), ("band-pass", bpf, x_h)):
         coef = torch.from_numpy(tfl._sos_coefficients(sos)).to(dev)
-        zi = tbn._seed(sos, xT[:, 0]).contiguous()
+        zi = tbn._seed(sos, xT[:, 0]).to(tfl.k7_state_dtype(sos.shape[0])).contiguous()
         k7_band.append(f"{label} {graph_ms(lambda: tfl._sosfilt_zi_cuda(coef, xs, zi)):.4f} ms")
     print(f"  K4 against K7 on {smi}: at the live shape {tuple(xl.shape)}, {td.shape[0]} sections, "
           f"K4 {k4_live:.4f} ms, K7 {k7_live:.4f} ms per launch (K4 within {r47:.3e} of K7's max); "
@@ -3383,6 +3407,285 @@ def surface_phases(smi: str, pcm: np.ndarray) -> dict:
           f"{sum(len(v) for v in names.values())} names)")
     return {"launches": {"entry() (phase 41)": l_entry, "dry run (phase 41)": l_dry,
                          "stage profiles (phase 42)": l_prof}}
+
+
+# the geometries of phase 44: configurations the JAX package runs beyond the
+# main path's, each through its hand kernel
+GEO_K1 = ((384, 192), (2048, 1024), (256, 100), (400, 200), (640, 320), (768, 384))
+GEO_STREAM = {"384/192": {"n_fft": 384, "hop": 192}, "2048/1024": {"n_fft": 2048, "hop": 1024},
+              "4096/2048": {"n_fft": 4096, "hop": 2048},
+              "11 taps": {"gain_freq_kernel": [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 5.0, 4.0, 3.0, 2.0,
+                                               1.0]}}
+GEO_K9 = ((1152, 200), (4224, 64), (30000, 16))  # row length, rows
+GEO_K10 = ((2, 14433), (2, 52322), (70000, 32))  # clips, frames
+GEO_K4 = (9, 10, 16, 24)
+GEO_K7 = (9, 16)
+GEO_K6 = {"W 100": {"W": 100}, "S 13": {"subhop": 32}, "S 16": {"subframe_len": 32, "subhop": 32},
+          "W 3, S 4": {"W": 3, "W_min": 1}, "W 4, S 7": {"W": 4, "W_min": 2, "subhop": 64},
+          # three and more colliding subframes: four into a slot, all seven into one
+          "W 2, S 7": {"W": 2, "W_min": 1, "subhop": 64},
+          "W 1, S 7": {"W": 1, "W_min": 1, "subhop": 64}}
+
+
+class PlainWatch:
+    """Counts the calls of every kernel's plain version while it is on, by
+    wrapping the module attributes the wrappers call."""
+
+    def __init__(self):
+        from audio_processing_tools_tpu_torch.models import band_noise, streaming
+        from audio_processing_tools_tpu_torch.ops import filters, peaks, spectrogram, sweep, trackers
+
+        self.targets = [(spectrogram, "stft_power"), (trackers, "_noise_psd_track_plain"),
+                        (trackers, "_baseline_plain"), (filters, "_cascade_sosfilt_plain"),
+                        (filters, "_sosfilt_zi_plain"), (peaks, "_select_peaks_by_distance_plain"),
+                        (sweep, "_decision_counts_plain"), (band_noise, "_band_scan_plain"),
+                        (streaming, "_suppressor_plain")]
+        self.calls = {name: 0 for _, name in self.targets}
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.targets]
+        for (mod, name), fn in zip(self.targets, self.saved):
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.calls[_name] += 1
+                return _fn(*a, **k)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.saved):
+            setattr(mod, name, fn)
+        return False
+
+
+def through_kernel(kernel: str, fn, label: str, want: int | None = None):
+    """``fn()`` with the launches counted and the plain versions watched:
+    the hand kernel ``kernel`` launched (``want`` times where given) and no
+    plain version called.  Returns ``(out, launches)``."""
+    with PlainWatch() as watch:
+        out, launches, _ = launches_of(fn)
+    n = launches[kernel]
+    check(n > 0 and (want is None or n == want) and not any(watch.calls.values()),
+          f"{label}: {kernel} launched {n} times (want {want}), plain calls "
+          f"{ {k: v for k, v in watch.calls.items() if v} }")
+    return out, n
+
+
+def geometry_phases(smi: str, x, pcm: np.ndarray) -> dict:
+    """Phase 44: configurations the JAX package runs beyond the main path's,
+    each on the card through its hand kernel, against its plain version on
+    the card, with the route and the device time.  ``x`` is phase 4's batch
+    on the card (float32), ``pcm`` its int16 clips."""
+    import torch
+
+    from audio_processing_tools_tpu_torch import _kernels
+    from audio_processing_tools_tpu_torch.models import band_noise as tbn
+    from audio_processing_tools_tpu_torch.models import streaming as tsm
+    from audio_processing_tools_tpu_torch.models.spectral_noise import RainDetectorProcessor
+    from audio_processing_tools_tpu_torch.ops import filters as tfl
+    from audio_processing_tools_tpu_torch.ops import peaks as tpk
+    from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
+    from audio_processing_tools_tpu_torch.ops import sweep as tsw
+    from audio_processing_tools_tpu_torch.ops.stft import stft_power
+
+    dev = x.device
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(44)
+    routes = {k: [] for k in ("spectrogram_power", "streaming_suppressor", "select_peaks_by_distance",
+                              "decision_sweep", "cascade_sosfilt", "sosfilt_zi", "band_noise_scan")}
+    launches = {k: 0 for k in _kernels.LAUNCHES}
+
+    def note(kernel, route, geometry, n, ms, err, **extra):
+        launches[kernel] += n
+        routes[kernel].append({"route": route, "geometry": geometry, "launches": n, "ms": ms,
+                               "max_abs_err": err, **extra})
+        print(f"  {kernel} {geometry}: route {route}, {n} launch(es), {ms:.4f} ms (graph), "
+              f"max|d| {err:.3e}" + "".join(f", {k} {v}" for k, v in extra.items()))
+
+    # ---- K1: the DFT route and the FFT route at hop 100, 128 x 10 s ----
+    for n_fft, hop in GEO_K1:
+        route = tspec.k1_route(n_fft, hop)
+        got, n = through_kernel("spectrogram_power",
+                                lambda: tspec.spectrogram_power(x, n_fft=n_fft, hop=hop),
+                                f"K1 {n_fft}/{hop}", 1)
+        ref = stft_power(x, n_fft=n_fft, hop=hop)
+        torch.cuda.synchronize()
+        d = float((got - ref).abs().max())
+        r = d / float(ref.abs().max())
+        check(got.shape == ref.shape == (x.shape[0], n_fft // 2 + 1, 1 + x.shape[1] // hop)
+              and r <= 1e-5, f"K1 {n_fft}/{hop} ({route}): {tuple(got.shape)}, max|d|/max {r:.3e}")
+        note("spectrogram_power", route, f"{n_fft}/{hop} {tuple(x.shape)}", n,
+             graph_ms(lambda: tspec.spectrogram_power(x, n_fft=n_fft, hop=hop)), d,
+             max_rel=r, library_ms=graph_ms(lambda: stft_power(x, n_fft=n_fft, hop=hop)))
+
+    # ---- the classifier-only engine at 384/192 over the batch ----
+    params = {**PARAMS, "n_fft": 384, "hop": 192}
+    proc = RainDetectorProcessor(device=dev)
+    proc.run_batch(x[:2], params)  # warm
+    with PlainWatch() as watch:
+        pairs, l_eng, eng_s = launches_of(lambda: proc.run_batch(x, params))
+    check(not any(watch.calls.values()) and l_eng["spectrogram_power"] == 1
+          and l_eng["noise_psd_track"] == 1 and l_eng["causal_low_quantile_baseline"] == 1,
+          f"engine 384/192 launches {l_eng}, plain calls {watch.calls}")
+    pick = np.r_[np.arange(0, BATCH, 2)[: N_AGREE // 2], np.arange(1, BATCH, 2)[: N_AGREE // 2]]
+    cpu_pairs = RainDetectorProcessor(device="cpu").run_batch(
+        torch.from_numpy(pcm[pick]).to(torch.float32) / 32767.0, params)
+    fc = np.stack([s["frame_class"] for _, s in pairs])
+    frac = agreement(fc[pick], np.stack([s["frame_class"] for _, s in cpu_pairs]),
+                     [pairs[i] for i in pick], cpu_pairs, "engine 384/192")
+    print(f"  classifier-only engine at 384/192 on {tuple(x.shape)}: launches "
+          f"{ {k: v for k, v in l_eng.items() if v} }, {eng_s * 1e3:.1f} ms host; frame agreement "
+          f"with the CPU path on {N_AGREE} clips {frac:.6f}, decisions and counts identical")
+    for k, v in l_eng.items():
+        launches[k] += v
+
+    # ---- K8: the DFT frame pass and a long smoother ----
+    streams = torch.from_numpy(synth_streams(STREAMS, 4.0, seed=44)[0]).to(dev)
+    xs_all = streams.to(torch.float32) / 32767.0
+    k8_err = 0.0
+    for label, extra in GEO_STREAM.items():
+        det = tsm.StreamingRainDetector(device=dev)
+        det.setup({**STREAM_AUDIO, **extra})
+        st = det._static()
+        L = CHUNK // st.hop * st.hop
+        state = det.init_state_batch(STREAMS)
+        outs = []
+        for c in range(2):
+            xc = xs_all[:, c * L : (c + 1) * L]
+            xa = torch.cat([state["raw_tail"], xc], dim=1)
+            P = tspec.spectrogram_power(xa, n_fft=st.n_fft, hop=st.hop, center=False)
+            carry = (tsm._seed_psd(state["sup_psd"], P[:, st.rows, 0], det.cfg.eps),
+                     state["gain_prev"], state["ola_tail"])
+            (state_new, out), n = through_kernel(
+                "streaming_suppressor", lambda: det.process_chunk_batch(state, xc),
+                f"K8 {label}, chunk {c}", 1)
+            args = (det.suppressor(), xa, P, out["frame_class"], out["noise_conf"],
+                    state["frame_idx"], carry)
+            y_k, c_k, g_k = tsm._suppressor_cuda(*args, want_gain=True)
+            y_p, c_p, g_p = tsm._suppressor_plain(*args)
+            torch.cuda.synchronize()
+            d = float((y_k - y_p).abs().max())
+            r = d / float(y_p.abs().max())
+            check(torch.equal(out["y"], y_k) and same_bits(g_k, g_p)[0] and r <= 1e-4,
+                  f"K8 {label}, chunk {c}: gain bits {same_bits(g_k, g_p)[0]}, y {r:.3e}")
+            k8_err = max(k8_err, d)
+            outs.append(out["y"])
+            state = state_new
+        route = tsm.k8_route(st.n_fft)
+        note("streaming_suppressor", route, f"{label} ({STREAMS} x {L} samples, K {args[0].K}, "
+             f"{args[0].taps.size} taps)", 2, graph_ms(lambda: tsm._suppressor_cuda(*args)), d,
+             max_rel=r)
+        if label == "384/192":
+            # chunk invariance: two 2 s chunks against one 4 s chunk
+            det1 = tsm.StreamingRainDetector(device=dev)
+            det1.setup({**STREAM_AUDIO, **extra})
+            _, one = det1.process_chunk_batch(det1.init_state_batch(STREAMS), xs_all[:, : 2 * L])
+            torch.cuda.synchronize()
+            check(torch.equal(torch.cat(outs, dim=1), one["y"]),
+                  "K8 at 384/192: two 2 s chunks differ from one 4 s chunk")
+            print(f"  K8 384/192 chunk invariance on {STREAMS} x 2 x {L} samples: one 4 s chunk's "
+                  f"bits")
+
+    # ---- K9: long rows ----
+    for n_pos, rows in GEO_K9:
+        xr, mask = k9_rows(9, n_pos)
+        xr, mask = xr[:rows], mask[:rows]
+        xt = torch.from_numpy(xr).to(dev)
+        pk = torch.from_numpy(mask).to(dev)
+        for cap in (64, 5000):
+            d_ = 45
+            got, n = through_kernel(
+                "select_peaks_by_distance",
+                lambda: tpk.select_peaks_by_distance(xt, pk, d_, cap),
+                f"K9 {rows} x {n_pos}, cap {cap}", 1)
+            ref = tpk._select_peaks_by_distance_plain(xt, pk, d_, cap)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"K9 {rows} x {n_pos}, cap {cap}: "
+                                         f"{int((got != ref).sum())} positions differ")
+            note("select_peaks_by_distance", tpk.k9_route(n_pos), f"{rows} x {n_pos}, cap {cap}",
+                 n, graph_ms(lambda: tpk.select_peaks_by_distance(xt, pk, d_, cap), launches=5,
+                             reps=3), 0.0, kept=int(got.sum()))
+
+    # ---- K10: long clips and many clips ----
+    for B_, T_ in GEO_K10:
+        feats = {k: (3.0 * torch.rand((B_, T_), generator=gen, device=dev)) for k in tsw.FEATURES}
+        grid = np.stack(np.meshgrid([0.5, 1.0], [0.6, 1.2], [0.4, 0.9], [0.7, 1.1], [1, 2],
+                                    [1.0, 2.0], indexing="ij"), -1).reshape(-1, 6)
+        prm = tsw.sweep_params(*grid.T[:4], grid[:, 4].astype(np.int32), grid[:, 5], dev)
+        n_launch = len(tsw.k10_segments(T_)) * len(tsw.k10_clip_blocks(B_))
+        got, n = through_kernel("decision_sweep", lambda: tsw.decision_counts(feats, prm),
+                                f"K10 {B_} x {T_}", n_launch)
+        ref = tsw._decision_counts_plain(feats, prm)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K10 {B_} x {T_}: {int((got != ref).sum())} counts differ")
+        ops = tsw.k10_operands(feats, prm)
+        note("decision_sweep", "segments" if n > 1 else "one launch",
+             f"{B_} clips x {T_} frames, {grid.shape[0]} combos", n,
+             graph_ms(lambda: tsw._launch_k10_segments(*ops), launches=5, reps=3), 0.0,
+             max_count=int(got.max()))
+
+    # ---- K4: wide cascades ----
+    xb = torch.from_numpy(np.ascontiguousarray(band_noise_clips(16)[:, : 872 * 128])).to(dev)
+    for S_ in GEO_K4:
+        sos = tbn._design_filters(tbn.BandNoiseEstimatorConfig(bpf_order=S_))[1]
+        check(sos.shape[0] == S_, f"band-pass of order {S_}: {sos.shape[0]} sections")
+        zi = 0.01 * torch.randn((xb.shape[0], 2 * S_), generator=gen, device=dev)
+        flat, tabs = k4_tables(sos, xb.shape[-1], dev)
+        (y_k, z_k), n = through_kernel(
+            "cascade_sosfilt", lambda: tfl._cascade_sosfilt_cuda(flat, xb, zi, S_),
+            f"K4 {S_} sections", 1)
+        y_p, z_p = tfl._cascade_sosfilt_plain(tabs, xb, zi)
+        torch.cuda.synchronize()
+        (sy, d), (sz, dz) = same_bits(y_k, y_p), same_bits(z_k, z_p)
+        check(sy and sz, f"K4 {S_} sections: not the plain version's bits (y {d:.3e}, zf {dz:.3e})")
+        note("cascade_sosfilt", tfl.k4_route(S_), f"{S_} sections {tuple(xb.shape)}", n,
+             graph_ms(lambda: tfl._cascade_sosfilt_cuda(flat, xb, zi, S_), launches=5, reps=3),
+             max(d, dz))
+
+    # ---- K7: long cascades in groups ----
+    x7 = xs_all[:, :8191].contiguous()
+    for S_ in GEO_K7:
+        coef = torch.from_numpy(tfl._sos_coefficients(
+            tfl.butter_sos(2 * S_, 350.0 / (0.5 * FS), "highpass"))).to(dev)
+        zi = 0.01 * torch.randn((STREAMS, S_, 2), generator=gen, device=dev,
+                                dtype=tfl.k7_state_dtype(S_))
+        (y_k, z_k), n = through_kernel("sosfilt_zi", lambda: tfl._sosfilt_zi_cuda(coef, x7, zi),
+                                       f"K7 {S_} sections", len(tfl.k7_groups(S_)))
+        y_p, z_p = tfl._sosfilt_zi_plain(coef, x7, zi)
+        torch.cuda.synchronize()
+        (sy, d), (sz, dz) = same_bits(y_k, y_p), same_bits(z_k, z_p)
+        check(sy and sz, f"K7 {S_} sections: not the plain loop's bits (y {d:.3e}, zf {dz:.3e})")
+        note("sosfilt_zi", f"{n} groups", f"{S_} sections {tuple(x7.shape)}", n,
+             graph_ms(lambda: tfl._sosfilt_zi_cuda(coef, x7, zi)), max(d, dz))
+
+    # ---- K6: wide rings, many subframes, fewer slots than subframes ----
+    xbn = torch.from_numpy(band_noise_clips(BATCH)).to(dev)
+    for label, extra in GEO_K6.items():
+        c = tbn.build_band_noise_config({"sample_rate": FS, **extra})
+        h, b = tbn._design_filters(c)
+        T_ = xbn.shape[-1] // c.frame_len
+        xT = xbn[:, : T_ * c.frame_len].contiguous()
+        x_h, x_bp, _, _ = tbn._filters(c, xT, tbn._seed(h, xT[:, 0]), tbn._seed(b, xT[:, 0]))
+        inputs = tbn._per_frame_inputs(x_h, x_bp, c, T_)
+        carry = tbn._scan_carry_init(c, BATCH, dev)
+        S_ = inputs[0].shape[-1]
+        (out_k, carry_k), n = through_kernel(
+            "band_noise_scan", lambda: tbn._band_scan_cuda(c, carry, inputs), f"K6 {label}", 1)
+        out_p, carry_p = tbn._band_scan_plain(c, carry, inputs)
+        torch.cuda.synchronize()
+        (bad, d), (bad_c, dc) = k6_mismatches(out_k, out_p), k6_mismatches(carry_k, carry_p)
+        check(not bad and not bad_c, f"K6 {label}: not the plain loop's {bad}, carry {bad_c}")
+        note("band_noise_scan", tbn.k6_route(S_, c.W), f"{label} (S {S_}, W {c.W}, {BATCH} x "
+             f"{T_} frames)", n, graph_ms(lambda: tbn._band_scan_cuda(c, carry, inputs),
+                                          launches=5, reps=3), max(d, dc),
+             max_valid_count=int(out_k["noise_buffer_valid_count"].max()))
+
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 44 configurations the JAX package runs, on {smi}: K1 at "
+          f"{len(GEO_K1)} geometries, the 384/192 engine, K8 at {len(GEO_STREAM)}, K9 at "
+          f"{2 * len(GEO_K9)}, K10 at {len(GEO_K10)}, K4 at {len(GEO_K4)}, K7 at {len(GEO_K7)}, "
+          f"K6 at {len(GEO_K6)}: every one through its hand kernel, no plain version called, "
+          f"each against its plain version on the card; {seconds:.1f} s")
+    return {"launches": launches, "routes": routes, "seconds": seconds}
 
 
 if __name__ == "__main__":

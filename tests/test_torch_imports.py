@@ -1,6 +1,6 @@
 """Import guard: every module of the port, ``chip_smoke.py``, the port's
-tools (the stage profiler, the backfill scaling tool) and its examples
-that run on the card import in a process where JAX, the JAX package and the
+tools (the stage profiler, the backfill scaling tool, the main-shape timer)
+and its examples that run on the card import in a process where JAX, the JAX package and the
 host libraries the card's machine lacks (pandas, pyarrow, matplotlib,
 psutil, boto3, sqlalchemy, IPython, ipywidgets, requests) cannot be
 imported.  A meta-path finder refuses them; one subprocess imports each
@@ -25,6 +25,7 @@ MODULES = sorted([pkg.__name__] + [m.name for m in pkgutil.walk_packages(
 #: scripts outside the package, imported from their paths (their main()
 #: runs only under ``__main__``)
 SCRIPTS = ["tools/profile_torch_stages.py", "tools/bench_torch_backfill_scaling.py",
+           "tools/time_main_shapes.py",
            "examples/torch_streaming_detect.py", "examples/torch_tune_thresholds.py"]
 
 PROBE = """

@@ -288,12 +288,19 @@ def test_k8_arguments_mirror_the_source(struct):
 
 
 def test_k8_geometry_limits_mirror_the_source():
-    """``k8_check_geometry`` refuses what K8's launcher refuses: the same
-    n_fft range and tap count (the kernel runs only on the card)."""
+    """``k8_check_geometry`` and ``k8_route`` mirror K8's launcher: the FFT
+    frame pass's n_fft range, the walk's thread limit, the shared memory a
+    block holds and the DFT frame pass's tile (the kernel runs only on the
+    card)."""
     src = (Path(ts.__file__).resolve().parent.parent / "csrc" / "streaming.cu").read_text()
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert (consts["kMinFft"], consts["kMaxFft"]) == (min(ts.N_FFTS), max(ts.N_FFTS))
-    assert consts["kMaxTaps"] == ts._K8_MAX_TAPS
+    assert 4 * consts["kMaxWalkThreads"] == ts.K8_MAX_BINS
+    assert "2 * (c.K + 2 * pad) + 2 * c.K + 2 * pow2_at_least(c.n_snr)" in src
+    assert consts["kFrames"] == 4 and ts.k8_walk_smem(71, 3, 0) == 4 * 4 * (2 * 73 + 142 + 2) + 12
+    assert consts["kSmemLimit"] == ts._K8_SMEM_LIMIT
+    assert "4 * n_fft * slots + 8 * (n_fft / 2 + 1) * slots + 8 * n_fft + 4 * slots * K" in src
+    assert [ts.k8_route(n) for n in (32, 64, 384, 1024, 2048)] == ["dft", "fft", "dft", "fft", "dft"]
 
 
 @pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024])
@@ -305,13 +312,19 @@ def test_k8_geometry_takes_every_size_k1_takes(n_fft):
 
 
 @pytest.mark.parametrize("n_fft, hop, K, taps, snr", [
-    (2048, 1024, 71, 3, 0), (32, 16, 10, 3, 0), (4, 2, 2, 0, 0), (256, 64, 71, 3, 0),
-    (96, 48, 10, 3, 0), (2, 1, 1, 0, 0), (256, 128, 130, 3, 0), (256, 128, 0, 3, 0),
-    (256, 128, 71, 10, 0), (256, 128, 71, 3, 72)])
+    (256, 64, 71, 3, 0), (256, 128, 130, 3, 0), (256, 128, 0, 3, 0), (256, 128, 71, 3, 72)])
 def test_k8_check_geometry_refuses_what_the_kernel_does_not_take(n_fft, hop, K, taps, snr):
-    """n_fft outside 64-1024 or not a power of two (below 64 K1, which
-    computes the band power, refuses it too), a hop not n_fft / 2, band bins
-    outside 1 to n_fft / 2 + 1, more than 9 taps, more SNR columns than
-    band bins."""
+    """What the JAX package refuses as well: a hop not n_fft / 2, band bins
+    outside 1 to n_fft / 2 + 1, more SNR columns than band bins."""
     with pytest.raises(ValueError, match="streaming_suppressor"):
         ts.k8_check_geometry(n_fft, hop, K, taps, snr)
+
+
+@pytest.mark.parametrize("n_fft, hop, K, taps, snr", [
+    (2048, 1024, 71, 3, 0), (32, 16, 10, 3, 0), (4, 2, 2, 0, 0), (96, 48, 10, 3, 0),
+    (2, 1, 1, 0, 0), (256, 128, 71, 10, 0)])
+def test_k8_check_geometry_takes_what_the_jax_package_runs(n_fft, hop, K, taps, snr):
+    """Any n_fft = 2 hop (the FFT frame pass or the DFT one) and any number
+    of taps."""
+    assert ts.k8_check_geometry(n_fft, hop, K, taps, snr) is None
+    assert ts.k8_route(n_fft) == ("fft" if n_fft in ts.N_FFTS else "dft")

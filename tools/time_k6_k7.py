@@ -68,9 +68,9 @@ VARIANTS = {
     # to a branch and a convergence barrier every sample
     "k7-guarded-sections": ("k7", True, [("filters.cu",
                                           "    for (int g = 0; g < G; ++g) {\n"
-                                          "      const float out = ",
+                                          "      const Z u = ",
                                           "    for (int g = 0; g < G; ++g) if (g < S - s0) {\n"
-                                          "      const float out = ")]),
+                                          "      const Z u = ")]),
     # K7 with two sections a walker: one thread runs both of the live
     # prefilter's sections, sample by sample
     "k7-2-sections-a-walker": ("k7", True, [("filters.cu",
@@ -79,9 +79,12 @@ VARIANTS = {
 }
 
 
-# One thread's dependent float32 chains, timed with the SM's cycle counter:
-# a chain of additions, and K7's section recurrence over a constant input
-# (its four dependent operations a sample: z0 -> y -> a1 y -> b1 x - a1 y -> + z1).
+# One thread's dependent chains, timed with the SM's cycle counter, over a
+# constant input: a chain of float32 additions; scipy's form of a section's
+# step, K7's earlier form (four dependent operations a sample:
+# z0 -> y -> a1 y -> b1 x - a1 y -> + z1); K7's step in JAX's state-space
+# order (z0 -> a1 z0 -> z1 - a1 z0 -> + bv0 x); and the same with the state
+# in double, as K7 runs past 8 sections.
 CHAIN_SOURCE = r"""
 #include <cuda_runtime.h>
 __global__ void chains(long long* out, float a, float b, float v, int n) {
@@ -100,16 +103,43 @@ __global__ void chains(long long* out, float a, float b, float v, int n) {
     z1 = __fsub_rn(__fmul_rn(b2, v), __fmul_rn(a2, y));
   }
   const long long t3 = clock64();
+  float f0 = a, f1 = b;
+  const float e0 = 0.25f, ev0 = 0.125f, ev1 = -0.375f, e1 = -1.5f, e2 = 0.56f;
+  float yo = 0.f;
+  const long long t4 = clock64();
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) {
+    yo = __fadd_rn(__fmul_rn(e0, v), f0);
+    const float f1n = __fsub_rn(__fmul_rn(ev1, v), __fmul_rn(e2, f0));
+    f0 = __fadd_rn(__fsub_rn(f1, __fmul_rn(e1, f0)), __fmul_rn(ev0, v));
+    f1 = f1n;
+  }
+  const long long t5 = clock64();
+  double d0 = a, d1 = b;
+  const double u = v;
+  const long long t6 = clock64();
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) {
+    yo = __fadd_rn(yo, (float)__dadd_rn(__dmul_rn(0.25, u), d0));
+    const double d1n = __dsub_rn(__dmul_rn(-0.375, u), __dmul_rn(0.56, d0));
+    d0 = __dadd_rn(__dsub_rn(d1, __dmul_rn(-1.5, d0)), __dmul_rn(0.125, u));
+    d1 = d1n;
+  }
+  const long long t7 = clock64();
   out[0] = t1 - t0;
   out[1] = t3 - t2;
-  out[2] = __float_as_int(x) ^ __float_as_int(z0) ^ __float_as_int(z1);
+  out[2] = __float_as_int(x) ^ __float_as_int(z0) ^ __float_as_int(z1) ^ __float_as_int(yo) ^
+           __float_as_int(f0) ^ __float_as_int(f1) ^ __double_as_longlong(d0) ^
+           __double_as_longlong(d1);
+  out[3] = t5 - t4;
+  out[4] = t7 - t6;
 }
 extern "C" int chain_cycles(long long* host, int n) {
   long long* d = nullptr;
-  cudaError_t e = cudaMalloc(&d, 3 * sizeof(long long));
+  cudaError_t e = cudaMalloc(&d, 5 * sizeof(long long));
   if (e != cudaSuccess) return (int)e;
   chains<<<1, 1>>>(d, 1.0f, 1e-7f, 0.5f, n);
-  e = cudaMemcpy(host, d, 3 * sizeof(long long), cudaMemcpyDeviceToHost);
+  e = cudaMemcpy(host, d, 5 * sizeof(long long), cudaMemcpyDeviceToHost);
   cudaFree(d);
   return (int)e;
 }
@@ -133,10 +163,12 @@ def chain_cycles(n: int = 1 << 16) -> dict:
                    timeout=300)
     fn = ctypes.CDLL(str(lib)).chain_cycles
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    host = (ctypes.c_longlong * 3)()
+    host = (ctypes.c_longlong * 5)()
     if fn(host, n) != 0:
         raise RuntimeError("chain_cycles: the probe failed")
-    return {"fadd_cycles": host[0] / n, "section_sample_cycles": host[1] / n}
+    return {"fadd_cycles": host[0] / n, "section_sample_cycles_scipy_form": host[1] / n,
+            "section_sample_cycles": host[3] / n,
+            "section_sample_cycles_double_state": host[4] / n}
 
 
 def smi_query(fields: str) -> str:
@@ -202,7 +234,8 @@ def k7_cases(dev) -> dict:
 
     def case(sos, x):
         coef = torch.from_numpy(tfl._sos_coefficients(sos)).to(dev)
-        zi = 0.01 * torch.randn((x.shape[0], sos.shape[0], 2), generator=gen, device=dev)
+        zi = 0.01 * torch.randn((x.shape[0], sos.shape[0], 2), generator=gen, device=dev,
+                                dtype=tfl.k7_state_dtype(sos.shape[0]))
         return coef, x.contiguous(), zi
 
     x_h = tfl.cascade_sosfilt(hpf, xT, tbn._seed(hpf, xT[:, 0]))[0]
@@ -276,7 +309,7 @@ def time_k7(tfl, cases: dict, exact: bool = True) -> dict:
         if exact and not same:
             raise SystemExit(f"K7 {label}: not the plain loop's bits")
         fn = lambda: tfl._sosfilt_zi_cuda(coef, x, zi)  # noqa: E731
-        b_ms, b_by = chip_smoke.bound_of(4 * (2 * x.numel() + 2 * zi.numel()),
+        b_ms, b_by = chip_smoke.bound_of(4 * 2 * x.numel() + 2 * zi.numel() * zi.element_size(),
                                          9 * coef.shape[0] * x.numel())
         out[label] = {"rows": x.shape[0], "samples": x.shape[1], "sections": coef.shape[0],
                       "same_bits": same, "graph_ms": chip_smoke.graph_ms(fn),
