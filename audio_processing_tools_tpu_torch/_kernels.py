@@ -60,13 +60,14 @@ _PLAN = (_I,) * 6  # ops/trackers.py::TrackerPlan
 _SIGNATURES = {
     "apt_spectrogram_power": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "apt_spectrogram_power_dft": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "apt_spectrogram_power_mixed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "apt_noise_psd_track": (_P, _P, _P, _I, _I, _I, _L, _L, *_PLAN, _F, _F, _F, _F, _I,
                             _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, *(_P,) * 11, _P),
     "apt_causal_low_quantile_baseline": (_P, _P, _I, _I, *_PLAN, _F, _F, _F, _F, _F,
                                          _F, _P, _P, _P, _P, _P),
     "apt_gain_time_smooth": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
     "apt_sosfilt_zi": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
-    "apt_streaming_suppressor": (_P, _P, _P),
+    "apt_streaming_suppressor": (_P, _P, _I, _P),
     "apt_cascade_sosfilt": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
     "apt_band_noise_scan": (_P, _P, _P),
     "apt_select_peaks_by_distance": (_P, _P, _P, _I, _I, _I, _I, _P),

@@ -1,0 +1,251 @@
+// The mixed-radix shared-memory FFT of K1's mixed route
+// (spectrogram_power.cu) and K8's mixed frame pass (streaming.cu): the
+// half-length complex Stockham transform of M = n / 2 points (n even, the
+// real-input packing z[m] = x[2m] + i x[2m+1] of the power-of-two route)
+// for every M = 2^a q whose odd part q has no prime factor above kMaxPrime.
+// It takes every frame size of the TPU kernel's geometry set (n_fft = 128 m,
+// m <= 32) and most sizes users type (400, 480, 500, 1,000).
+//
+// Plan (mixed_plan_of, mirrored by ops/spectrogram.py::mixed_radices):
+// radix-8 passes while 8 divides the power of two, then one radix-4 or
+// radix-2 pass, then the odd primes in ascending order.  Radix 2, 4 and 8
+// are stockham_fft.cuh's register DFTs; every odd prime p (3 to kMaxPrime)
+// is one register butterfly, dft_odd<p>, in the symmetric form (sums and
+// differences of x_j and x_{p-j}, (p-1)^2 / 2 real multiply-adds).
+//
+// Layout: a tile of ft = 2^lg frames lies frame-fastest in shared memory,
+// point m of frame f at buf[m * ld + f], ld = ft + 1.  A pass's work item u
+// is (frame u & (ft - 1), butterfly u >> lg): the lanes of a warp take the
+// same butterfly of consecutive frames (one twiddle, consecutive addresses;
+// the odd row stride keeps a column walk over points free of bank
+// conflicts too).  A pass reads one buffer and writes the other (Stockham
+// is out of place) and the block synchronises between passes.
+//
+// Twiddles are the host table table[j] = e^{-2 pi i j / n} (float64 rounded
+// to float32, K1's and K8's own table), read as table[(k r n / (NS R))]: no
+// sine on the card.  A frame's arithmetic is the same code in the same
+// order wherever the frame lies in a tile, so its result does not depend on
+// the tile, the chunk or the batch it came in (K8's chunk invariance).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "stockham_fft.cuh"
+
+namespace {
+
+constexpr int kMaxPrime = 31;   // the largest odd prime a pass takes
+constexpr int kMaxPasses = 16;  // passes of a plan (the route's largest M, 7,264, needs 9)
+
+struct MixedPlan {
+  int n_pass;
+  int radix[kMaxPasses];
+};
+
+// The passes of an M-point transform; n_pass = 0 where M < 2 or an odd
+// prime factor passes kMaxPrime.
+__host__ __device__ inline MixedPlan mixed_plan_of(int M) {
+  MixedPlan p;
+  p.n_pass = 0;
+  if (M < 2) return p;
+  int q = M;
+  while (q % 8 == 0) {
+    p.radix[p.n_pass++] = 8;
+    q /= 8;
+  }
+  if (q % 4 == 0) {
+    p.radix[p.n_pass++] = 4;
+    q /= 4;
+  } else if (q % 2 == 0) {
+    p.radix[p.n_pass++] = 2;
+    q /= 2;
+  }
+  for (int f = 3; f <= kMaxPrime && q > 1; f += 2) {
+    while (q % f == 0) {
+      if (p.n_pass == kMaxPasses) {
+        p.n_pass = 0;
+        return p;
+      }
+      p.radix[p.n_pass++] = f;
+      q /= f;
+    }
+  }
+  if (q > 1) p.n_pass = 0;
+  return p;
+}
+
+// Whether a plan needs mixed_fft's kWide instantiation: a radix above 8.
+__host__ __device__ inline bool plan_is_wide(const MixedPlan& p) {
+  for (int i = 0; i < p.n_pass; ++i)
+    if (p.radix[i] > 8) return true;
+  return false;
+}
+
+// The p-point DFT of a[0 .. P-1] in place, natural order, P odd:
+//   X_0 = a_0 + sum_j s_j,  X_k = A_k - i B_k,  X_{P-k} = A_k + i B_k,
+//   A_k = a_0 + sum_j s_j cos(2 pi j k / P),  B_k = sum_j d_j sin(2 pi j k / P),
+// s_j = a_j + a_{P-j}, d_j = a_j - a_{P-j}, j = 1 .. (P-1)/2.  cs[m] =
+// e^{-2 pi i m / P} for m = 1 .. (P-1)/2, from the twiddle table.
+template <int P>
+__device__ __forceinline__ void dft_odd(float2 (&a)[P], const float2 (&cs)[P / 2 + 1]) {
+  constexpr int H = P / 2;
+  float2 s[H + 1], d[H + 1];
+#pragma unroll
+  for (int j = 1; j <= H; ++j) {
+    s[j] = make_float2(a[j].x + a[P - j].x, a[j].y + a[P - j].y);
+    d[j] = make_float2(a[j].x - a[P - j].x, a[j].y - a[P - j].y);
+  }
+  const float2 a0 = a[0];
+  float2 x0 = a0;
+#pragma unroll
+  for (int j = 1; j <= H; ++j) x0 = make_float2(x0.x + s[j].x, x0.y + s[j].y);
+  a[0] = x0;
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 A = a0, B = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int j = 1; j <= H; ++j) {
+      const int m = (j * k) % P;
+      const float c = m <= H ? cs[m].x : cs[P - m].x;
+      const float sn = m <= H ? -cs[m].y : cs[P - m].y;  // sin(2 pi m / P)
+      A = make_float2(A.x + s[j].x * c, A.y + s[j].y * c);
+      B = make_float2(B.x + d[j].x * sn, B.y + d[j].y * sn);
+    }
+    a[k] = make_float2(A.x + B.y, A.y - B.x);
+    a[P - k] = make_float2(A.x - B.y, A.y + B.x);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void butterfly(float2 (&v)[R], const float2 (&cs)[R / 2 + 1]) {
+  if constexpr (R % 2 == 1) {
+    dft_odd<R>(v, cs);
+  } else {
+    dft<R>(v);
+  }
+}
+
+// One Stockham pass of radix R after NS points over a tile of 2^lg frames:
+// butterfly b of a frame reads points b + r M / R, multiplies input r by
+// e^{-2 pi i k r / (NS R)} (k = b mod NS) and writes its outputs to
+// (b / NS) NS R + k + r NS.
+template <int R>
+__device__ __forceinline__ void mixed_pass(const float2* __restrict__ src, float2* __restrict__ dst,
+                                           const float2* __restrict__ table, int n, int NS,
+                                           int lg, int ld) {
+  const int nb = n / 2 / R;
+  const int step = n / (NS * R);
+  float2 cs[R / 2 + 1];
+  if constexpr (R % 2 == 1) {
+#pragma unroll
+    for (int m = 1; m <= R / 2; ++m) cs[m] = __ldg(table + m * (n / R));
+  }
+  const int work = nb << lg, fmask = (1 << lg) - 1;
+  for (int u = threadIdx.x; u < work; u += blockDim.x) {
+    const int f = u & fmask, b = u >> lg;
+    const int q = b / NS, k = b - q * NS;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = src[(b + r * nb) * ld + f];
+    if (k > 0) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], __ldg(table + step * k * r));
+    }
+    butterfly<R>(v, cs);
+    const int o = q * NS * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) dst[(o + r * NS) * ld + f] = v[r];
+  }
+}
+
+// The transform of the tile in `a` (point m of frame f at a[m * ld + f]);
+// `b` is the other buffer.  Every thread of the block calls it; returns the
+// buffer that holds the result, in natural order.  kWide instantiates the
+// primes 11 .. kMaxPrime (their registers would cut the occupancy of the
+// other sizes).
+template <bool kWide>
+__device__ float2* mixed_fft(float2* a, float2* b, const float2* __restrict__ table, int n,
+                             int lg, int ld, const MixedPlan& plan) {
+  int NS = 1;
+  for (int p = 0; p < plan.n_pass; ++p) {
+    const int R = plan.radix[p];
+    switch (R) {
+      case 2: mixed_pass<2>(a, b, table, n, NS, lg, ld); break;
+      case 3: mixed_pass<3>(a, b, table, n, NS, lg, ld); break;
+      case 4: mixed_pass<4>(a, b, table, n, NS, lg, ld); break;
+      case 5: mixed_pass<5>(a, b, table, n, NS, lg, ld); break;
+      case 7: mixed_pass<7>(a, b, table, n, NS, lg, ld); break;
+      case 8: mixed_pass<8>(a, b, table, n, NS, lg, ld); break;
+      default:
+        if constexpr (kWide) {
+          switch (R) {
+            case 11: mixed_pass<11>(a, b, table, n, NS, lg, ld); break;
+            case 13: mixed_pass<13>(a, b, table, n, NS, lg, ld); break;
+            case 17: mixed_pass<17>(a, b, table, n, NS, lg, ld); break;
+            case 19: mixed_pass<19>(a, b, table, n, NS, lg, ld); break;
+            case 23: mixed_pass<23>(a, b, table, n, NS, lg, ld); break;
+            case 29: mixed_pass<29>(a, b, table, n, NS, lg, ld); break;
+            default: mixed_pass<31>(a, b, table, n, NS, lg, ld); break;
+          }
+        }
+    }
+    __syncthreads();
+    float2* const t = a;
+    a = b;
+    b = t;
+    NS *= R;
+  }
+  return a;
+}
+
+// float2 of one tile buffer: `rows` points of ft frames at row stride ft + 1,
+// rounded up to an even count so that the next buffer starts 16-byte aligned
+__host__ __device__ inline int tile_elems(int rows, int ft) { return (rows * (ft + 1) + 1) & ~1; }
+
+// Samples g0 .. g0 + len - 1 of a row of n_row samples (zero outside it)
+// into shared memory at `dst` (16-byte aligned, len + 3 floats): 16-byte
+// loads where the row allows, scalar ones at the ragged ends.  Returns p,
+// p[i] = sample g0 + i.
+__device__ __forceinline__ const float* stage_run(const float* __restrict__ xr, long long n_row,
+                                                  long long g0, int len, float* dst) {
+  const int a = (int)((4 - ((((uintptr_t)xr >> 2) + (unsigned long long)g0) & 3)) & 3);
+  float* const p = dst + ((4 - a) & 3);  // p + a is 16-byte aligned, as xr + g0 + a is
+  const int nv = len > a ? (len - a) >> 2 : 0;
+  for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+    const long long s = g0 + a + 4LL * c;
+    float4 v;
+    if (s >= 0 && s + 4 <= n_row) {
+      v = __ldg(reinterpret_cast<const float4*>(xr + s));
+    } else {
+      v.x = s >= 0 && s < n_row ? xr[s] : 0.f;
+      v.y = s + 1 >= 0 && s + 1 < n_row ? xr[s + 1] : 0.f;
+      v.z = s + 2 >= 0 && s + 2 < n_row ? xr[s + 2] : 0.f;
+      v.w = s + 3 >= 0 && s + 3 < n_row ? xr[s + 3] : 0.f;
+    }
+    *reinterpret_cast<float4*>(p + a + 4 * c) = v;
+  }
+  const int t = threadIdx.x;
+  if (t < 8) {  // the head (i < a) and the tail (i >= a + 4 nv): at most 3 each
+    const int i = t < 4 ? t : a + 4 * nv + t - 4;
+    if (i < len && (t >= 4 || i < a)) {
+      const long long s = g0 + i;
+      p[i] = s >= 0 && s < n_row ? xr[s] : 0.f;
+    }
+  }
+  return p;
+}
+
+// The windowed, packed points of ft frames, frame f's samples at
+// slab[f * sh ..]: buf[m * ld + f] = (w[2m] x[2m], w[2m+1] x[2m+1]).
+__device__ __forceinline__ void pack_frames(const float* slab, int sh,
+                                            const float* __restrict__ window, float2* buf, int M,
+                                            int ft, int ld) {
+  for (int i = threadIdx.x; i < ft * M; i += blockDim.x) {
+    const int f = i / M, m = i - f * M;
+    const float* const s = slab + f * sh + 2 * m;
+    buf[m * ld + f] = make_float2(s[0] * __ldg(window + 2 * m), s[1] * __ldg(window + 2 * m + 1));
+  }
+}
+
+}  // namespace

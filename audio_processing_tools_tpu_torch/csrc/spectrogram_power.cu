@@ -49,23 +49,35 @@
 //    16-byte multiples in general, so there is no bulk store.
 // No library call: the transform is this kernel's own code.
 //
+// The mixed route (apt_spectrogram_power_mixed) takes every even n_fft
+// whose half has no odd prime factor above 31 (mixed_fft.cuh), any hop >= 1:
+// the TPU kernel's own geometry set (n_fft = 128 m, m <= 32, hop n_fft / 2)
+// and the power-of-two sizes at a hop that is not a multiple of 4.  One
+// block a tile of 2^lg frames of one clip: the tile's samples come in with
+// 16-byte loads into one of two shared buffers, the windowed, packed frames
+// go frame-fastest into the other, the mixed-radix Stockham passes run
+// between the two, and each thread writes the split and power of one bin of
+// one frame, consecutive lanes consecutive frames.  Its bound is the
+// function's, by bytes (at 128 x 10 s about 57 MB in and 58 MB out at
+// 384/192 or 2,048/1,024: ~0.034 ms at 3.35 TB/s); an FFT's ~5 n log2 n
+// FLOP a frame keep it there.
+//
 // The DFT route (apt_spectrogram_power_dft) takes every other geometry the
-// JAX package runs, any n_fft >= 1 and hop >= 1: the TPU kernel's own
+// JAX package runs, any n_fft >= 1 and hop >= 1 (an odd n_fft, a prime
+// factor above 31): the TPU kernel's own
 // window-and-DFT product (dft.cuh), one block a tile of frames of one clip.
 // The tile's windowed samples and the twiddle table sit in shared memory,
 // frame-fastest, and each thread sums bin k for FPT frames at once, n_fft
 // FMAs a frame and part, from the twiddles (k m) mod n_fft of the table.
-// The function's own bound is the FFT route's, by bytes (at 128 x 10 s,
-// 57 MB in and about 58 MB out at either 384/192 or 2,048/1,024: ~0.034 ms
-// at 3.35 TB/s); this route does the DFT's 4 n_fft FLOP a bin and frame,
-// so it runs far above that bound.  It serves the sizes the FFT does not
-// take.
+// The function's bound is the same; this route does the DFT's 4 n_fft FLOP
+// a bin and frame, so it runs far above it.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "dft.cuh"
+#include "mixed_fft.cuh"
 #include "stockham_fft.cuh"
 
 namespace {
@@ -349,6 +361,101 @@ cudaError_t launch_dft(const float* x, const float* window, const float* twiddle
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The mixed route: one block a tile of 2^lg frames of one clip.
+// ---------------------------------------------------------------------------
+
+constexpr int kMixedMaxTile = 32;  // frames a block holds at most
+
+// dynamic shared memory of the mixed route (ops/spectrogram.py::_mixed_smem):
+// two tile buffers of M points; the samples are staged in the second
+size_t mixed_smem_for(int n_fft, int frame_tile) {
+  return 16 * (size_t)tile_elems(n_fft / 2, frame_tile);
+}
+
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads)
+spectrogram_power_mixed(const float* __restrict__ x, const float* __restrict__ window,
+                        const float2* __restrict__ twiddle, float* __restrict__ out, int N,
+                        int T, int n_fft, int hop, int pad, int lg, int n_tiles, MixedPlan plan) {
+  extern __shared__ float4 smem4[];
+  const int M = n_fft / 2, F = M + 1, ft = 1 << lg, ld = ft + 1;
+  float2* const buf_a = reinterpret_cast<float2*>(smem4);
+  float2* const buf_b = buf_a + tile_elems(M, ft);
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x - b * n_tiles) * ft;
+  const float* const xb = x + (size_t)b * N;
+  const long long g0 = (long long)t0 * hop - pad;
+  float* const stage = reinterpret_cast<float*>(buf_b);
+
+  // ---- the tile's samples: one run where frames overlap or touch, else
+  // frame by frame; frame f's sample m at slab[f * sh + m] ----
+  const float* slab = stage;
+  int sh = hop;
+  if (hop <= n_fft) {
+    slab = stage_run(xb, N, g0, (ft - 1) * hop + n_fft, stage);
+  } else {
+    sh = n_fft;
+    for (int i = threadIdx.x; i < ft * n_fft; i += blockDim.x) {
+      const int f = i / n_fft, m = i - f * n_fft;
+      const long long s = g0 + (long long)f * hop + m;
+      stage[i] = s >= 0 && s < N ? xb[s] : 0.f;
+    }
+  }
+  __syncthreads();
+  pack_frames(slab, sh, window, buf_a, M, ft, ld);
+  __syncthreads();
+  const float2* const Z = mixed_fft<kWide>(buf_a, buf_b, twiddle, n_fft, lg, ld, plan);
+
+  // ---- the real split and the power of bin k of frame f ----
+  for (int i = threadIdx.x; i < (F << lg); i += blockDim.x) {
+    const int f = i & (ft - 1), k = i >> lg;
+    if (t0 + f >= T) continue;
+    float p;
+    if (k == M) {
+      const float2 z0 = Z[f];
+      const float d = z0.x - z0.y;
+      p = d * d;
+    } else {
+      const float2 zk = Z[k * ld + f];
+      const float2 zm = Z[(k == 0 ? 0 : M - k) * ld + f];
+      const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
+      const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
+      const float2 w = __ldg(twiddle + k);
+      const float xr = ar + (w.x * di + w.y * dr);
+      const float xi = ai - (w.x * dr - w.y * di);
+      p = xr * xr + xi * xi;
+    }
+    out[((size_t)b * F + k) * T + t0 + f] = p;
+  }
+}
+
+template <bool kWide>
+cudaError_t launch_mixed(const float* x, const float* window, const float* twiddle, float* out,
+                         int B, int N, int T, int n_fft, int hop, int pad, int frame_tile,
+                         size_t smem, const MixedPlan& plan, cudaStream_t stream) {
+  static int dev_set = -1;
+  static size_t smem_set = 0;
+  auto kernel = spectrogram_power_mixed<kWide>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != dev_set || smem > smem_set) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dev_set = dev;
+    smem_set = smem;
+  }
+  int lg = 0;
+  while ((1 << lg) < frame_tile) ++lg;
+  const int n_tiles = (T + frame_tile - 1) / frame_tile;
+  if ((long long)B * n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<B * n_tiles, kThreads, smem, stream>>>(x, window,
+                                                   reinterpret_cast<const float2*>(twiddle), out,
+                                                   N, T, n_fft, hop, pad, lg, n_tiles, plan);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The DFT route: any n_fft >= 1 and hop >= 1 whose plan fits (dft_plan_for);
@@ -368,6 +475,31 @@ extern "C" int apt_spectrogram_power_dft(const float* x, const float* window,
   if (p.tw_shared)
     return (int)launch_dft<1, 1, true>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, p.smem, s);
   return (int)launch_dft<1, 1, false>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, p.smem, s);
+}
+
+// The mixed route: an even n_fft >= 4 whose half has a plan (mixed_plan_of),
+// any hop >= 1; frame_tile (a power of two up to kMixedMaxTile) and
+// smem_bytes: ops/spectrogram.py::mixed_launch_plan, whose layout must equal
+// this file's own (mixed_smem_for).  Tables as for the FFT route.
+extern "C" int apt_spectrogram_power_mixed(const float* x, const float* window,
+                                           const float* twiddle, float* out, int B, int N, int T,
+                                           int n_fft, int hop, int pad, int frame_tile,
+                                           int smem_bytes, void* stream) {
+  const bool pow2_tile =
+      frame_tile >= 1 && frame_tile <= kMixedMaxTile && (frame_tile & (frame_tile - 1)) == 0;
+  if (n_fft < 4 || n_fft % 2 != 0 || hop < 1 || !pow2_tile || B <= 0 || T <= 0 || N < 0 ||
+      pad < 0)
+    return (int)cudaErrorInvalidValue;
+  const MixedPlan plan = mixed_plan_of(n_fft / 2);
+  if (plan.n_pass == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = mixed_smem_for(n_fft, frame_tile);
+  if (smem != (size_t)smem_bytes || smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (plan_is_wide(plan))
+    return (int)launch_mixed<true>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, frame_tile,
+                                   smem, plan, s);
+  return (int)launch_mixed<false>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, frame_tile,
+                                  smem, plan, s);
 }
 
 // window: n_fft floats; twiddle: n_fft (re, im) pairs, e^{-2 pi i k / n_fft};

@@ -51,7 +51,13 @@
 //     the block holding frame T - 1 writes the new tail.  This FFT route
 //     takes n_fft from 64 to 1024, a power of two, as K1's FFT does (below
 //     64 a group of n_fft / 16 threads would be under 4).
-//  B'. the DFT frame pass, for every other n_fft = 2 hop: the same tiles,
+//  B'. the mixed frame pass, for every other even n_fft = 2 hop whose half
+//     has no odd prime factor above 31 (384, 2,048 among them): the same
+//     tiles and overlap-add with K1's mixed-radix FFT (mixed_fft.cuh), a
+//     tile's frames frame-fastest in two shared buffers, the forward
+//     transform, the real split and band scaling, the inverse's input and
+//     the inverse transform each a block-wide step between them.
+//  B''. the DFT frame pass, for every other n_fft = 2 hop: the same tiles,
 //     staging and overlap-add, with K1's direct DFT (dft.cuh) in place of
 //     the FFT: the tile's windowed frames frame-fastest in shared memory,
 //     each thread one bin (forward) or one sample (inverse) of four frames,
@@ -74,6 +80,7 @@
 #include <stdint.h>
 
 #include "dft.cuh"
+#include "mixed_fft.cuh"
 #include "stockham_fft.cuh"
 
 namespace {
@@ -825,7 +832,123 @@ suppressor_frames(SupIO io, SupConsts c, int slots, int n_tiles) {
 }
 
 // ---------------------------------------------------------------------------
-// B'. the DFT frame pass
+// B'. the mixed frame pass
+// ---------------------------------------------------------------------------
+
+// shared bytes of a mixed frame-pass block holding `slots` frames (a power
+// of two): two tile buffers of n_fft / 2 + 1 points (the samples are staged
+// in the second) | the gains
+__host__ __device__ inline int mixed_frame_smem(int n_fft, int K, int slots) {
+  return 16 * tile_elems(n_fft / 2 + 1, slots) + 4 * slots * K;
+}
+
+// the most slots (a power of two, at most kMinSlots, at least 2) that fit
+int mixed_slots(int n_fft, int K) {
+  for (int slots = kMinSlots; slots >= 2; slots /= 2)
+    if (mixed_frame_smem(n_fft, K, slots) <= kSmemLimit) return slots;
+  return 0;
+}
+
+template <bool kWide>
+__global__ void __launch_bounds__(kFrameThreads)
+suppressor_frames_mixed(SupIO io, SupConsts c, int lg, int n_tiles, MixedPlan plan) {
+  extern __shared__ float4 smem4[];
+  const int N = c.n_fft, hop = c.hop, M = N / 2, K = c.K, T = c.n_frames;
+  const int slots = 1 << lg, ld = slots + 1, FT = slots - 1;
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x - b * n_tiles) * FT;
+  float2* const buf_a = reinterpret_cast<float2*>(smem4);
+  float2* const buf_b = buf_a + tile_elems(M + 1, slots);
+  float* const gains = reinterpret_cast<float*>(buf_b + tile_elems(M + 1, slots));  // [slots][K]
+  const float* const window = io.tables;
+  const float* const inv_ws = io.tables + N;
+  const float2* const tw = reinterpret_cast<const float2*>(io.tables + N + hop);
+  const int tid = threadIdx.x;
+
+  // ---- stage the tile's samples (slot s: frame t0 - 1 + s) and gains ----
+  const float* const slab = stage_run(io.xa + (long long)b * io.xa_len, io.xa_len,
+                                      (long long)(t0 - 1) * hop, FT * hop + N,
+                                      reinterpret_cast<float*>(buf_b));
+  const float* const grow = io.gain + (long long)b * K * T;
+  for (int i = tid; i < slots * K; i += kFrameThreads) {
+    const int k = i / slots, sl = i - k * slots;
+    const int t = t0 - 1 + sl;
+    gains[sl * K + k] = (t >= 0 && t < T) ? grow[(long long)k * T + t] : 0.f;
+  }
+  __syncthreads();
+  pack_frames(slab, hop, window, buf_a, M, slots, ld);
+  __syncthreads();
+
+  // ---- forward: Z = FFT_M(x[2m] + i x[2m+1]) of every slot ----
+  float2* const Z = mixed_fft<kWide>(buf_a, buf_b, tw, N, lg, ld, plan);
+  float2* const X = Z == buf_a ? buf_b : buf_a;
+
+  // ---- the real split, X[k] for k <= M, the band rows scaled by the
+  // frame's gain; the inverse real FFT takes the real part of bins 0 and M ----
+  for (int i = tid; i < ((M + 1) << lg); i += kFrameThreads) {
+    const int f = i & (slots - 1), k = i >> lg;
+    float2 v;
+    if (k < M) {
+      const float2 zk = Z[k * ld + f];
+      const float2 zm = Z[(k == 0 ? 0 : M - k) * ld + f];
+      const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
+      const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
+      const float2 w = __ldg(tw + k);
+      v = make_float2(ar + (w.x * di + w.y * dr), ai - (w.x * dr - w.y * di));
+    } else {
+      const float2 z0 = Z[f];
+      v = make_float2(z0.x - z0.y, 0.f);
+    }
+    const int kb = k - c.row0;
+    if (kb >= 0 && kb < K) {
+      const float g = gains[f * K + kb];
+      v = make_float2(__fmul_rn(v.x, g), __fmul_rn(v.y, g));
+    }
+    if (k == 0 || k == M) v.y = 0.f;
+    X[k * ld + f] = v;
+  }
+  __syncthreads();
+
+  // ---- inverse: 2 Z[k] = (X[k] + conj X[M-k]) + i (X[k] - conj X[M-k])
+  // e^{2 pi i k / N}, into Z's buffer as conj(2 Z); then x[2m] + i x[2m+1]
+  // = conj(FFT_M(conj 2Z))[m] / N ----
+  for (int i = tid; i < (M << lg); i += kFrameThreads) {
+    const int f = i & (slots - 1), k = i >> lg;
+    const float2 xk = X[k * ld + f];
+    const float2 xr = X[(M - k) * ld + f];
+    const float ar = xk.x + xr.x, ai = xk.y - xr.y;
+    const float dr = xk.x - xr.x, di = xk.y + xr.y;
+    const float2 w = __ldg(tw + k);  // e^{-2 pi i k / N}
+    const float br = dr * w.x + di * w.y, bi = di * w.x - dr * w.y;
+    Z[k * ld + f] = make_float2(ar - bi, -(ai + br));
+  }
+  __syncthreads();
+  const float2* const Y = mixed_fft<kWide>(Z, X, tw, N, lg, ld, plan);
+
+  // ---- the overlap-add of frames t0 .. t0 + nf - 1: one run of y; sample
+  // j of slot s's windowed inverse is rec(s, j), the carried tail at frame 0 ----
+  const float inv_n = 1.f / (float)N;
+  auto rec = [&](int s, int j) {
+    const float2 v = Y[(j >> 1) * ld + s];
+    return (j & 1) ? (-v.y * inv_n) * __ldg(window + j) : (v.x * inv_n) * __ldg(window + j);
+  };
+  const float* const ola = io.ola + (long long)b * (N - hop);
+  const int nf = min(FT, T - t0);
+  float* const yb = io.y + (long long)b * T * hop + (long long)t0 * hop;
+  for (int i = tid; i < nf * hop; i += kFrameThreads) {
+    const int f = i / hop, n = i - f * hop;  // frame t0 + f is slot f + 1
+    const float prev = (f == 0 && t0 == 0) ? ola[n] : rec(f, hop + n);
+    yb[i] = __fmul_rn(__fadd_rn(rec(f + 1, n), prev), __ldg(inv_ws + n));
+  }
+  if (t0 + FT >= T) {  // frame T - 1 is here: its tail is the next chunk's
+    const int s = T - t0;
+    for (int i = tid; i < N - hop; i += kFrameThreads)
+      io.o_ola[(long long)b * (N - hop) + i] = rec(s, hop + i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B''. the DFT frame pass
 // ---------------------------------------------------------------------------
 
 constexpr int kDftFpt = 4;  // frames a thread sums at once
@@ -975,6 +1098,24 @@ cudaError_t launch_walk(const SupIO& io, const SupConsts& c, const Plan& p, cuda
   }
 }
 
+template <bool kWide>
+cudaError_t launch_frames_mixed(const SupIO& io, const SupConsts& c, const MixedPlan& plan,
+                                cudaStream_t s) {
+  static int dev_set = -1, smem_set = 0;
+  const int slots = mixed_slots(c.n_fft, c.K);
+  if (slots == 0) return cudaErrorInvalidValue;
+  const int smem = mixed_frame_smem(c.n_fft, c.K, slots);
+  auto kernel = suppressor_frames_mixed<kWide>;
+  const cudaError_t err = allow_smem((const void*)kernel, smem, dev_set, smem_set);
+  if (err != cudaSuccess) return err;
+  int lg = 0;
+  while ((1 << lg) < slots) ++lg;
+  const int n_tiles = (c.n_frames + slots - 2) / (slots - 1);
+  if ((long long)n_tiles * c.n_streams > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<n_tiles * c.n_streams, kFrameThreads, smem, s>>>(io, c, lg, n_tiles, plan);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_frames_dft(const SupIO& io, const SupConsts& c, cudaStream_t s) {
   static int dev_set = -1, smem_set = 0;
   const int slots = dft_slots(c.n_fft, c.K);
@@ -995,15 +1136,19 @@ bool fft_route(int n_fft) {
 
 }  // namespace
 
-// One chunk of B streams; see SupIO and SupConsts.  Refuses what the
-// kernels do not take (models/streaming.py::k8_check_geometry says the
-// same): n_fft not 2 hop, band bins outside the spectrum or more than 4,096
-// of them (four a walk thread), more SNR columns than band bins, shared
-// memory past a block's.  The FFT frame pass takes a power-of-two n_fft
-// from 64 to 1024, the DFT frame pass every other.
+// One chunk of B streams; see SupIO and SupConsts.  `route` is the frame
+// pass, chosen by the caller from the geometry (models/streaming.py::
+// k8_route): 0 the FFT pass (a power-of-two n_fft from 64 to 1024), 1 the
+// mixed pass (an n_fft whose half has a plan, mixed_plan_of), 2 the DFT
+// pass (any n_fft).  Refuses what the kernels do not take
+// (models/streaming.py::k8_check_geometry says the same): a route that does
+// not take n_fft, n_fft not 2 hop, band bins outside the spectrum or more
+// than 4,096 of them (four a walk thread), more SNR columns than band bins,
+// shared memory past a block's.
 // (The structures are passed as untyped pointers: a function whose
 // parameter types lie in an unnamed namespace gets internal linkage.)
-extern "C" int apt_streaming_suppressor(const void* io_ptr, const void* c_ptr, void* stream) {
+extern "C" int apt_streaming_suppressor(const void* io_ptr, const void* c_ptr, int route,
+                                        void* stream) {
   const SupIO* io = static_cast<const SupIO*>(io_ptr);
   const SupConsts* c = static_cast<const SupConsts*>(c_ptr);
   const int N = c->n_fft;
@@ -1012,15 +1157,21 @@ extern "C" int apt_streaming_suppressor(const void* io_ptr, const void* c_ptr, v
       c->n_taps < 0 || (c->n_taps > 0 && io->taps == nullptr) || c->n_snr < 0 ||
       c->n_snr > c->K || c->n_frames < 1 || c->n_streams < 1 || io->gain == nullptr)
     return (int)cudaErrorInvalidValue;
-  const bool fft = fft_route(N);
+  const MixedPlan mixed = mixed_plan_of(N / 2);
+  if (route < 0 || route > 2 || (route == 0 && !fft_route(N)) || (route == 1 && mixed.n_pass == 0))
+    return (int)cudaErrorInvalidValue;
   const Plan p = plan_for(*c);
   if (p.walk_threads > kMaxWalkThreads || p.walk_smem > kSmemLimit ||
-      (fft && p.frame_smem > kSmemLimit) || (!fft && dft_slots(N, c->K) == 0))
+      (route == 0 && p.frame_smem > kSmemLimit) || (route == 1 && mixed_slots(N, c->K) == 0) ||
+      (route == 2 && dft_slots(N, c->K) == 0))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_walk(*io, *c, p, s);
   if (err != cudaSuccess) return (int)err;
-  if (!fft) return (int)launch_frames_dft(*io, *c, s);
+  if (route == 1)
+    return (int)(plan_is_wide(mixed) ? launch_frames_mixed<true>(*io, *c, mixed, s)
+                                     : launch_frames_mixed<false>(*io, *c, mixed, s));
+  if (route == 2) return (int)launch_frames_dft(*io, *c, s);
   switch (N) {
     case 64: return (int)launch_frames<32>(*io, *c, p, s);
     case 128: return (int)launch_frames<64>(*io, *c, p, s);

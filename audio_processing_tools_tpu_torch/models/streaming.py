@@ -58,7 +58,13 @@ from audio_processing_tools_tpu_torch.models.spectral_noise import (
 from audio_processing_tools_tpu_torch.ops._device import device_constant, sorted_keys
 from audio_processing_tools_tpu_torch.ops.filters import k7_state_dtype, sosfilt
 from audio_processing_tools_tpu_torch.ops.framing import frame_signal
-from audio_processing_tools_tpu_torch.ops.spectrogram import N_FFTS, kernel_tables, spectrogram_power
+from audio_processing_tools_tpu_torch.ops.spectrogram import (
+    N_FFTS,
+    kernel_tables,
+    mixed_radices,
+    spectrogram_power,
+    tile_elems,
+)
 from audio_processing_tools_tpu_torch.ops.stats import nan_to_num, tree_sum
 from audio_processing_tools_tpu_torch.ops.stft import fft_frequencies
 from audio_processing_tools_tpu_torch.ops.trackers import (
@@ -184,9 +190,23 @@ def _freq_taps(cfg: NoiseConfig) -> np.ndarray:
 
 
 def k8_route(n_fft: int) -> str:
-    """K8's frame pass for an ``n_fft``: ``"fft"`` (K1's shared-memory FFT,
-    a power of two from 64 to 1024) or ``"dft"`` (the direct DFT)."""
-    return "fft" if n_fft in N_FFTS else "dft"
+    """K8's frame pass for an ``n_fft``: ``"fft"`` (K1's power-of-two
+    shared-memory FFT, 64 to 1024), ``"mixed"`` (K1's mixed-radix FFT, an
+    even n_fft whose half has a plan, :func:`mixed_radices`) or ``"dft"``
+    (the direct DFT, every other)."""
+    if n_fft in N_FFTS:
+        return "fft"
+    return "mixed" if n_fft % 2 == 0 and mixed_radices(n_fft // 2) is not None else "dft"
+
+
+def k8_mixed_slots(n_fft: int, K: int) -> int:
+    """Frames a block of K8's mixed frame pass holds (``mixed_slots`` in the
+    kernel's source): the most of 16, 8, 4, 2 whose two tile buffers of
+    n_fft / 2 + 1 points and gains fit a block's shared memory, else 0."""
+    for slots in (16, 8, 4, 2):
+        if 16 * tile_elems(n_fft // 2 + 1, slots) + 4 * slots * K <= _K8_SMEM_LIMIT:
+            return slots
+    return 0
 
 
 def k8_dft_slots(n_fft: int, K: int) -> int:
@@ -208,21 +228,43 @@ def k8_walk_smem(K: int, n_taps: int, n_snr: int) -> int:
     return 4 * 4 * (2 * (K + 2 * pad) + 2 * K + 2 * m) + 4 * n_taps
 
 
-def k8_check_geometry(n_fft: int, hop: int, K: int, n_taps: int, n_snr: int) -> None:
+#: K8's frame passes as its launcher numbers them
+K8_ROUTES = {"fft": 0, "mixed": 1, "dft": 2}
+
+
+def k8_check_geometry(n_fft: int, hop: int, K: int, n_taps: int, n_snr: int,
+                      route: str | None = None) -> None:
     """``ValueError`` for a geometry K8 does not take, as its launcher
     refuses it: ``hop != n_fft / 2`` (the JAX package refuses it too), band
     bins outside 1 to n_fft / 2 + 1, more SNR columns than band bins; and
     beyond what the JAX package refuses, more than :data:`K8_MAX_BINS` band
-    bins, a walk or a DFT frame pass whose smallest tile does not fit a
-    block's shared memory.  Any number of taps that fits."""
+    bins, a walk whose block does not fit shared memory, or a frame pass
+    whose smallest tile does not: the mixed pass's two frames or the DFT
+    pass's four, whichever ``route`` names (by default :func:`k8_route`'s;
+    the FFT pass's always fit), or a route that does not take ``n_fft``.
+    Any number of taps that fits."""
     if (n_fft < 2 or 2 * hop != n_fft or not 1 <= K <= n_fft // 2 + 1 or n_taps < 0
-            or not 0 <= n_snr <= K or K > K8_MAX_BINS
-            or k8_walk_smem(K, n_taps, n_snr) > _K8_SMEM_LIMIT
-            or (k8_route(n_fft) == "dft" and k8_dft_slots(n_fft, K) == 0)):
+            or not 0 <= n_snr <= K or K > K8_MAX_BINS):
         raise ValueError(f"streaming_suppressor: the CUDA kernel takes hop = n_fft / 2, 1 to "
                          f"min(n_fft / 2 + 1, {K8_MAX_BINS}) band bins and at most K SNR "
                          f"columns; got n_fft {n_fft}, hop {hop}, K {K}, {n_taps} taps, "
                          f"{n_snr} columns")
+    if k8_walk_smem(K, n_taps, n_snr) > _K8_SMEM_LIMIT:
+        raise ValueError(f"streaming_suppressor: the walk's block over K {K} band bins, "
+                         f"{n_taps} taps and {n_snr} SNR columns needs "
+                         f"{k8_walk_smem(K, n_taps, n_snr)} bytes of shared memory, more than "
+                         f"{_K8_SMEM_LIMIT}")
+    auto = k8_route(n_fft)
+    route = auto if route is None else route
+    if route not in K8_ROUTES or (route != "dft" and route != auto):
+        raise ValueError(f"streaming_suppressor: the {route} frame pass does not take n_fft "
+                         f"{n_fft}")
+    slots = {"mixed": k8_mixed_slots, "dft": k8_dft_slots}.get(route)
+    if slots is not None and slots(n_fft, K) == 0:
+        tile = {"mixed": "two frames", "dft": "four frames"}[route]
+        raise ValueError(f"streaming_suppressor: the {route} frame pass's smallest tile "
+                         f"({tile} of n_fft {n_fft} with K {K} band bins) does not fit "
+                         f"{_K8_SMEM_LIMIT} bytes of shared memory")
 
 
 class Suppressor:
@@ -347,10 +389,13 @@ def _suppressor_plain(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
 
 def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
                      frame_class: torch.Tensor, noise_conf: torch.Tensor,
-                     frame_idx: torch.Tensor, carry: SupCarry, want_gain: bool = False):
+                     frame_idx: torch.Tensor, carry: SupCarry, want_gain: bool = False,
+                     route: str | None = None):
     """K8 on the card, its two launches (the walk, then the frame pass)
     counted as one; returns what :func:`_suppressor_plain` returns, the
-    gain only when ``want_gain``."""
+    gain only when ``want_gain``.  ``route`` is the frame pass,
+    :func:`k8_route`'s by default (``"dft"`` takes every n_fft, for
+    comparisons)."""
     st = sup.st
     B, T = frame_class.shape
     K, hop, n_fft = sup.K, st.hop, st.n_fft
@@ -372,7 +417,8 @@ def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
         (G_prev, B * K, torch.float32), (ola, B * (n_fft - hop), torch.float32))]
     cin[5] = cin[5].view(torch.uint8)
     c = sup.consts(B, T)
-    k8_check_geometry(n_fft, hop, K, int(sup.taps.size), c.n_snr)
+    route = k8_route(n_fft) if route is None else route
+    k8_check_geometry(n_fft, hop, K, int(sup.taps.size), c.n_snr, route)
     y = torch.empty((B, T * hop), dtype=torch.float32, device=dev)
     out = [torch.empty_like(v) for v in cin]
     gain = torch.empty((B, K, T), dtype=torch.float32, device=dev)  # the walk's output, scratch
@@ -400,7 +446,7 @@ def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
     lib = _kernels.build()
     with torch.cuda.device(dev):
         err = lib.lib.apt_streaming_suppressor(ctypes.addressof(io), ctypes.addressof(c),
-                                               _kernels.stream_of(xa))
+                                               K8_ROUTES[route], _kernels.stream_of(xa))
     lib.check(err, "streaming_suppressor")
     _kernels.count("streaming_suppressor")
     lane, clip = trk.shape, wc.shape
@@ -590,7 +636,7 @@ class StreamingRainDetector:
         }
         if st.td_sos is not None:
             S = st.td_sos.shape[0]
-            state["td_zi"] = zeros(S, 2, dtype=k7_state_dtype(S))
+            state["td_zi"] = zeros(S, 2, dtype=k7_state_dtype(st.td_sos))
         if self.emit_audio:
             self.suppressor()  # validates the configuration now
             state["sup_psd"] = psd()

@@ -34,6 +34,7 @@ Counterpart of ``audio_processing_tools_tpu/ops/filters.py``.
 
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 
 import numpy as np
@@ -621,13 +622,55 @@ def _sos_coefficients(sos: np.ndarray) -> np.ndarray:
 #: sections one K7 launch takes; a longer cascade is consecutive launches
 K7_MAX_SECTIONS = 8
 
+#: the largest noise gain of a cascade's states (:func:`k7_noise_gain`
+#: summed over its sections) at which K7 keeps a float32 state: float32's
+#: unit roundoff times it is 6e-5; in ``tools/sweep_k7_state.py``'s 159
+#: designs at 11,162 Hz every design at or under it keeps the float32
+#: state's error, y and zf against float64, under half the filters' 1e-5
+#: bound, and every design whose error passes the bound is over it
+K7_FLOAT32_MAX_GAIN = 1000.0
 
-def k7_state_dtype(n_sections: int) -> torch.dtype:
+
+def k7_noise_gain(a1: float, a2: float) -> float:
+    """The l1 noise gain of one section's state recurrence
+    ``z <- A z``, ``A = [[-a1, 1], [-a2, 0]]``: the sum over n >= 0 of the
+    absolute entries of ``A^n``, in float64.  A rounding of the state is
+    carried into every later state and output with these weights, so the
+    float32 state's error grows with it (poles near the unit circle at a
+    small angle, a high-pass at a low cutoff).  The sum stops once it passes
+    ten times :data:`K7_FLOAT32_MAX_GAIN` or its terms fall below 1e-12 of
+    it."""
+    p00, p01, p10, p11 = 1.0, 0.0, 0.0, 1.0  # A^n
+    total, cap = 0.0, 10.0 * K7_FLOAT32_MAX_GAIN
+    while True:
+        term = abs(p00) + abs(p01) + abs(p10) + abs(p11)
+        total += term
+        if total > cap or term < 1e-12 * total:
+            return total
+        p00, p01, p10, p11 = (-a1 * p00 + p10, -a1 * p01 + p11, -a2 * p00, -a2 * p01)
+
+
+def k7_state_dtype(sos: np.ndarray) -> torch.dtype:
     """The dtype of K7's state (``zi``, ``zf`` and the recurrence) for a
-    cascade of ``n_sections``: float32 up to :data:`K7_MAX_SECTIONS`
-    sections (one launch), float64 beyond, where the float32 state's
-    rounding reaches 1e-5 of ``zf``'s maximum."""
-    return torch.float32 if n_sections <= K7_MAX_SECTIONS else torch.float64
+    design ``sos`` ((S, 6), a0 = 1): float64 past :data:`K7_MAX_SECTIONS`
+    sections, and up to them where the sections' :func:`k7_noise_gain`
+    sum past :data:`K7_FLOAT32_MAX_GAIN` (each section's state rounding
+    reaches the output through the sections after it); float32 otherwise,
+    which keeps both default prefilters (350 Hz 4th-order high-pass, gain
+    287; 400-3,500 Hz 4th-order band-pass, 229) at float32's speed.
+    Computed once per design on the host."""
+    sos = np.ascontiguousarray(sos, np.float64)
+    if sos.ndim != 2 or sos.shape[1] != 6:
+        raise ValueError(f"k7_state_dtype takes second-order sections (S, 6); got {sos.shape}")
+    return _k7_state_dtype(sos.tobytes())
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_state_dtype(key: bytes) -> torch.dtype:
+    sos = np.frombuffer(key, np.float64).reshape(-1, 6)
+    hard = sos.shape[0] > K7_MAX_SECTIONS or sum(
+        k7_noise_gain(a1 / a0, a2 / a0) for a0, a1, a2 in sos[:, 3:6]) > K7_FLOAT32_MAX_GAIN
+    return torch.float64 if hard else torch.float32
 
 
 def _sosfilt_zi_plain(coef: torch.Tensor, x: torch.Tensor, zi: torch.Tensor):
@@ -699,12 +742,19 @@ def k7_groups(n_sections: int):
 
 def _sosfilt_zi_cuda(coef: torch.Tensor, x: torch.Tensor, zi: torch.Tensor):
     """K7: ``(y, zf)`` on the card, one launch per group of
-    :func:`k7_groups`, the state in :func:`k7_state_dtype`."""
+    :func:`k7_groups`, the state in ``zi``'s dtype: the design's
+    :func:`k7_state_dtype`, which the caller chose (:func:`sosfilt` does);
+    float32 or float64 up to 8 sections, float64 beyond.  The table
+    ``coef`` is float32 in either case."""
     R, n = x.shape
     S = coef.shape[0]
     _kernels.require_cuda("sosfilt", x, torch.float32, 2)
     _kernels.require_cuda("sosfilt(coef)", coef, torch.float32, 2)
-    _kernels.require_cuda("sosfilt(zi)", zi, k7_state_dtype(S), 3)
+    _kernels.require_cuda("sosfilt(zi)", zi, zi.dtype, 3)
+    states = (torch.float64,) if S > K7_MAX_SECTIONS else (torch.float32, torch.float64)
+    if zi.dtype not in states:
+        raise TypeError(f"sosfilt(zi): the state of {S} sections is one of {states}; "
+                        f"got {zi.dtype}")
     if zi.shape != (R, S, 2) or zi.device != x.device or coef.device != x.device:
         raise ValueError(f"sosfilt: zi must be ({R}, {S}, 2) on {x.device}; got {tuple(zi.shape)}")
     if S < 1:
@@ -737,8 +787,8 @@ def sosfilt(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor | None = None):
     tensor); returns ``y``.  With ``zi`` ((S, 2) or (..., S, 2)): returns
     ``(y, zf)``, kernel K7 on a CUDA tensor and its plain loop on a CPU
     tensor, the streaming detector's prefilter.  ``zi`` is taken in, and
-    ``zf`` returned in, :func:`k7_state_dtype` (float32 up to 8 sections,
-    float64 beyond); carrying ``zf`` into the next call as ``zi`` gives the
+    ``zf`` returned in, :func:`k7_state_dtype` (float64 past 8 sections and
+    at designs whose float32 state loses bits, float32 otherwise); carrying ``zf`` into the next call as ``zi`` gives the
     bits of one call over the whole stream."""
     sos = np.asarray(sos, dtype=np.float64)
     x = x.to(torch.float32)
@@ -747,7 +797,7 @@ def sosfilt(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor | None = None):
     S = sos.shape[0]
     lead, n = x.shape[:-1], x.shape[-1]
     xr = x.reshape(-1, n).contiguous()
-    zir = zi.to(k7_state_dtype(S)).expand(lead + (S, 2)).reshape(-1, S, 2).contiguous()
+    zir = zi.to(k7_state_dtype(sos)).expand(lead + (S, 2)).reshape(-1, S, 2).contiguous()
     coef = device_constant(("sos_coefficients", sos.tobytes()), x.device,
                            lambda: _sos_coefficients(sos))
     if x.device.type == "cpu":

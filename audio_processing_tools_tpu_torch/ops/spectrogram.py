@@ -7,10 +7,13 @@ window, the real DFT and the power into one pass.  Here that kernel is
 is :func:`~audio_processing_tools_tpu_torch.ops.stft.stft_power`.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the kernel or
-raises: there is no fallback.  The kernel has two routes, picked from the
+raises: there is no fallback.  The kernel has three routes, picked from the
 geometry alone by :func:`k1_route`: the FFT for a power-of-two ``n_fft``
 from 64 to 1024 with a ``hop`` that is a multiple of 4 (the main path's
-256/128), and the direct DFT (the TPU kernel's window-and-DFT product) for
+256/128); the mixed-radix FFT (``csrc/mixed_fft.cuh``) for every even
+``n_fft`` whose half has no odd prime factor above :data:`MIXED_MAX_PRIME`,
+at any ``hop`` (the TPU kernel's own sizes ``128 m``, ``m <= 32``, among
+them); and the direct DFT (the TPU kernel's window-and-DFT product) for
 every other ``n_fft >= 1`` and ``hop >= 1`` up to :data:`DFT_MAX_N_FFT`.
 """
 
@@ -39,16 +42,88 @@ N_FFTS = (64, 128, 256, 512, 1024)
 DFT_MAX_N_FFT = SMEM_LIMIT // 4
 
 
+#: the largest odd prime factor of n_fft / 2 the mixed route takes
+#: (``kMaxPrime`` of ``csrc/mixed_fft.cuh``)
+MIXED_MAX_PRIME = 31
+#: frames a block of the mixed route holds at most (``kMixedMaxTile``)
+MIXED_MAX_TILE = 32
+
+
+def mixed_radices(M: int):
+    """The passes of the mixed route's M-point transform, in order
+    (``mixed_plan_of`` in ``csrc/mixed_fft.cuh``): radix 8 while 8 divides
+    the power of two, then one radix 4 or 2, then the odd primes ascending;
+    ``None`` where ``M < 2`` or an odd prime factor passes
+    :data:`MIXED_MAX_PRIME`."""
+    if M < 2:
+        return None
+    radices, q = [], M
+    while q % 8 == 0:
+        radices.append(8)
+        q //= 8
+    if q % 4 == 0:
+        radices.append(4)
+        q //= 4
+    elif q % 2 == 0:
+        radices.append(2)
+        q //= 2
+    for f in range(3, MIXED_MAX_PRIME + 1, 2):
+        while q % f == 0:
+            radices.append(f)
+            q //= f
+    return tuple(radices) if q == 1 else None
+
+
+def tile_elems(rows: int, frame_tile: int) -> int:
+    """float2 of one tile buffer (``tile_elems``): ``rows`` points of the
+    tile's frames at row stride ``frame_tile + 1``, rounded up to even."""
+    return (rows * (frame_tile + 1) + 1) // 2 * 2
+
+
+def _mixed_smem(n_fft: int, frame_tile: int) -> int:
+    """Shared memory of one block of the mixed route, as ``mixed_smem_for``
+    in the kernel's source: two tile buffers of n_fft / 2 points (the
+    samples are staged in the second)."""
+    return 16 * tile_elems(n_fft // 2, frame_tile)
+
+
+def mixed_launch_plan(n_fft: int) -> LaunchPlan:
+    """The mixed route's frame tile and shared memory: the largest power of
+    two up to :data:`MIXED_MAX_TILE` frames whose block takes at most a
+    quarter of :data:`SMEM_LIMIT` (four blocks an SM), else one frame up to
+    the whole limit: the fastest tile at 384, 400, 640, 768 and 2,048 on an
+    H100 80GB HBM3 at 700 W (``tools/time_mixed_tiles.py``; at 384/192 and
+    128 x 10 s, 0.1280 ms with 16 frames a block against 0.1740 with 32).
+    Raises ``ValueError`` where even one frame does not fit."""
+    for ft in (32, 16, 8, 4, 2, 1):
+        if _mixed_smem(n_fft, ft) <= SMEM_LIMIT // 4:
+            return LaunchPlan(ft, _mixed_smem(n_fft, ft))
+    if _mixed_smem(n_fft, 1) <= SMEM_LIMIT:
+        return LaunchPlan(1, _mixed_smem(n_fft, 1))
+    raise ValueError(f"the mixed route's frame of n_fft {n_fft} does not fit shared memory")
+
+
+def mixed_route_takes(n_fft: int) -> bool:
+    """Whether the mixed FFT takes an ``n_fft`` (any hop): even, at least 4,
+    its half with a plan (:func:`mixed_radices`) and one frame's block in
+    :data:`SMEM_LIMIT`."""
+    return (n_fft >= 4 and n_fft % 2 == 0 and mixed_radices(n_fft // 2) is not None
+            and _mixed_smem(n_fft, 1) <= SMEM_LIMIT)
+
+
 def k1_route(n_fft: int, hop: int) -> str:
-    """K1's route for a geometry: ``"fft"`` (the shared-memory FFT, whose plan
-    is :func:`launch_plan`) or ``"dft"`` (the direct DFT, whose plan the
-    kernel's source picks: ``dft_plan_for``).
-    Raises ``ValueError`` where neither takes it: ``n_fft`` or ``hop`` below
+    """K1's route for a geometry: ``"fft"`` (the power-of-two shared-memory
+    FFT, whose plan is :func:`launch_plan`), ``"mixed"`` (the mixed-radix
+    FFT, :func:`mixed_launch_plan`) or ``"dft"`` (the direct DFT, whose plan
+    the kernel's source picks: ``dft_plan_for``).
+    Raises ``ValueError`` where none takes it: ``n_fft`` or ``hop`` below
     1, or ``n_fft`` above :data:`DFT_MAX_N_FFT`."""
     if n_fft < 1 or hop < 1:
         raise ValueError(f"spectrogram_power needs n_fft >= 1 and hop >= 1; got {n_fft}, {hop}")
     if n_fft in N_FFTS and hop % 4 == 0:
         return "fft"
+    if mixed_route_takes(n_fft):
+        return "mixed"
     if n_fft > DFT_MAX_N_FFT:
         raise ValueError(f"the CUDA spectrogram kernel takes n_fft up to {DFT_MAX_N_FFT}; "
                          f"got {n_fft}")
@@ -111,9 +186,24 @@ def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
     """
     if x.device.type == "cpu":
         return stft_power(x, n_fft=n_fft, hop=hop, center=center, window=window)
+    return _spectrogram_power_cuda(x, n_fft, hop, center, window, k1_route(n_fft, hop))
+
+
+def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool, window: str,
+                            route: str) -> torch.Tensor:
+    """K1 on the card through ``route``: :func:`k1_route`'s for the
+    geometry, or ``"dft"`` (which takes every geometry) and ``"mixed"``
+    (every size with a plan) for comparisons.  Raises where the route does
+    not take the geometry."""
     analysis_window(window, 1)  # an unknown window raises here, before the launch
-    route = k1_route(n_fft, hop)
-    plan = launch_plan(n_fft, hop) if route == "fft" else None
+    if route not in ("fft", "mixed", "dft"):
+        raise ValueError(f"spectrogram_power: no route {route!r}")
+    if route == "mixed" and not mixed_route_takes(n_fft):
+        raise ValueError(f"the mixed route does not take n_fft {n_fft}")
+    if route == "dft" and not 1 <= n_fft <= DFT_MAX_N_FFT:
+        raise ValueError(f"the DFT route does not take n_fft {n_fft}")
+    plan = (launch_plan(n_fft, hop) if route == "fft"
+            else mixed_launch_plan(n_fft) if route == "mixed" else None)
     x = x.to(torch.float32).contiguous()
     lead = x.shape[:-1]
     n = x.shape[-1]
@@ -128,17 +218,15 @@ def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
     win, twiddle = device_constant(("spectrogram_tables", n_fft, window), x.device,
                                    lambda: kernel_tables(n_fft, window))
     lib = _kernels.build()
+    args = (xb.data_ptr(), win.data_ptr(), twiddle.data_ptr(), out.data_ptr(), xb.shape[0], n, T,
+            n_fft, hop, pad)
     with torch.cuda.device(x.device):
-        if plan is None:
-            err = lib.lib.apt_spectrogram_power_dft(
-                xb.data_ptr(), win.data_ptr(), twiddle.data_ptr(), out.data_ptr(),
-                xb.shape[0], n, T, n_fft, hop, pad, _kernels.stream_of(xb))
+        if route == "dft":
+            err = lib.lib.apt_spectrogram_power_dft(*args, _kernels.stream_of(xb))
         else:
-            err = lib.lib.apt_spectrogram_power(
-                xb.data_ptr(), win.data_ptr(), twiddle.data_ptr(), out.data_ptr(),
-                xb.shape[0], n, T, n_fft, hop, pad, plan.frame_tile, plan.smem_bytes,
-                _kernels.stream_of(xb),
-            )
+            launch = (lib.lib.apt_spectrogram_power if route == "fft"
+                      else lib.lib.apt_spectrogram_power_mixed)
+            err = launch(*args, plan.frame_tile, plan.smem_bytes, _kernels.stream_of(xb))
     lib.check(err, "spectrogram_power")
     _kernels.count("spectrogram_power")
     return out.reshape(lead + (F, T))

@@ -997,9 +997,11 @@ def main() -> int:
     tune = tuning_phases(smi, fleet["corpus"], fleet["truth"])
     surface = surface_phases(smi, pcm)
     geo = geometry_phases(smi, x, pcm)
+    mixed = mixed_fft_phases(smi, x)
 
     paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"],
-             **surface["launches"], "configurations the JAX package runs (phase 44)": geo["launches"]}
+             **surface["launches"], "configurations the JAX package runs (phase 44)": geo["launches"],
+             "the mixed-radix FFT and F7 (phase 45)": mixed["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
@@ -1102,7 +1104,7 @@ def main() -> int:
     for k in kernels:
         # the route the entry's own numbers are of, and phase 44's routes
         k["routes"] = ([{"route": main_route.get(k["name"], "cuda"), "geometry": "main path"}]
-                       + geo["routes"].get(k["name"], []))
+                       + geo["routes"].get(k["name"], []) + mixed["routes"].get(k["name"], []))
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
               f"({k['bound_ms'] / k['ms']:.1%} of it)")
@@ -1859,7 +1861,7 @@ def band_noise_phases(smi: str) -> dict:
     flat_l, _ = k4_tables(td, CHUNK, dev)
     coef_l = torch.from_numpy(tfl._sos_coefficients(td)).to(dev)
     y4, _ = tfl._cascade_sosfilt_cuda(flat_l, xl, zl, td.shape[0])
-    zl7 = zl.reshape(STREAMS, -1, 2).to(tfl.k7_state_dtype(td.shape[0]))
+    zl7 = zl.reshape(STREAMS, -1, 2).to(tfl.k7_state_dtype(td))
     y7, _ = tfl._sosfilt_zi_cuda(coef_l, xl, zl7)
     r47 = rel_err(y4.cpu().numpy(), y7.cpu().numpy())
     check(r47 <= 1e-5, f"K4 against K7 at {tuple(xl.shape)}: max|d|/max {r47:.3e}")
@@ -1868,7 +1870,7 @@ def band_noise_phases(smi: str) -> dict:
     k7_band = []
     for label, sos, xs in (("high-pass", hpf, xT), ("band-pass", bpf, x_h)):
         coef = torch.from_numpy(tfl._sos_coefficients(sos)).to(dev)
-        zi = tbn._seed(sos, xT[:, 0]).to(tfl.k7_state_dtype(sos.shape[0])).contiguous()
+        zi = tbn._seed(sos, xT[:, 0]).to(tfl.k7_state_dtype(sos)).contiguous()
         k7_band.append(f"{label} {graph_ms(lambda: tfl._sosfilt_zi_cuda(coef, xs, zi)):.4f} ms")
     print(f"  K4 against K7 on {smi}: at the live shape {tuple(xl.shape)}, {td.shape[0]} sections, "
           f"K4 {k4_live:.4f} ms, K7 {k7_live:.4f} ms per launch (K4 within {r47:.3e} of K7's max); "
@@ -3411,9 +3413,13 @@ def surface_phases(smi: str, pcm: np.ndarray) -> dict:
 
 # the geometries of phase 44: configurations the JAX package runs beyond the
 # main path's, each through its hand kernel
-GEO_K1 = ((384, 192), (2048, 1024), (256, 100), (400, 200), (640, 320), (768, 384))
+GEO_K1 = {(384, 192): "mixed", (2048, 1024): "mixed", (256, 100): "fft", (400, 200): "mixed",
+          (640, 320): "mixed", (768, 384): "mixed",
+          # the DFT route: an odd n_fft, and a half with the prime 37
+          (385, 192): "dft", (296, 148): "dft"}
 GEO_STREAM = {"384/192": {"n_fft": 384, "hop": 192}, "2048/1024": {"n_fft": 2048, "hop": 1024},
               "4096/2048": {"n_fft": 4096, "hop": 2048},
+              "296/148": {"n_fft": 296, "hop": 148},  # the DFT frame pass (prime 37)
               "11 taps": {"gain_freq_kernel": [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 5.0, 4.0, 3.0, 2.0,
                                                1.0]}}
 GEO_K9 = ((1152, 200), (4224, 64), (30000, 16))  # row length, rows
@@ -3501,9 +3507,11 @@ def geometry_phases(smi: str, x, pcm: np.ndarray) -> dict:
         print(f"  {kernel} {geometry}: route {route}, {n} launch(es), {ms:.4f} ms (graph), "
               f"max|d| {err:.3e}" + "".join(f", {k} {v}" for k, v in extra.items()))
 
-    # ---- K1: the DFT route and the FFT route at hop 100, 128 x 10 s ----
-    for n_fft, hop in GEO_K1:
+    # ---- K1: the mixed route, the FFT route at hop 100 and the DFT route,
+    # 128 x 10 s ----
+    for (n_fft, hop), want in GEO_K1.items():
         route = tspec.k1_route(n_fft, hop)
+        check(route == want, f"K1 {n_fft}/{hop} takes route {route}, not {want}")
         got, n = through_kernel("spectrogram_power",
                                 lambda: tspec.spectrogram_power(x, n_fft=n_fft, hop=hop),
                                 f"K1 {n_fft}/{hop}", 1)
@@ -3538,7 +3546,7 @@ def geometry_phases(smi: str, x, pcm: np.ndarray) -> dict:
     for k, v in l_eng.items():
         launches[k] += v
 
-    # ---- K8: the DFT frame pass and a long smoother ----
+    # ---- K8: the mixed frame pass at 384 to 4,096 and a long smoother ----
     streams = torch.from_numpy(synth_streams(STREAMS, 4.0, seed=44)[0]).to(dev)
     xs_all = streams.to(torch.float32) / 32767.0
     k8_err = 0.0
@@ -3571,6 +3579,8 @@ def geometry_phases(smi: str, x, pcm: np.ndarray) -> dict:
             outs.append(out["y"])
             state = state_new
         route = tsm.k8_route(st.n_fft)
+        want = {"296/148": "dft", "11 taps": "fft"}.get(label, "mixed")
+        check(route == want, f"K8 {label} takes route {route}, not {want}")
         note("streaming_suppressor", route, f"{label} ({STREAMS} x {L} samples, K {args[0].K}, "
              f"{args[0].taps.size} taps)", 2, graph_ms(lambda: tsm._suppressor_cuda(*args)), d,
              max_rel=r)
@@ -3644,10 +3654,10 @@ def geometry_phases(smi: str, x, pcm: np.ndarray) -> dict:
     # ---- K7: long cascades in groups ----
     x7 = xs_all[:, :8191].contiguous()
     for S_ in GEO_K7:
-        coef = torch.from_numpy(tfl._sos_coefficients(
-            tfl.butter_sos(2 * S_, 350.0 / (0.5 * FS), "highpass"))).to(dev)
+        sos = tfl.butter_sos(2 * S_, 350.0 / (0.5 * FS), "highpass")
+        coef = torch.from_numpy(tfl._sos_coefficients(sos)).to(dev)
         zi = 0.01 * torch.randn((STREAMS, S_, 2), generator=gen, device=dev,
-                                dtype=tfl.k7_state_dtype(S_))
+                                dtype=tfl.k7_state_dtype(sos))
         (y_k, z_k), n = through_kernel("sosfilt_zi", lambda: tfl._sosfilt_zi_cuda(coef, x7, zi),
                                        f"K7 {S_} sections", len(tfl.k7_groups(S_)))
         y_p, z_p = tfl._sosfilt_zi_plain(coef, x7, zi)
@@ -3687,6 +3697,247 @@ def geometry_phases(smi: str, x, pcm: np.ndarray) -> dict:
           f"each against its plain version on the card; {seconds:.1f} s")
     return {"launches": launches, "routes": routes, "seconds": seconds}
 
+
+# phase 45: K1's and K8's mixed-radix FFT and K7 at F7's designs
+MIXED_K1 = tuple((128 * m, 64 * m) for m in range(1, 33))  # the TPU kernel's sizes
+MIXED_K1_TIMED = ((384, 192), (400, 200), (640, 320), (768, 384), (2048, 1024))
+# hops the power-of-two route does not take: not a multiple of 4 (ragged
+# rows, scalar loads) and above n_fft (frames apart)
+MIXED_K1_HOPS = ((384, 191), (384, 500), (256, 130), (1000, 333))
+# radix 8 and 3, 5, 7, the generic prime 11, and the two timed sizes
+MIXED_K8 = ((384, 192), (400, 200), (896, 448), (1408, 704), (2048, 1024))
+F7_DESIGNS = {"hp 60 Hz o4": (60.0, 4), "hp 60 Hz o8": (60.0, 8), "hp 100 Hz o15": (100.0, 15),
+              "hp 100 Hz o16": (100.0, 16), "hp 350 Hz o32": (350.0, 32)}
+
+
+def k8_holds_plain(label: str, args, route: str | None = None):
+    """K8 (through ``route``, its own by default) against its plain loop on
+    ``args``: the gain and the carries bit for bit, y and the overlap-add
+    tail within 1e-4 of max (phase 12's rule).  Returns y's max|d|."""
+    import torch
+
+    from audio_processing_tools_tpu_torch.models import streaming as tsm
+
+    y_k, c_k, g_k = tsm._suppressor_cuda(*args, want_gain=True, route=route)
+    y_p, c_p, g_p = tsm._suppressor_plain(*args)
+    torch.cuda.synchronize()
+    same_g = same_bits(g_k, g_p)[0]
+    same_c = all(same_bits(a.float(), b.float())[0] for a, b in zip(c_k[0][:5], c_p[0][:5]))
+    same_c = same_c and same_bits(c_k[1], c_p[1])[0]
+    d = float((y_k - y_p).abs().max())
+    r = d / float(y_p.abs().max())
+    r_ola = rel_err(c_k[2].cpu().numpy(), c_p[2].cpu().numpy())
+    check(same_g and same_c and r <= 1e-4 and r_ola <= 1e-4,
+          f"K8 {label}: gain bits {same_g}, carry bits {same_c}, y max|d|/max {r:.3e}, "
+          f"overlap-add tail {r_ola:.3e} (bound 1e-4)")
+    return d
+
+
+def k1_work(x, n_fft: int, hop: int):
+    """K1's bytes (samples in, power out) and operations (per frame the
+    window, the half-length FFT's 5 M log2 M and 13 a bin for the split and
+    power) at a geometry, for ``bound_of``."""
+    M, B = n_fft // 2, x.shape[0]
+    T = 1 + x.shape[-1] // hop
+    return (4 * (x.numel() + B * (M + 1) * T),
+            B * T * (2 * M + 5 * M * np.log2(M) + 13 * (M + 1)))
+
+
+def mixed_fft_phases(smi: str, x) -> dict:
+    """Phase 45: K1's mixed route at every size of the TPU kernel's set,
+    against ``stft_power``; its time, the DFT route's and ``stft_power``'s
+    in turns at the sizes users type; K8's mixed frame pass against its
+    plain loop and against its DFT pass in turns; K7 at F7's designs, a
+    float64 state, against scipy float64.  ``x`` is phase 4's batch on the
+    card."""
+    import scipy.signal as ss
+    import torch
+
+    from audio_processing_tools_tpu_torch import _kernels
+    from audio_processing_tools_tpu_torch.models import streaming as tsm
+    from audio_processing_tools_tpu_torch.ops import filters as tfl
+    from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
+    from audio_processing_tools_tpu_torch.ops.stft import stft_power
+
+    dev = x.device
+    t_phase = time.perf_counter()
+    routes = {"spectrogram_power": [], "streaming_suppressor": [], "sosfilt_zi": []}
+    launches = {k: 0 for k in _kernels.LAUNCHES}
+
+    # ---- K1's mixed route at the TPU kernel's 32 sizes, 16 clips ----
+    x16 = x[:N_AGREE]
+    worst = 0.0
+    for n_fft, hop in MIXED_K1:
+        got, n = through_kernel(
+            "spectrogram_power",
+            lambda: tspec._spectrogram_power_cuda(x16, n_fft, hop, True, "hann", "mixed"),
+            f"K1 mixed {n_fft}/{hop}", 1)
+        launches["spectrogram_power"] += n
+        ref = stft_power(x16, n_fft=n_fft, hop=hop)
+        torch.cuda.synchronize()
+        r = float((got - ref).abs().max()) / float(ref.abs().max())
+        check(got.shape == ref.shape and r <= 1e-5,
+              f"K1 mixed {n_fft}/{hop}: {tuple(got.shape)}, max|d|/max {r:.3e} (bound 1e-5)")
+        worst = max(worst, r)
+    print(f"  K1's mixed route at n_fft = 128 m, m = 1 .. 32, hop n_fft / 2 on "
+          f"{tuple(x16.shape)}: every size within {worst:.3e} of stft_power's maximum")
+    for n_fft, hop in MIXED_K1_HOPS:
+        route = tspec.k1_route(n_fft, hop)
+        check(route == "mixed", f"K1 {n_fft}/{hop} takes route {route}")
+        got, n = through_kernel("spectrogram_power",
+                                lambda: tspec.spectrogram_power(x16, n_fft=n_fft, hop=hop),
+                                f"K1 mixed {n_fft}/{hop}", 1)
+        launches["spectrogram_power"] += n
+        ref = stft_power(x16, n_fft=n_fft, hop=hop)
+        torch.cuda.synchronize()
+        r = float((got - ref).abs().max()) / float(ref.abs().max())
+        check(got.shape == ref.shape and r <= 1e-5,
+              f"K1 mixed {n_fft}/{hop}: {tuple(got.shape)}, max|d|/max {r:.3e} (bound 1e-5)")
+        print(f"  K1's mixed route at {n_fft}/{hop} on {tuple(x16.shape)}: max|d|/max {r:.3e} "
+              f"against stft_power")
+
+    # ---- K1: the mixed route, the DFT route and stft_power in turns ----
+    for n_fft, hop in MIXED_K1_TIMED:
+        route = tspec.k1_route(n_fft, hop)
+        check(route == "mixed", f"K1 {n_fft}/{hop} takes route {route}")
+        calls = {"mixed": lambda: tspec._spectrogram_power_cuda(x, n_fft, hop, True, "hann",
+                                                                 "mixed"),
+                 "dft": lambda: tspec._spectrogram_power_cuda(x, n_fft, hop, True, "hann", "dft"),
+                 "stft_power": lambda: stft_power(x, n_fft=n_fft, hop=hop)}
+        got, n = through_kernel("spectrogram_power", calls["mixed"], f"K1 {n_fft}/{hop}", 1)
+        launches["spectrogram_power"] += n
+        ref = calls["stft_power"]()
+        torch.cuda.synchronize()
+        d = float((got - ref).abs().max())
+        r = d / float(ref.abs().max())
+        check(r <= 1e-5, f"K1 mixed {n_fft}/{hop} on {tuple(x.shape)}: max|d|/max {r:.3e}")
+        got_dft = calls["dft"]()
+        torch.cuda.synchronize()
+        r_dft = float((got_dft - ref).abs().max()) / float(ref.abs().max())
+        check(got_dft.shape == ref.shape and r_dft <= 1e-5,
+              f"K1 DFT {n_fft}/{hop} on {tuple(x.shape)}: max|d|/max {r_dft:.3e} (bound 1e-5)")
+        del got_dft
+        ms = {k: [] for k in calls}
+        for k in ("mixed", "dft", "stft_power", "stft_power", "dft", "mixed"):
+            ms[k].append(graph_ms(calls[k], reps=3 if k == "dft" else 7))
+        ms = {k: float(np.mean(v)) for k, v in ms.items()}
+        b_ms, b_by = bound_of(*k1_work(x, n_fft, hop))
+        routes["spectrogram_power"].append(
+            {"route": "mixed", "geometry": f"{n_fft}/{hop} {tuple(x.shape)}", "launches": n,
+             "ms": ms["mixed"], "max_abs_err": d, "max_rel": r, "dft_ms": ms["dft"],
+             "dft_max_rel": r_dft,
+             "library_ms": ms["stft_power"], "bound_ms": b_ms, "bound_by": b_by,
+             "frame_tile": tspec.mixed_launch_plan(n_fft).frame_tile})
+        print(f"  K1 {n_fft}/{hop} {tuple(x.shape)} in turns: mixed {ms['mixed']:.4f} ms, DFT "
+              f"{ms['dft']:.4f}, stft_power {ms['stft_power']:.4f} (bound {b_ms:.4f} by {b_by}); "
+              f"max|d|/max {r:.3e}, the DFT route's {r_dft:.3e}")
+
+    # ---- K1 at the main path's 256/128: the power-of-two route against the
+    # mixed route given the same size, in turns ----
+    fold = {"fft": [], "mixed": []}
+    for k in ("fft", "mixed", "mixed", "fft"):
+        fold[k].append(graph_ms(lambda: tspec._spectrogram_power_cuda(x, 256, 128, True, "hann", k)))
+    fold = {k: float(np.mean(v)) for k, v in fold.items()}
+    print(f"  K1 256/128 {tuple(x.shape)} in turns: the power-of-two route {fold['fft']:.4f} ms, "
+          f"the mixed route {fold['mixed']:.4f} ({fold['mixed'] / fold['fft'] - 1:+.1%})")
+
+    # ---- K8: the mixed frame pass against its plain loop and its DFT pass ----
+    streams = torch.from_numpy(synth_streams(STREAMS, 4.0, seed=45)[0]).to(dev)
+    xs_all = streams.to(torch.float32) / 32767.0
+    for n_fft, hop in MIXED_K8:
+        det = tsm.StreamingRainDetector(device=dev)
+        det.setup({**STREAM_AUDIO, "n_fft": n_fft, "hop": hop})
+        st = det._static()
+        check(tsm.k8_route(n_fft) == "mixed", f"K8 {n_fft}/{hop} takes {tsm.k8_route(n_fft)}")
+        L = CHUNK // hop * hop
+        state = det.init_state_batch(STREAMS)
+        for c in range(2):  # the stream's first chunk, then a carried one
+            xc = xs_all[:, c * L : (c + 1) * L]
+            xa = torch.cat([state["raw_tail"], xc], dim=1)
+            P = tspec.spectrogram_power(xa, n_fft=n_fft, hop=hop, center=False)
+            carry = (tsm._seed_psd(state["sup_psd"], P[:, st.rows, 0], det.cfg.eps),
+                     state["gain_prev"], state["ola_tail"])
+            (state_new, out), n = through_kernel(
+                "streaming_suppressor", lambda: det.process_chunk_batch(state, xc),
+                f"K8 mixed {n_fft}/{hop}, chunk {c}", 1)
+            launches["streaming_suppressor"] += n
+            args = (det.suppressor(), xa, P, out["frame_class"], out["noise_conf"],
+                    state["frame_idx"], carry)
+            d = k8_holds_plain(f"mixed {n_fft}/{hop}, chunk {c}", args)
+            y_k = tsm._suppressor_cuda(*args)[0]
+            torch.cuda.synchronize()
+            check(torch.equal(out["y"], y_k), f"K8 {n_fft}/{hop}: the detector's y is not K8's")
+            state = state_new
+        # the DFT frame pass on the same carried chunk, held to the plain loop
+        d_dft = k8_holds_plain(f"DFT {n_fft}/{hop}", args, route="dft")
+        ms = {"mixed": [], "dft": []}
+        for k in ("mixed", "dft", "dft", "mixed"):
+            ms[k].append(graph_ms(lambda: tsm._suppressor_cuda(*args, route=k)))
+        ms = {k: float(np.mean(v)) for k, v in ms.items()}
+        # the frame pass alone (the walk is the same launch in both routes)
+        parts = {k: launch_breakdown(lambda: tsm._suppressor_cuda(*args, route=k))
+                 for k in ("mixed", "dft")}
+        pass_ms = {k: sum(v for name, v in parts[k].items() if "suppressor_frames" in name)
+                   for k in parts}
+        B8, T8 = args[3].shape
+        b_ms, b_by = bound_of(
+            4 * (xa.numel() + B8 * args[0].K * T8 + B8 * T8 + B8 * T8 * hop) + B8 * T8,
+            B8 * T8 * (2 * 2.5 * n_fft * np.log2(n_fft) + 40 * args[0].K))
+        routes["streaming_suppressor"].append(
+            {"route": "mixed", "geometry": f"{n_fft}/{hop} ({STREAMS} x {L} samples, K "
+             f"{args[0].K})", "launches": 2, "ms": ms["mixed"], "max_abs_err": d,
+             "dft_ms": ms["dft"], "dft_max_abs_err": d_dft, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             "slots": tsm.k8_mixed_slots(n_fft, args[0].K), "launches_ms": parts,
+             "pass_ms": pass_ms})
+        print(f"  K8 {n_fft}/{hop} ({STREAMS} x {L} samples): mixed pass, gain and carries the "
+              f"plain loop's bits, y max|d| {d:.3e} (the DFT pass {d_dft:.3e}); in turns, the call with the mixed pass "
+              f"{ms['mixed']:.4f} ms, with the DFT pass {ms['dft']:.4f}; the frame pass alone "
+              f"{pass_ms['mixed']:.4f} against {pass_ms['dft']:.4f} ms; per launch {parts}")
+
+    # ---- K7 at F7's designs: a float64 state, against scipy float64 ----
+    x7 = xs_all[:, :8191].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(45)
+    for label, (fc, order) in F7_DESIGNS.items():
+        sos = tfl.design_highpass(FS, fc, order)
+        S_ = sos.shape[0]
+        dtype = tfl.k7_state_dtype(sos)
+        check(dtype == torch.float64, f"K7 {label}: state {dtype}")
+        coef = torch.from_numpy(tfl._sos_coefficients(sos)).to(dev)
+        zi = 0.01 * torch.randn((STREAMS, S_, 2), generator=gen, device=dev, dtype=dtype)
+        (y_k, z_k), n = through_kernel("sosfilt_zi", lambda: tfl._sosfilt_zi_cuda(coef, x7, zi),
+                                       f"K7 {label}", len(tfl.k7_groups(S_)))
+        launches["sosfilt_zi"] += n
+        y_p, z_p = tfl._sosfilt_zi_plain(coef, x7, zi)
+        torch.cuda.synchronize()
+        (sy, d), (sz, dz) = same_bits(y_k, y_p), same_bits(z_k, z_p)
+        check(sy and sz, f"K7 {label}: not the plain loop's bits (y {d:.3e}, zf {dz:.3e})")
+        b0, bv0, bv1, a1, a2 = tfl._sos_coefficients(sos).astype(np.float64).T
+        same = np.stack([b0, bv0 + a1 * b0, bv1 + a2 * b0, np.ones(S_), a1, a2], axis=1)
+        y_s, z_s = ss.sosfilt(same, x7.double().cpu().numpy(), axis=-1,
+                              zi=zi.double().cpu().numpy().transpose(1, 0, 2))
+        ry = rel_err(y_k.cpu().numpy(), y_s)
+        rz = rel_err(z_k.cpu().numpy(), z_s.transpose(1, 0, 2))
+        check(ry <= 1e-5 and rz <= 1e-5, f"K7 {label} against scipy float64: y {ry:.3e}, "
+                                         f"zf {rz:.3e} (bound 1e-5)")
+        k7_ms = graph_ms(lambda: tfl._sosfilt_zi_cuda(coef, x7, zi))
+        routes["sosfilt_zi"].append(
+            {"route": f"{n} groups, float64 state", "geometry": f"{label}, {S_} sections "
+             f"{tuple(x7.shape)}", "launches": n, "ms": k7_ms, "max_abs_err": 0.0,
+             "scipy_rel": max(ry, rz)})
+        print(f"  K7 {label} ({S_} sections, float64 state) on {tuple(x7.shape)}: the plain "
+              f"loop's bits; against scipy float64 y {ry:.3e}, zf {rz:.3e} of max; "
+              f"{k7_ms:.4f} ms")
+    for label, sos in (("350 Hz o4 high-pass", tfl.design_highpass(FS, 350.0, 4)),
+                       ("400-3,500 Hz o4 band-pass", tfl.design_bandpass(FS, 400.0, 3500.0, 4))):
+        check(tfl.k7_state_dtype(sos) == torch.float32, f"K7's default {label} left float32")
+
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 45 the mixed-radix FFT and F7 on {smi}: K1 mixed at {len(MIXED_K1)} sizes, "
+          f"{len(MIXED_K1_HOPS)} other hops, and timed at {len(MIXED_K1_TIMED)} against its DFT "
+          f"route and stft_power, K8's mixed pass at {len(MIXED_K8)} against its plain loop and "
+          f"DFT pass, K7 at {len(F7_DESIGNS)} F7 "
+          f"designs against scipy float64; {seconds:.1f} s")
+    return {"launches": launches, "routes": routes, "seconds": seconds, "fold_256": fold}
 
 if __name__ == "__main__":
     sys.exit(main())

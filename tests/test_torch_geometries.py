@@ -240,21 +240,70 @@ def test_wide_cascades_match_jax(kind, n_sections):
 
 
 def test_low_cutoff_highpass_sosfilt_zi_matches_jax():
-    """The live prefilter's 4th-order high-pass at 100 Hz (2 sections, K7's
-    float32 route) from a nonzero state: y and zf within 1e-5 of the JAX
-    maximum.  Scipy's form of the step, (b1 x - a1 y) + z1, cancels b1
-    against a1 b0 there and ended 5.9e-5 of zf's maximum from JAX; JAX's
-    state-space form with bv formed in float64 does not."""
+    """The live prefilter's 4th-order high-pass at 100 Hz (2 sections) from
+    a nonzero state: y and zf within 1e-5 of the JAX maximum, through
+    ``sosfilt`` (a float64 state: the design's noise gain, 3,474, passes
+    K7_FLOAT32_MAX_GAIN) and through the plain loop with a float32 state.
+    Scipy's form of the step, (b1 x - a1 y) + z1, cancels b1 against a1 b0
+    there and ended 5.9e-5 of zf's maximum from JAX; JAX's state-space form
+    with bv formed in float64 does not."""
     sos = tf.design_highpass(FS, 100.0, 4)
     rng = np.random.default_rng(0)
     x = (0.1 * rng.standard_normal((2, 128 * 6 + 37))).astype(np.float32)
     zi = (0.01 * rng.standard_normal((2, sos.shape[0], 2))).astype(np.float32)
     y, zf = tf.sosfilt(sos, torch.from_numpy(x), torch.from_numpy(zi))
+    y32, zf32 = tf._sosfilt_zi_plain(torch.from_numpy(tf._sos_coefficients(sos)),
+                                     torch.from_numpy(x), torch.from_numpy(zi))
     yj, zfj = jf.sosfilt(sos, jnp.asarray(x), zi=jnp.asarray(zi))
-    assert zf.dtype == torch.float32
-    for got, ref in ((y, yj), (zf, zfj)):
+    assert zf.dtype == torch.float64 and zf32.dtype == torch.float32
+    for got, ref in ((y, yj), (zf, zfj), (y32, yj), (zf32, zfj)):
         ref = np.asarray(ref, np.float64)
-        assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+        assert np.abs(got.double().numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def _scipy_same_constants(sos, x, zi):
+    """Scipy's float64 ``sosfilt`` of JAX's float32 section constants
+    (``_sos_coefficients``), from ``zi`` (R, S, 2): ``(y, zf)``."""
+    from scipy import signal
+
+    S = sos.shape[0]
+    b0, bv0, bv1, a1, a2 = tf._sos_coefficients(sos).astype(np.float64).T
+    same = np.stack([b0, bv0 + a1 * b0, bv1 + a2 * b0, np.ones(S), a1, a2], axis=1)
+    y, zf = signal.sosfilt(same, np.asarray(x, np.float64), axis=-1,
+                           zi=np.asarray(zi, np.float64).transpose(1, 0, 2))
+    return y, zf.transpose(1, 0, 2)
+
+
+#: F7's designs (high-pass cutoff Hz, order), where a float32 state's error
+#: reaches 1e-5 of y's or zf's maximum, and the two default prefilters
+F7_DESIGNS = {"hp 60 o4": (60.0, 4), "hp 60 o8": (60.0, 8), "hp 100 o15": (100.0, 15),
+              "hp 100 o16": (100.0, 16), "hp 350 o32": (350.0, 32),
+              "default hp 350 o4": (350.0, 4), "default bp 400-3500 o4": None}
+
+
+@pytest.mark.parametrize("name", list(F7_DESIGNS))
+def test_f7_hard_designs_take_a_float64_state(name):
+    """F7: at designs whose float32 state loses bits, ``sosfilt`` (K7's
+    plain loop) keeps a float64 state and its y and zf are within 1e-5 of
+    the maxima of scipy's float64 run of the same constants, and within
+    1e-5 of JAX wherever JAX is itself within 1e-5 of float64; the two
+    default prefilters keep a float32 state under the same bound."""
+    design = F7_DESIGNS[name]
+    sos = (tf.design_bandpass(FS, 400.0, 3500.0, 4) if design is None
+           else tf.design_highpass(FS, *design))
+    rng = np.random.default_rng(7)
+    x = (0.1 * rng.standard_normal((2, 128 * 6 + 37))).astype(np.float32)
+    zi = (0.01 * rng.standard_normal((2, sos.shape[0], 2))).astype(np.float32)
+    y, zf = tf.sosfilt(sos, torch.from_numpy(x), torch.from_numpy(zi))
+    assert zf.dtype == (torch.float32 if name.startswith("default") else torch.float64)
+    yj, zfj = (np.asarray(v, np.float64) for v in jf.sosfilt(sos, jnp.asarray(x),
+                                                             zi=jnp.asarray(zi)))
+    for got, ref, jax_ in zip((y, zf), _scipy_same_constants(sos, x, zi), (yj, zfj)):
+        got = got.double().numpy()
+        scale = np.abs(ref).max()
+        assert np.abs(got - ref).max() <= 1e-5 * scale
+        if np.abs(jax_ - ref).max() <= 1e-5 * scale:
+            assert np.abs(got - jax_).max() <= 1e-5 * np.abs(jax_).max()
 
 
 @pytest.mark.parametrize("kind,n_sections",
@@ -287,19 +336,22 @@ def test_sosfilt_zi_double_state_is_exact(kind, n_sections):
 
 
 def test_k1_route_table():
-    """The FFT for the main path's sizes, the DFT for every other size the
-    JAX package runs (its Pallas set n_fft % 128 == 0 with hop = n_fft / 2
-    among them); refusals only below 1 or past one frame in shared memory."""
+    """The FFT for the main path's sizes, the mixed-radix FFT for every even
+    size whose half has no odd prime factor above 31 (the JAX Pallas set
+    n_fft % 128 == 0 with hop = n_fft / 2 among them, and the power-of-two
+    sizes at a hop not a multiple of 4), the DFT for the rest; refusals
+    only below 1 or past one frame in shared memory."""
     from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
 
     table = {(256, 128): "fft", (256, 100): "fft", (64, 32): "fft", (1024, 512): "fft",
-             (384, 192): "dft", (640, 320): "dft", (768, 384): "dft", (2048, 1024): "dft",
-             (400, 200): "dft", (256, 6): "dft", (260, 128): "dft", (32, 16): "dft",
-             (2, 1): "dft", (1, 1): "dft"}
+             (384, 192): "mixed", (640, 320): "mixed", (768, 384): "mixed",
+             (2048, 1024): "mixed", (400, 200): "mixed", (256, 6): "mixed", (260, 128): "mixed",
+             (32, 16): "mixed", (4096, 2048): "mixed", (385, 192): "dft", (296, 148): "dft",
+             (16384, 8192): "dft", (2, 1): "dft", (1, 1): "dft"}
     for (n_fft, hop), route in table.items():
         assert tspec.k1_route(n_fft, hop) == route, (n_fft, hop)
     for n_fft in range(128, 4097, 128):  # the JAX Pallas kernel's geometries
-        assert tspec.k1_route(n_fft, n_fft // 2) in ("fft", "dft")
+        assert tspec.k1_route(n_fft, n_fft // 2) in ("fft", "mixed")
     assert tspec.launch_plan(256, 128) == (32, 68_744)
     for bad in ((256, 0), (0, 128), (tspec.DFT_MAX_N_FFT + 1, 128)):
         with pytest.raises(ValueError):
@@ -355,9 +407,14 @@ def test_k7_groups_chained_give_one_calls_bits(n_sections):
     groups = tf.k7_groups(n_sections)
     assert groups[0][0] == 0 and groups[-1][1] == n_sections
     assert all(b - a <= tf.K7_MAX_SECTIONS for a, b in groups)
-    assert tf.k7_state_dtype(tf.K7_MAX_SECTIONS) == torch.float32
-    assert tf.k7_state_dtype(n_sections) == torch.float64
     sos = _wide_sos(n_sections)
+    # up to 8 sections the design decides (a 3 kHz low-pass keeps float32);
+    # past 8 every design takes float64
+    assert tf.k7_state_dtype(tf.butter_sos(2 * tf.K7_MAX_SECTIONS, 3000.0 / (0.5 * FS),
+                                           "lowpass")) == torch.float32
+    assert tf.k7_state_dtype(tf.butter_sos(2 * n_sections, 3000.0 / (0.5 * FS),
+                                           "lowpass")) == torch.float64
+    assert tf.k7_state_dtype(sos) == torch.float64
     coef = torch.from_numpy(tf._sos_coefficients(sos))
     rng = np.random.default_rng(n_sections)
     x = torch.from_numpy((0.1 * rng.standard_normal((2, 700))).astype(np.float32))

@@ -25,7 +25,7 @@ MODULES = sorted([pkg.__name__] + [m.name for m in pkgutil.walk_packages(
 #: scripts outside the package, imported from their paths (their main()
 #: runs only under ``__main__``)
 SCRIPTS = ["tools/profile_torch_stages.py", "tools/bench_torch_backfill_scaling.py",
-           "tools/time_main_shapes.py",
+           "tools/time_main_shapes.py", "tools/time_mixed_tiles.py",
            "examples/torch_streaming_detect.py", "examples/torch_tune_thresholds.py"]
 
 PROBE = """

@@ -290,8 +290,8 @@ def test_k8_arguments_mirror_the_source(struct):
 def test_k8_geometry_limits_mirror_the_source():
     """``k8_check_geometry`` and ``k8_route`` mirror K8's launcher: the FFT
     frame pass's n_fft range, the walk's thread limit, the shared memory a
-    block holds and the DFT frame pass's tile (the kernel runs only on the
-    card)."""
+    block holds and the DFT frame pass's tile; the mixed pass takes the even
+    sizes between (the kernel runs only on the card)."""
     src = (Path(ts.__file__).resolve().parent.parent / "csrc" / "streaming.cu").read_text()
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert (consts["kMinFft"], consts["kMaxFft"]) == (min(ts.N_FFTS), max(ts.N_FFTS))
@@ -300,7 +300,8 @@ def test_k8_geometry_limits_mirror_the_source():
     assert consts["kFrames"] == 4 and ts.k8_walk_smem(71, 3, 0) == 4 * 4 * (2 * 73 + 142 + 2) + 12
     assert consts["kSmemLimit"] == ts._K8_SMEM_LIMIT
     assert "4 * n_fft * slots + 8 * (n_fft / 2 + 1) * slots + 8 * n_fft + 4 * slots * K" in src
-    assert [ts.k8_route(n) for n in (32, 64, 384, 1024, 2048)] == ["dft", "fft", "dft", "fft", "dft"]
+    assert [ts.k8_route(n) for n in (32, 64, 384, 1024, 2048, 296, 385)] == \
+        ["mixed", "fft", "mixed", "fft", "mixed", "dft", "dft"]
 
 
 @pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024])
@@ -320,11 +321,24 @@ def test_k8_check_geometry_refuses_what_the_kernel_does_not_take(n_fft, hop, K, 
         ts.k8_check_geometry(n_fft, hop, K, taps, snr)
 
 
+@pytest.mark.parametrize("n_fft, smaller, route", [(10000, 8000, "mixed"), (5920, 4736, "dft")])
+def test_k8_check_geometry_names_the_frame_pass_that_refuses(n_fft, smaller, route):
+    """A frame too large for the route K8 takes is refused with that
+    route's tile: the mixed pass's two frames (n_fft 10,000 = 2 x 8 x 5^4),
+    the DFT pass's four (n_fft 5,920 = 2 x 80 x 37); a smaller size of the
+    same route fits."""
+    assert ts.k8_route(n_fft) == ts.k8_route(smaller) == route
+    with pytest.raises(ValueError, match=f"the {route} frame pass's smallest tile"):
+        ts.k8_check_geometry(n_fft, n_fft // 2, 10, 3, 0)
+    assert ts.k8_check_geometry(smaller, smaller // 2, 10, 3, 0) is None
+
+
 @pytest.mark.parametrize("n_fft, hop, K, taps, snr", [
     (2048, 1024, 71, 3, 0), (32, 16, 10, 3, 0), (4, 2, 2, 0, 0), (96, 48, 10, 3, 0),
     (2, 1, 1, 0, 0), (256, 128, 71, 10, 0)])
 def test_k8_check_geometry_takes_what_the_jax_package_runs(n_fft, hop, K, taps, snr):
-    """Any n_fft = 2 hop (the FFT frame pass or the DFT one) and any number
-    of taps."""
+    """Any n_fft = 2 hop (the FFT frame pass, the mixed one or the DFT one)
+    and any number of taps."""
     assert ts.k8_check_geometry(n_fft, hop, K, taps, snr) is None
-    assert ts.k8_route(n_fft) == ("fft" if n_fft in ts.N_FFTS else "dft")
+    assert ts.k8_route(n_fft) == ("fft" if n_fft in ts.N_FFTS else "dft" if n_fft == 2
+                                  else "mixed")

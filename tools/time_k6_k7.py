@@ -235,7 +235,7 @@ def k7_cases(dev) -> dict:
     def case(sos, x):
         coef = torch.from_numpy(tfl._sos_coefficients(sos)).to(dev)
         zi = 0.01 * torch.randn((x.shape[0], sos.shape[0], 2), generator=gen, device=dev,
-                                dtype=tfl.k7_state_dtype(sos.shape[0]))
+                                dtype=tfl.k7_state_dtype(sos))
         return coef, x.contiguous(), zi
 
     x_h = tfl.cascade_sosfilt(hpf, xT, tbn._seed(hpf, xT[:, 0]))[0]

@@ -4,12 +4,13 @@ paths give them, from one checkout's kernels.
 
     python3 tools/time_main_shapes.py [--root DIR] [--out FILE]
 
-K1: the spectral engine's 128 x 10 s batch at 256/128.  K4: band noise's
+K1: the spectral engine's 128 x 10 s batch at 256/128, and at 384/192 and
+2048/1024 (off the main path: the mixed-radix route).  K4: band noise's
 high-pass (2 sections) and band-pass (4 sections) at 128 x 111,616, and an
 8-section band-pass at RoE's 640 x 22,324.  K6: band noise's default scan,
 128 lanes x 218 frames.  K7: the live detector's TD prefilter at 64 x
 22,272.  K8: the live detector's suppressor with audio out, 64 streams x 2
-s, a carried chunk.  K9: the confirmer's 871 windows of 384 samples of one
+s, a carried chunk, at 256/128 and at 384/192 (the mixed frame pass).  K9: the confirmer's 871 windows of 384 samples of one
 10 s clip, cap 64.  K10: 128 clips x 873 frames of random features with
 ``chip_smoke.TUNE_GRID``'s combos.  The inputs come from
 ``chip_smoke.py``'s synthetic clips and streams.
@@ -75,6 +76,21 @@ def cases(dev):
         return d
 
     out["K1 256/128 128 x 111,620"] = (lambda: spectrogram_power(x), k1_check)
+
+    # K1 at sizes off the main path (the mixed route since it exists, the
+    # DFT route before)
+    for n_fft in (384, 2048):
+        hop = n_fft // 2
+
+        def k1_check_at(n_fft=n_fft, hop=hop):
+            ref = stft_power(x, n_fft=n_fft, hop=hop)
+            d = float((spectrogram_power(x, n_fft=n_fft, hop=hop) - ref).abs().max())
+            if d > 1e-5 * float(ref.abs().max()):
+                raise SystemExit(f"K1 {n_fft}/{hop}: max|d| {d:.3e}")
+            return d
+
+        out[f"K1 {n_fft}/{hop} 128 x 111,620"] = (
+            lambda n_fft=n_fft, hop=hop: spectrogram_power(x, n_fft=n_fft, hop=hop), k1_check_at)
 
     xb = torch.from_numpy(np.ascontiguousarray(cs.band_noise_clips(128)[:, : 872 * 128])).to(dev)
     hpf, bpf = tbn._design_filters(tbn.BandNoiseEstimatorConfig())
@@ -151,6 +167,33 @@ def cases(dev):
 
     out[f"K8 {cs.STREAMS} x {P.shape[-1]} frames"] = (lambda: tsm._suppressor_cuda(*args),
                                                      k8_check)
+
+    # K8 at 384/192, a carried chunk (the mixed frame pass since it exists)
+    det3 = tsm.StreamingRainDetector(device=dev)
+    det3.setup({**cs.STREAM_AUDIO, "n_fft": 384, "hop": 192})
+    st3 = det3._static()
+    L3 = cs.CHUNK // st3.hop * st3.hop
+    state3, _ = det3.process_chunk_batch(det3.init_state_batch(cs.STREAMS), xs_all[:, :L3])
+    x3 = xs_all[:, L3 : 2 * L3].contiguous()
+    xa3 = torch.cat([state3["raw_tail"], x3], dim=1)
+    P3 = spectrogram_power(xa3, n_fft=st3.n_fft, hop=st3.hop, center=False)
+    carry3 = (tsm._seed_psd(state3["sup_psd"], P3[:, st3.rows, 0], det3.cfg.eps),
+              state3["gain_prev"], state3["ola_tail"])
+    _, o3 = det3.process_chunk_batch(state3, x3)
+    args3 = (det3.suppressor(), xa3, P3, o3["frame_class"], o3["noise_conf"],
+             state3["frame_idx"], carry3)
+
+    def k8_check_384():
+        y, _, g = tsm._suppressor_cuda(*args3, want_gain=True)
+        yp, _, gp = tsm._suppressor_plain(*args3)
+        bits(g, gp, "K8 384/192 gain")
+        d = float((y - yp).abs().max())
+        if d > 1e-4 * float(yp.abs().max()):
+            raise SystemExit(f"K8 384/192: y max|d| {d:.3e}")
+        return d
+
+    out[f"K8 384/192 {cs.STREAMS} x {P3.shape[-1]} frames"] = (
+        lambda: tsm._suppressor_cuda(*args3), k8_check_384)
 
     x9, p9, d9 = cs.k9_confirmer_rows(clips[1], dev)
 
