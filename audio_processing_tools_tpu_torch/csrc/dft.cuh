@@ -1,10 +1,11 @@
 // The direct real DFT of K1's DFT route (spectrogram_power.cu) and K8's DFT
-// frame pass (streaming.cu), for the frame sizes the shared-memory FFT
-// (stockham_fft.cuh) does not take: any n.  It is what the TPU kernel
-// computes, a window-and-DFT matrix product, as fp32 FMA chains.  The
-// twiddles come from the host table table[j] = e^{-2 pi i j / n} (float64
-// rounded to float32), indexed by (k m) mod n, which a thread walks by
-// adding k and subtracting n: no sine of a large angle anywhere.
+// frame pass (streaming.cu), which only comparisons force: any n whose tile
+// fits, an O(n^2) check on the card that shares no code with the FFT
+// routes.  It is what the TPU kernel computes, a window-and-DFT matrix
+// product, as fp32 FMA chains.  The twiddles come from the host table
+// table[j] = e^{-2 pi i j / n} (float64 rounded to float32), indexed by
+// (k m) mod n, which a thread walks by adding k and subtracting n: no sine
+// of a large angle anywhere.
 //
 // A tile of frames lies in shared memory frame-fastest, xs[m * ld + f], so
 // the FPT frames a thread sums read as one broadcast (FPT a multiple of 4:

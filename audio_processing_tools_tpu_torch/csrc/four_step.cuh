@@ -1,0 +1,335 @@
+// The four-step FFT of K1's global route (spectrogram_power.cu) and K8's
+// global frame pass (streaming.cu): an N-point transform past
+// kOneBlockPoints, split as N = N1 N2 and run through two chunk buffers in
+// global memory:
+//
+//   (1) N2 column transforms of N1 points,
+//         Y[k1][n2] = sum_n1 x[N2 n1 + n2] e^{-2 pi i n1 k1 / N1};
+//   (2) the twiddle Y'[k1][n2] = Y[k1][n2] e^{-2 pi i n2 k1 / N};
+//   (3) N1 row transforms of N2 points,
+//         X[k1 + N1 k2] = sum_n2 Y'[k1][n2] e^{-2 pi i n2 k2 / N2}.
+//
+// Steps 1 and 2 are one launch (the column transform applies the twiddle as
+// it stores Y' into buffer A, row k1 at A[N2 k1 ..]), step 3 another (it
+// reads A's rows and writes X in natural order through a Sink).  Each is
+// mixed_fft.cuh's transform on a tile of 2^lg columns or rows, which it
+// treats as its frames: a column tile loads runs of 2^lg neighbouring
+// points of each row, a row tile whole rows, so both read and write device
+// memory in runs.  N1 is the largest divisor of N up to sqrt(N), so N2 is
+// the smallest that can be; the split is valid where both transforms have a
+// plan and fit a block (four_step_of, mirrored by ops/spectrogram.py::
+// four_step_plan).  Twiddles are a host table e^{-2 pi i j / tn}, N | tn.
+//
+// A Source gives point m of a chunk's frame f: the frame's windowed samples
+// (packed in pairs for an even frame, one a point for an odd one) or a
+// point of the chunk buffer, times the chirp where one is given, zero from
+// point L on.  A Sink takes X[k]: as it is, or as the chirp-z transform
+// needs it (below).  Every frame runs the same code in the same order,
+// whichever chunk or launch it lies in.
+//
+// The chirp-z (Bluestein) transform of a complex length L over M points
+// (M >= 2L - 1, 7-smooth: chirp_size_takes):
+//   X[k] = c_k sum_j (z_j c_j) conj(c_{k-j}),  c_j = e^{-i pi j^2 / L},
+// a circular convolution of a_j = z_j c_j (zero from L on) with b, b_m =
+// conj(c_m) at m and M - m, m < L: X = c . IFFT(FFT(a) . FFT(b)), and the
+// inverse as conj(FFT(conj(.))).  The host builds c (indexed by j^2 mod 2L
+// in 64-bit integers) and Bt = FFT(b) / M in float64 and rounds both to
+// float32: no sine on the card.  The forward transform's Sink stores
+// conj(X Bt), the next transform's Source reads it, and its Sink stores
+// conj(X) c (or conj(X) alone where only the power is wanted: |c_k| = 1).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mixed_fft.cuh"
+
+namespace {
+
+constexpr int kStepThreads = 256;            // threads of a column or row block
+constexpr int kBlockSmemLimit = 232448;      // dynamic shared memory a block may use
+constexpr int kOneBlockPoints = 7264;        // the largest transform a route runs in one block
+constexpr long long kChunkScratch = 1 << 25;  // bytes of the two chunk buffers together
+
+// A column or row step: the transform of n points over tiles of 2^lg;
+// lg < 0 where no tile fits.
+struct StepPlan {
+  int n, lg, smem;
+  MixedPlan plan;
+};
+
+// Tiles of 2^lg frames (columns, rows) of an n-point transform: the largest
+// power of two up to 32 whose two buffers fit a quarter of a block's shared
+// memory (four blocks an SM), else one frame up to the whole limit
+// (ops/spectrogram.py::tile_plan).
+__host__ inline StepPlan step_plan(int n) {
+  StepPlan s;
+  s.n = n;
+  s.plan = mixed_plan_of(n);
+  s.lg = -1;
+  s.smem = 0;
+  for (int lg = 5; lg >= 0; --lg) {
+    const long long bytes = 16LL * tile_elems(n, 1 << lg);
+    if (bytes <= kBlockSmemLimit / 4 || (lg == 0 && bytes <= kBlockSmemLimit)) {
+      s.lg = lg;
+      s.smem = (int)bytes;
+      break;
+    }
+  }
+  return s;
+}
+
+struct FourStep {
+  int N, N1, N2;
+  StepPlan col, row;
+  bool ok;
+};
+
+__host__ inline FourStep four_step_of(int N) {
+  FourStep f;
+  f.N = N;
+  f.N1 = 1;
+  for (int d = 1; (long long)d * d <= N; ++d)
+    if (N % d == 0) f.N1 = d;
+  f.N2 = N / f.N1;
+  f.col = step_plan(f.N1);
+  f.row = step_plan(f.N2);
+  f.ok = N >= 4 && f.N1 >= 2 && f.col.plan.n_pass > 0 && f.row.plan.n_pass > 0 &&
+         f.col.lg >= 0 && f.row.lg >= 0;
+  return f;
+}
+
+__host__ inline bool seven_smooth(long long m) {
+  if (m < 1) return false;
+  const int primes[4] = {2, 3, 5, 7};
+  for (int i = 0; i < 4; ++i)
+    while (m % primes[i] == 0) m /= primes[i];
+  return m == 1;
+}
+
+// Whether M points take the chirp-z transform of a complex length L: M >=
+// max(2, 2L - 1), M's only prime factors 2, 3, 5 and 7 (mixed_fft's narrow
+// instantiation), and its transform one block holds or the four-step split
+// takes.  ops/spectrogram.py::chirp_size picks the smallest such M.
+__host__ inline bool chirp_size_takes(int L, int M) {
+  return L >= 1 && (long long)M >= (L > 1 ? 2LL * L - 1 : 2) && seven_smooth(M) &&
+         mixed_plan_of(M).n_pass > 0 && (M <= kOneBlockPoints || four_step_of(M).ok);
+}
+
+// Frames a chunk of the global route holds: as many as the two buffers of
+// N points each hold within kChunkScratch, at least one
+__host__ inline long long chunk_frames(int N, long long frames) {
+  long long c = kChunkScratch / (16LL * N);
+  if (c < 1) c = 1;
+  return c < frames ? c : frames;
+}
+
+struct Source {
+  enum Mode { kEvenFrame = 0, kOddFrame = 1, kBuffer = 2 };
+  int mode;
+  // kEvenFrame / kOddFrame: frame g0 + f is frame t of row b, g = b T + t,
+  // its samples x[b][t hop - pad ..] (zero outside the row), windowed
+  const float* x;
+  long long row_len, g0;
+  int T, hop, pad;
+  const float* window;
+  // kBuffer: point m of frame f at buf[f * stride + m]
+  const float2* buf;
+  long long stride;
+  const float2* chirp;  // points times chirp[m] where given
+  int L;                // points from L on are zero
+
+  __device__ __forceinline__ float2 operator()(int f, int m) const {
+    if (m >= L) return make_float2(0.f, 0.f);
+    float2 v;
+    if (mode == kBuffer) {
+      v = buf[f * stride + m];
+    } else {
+      const long long g = g0 + f;
+      const long long b = g / T;
+      const long long s = (g - b * T) * hop - pad;
+      const float* const xr = x + b * row_len;
+      if (mode == kEvenFrame) {
+        const long long s0 = s + 2 * m;
+        const float a0 = s0 >= 0 && s0 < row_len ? xr[s0] : 0.f;
+        const float a1 = s0 + 1 >= 0 && s0 + 1 < row_len ? xr[s0 + 1] : 0.f;
+        v = make_float2(a0 * __ldg(window + 2 * m), a1 * __ldg(window + 2 * m + 1));
+      } else {
+        const long long s0 = s + m;
+        v = make_float2((s0 >= 0 && s0 < row_len ? xr[s0] : 0.f) * __ldg(window + m), 0.f);
+      }
+    }
+    if (chirp != nullptr) v = cmul(v, __ldg(chirp + m));
+    return v;
+  }
+};
+
+struct Sink {
+  enum Mode { kPlain = 0, kChirpForward = 1, kChirpInverse = 2 };
+  int mode;
+  float2* buf;  // X[k] of frame f at buf[f * stride + k]
+  long long stride;
+  const float2* bt;     // kChirpForward: conj(X Bt)
+  const float2* chirp;  // kChirpInverse: conj(X) chirp[k] (conj(X) where null), k < L
+  int L;
+
+  __device__ __forceinline__ void operator()(int f, int k, float2 v) const {
+    if (mode == kChirpForward) {
+      v = cmul(v, __ldg(bt + k));
+      v.y = -v.y;
+    } else if (mode == kChirpInverse) {
+      if (k >= L) return;
+      v.y = -v.y;
+      if (chirp != nullptr) v = cmul(v, __ldg(chirp + k));
+    }
+    buf[f * stride + k] = v;
+  }
+};
+
+template <int kW>
+__global__ void __launch_bounds__(kStepThreads)
+four_step_columns(Source src, float2* __restrict__ dst, const float2* __restrict__ table, int tn,
+                  int N, int N1, int N2, int lg, int n_tiles, MixedPlan plan) {
+  extern __shared__ float4 smem4[];
+  const int ft = 1 << lg, ld = tile_ld(ft);
+  float2* const a = reinterpret_cast<float2*>(smem4);
+  float2* const b = a + tile_elems(N1, ft);
+  const int f = blockIdx.x / n_tiles;
+  const int c0 = (blockIdx.x - f * n_tiles) << lg;
+  for (int i = threadIdx.x; i < (N1 << lg); i += blockDim.x) {
+    const int n1 = i >> lg, j = i & (ft - 1);
+    a[n1 * ld + j] = c0 + j < N2 ? src(f, N2 * n1 + c0 + j) : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  const float2* const Y = mixed_fft<kW>(a, b, table, tn, N1, lg, ld, plan);
+  const long long step = tn / N;
+  float2* const out = dst + (long long)f * N;
+  for (int i = threadIdx.x; i < (N1 << lg); i += blockDim.x) {
+    const int k1 = i >> lg, j = i & (ft - 1), n2 = c0 + j;
+    if (n2 >= N2) continue;
+    float2 v = Y[k1 * ld + j];
+    if (k1 > 0 && n2 > 0) v = cmul(v, __ldg(table + step * n2 * k1));
+    out[(long long)N2 * k1 + n2] = v;
+  }
+}
+
+template <int kW>
+__global__ void __launch_bounds__(kStepThreads)
+four_step_rows(const float2* __restrict__ src, Sink snk, const float2* __restrict__ table, int tn,
+               int N, int N1, int N2, int lg, int n_tiles, MixedPlan plan) {
+  extern __shared__ float4 smem4[];
+  const int ft = 1 << lg, ld = tile_ld(ft);
+  float2* const a = reinterpret_cast<float2*>(smem4);
+  float2* const b = a + tile_elems(N2, ft);
+  const int f = blockIdx.x / n_tiles;
+  const int r0 = (blockIdx.x - f * n_tiles) << lg;
+  const float2* const in = src + (long long)f * N;
+  for (int i = threadIdx.x; i < (N2 << lg); i += blockDim.x) {
+    const int j = i / N2, n2 = i - j * N2;
+    a[n2 * ld + j] = r0 + j < N1 ? in[(long long)N2 * (r0 + j) + n2] : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  const float2* const Y = mixed_fft<kW>(a, b, table, tn, N2, lg, ld, plan);
+  for (int i = threadIdx.x; i < (N2 << lg); i += blockDim.x) {
+    const int k2 = i >> lg, j = i & (ft - 1);
+    if (r0 + j < N1) snk(f, r0 + j + N1 * k2, Y[k2 * ld + j]);
+  }
+}
+
+// The chirp-z convolution of a tile in shared memory (point m of frame f at
+// a[m * ld + f]: the frame times the chirp, zero-padded to M points): the
+// M-point transform, times Bt and conjugated, the transform again; b is the
+// other buffer.  Returns the buffer holding W, whose conj(W[k]) c_k is X[k].
+// M is 7-smooth: no wide prime.
+__device__ __forceinline__ float2* chirp_convolve(float2* a, float2* b,
+                                                  const float2* __restrict__ ctab,
+                                                  const float2* __restrict__ bt, int M, int lg,
+                                                  int ld, const MixedPlan& plan) {
+  float2* const Y = mixed_fft<7>(a, b, ctab, M, M, lg, ld, plan);
+  for (int i = threadIdx.x; i < (M << lg); i += blockDim.x) {
+    const int k = i >> lg, j = k * ld + (i & ((1 << lg) - 1));
+    const float2 v = cmul(Y[j], __ldg(bt + k));
+    Y[j] = make_float2(v.x, -v.y);
+  }
+  __syncthreads();
+  return mixed_fft<7>(Y, Y == a ? b : a, ctab, M, M, lg, ld, plan);
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory on the current device;
+// `dev_set` and `smem_set` remember what was set last, per kernel.
+inline cudaError_t raise_smem_to(const void* kernel, int bytes, int& dev_set, int& smem_set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev == dev_set && bytes <= smem_set)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) {
+    dev_set = dev;
+    smem_set = bytes;
+  }
+  return err;
+}
+
+template <int kW>
+cudaError_t launch_columns(const Source& src, float2* dst, const float2* table, int tn,
+                           const FourStep& fs, int frames, cudaStream_t s) {
+  static int dev_set = -1, smem_set = 0;
+  const void* kernel = (const void*)four_step_columns<kW>;
+  const cudaError_t err = raise_smem_to(kernel, fs.col.smem, dev_set, smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (fs.N2 + (1 << fs.col.lg) - 1) >> fs.col.lg;
+  if ((long long)frames * n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  four_step_columns<kW><<<frames * n_tiles, kStepThreads, fs.col.smem, s>>>(
+      src, dst, table, tn, fs.N, fs.N1, fs.N2, fs.col.lg, n_tiles, fs.col.plan);
+  return cudaGetLastError();
+}
+
+template <int kW>
+cudaError_t launch_rows(const float2* src, const Sink& snk, const float2* table, int tn,
+                        const FourStep& fs, int frames, cudaStream_t s) {
+  static int dev_set = -1, smem_set = 0;
+  const void* kernel = (const void*)four_step_rows<kW>;
+  const cudaError_t err = raise_smem_to(kernel, fs.row.smem, dev_set, smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (fs.N1 + (1 << fs.row.lg) - 1) >> fs.row.lg;
+  if ((long long)frames * n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  four_step_rows<kW><<<frames * n_tiles, kStepThreads, fs.row.smem, s>>>(
+      src, snk, table, tn, fs.N, fs.N1, fs.N2, fs.row.lg, n_tiles, fs.row.plan);
+  return cudaGetLastError();
+}
+
+// The N-point transform of `frames` frames from `src` into `snk`, through
+// buffer A (frames x N points): two launches.
+inline cudaError_t four_step(const Source& src, const Sink& snk, float2* A, const float2* table,
+                             int tn, const FourStep& fs, int frames, cudaStream_t s) {
+  const cudaError_t err = by_width(fs.col.plan, [&](auto w) {
+    return launch_columns<decltype(w)::value>(src, A, table, tn, fs, frames, s);
+  });
+  if (err != cudaSuccess) return err;
+  return by_width(fs.row.plan, [&](auto w) {
+    return launch_rows<decltype(w)::value>(A, snk, table, tn, fs, frames, s);
+  });
+}
+
+// The transform of a chunk's frames of complex length L through N points
+// (N == L: one four-step FFT; else the chirp-z transform: two), ending in
+// buffer B as X[k], k < L (times the chirp where `post`, which the chirp-z
+// route's power does not need).  `src` reads the frames; chirp, bt and the
+// table of N describe the chirp-z transform (chirp null: N == L).
+inline cudaError_t transform_chunk(Source src, float2* A, float2* B, const float2* table, int tn,
+                                   const float2* chirp, const float2* bt, int L, bool post,
+                                   const FourStep& fs, int frames, cudaStream_t s) {
+  Sink snk{Sink::kPlain, B, fs.N, nullptr, nullptr, L};
+  if (chirp == nullptr) return four_step(src, snk, A, table, tn, fs, frames, s);
+  src.chirp = chirp;
+  src.L = L;
+  snk.mode = Sink::kChirpForward;
+  snk.bt = bt;
+  cudaError_t err = four_step(src, snk, A, table, tn, fs, frames, s);
+  if (err != cudaSuccess) return err;
+  Source mid{Source::kBuffer, nullptr, 0, 0, 1, 0, 0, nullptr, B, fs.N, nullptr, fs.N};
+  snk.mode = Sink::kChirpInverse;
+  snk.chirp = post ? chirp : nullptr;
+  return four_step(mid, snk, A, table, tn, fs, frames, s);
+}
+
+}  // namespace

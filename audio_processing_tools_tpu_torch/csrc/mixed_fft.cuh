@@ -1,10 +1,13 @@
-// The mixed-radix shared-memory FFT of K1's mixed route
-// (spectrogram_power.cu) and K8's mixed frame pass (streaming.cu): the
-// half-length complex Stockham transform of M = n / 2 points (n even, the
-// real-input packing z[m] = x[2m] + i x[2m+1] of the power-of-two route)
+// The mixed-radix shared-memory FFT of K1 (spectrogram_power.cu) and K8's
+// frame passes (streaming.cu): the complex Stockham transform of M points
 // for every M = 2^a q whose odd part q has no prime factor above kMaxPrime.
-// It takes every frame size of the TPU kernel's geometry set (n_fft = 128 m,
-// m <= 32) and most sizes users type (400, 480, 500, 1,000).
+// Its uses: the half-length transform of an even frame (M = n / 2, the
+// real-input packing z[m] = x[2m] + i x[2m+1] of the power-of-two route:
+// the mixed route, which takes every frame size of the TPU kernel's
+// geometry set, n_fft = 128 m, m <= 32, and most sizes users type, 400,
+// 480, 500, 1,000); the whole transform of an odd frame (M = n, the odd
+// mixed route); the M-point convolutions of the chirp-z and Rader routes;
+// and the column and row transforms of the four-step FFT (four_step.cuh).
 //
 // Plan (mixed_plan_of, mirrored by ops/spectrogram.py::mixed_radices):
 // radix-8 passes while 8 divides the power of two, then one radix-4 or
@@ -14,16 +17,17 @@
 // differences of x_j and x_{p-j}, (p-1)^2 / 2 real multiply-adds).
 //
 // Layout: a tile of ft = 2^lg frames lies frame-fastest in shared memory,
-// point m of frame f at buf[m * ld + f], ld = ft + 1.  A pass's work item u
+// point m of frame f at buf[m * ld + f], ld = tile_ld(ft).  A pass's work item u
 // is (frame u & (ft - 1), butterfly u >> lg): the lanes of a warp take the
 // same butterfly of consecutive frames (one twiddle, consecutive addresses;
 // the odd row stride keeps a column walk over points free of bank
 // conflicts too).  A pass reads one buffer and writes the other (Stockham
 // is out of place) and the block synchronises between passes.
 //
-// Twiddles are the host table table[j] = e^{-2 pi i j / n} (float64 rounded
-// to float32, K1's and K8's own table), read as table[(k r n / (NS R))]: no
-// sine on the card.  A frame's arithmetic is the same code in the same
+// Twiddles are a host table table[j] = e^{-2 pi i j / tn} for a length tn
+// that M divides (float64 rounded to float32: K1's and K8's own table of n
+// entries, or the chirp-z route's of M), read as table[(k r tn / (NS R))]:
+// no sine on the card.  A frame's arithmetic is the same code in the same
 // order wherever the frame lies in a tile, so its result does not depend on
 // the tile, the chunk or the batch it came in (K8's chunk invariance).
 #pragma once
@@ -31,12 +35,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "stockham_fft.cuh"
 
 namespace {
 
 constexpr int kMaxPrime = 31;   // the largest odd prime a pass takes
-constexpr int kMaxPasses = 16;  // passes of a plan (the route's largest M, 7,264, needs 9)
+constexpr int kMaxPasses = 16;  // passes of a plan (a chirp-z size near 131,072 needs 12)
 
 struct MixedPlan {
   int n_pass;
@@ -75,11 +81,28 @@ __host__ __device__ inline MixedPlan mixed_plan_of(int M) {
   return p;
 }
 
-// Whether a plan needs mixed_fft's kWide instantiation: a radix above 8.
-__host__ __device__ inline bool plan_is_wide(const MixedPlan& p) {
-  for (int i = 0; i < p.n_pass; ++i)
-    if (p.radix[i] > 8) return true;
-  return false;
+// The instantiation of mixed_fft a plan needs, by its largest radix: 7
+// (radices 2 to 8), 13 (the primes 11 and 13) or 31 (17 to 31).  A wider
+// one holds the larger butterflies' registers, which would cut the
+// occupancy of the narrower plans.
+__host__ __device__ inline int plan_width(const MixedPlan& p) {
+  int w = 7;
+  for (int i = 0; i < p.n_pass; ++i) {
+    if (p.radix[i] > 13) return 31;
+    if (p.radix[i] > 8) w = 13;
+  }
+  return w;
+}
+
+// f(std::integral_constant<int, W>{}) for the plan's width W: a launcher
+// picks its kernel's instantiation.
+template <typename Fn>
+auto by_width(const MixedPlan& p, Fn f) {
+  switch (plan_width(p)) {
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 13: return f(std::integral_constant<int, 13>{});
+    default: return f(std::integral_constant<int, 31>{});
+  }
 }
 
 // The p-point DFT of a[0 .. P-1] in place, natural order, P odd:
@@ -126,20 +149,21 @@ __device__ __forceinline__ void butterfly(float2 (&v)[R], const float2 (&cs)[R /
   }
 }
 
-// One Stockham pass of radix R after NS points over a tile of 2^lg frames:
-// butterfly b of a frame reads points b + r M / R, multiplies input r by
-// e^{-2 pi i k r / (NS R)} (k = b mod NS) and writes its outputs to
-// (b / NS) NS R + k + r NS.
+// One Stockham pass of radix R after NS points of an M-point transform over
+// a tile of 2^lg frames: butterfly b of a frame reads points b + r M / R,
+// multiplies input r by e^{-2 pi i k r / (NS R)} (k = b mod NS) and writes
+// its outputs to (b / NS) NS R + k + r NS.  `table` holds e^{-2 pi i j / tn}
+// for a table length tn that M divides.
 template <int R>
 __device__ __forceinline__ void mixed_pass(const float2* __restrict__ src, float2* __restrict__ dst,
-                                           const float2* __restrict__ table, int n, int NS,
-                                           int lg, int ld) {
-  const int nb = n / 2 / R;
-  const int step = n / (NS * R);
+                                           const float2* __restrict__ table, int tn, int M,
+                                           int NS, int lg, int ld) {
+  const int nb = M / R;
+  const int step = tn / (NS * R);
   float2 cs[R / 2 + 1];
   if constexpr (R % 2 == 1) {
 #pragma unroll
-    for (int m = 1; m <= R / 2; ++m) cs[m] = __ldg(table + m * (n / R));
+    for (int m = 1; m <= R / 2; ++m) cs[m] = __ldg(table + m * (tn / R));
   }
   const int work = nb << lg, fmask = (1 << lg) - 1;
   for (int u = threadIdx.x; u < work; u += blockDim.x) {
@@ -159,34 +183,39 @@ __device__ __forceinline__ void mixed_pass(const float2* __restrict__ src, float
   }
 }
 
-// The transform of the tile in `a` (point m of frame f at a[m * ld + f]);
-// `b` is the other buffer.  Every thread of the block calls it; returns the
-// buffer that holds the result, in natural order.  kWide instantiates the
-// primes 11 .. kMaxPrime (their registers would cut the occupancy of the
-// other sizes).
-template <bool kWide>
-__device__ float2* mixed_fft(float2* a, float2* b, const float2* __restrict__ table, int n,
-                             int lg, int ld, const MixedPlan& plan) {
+// The M-point transform of the tile in `a` (point m of frame f at a[m * ld +
+// f]); `b` is the other buffer; `table` holds e^{-2 pi i j / tn}, M | tn.
+// Every thread of the block calls it; returns the buffer that holds the
+// result, in natural order.  kW is the plan's width (plan_width): the
+// primes above kW are not instantiated.
+template <int kW>
+__device__ float2* mixed_fft(float2* a, float2* b, const float2* __restrict__ table, int tn,
+                             int M, int lg, int ld, const MixedPlan& plan) {
   int NS = 1;
   for (int p = 0; p < plan.n_pass; ++p) {
     const int R = plan.radix[p];
     switch (R) {
-      case 2: mixed_pass<2>(a, b, table, n, NS, lg, ld); break;
-      case 3: mixed_pass<3>(a, b, table, n, NS, lg, ld); break;
-      case 4: mixed_pass<4>(a, b, table, n, NS, lg, ld); break;
-      case 5: mixed_pass<5>(a, b, table, n, NS, lg, ld); break;
-      case 7: mixed_pass<7>(a, b, table, n, NS, lg, ld); break;
-      case 8: mixed_pass<8>(a, b, table, n, NS, lg, ld); break;
+      case 2: mixed_pass<2>(a, b, table, tn, M, NS, lg, ld); break;
+      case 3: mixed_pass<3>(a, b, table, tn, M, NS, lg, ld); break;
+      case 4: mixed_pass<4>(a, b, table, tn, M, NS, lg, ld); break;
+      case 5: mixed_pass<5>(a, b, table, tn, M, NS, lg, ld); break;
+      case 7: mixed_pass<7>(a, b, table, tn, M, NS, lg, ld); break;
+      case 8: mixed_pass<8>(a, b, table, tn, M, NS, lg, ld); break;
       default:
-        if constexpr (kWide) {
+        if constexpr (kW >= 13) {
           switch (R) {
-            case 11: mixed_pass<11>(a, b, table, n, NS, lg, ld); break;
-            case 13: mixed_pass<13>(a, b, table, n, NS, lg, ld); break;
-            case 17: mixed_pass<17>(a, b, table, n, NS, lg, ld); break;
-            case 19: mixed_pass<19>(a, b, table, n, NS, lg, ld); break;
-            case 23: mixed_pass<23>(a, b, table, n, NS, lg, ld); break;
-            case 29: mixed_pass<29>(a, b, table, n, NS, lg, ld); break;
-            default: mixed_pass<31>(a, b, table, n, NS, lg, ld); break;
+            case 11: mixed_pass<11>(a, b, table, tn, M, NS, lg, ld); break;
+            case 13: mixed_pass<13>(a, b, table, tn, M, NS, lg, ld); break;
+            default:
+              if constexpr (kW >= 31) {
+                switch (R) {
+                  case 17: mixed_pass<17>(a, b, table, tn, M, NS, lg, ld); break;
+                  case 19: mixed_pass<19>(a, b, table, tn, M, NS, lg, ld); break;
+                  case 23: mixed_pass<23>(a, b, table, tn, M, NS, lg, ld); break;
+                  case 29: mixed_pass<29>(a, b, table, tn, M, NS, lg, ld); break;
+                  default: mixed_pass<31>(a, b, table, tn, M, NS, lg, ld); break;
+                }
+              }
           }
         }
     }
@@ -199,9 +228,18 @@ __device__ float2* mixed_fft(float2* a, float2* b, const float2* __restrict__ ta
   return a;
 }
 
-// float2 of one tile buffer: `rows` points of ft frames at row stride ft + 1,
-// rounded up to an even count so that the next buffer starts 16-byte aligned
-__host__ __device__ inline int tile_elems(int rows, int ft) { return (rows * (ft + 1) + 1) & ~1; }
+// The row stride of a tile of ft frames: ft + 1, odd, so that a column walk
+// over points is free of bank conflicts too; 1 for a single frame, whose
+// points lie side by side.
+__host__ __device__ inline int tile_ld(int ft) { return ft == 1 ? 1 : ft + 1; }
+
+// float2 of one tile buffer: `rows` points of ft frames at row stride
+// tile_ld(ft), rounded up to an even count so that the next buffer starts
+// 16-byte aligned; a single frame's buffer holds two more, so that the
+// samples staged in it (stage_run: len + 3 floats) always fit
+__host__ __device__ inline int tile_elems(int rows, int ft) {
+  return (rows * tile_ld(ft) + (ft == 1 ? 2 : 0) + 1) & ~1;
+}
 
 // Samples g0 .. g0 + len - 1 of a row of n_row samples (zero outside it)
 // into shared memory at `dst` (16-byte aligned, len + 3 floats): 16-byte

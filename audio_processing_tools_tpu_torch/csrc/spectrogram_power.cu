@@ -62,21 +62,44 @@
 // 384/192 or 2,048/1,024: ~0.034 ms at 3.35 TB/s); an FFT's ~5 n log2 n
 // FLOP a frame keep it there.
 //
-// The DFT route (apt_spectrogram_power_dft) takes every other geometry the
-// JAX package runs, any n_fft >= 1 and hop >= 1 (an odd n_fft, a prime
-// factor above 31): the TPU kernel's own
+// The odd mixed route (apt_spectrogram_power_odd) takes every odd n_fft
+// whose factors are all <= 31: the same tiles, with the windowed real frame
+// as a complex n-point transform (zero imaginary parts) and bins 0 ..
+// (n - 1) / 2 straight out of it; one frame a transform (packing two frames
+// as x1 + i x2 would tie a quiet frame's error to a loud neighbour's).
+//
+// The chirp-z route (apt_spectrogram_power_chirpz) takes every n_fft whose
+// complex length L (n / 2 or n) has a prime factor above 31: the same
+// tiles, two buffers of M points a frame, M a 7-smooth size >= 2L - 1
+// (ops/spectrogram.py::chirp_size); the frame times the chirp, the M-point
+// transform, times Bt, the transform again, the chirp (four_step.cuh
+// states it).  Two transforms of about 2L points a frame: ~4x the mixed
+// route's work at the same n_fft.
+//
+// The global route (apt_spectrogram_power_global) takes every size whose
+// transform (L, or the chirp-z M) passes kOneBlockPoints: a four-step FFT
+// through two chunk buffers in device memory (four_step.cuh), two launches
+// a transform, then the power from the spectrum, a tile of frames and bins
+// through shared memory.  Frames go through in chunks of at most 32 MiB of
+// buffers, which stay in the 50 MB L2.  Its bytes beyond the function's:
+// the buffers' writes and reads, ~5x the frame's points in float2 a frame.
+//
+// The DFT route (apt_spectrogram_power_dft), which only comparisons force,
+// takes any n_fft up to 58,112 and hop >= 1: the TPU kernel's own
 // window-and-DFT product (dft.cuh), one block a tile of frames of one clip.
 // The tile's windowed samples and the twiddle table sit in shared memory,
 // frame-fastest, and each thread sums bin k for FPT frames at once, n_fft
 // FMAs a frame and part, from the twiddles (k m) mod n_fft of the table.
 // The function's bound is the same; this route does the DFT's 4 n_fft FLOP
-// a bin and frame, so it runs far above it.
+// a bin and frame, so it runs far above it: it is the chirp-z and global
+// routes' independent check on the card.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "dft.cuh"
+#include "four_step.cuh"
 #include "mixed_fft.cuh"
 #include "stockham_fft.cuh"
 
@@ -373,87 +396,316 @@ size_t mixed_smem_for(int n_fft, int frame_tile) {
   return 16 * (size_t)tile_elems(n_fft / 2, frame_tile);
 }
 
-template <bool kWide>
+// The samples of a tile of ft frames of one clip, from sample g0 on, into
+// `stage`: one run where frames overlap or touch, else frame by frame.
+// Returns the slab, frame f's sample m at slab[f * sh + m].
+__device__ __forceinline__ const float* stage_tile(const float* __restrict__ xb, int N,
+                                                   long long g0, int ft, int n_fft, int hop,
+                                                   float* stage, int& sh) {
+  if (hop <= n_fft) {
+    sh = hop;
+    return stage_run(xb, N, g0, (ft - 1) * hop + n_fft, stage);
+  }
+  sh = n_fft;
+  for (int i = threadIdx.x; i < ft * n_fft; i += blockDim.x) {
+    const int f = i / n_fft, m = i - f * n_fft;
+    const long long s = g0 + (long long)f * hop + m;
+    stage[i] = s >= 0 && s < N ? xb[s] : 0.f;
+  }
+  return stage;
+}
+
+// The power of bin k < M of an even frame from its half-length transform Z:
+// zk = Z[k], zm = Z[M - k] (Z[0] at k = 0), w = e^{-2 pi i k / n_fft};
+// and of bin M from Z[0].
+__device__ __forceinline__ float split_power(float2 zk, float2 zm, float2 w) {
+  const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
+  const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
+  const float xr = ar + (w.x * di + w.y * dr);
+  const float xi = ai - (w.x * dr - w.y * di);
+  return xr * xr + xi * xi;
+}
+__device__ __forceinline__ float nyquist_power(float2 z0) {
+  const float d = z0.x - z0.y;
+  return d * d;
+}
+
+template <int kW>
 __global__ void __launch_bounds__(kThreads)
 spectrogram_power_mixed(const float* __restrict__ x, const float* __restrict__ window,
                         const float2* __restrict__ twiddle, float* __restrict__ out, int N,
                         int T, int n_fft, int hop, int pad, int lg, int n_tiles, MixedPlan plan) {
   extern __shared__ float4 smem4[];
-  const int M = n_fft / 2, F = M + 1, ft = 1 << lg, ld = ft + 1;
+  const int M = n_fft / 2, F = M + 1, ft = 1 << lg, ld = tile_ld(ft);
   float2* const buf_a = reinterpret_cast<float2*>(smem4);
   float2* const buf_b = buf_a + tile_elems(M, ft);
   const int b = blockIdx.x / n_tiles;
   const int t0 = (blockIdx.x - b * n_tiles) * ft;
-  const float* const xb = x + (size_t)b * N;
-  const long long g0 = (long long)t0 * hop - pad;
-  float* const stage = reinterpret_cast<float*>(buf_b);
-
-  // ---- the tile's samples: one run where frames overlap or touch, else
-  // frame by frame; frame f's sample m at slab[f * sh + m] ----
-  const float* slab = stage;
-  int sh = hop;
-  if (hop <= n_fft) {
-    slab = stage_run(xb, N, g0, (ft - 1) * hop + n_fft, stage);
-  } else {
-    sh = n_fft;
-    for (int i = threadIdx.x; i < ft * n_fft; i += blockDim.x) {
-      const int f = i / n_fft, m = i - f * n_fft;
-      const long long s = g0 + (long long)f * hop + m;
-      stage[i] = s >= 0 && s < N ? xb[s] : 0.f;
-    }
-  }
+  int sh;
+  const float* const slab = stage_tile(x + (size_t)b * N, N, (long long)t0 * hop - pad, ft, n_fft,
+                                       hop, reinterpret_cast<float*>(buf_b), sh);
   __syncthreads();
   pack_frames(slab, sh, window, buf_a, M, ft, ld);
   __syncthreads();
-  const float2* const Z = mixed_fft<kWide>(buf_a, buf_b, twiddle, n_fft, lg, ld, plan);
+  const float2* const Z = mixed_fft<kW>(buf_a, buf_b, twiddle, n_fft, M, lg, ld, plan);
 
   // ---- the real split and the power of bin k of frame f ----
   for (int i = threadIdx.x; i < (F << lg); i += blockDim.x) {
     const int f = i & (ft - 1), k = i >> lg;
     if (t0 + f >= T) continue;
+    out[((size_t)b * F + k) * T + t0 + f] =
+        k == M ? nyquist_power(Z[f])
+               : split_power(Z[k * ld + f], Z[(k == 0 ? 0 : M - k) * ld + f], __ldg(twiddle + k));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The odd mixed route: an odd n_fft whose factors are all <= 31, one block
+// a tile of 2^lg frames of one clip.  The windowed real frame is the input
+// of a complex n-point transform (zero imaginary parts), whose bins 0 ..
+// (n - 1) / 2 are the spectrum: no split step.  One frame a transform.
+// ---------------------------------------------------------------------------
+
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+spectrogram_power_odd(const float* __restrict__ x, const float* __restrict__ window,
+                      const float2* __restrict__ twiddle, float* __restrict__ out, int N, int T,
+                      int n_fft, int hop, int pad, int lg, int n_tiles, MixedPlan plan) {
+  extern __shared__ float4 smem4[];
+  const int n = n_fft, F = n / 2 + 1, ft = 1 << lg, ld = tile_ld(ft);
+  float2* const buf_a = reinterpret_cast<float2*>(smem4);
+  float2* const buf_b = buf_a + tile_elems(n, ft);
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x - b * n_tiles) * ft;
+  int sh;
+  const float* const slab = stage_tile(x + (size_t)b * N, N, (long long)t0 * hop - pad, ft, n,
+                                       hop, reinterpret_cast<float*>(buf_b), sh);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ft * n; i += blockDim.x) {
+    const int f = i / n, m = i - f * n;
+    buf_a[m * ld + f] = make_float2(slab[f * sh + m] * __ldg(window + m), 0.f);
+  }
+  __syncthreads();
+  const float2* const Z = mixed_fft<kW>(buf_a, buf_b, twiddle, n, n, lg, ld, plan);
+  for (int i = threadIdx.x; i < (F << lg); i += blockDim.x) {
+    const int f = i & (ft - 1), k = i >> lg;
+    if (t0 + f >= T) continue;
+    const float2 z = Z[k * ld + f];
+    out[((size_t)b * F + k) * T + t0 + f] = z.x * z.x + z.y * z.y;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The chirp-z route (four_step.cuh states the transform): every n_fft
+// whose complex length L (n / 2 packed for an even n_fft, n for an odd one)
+// has a prime factor above 31, one block a tile of 2^lg frames of one clip,
+// two M-point buffers a frame.  Per frame: the windowed, packed frame times
+// the chirp, zero-padded to M; the forward M-point transform; times Bt and
+// conjugated; the transform again; then, for an even n_fft, Z[k] = conj(.)
+// times the chirp and the real split, for an odd one the power of conj(.)
+// as it is (|c_k| = 1).  M's radices are 2 to 8: never the wide primes.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+spectrogram_power_chirpz(const float* __restrict__ x, const float* __restrict__ window,
+                         const float2* __restrict__ twiddle, const float2* __restrict__ chirp,
+                         const float2* __restrict__ bt, const float2* __restrict__ ctab,
+                         float* __restrict__ out, int N, int T, int n_fft, int hop, int pad,
+                         int lg, int n_tiles, int Mc, MixedPlan plan) {
+  extern __shared__ float4 smem4[];
+  const bool even = (n_fft & 1) == 0;
+  const int L = even ? n_fft / 2 : n_fft, F = n_fft / 2 + 1, ft = 1 << lg, ld = tile_ld(ft);
+  float2* const buf_a = reinterpret_cast<float2*>(smem4);
+  float2* const buf_b = buf_a + tile_elems(Mc, ft);
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x - b * n_tiles) * ft;
+  int sh;
+  const float* const slab = stage_tile(x + (size_t)b * N, N, (long long)t0 * hop - pad, ft, n_fft,
+                                       hop, reinterpret_cast<float*>(buf_b), sh);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ft * Mc; i += blockDim.x) {
+    const int f = i / Mc, m = i - f * Mc;
+    float2 v = make_float2(0.f, 0.f);
+    if (m < L) {
+      const float* const s = slab + f * sh;
+      v = even ? make_float2(s[2 * m] * __ldg(window + 2 * m),
+                             s[2 * m + 1] * __ldg(window + 2 * m + 1))
+               : make_float2(s[m] * __ldg(window + m), 0.f);
+      v = cmul(v, __ldg(chirp + m));
+    }
+    buf_a[m * ld + f] = v;
+  }
+  __syncthreads();
+  const float2* const W = chirp_convolve(buf_a, buf_b, ctab, bt, Mc, lg, ld, plan);
+  for (int i = threadIdx.x; i < (F << lg); i += blockDim.x) {
+    const int f = i & (ft - 1), k = i >> lg;
+    if (t0 + f >= T) continue;
     float p;
-    if (k == M) {
-      const float2 z0 = Z[f];
-      const float d = z0.x - z0.y;
-      p = d * d;
+    if (even) {
+      auto z = [&](int j) {
+        const float2 w = W[j * ld + f];
+        return cmul(make_float2(w.x, -w.y), __ldg(chirp + j));
+      };
+      p = k == L ? nyquist_power(z(0))
+                 : split_power(z(k), z(k == 0 ? 0 : L - k), __ldg(twiddle + k));
     } else {
-      const float2 zk = Z[k * ld + f];
-      const float2 zm = Z[(k == 0 ? 0 : M - k) * ld + f];
-      const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
-      const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
-      const float2 w = __ldg(twiddle + k);
-      const float xr = ar + (w.x * di + w.y * dr);
-      const float xi = ai - (w.x * dr - w.y * di);
-      p = xr * xr + xi * xi;
+      const float2 w = W[k * ld + f];
+      p = w.x * w.x + w.y * w.y;
     }
     out[((size_t)b * F + k) * T + t0 + f] = p;
   }
 }
 
-template <bool kWide>
-cudaError_t launch_mixed(const float* x, const float* window, const float* twiddle, float* out,
-                         int B, int N, int T, int n_fft, int hop, int pad, int frame_tile,
-                         size_t smem, const MixedPlan& plan, cudaStream_t stream) {
-  static int dev_set = -1;
-  static size_t smem_set = 0;
-  auto kernel = spectrogram_power_mixed<kWide>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev != dev_set || smem > smem_set) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dev_set = dev;
-    smem_set = smem;
+// ---------------------------------------------------------------------------
+// The Rader route: a prime complex length L above 31 whose L - 1 has a plan
+// (1,009 = 1 + 2^4 3^2 7), one block a tile of 2^lg frames of one clip.
+// With g a primitive root mod L, X[g^-q] = z_0 + sum_r z[g^r] e^{-2 pi i
+// g^(r-q) / L}: a cyclic convolution over N = L - 1 points of a_r =
+// z[g^r] with b_m = e^{-2 pi i g^-m / L}, through the chirp-z route's
+// steps (the transform, times Bt = FFT(b) / N, conjugated, the transform
+// again, conjugated) over N points, not the ~2L to 4L of chirp-z; and X_0
+// = z_0 + A_0, the first transform's bin 0.  The host builds the
+// permutations (gin[q] = g^q, qout[k] = q with g^-q = k) and Bt in float64
+// (ops/spectrogram.py::rader_tables).
+// ---------------------------------------------------------------------------
+
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+spectrogram_power_rader(const float* __restrict__ x, const float* __restrict__ window,
+                        const float2* __restrict__ twiddle, const int* __restrict__ gin,
+                        const int* __restrict__ qout, const float2* __restrict__ bt,
+                        const float2* __restrict__ rtab, float* __restrict__ out, int N, int T,
+                        int n_fft, int hop, int pad, int lg, int n_tiles, MixedPlan plan) {
+  extern __shared__ float4 smem4[];
+  const bool even = (n_fft & 1) == 0;
+  const int L = even ? n_fft / 2 : n_fft, R = L - 1, F = n_fft / 2 + 1, ft = 1 << lg,
+            ld = tile_ld(ft);
+  float2* const z0 = reinterpret_cast<float2*>(smem4);  // [ft]: each frame's z_0
+  float2* const a0 = z0 + ft;                           // [ft]: each frame's A_0
+  float2* const buf_a = a0 + ft;
+  float2* const buf_b = buf_a + tile_elems(R, ft);  // 16 bytes more: the staged samples' slack
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x - b * n_tiles) * ft;
+  int sh;
+  const float* const slab = stage_tile(x + (size_t)b * N, N, (long long)t0 * hop - pad, ft, n_fft,
+                                       hop, reinterpret_cast<float*>(buf_b), sh);
+  __syncthreads();
+  auto point = [&](int f, int j) {  // z_j of frame f, windowed (and packed)
+    const float* const s = slab + f * sh;
+    return even ? make_float2(s[2 * j] * __ldg(window + 2 * j),
+                              s[2 * j + 1] * __ldg(window + 2 * j + 1))
+                : make_float2(s[j] * __ldg(window + j), 0.f);
+  };
+  for (int i = threadIdx.x; i < ft * R; i += blockDim.x) {
+    const int f = i / R, q = i - f * R;
+    buf_a[q * ld + f] = point(f, __ldg(gin + q));
   }
-  int lg = 0;
-  while ((1 << lg) < frame_tile) ++lg;
-  const int n_tiles = (T + frame_tile - 1) / frame_tile;
-  if ((long long)B * n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<B * n_tiles, kThreads, smem, stream>>>(x, window,
-                                                   reinterpret_cast<const float2*>(twiddle), out,
-                                                   N, T, n_fft, hop, pad, lg, n_tiles, plan);
+  for (int f = threadIdx.x; f < ft; f += blockDim.x) z0[f] = point(f, 0);
+  __syncthreads();
+  float2* const Y = mixed_fft<kW>(buf_a, buf_b, rtab, R, R, lg, ld, plan);
+  for (int i = threadIdx.x; i < (R << lg); i += blockDim.x) {
+    const int k = i >> lg, f = i & (ft - 1), j = k * ld + f;
+    if (k == 0) a0[f] = Y[j];
+    const float2 v = cmul(Y[j], __ldg(bt + k));
+    Y[j] = make_float2(v.x, -v.y);
+  }
+  __syncthreads();
+  const float2* const W = mixed_fft<kW>(Y, Y == buf_a ? buf_b : buf_a, rtab, R, R, lg, ld, plan);
+  for (int i = threadIdx.x; i < (F << lg); i += blockDim.x) {
+    const int f = i & (ft - 1), k = i >> lg;
+    if (t0 + f >= T) continue;
+    auto z = [&](int j) {  // Z[j], j < L
+      const float2 c = j == 0 ? a0[f] : W[__ldg(qout + j) * ld + f];
+      return make_float2(z0[f].x + c.x, z0[f].y + (j == 0 ? c.y : -c.y));
+    };
+    float p;
+    if (even) {
+      p = k == L ? nyquist_power(z(0))
+                 : split_power(z(k), z(k == 0 ? 0 : L - k), __ldg(twiddle + k));
+    } else {
+      const float2 v = z(k);
+      p = v.x * v.x + v.y * v.y;
+    }
+    out[((size_t)b * F + k) * T + t0 + f] = p;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The global route: the transform of a frame too large for one block, as a
+// four-step FFT (four_step.cuh) through two chunk buffers in device memory,
+// then the power of each bin from the spectrum in buffer B: a tile of
+// kEpiFrames frames by kEpiBins bins goes through shared memory, read bin
+// after bin and written frame after frame, so both runs are contiguous.
+// ---------------------------------------------------------------------------
+
+constexpr int kEpiFrames = 32, kEpiBins = 64;
+
+__global__ void __launch_bounds__(kThreads)
+power_from_spectrum(const float2* __restrict__ Z, long long zs, const float2* __restrict__ twiddle,
+                    float* __restrict__ out, int T, int F, int M, bool even, long long g0, int nf,
+                    int n_btiles) {
+  __shared__ float tile[kEpiBins][kEpiFrames + 1];
+  const int f0 = (blockIdx.x / n_btiles) * kEpiFrames;
+  const int k0 = (blockIdx.x % n_btiles) * kEpiBins;
+  for (int i = threadIdx.x; i < kEpiFrames * kEpiBins; i += blockDim.x) {
+    const int f = i / kEpiBins, kk = i - f * kEpiBins, k = k0 + kk;
+    if (f0 + f >= nf || k >= F) continue;
+    const float2* const z = Z + (f0 + f) * zs;
+    float p;
+    if (even) {
+      p = k == M ? nyquist_power(z[0])
+                 : split_power(z[k], z[k == 0 ? 0 : M - k], __ldg(twiddle + k));
+    } else {
+      const float2 v = z[k];
+      p = v.x * v.x + v.y * v.y;
+    }
+    tile[kk][f] = p;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kEpiFrames * kEpiBins; i += blockDim.x) {
+    const int kk = i / kEpiFrames, f = i - kk * kEpiFrames, k = k0 + kk;
+    if (f0 + f >= nf || k >= F) continue;
+    const long long g = g0 + f0 + f, b = g / T;
+    out[(b * F + k) * T + (g - b * T)] = tile[kk][f];
+  }
+}
+
+// The grid of a tiled route, blocks over (clip, tile of 2^lg frames), once
+// `kernel` may take `smem` bytes.
+struct Tiles {
+  int lg, n_tiles, grid;
+};
+
+cudaError_t tiles_for(const void* kernel, int smem, int B, int T, int frame_tile, int& dev_set,
+                      int& smem_set, Tiles& t) {
+  const cudaError_t err = raise_smem_to(kernel, smem, dev_set, smem_set);
+  if (err != cudaSuccess) return err;
+  t.lg = 0;
+  while ((1 << t.lg) < frame_tile) ++t.lg;
+  t.n_tiles = (T + frame_tile - 1) / frame_tile;
+  if ((long long)B * t.n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  t.grid = B * t.n_tiles;
+  return cudaSuccess;
+}
+
+// the mixed route (odd = false) and the odd mixed route (odd = true)
+template <int kW>
+cudaError_t launch_mixed(bool odd, const float* x, const float* window, const float* twiddle,
+                         float* out, int B, int N, int T, int n_fft, int hop, int pad,
+                         int frame_tile, int smem, const MixedPlan& plan, cudaStream_t stream) {
+  static int dev_even = -1, smem_even = 0, dev_odd = -1, smem_odd = 0;
+  auto kernel = odd ? spectrogram_power_odd<kW> : spectrogram_power_mixed<kW>;
+  Tiles t;
+  const cudaError_t err = tiles_for((const void*)kernel, smem, B, T, frame_tile,
+                                    odd ? dev_odd : dev_even, odd ? smem_odd : smem_even, t);
+  if (err != cudaSuccess) return err;
+  kernel<<<t.grid, kThreads, smem, stream>>>(x, window, reinterpret_cast<const float2*>(twiddle),
+                                             out, N, T, n_fft, hop, pad, t.lg, t.n_tiles, plan);
   return cudaGetLastError();
+}
+
+bool pow2_tile(int frame_tile) {
+  return frame_tile >= 1 && frame_tile <= kMixedMaxTile && (frame_tile & (frame_tile - 1)) == 0;
 }
 
 }  // namespace
@@ -485,21 +737,146 @@ extern "C" int apt_spectrogram_power_mixed(const float* x, const float* window,
                                            const float* twiddle, float* out, int B, int N, int T,
                                            int n_fft, int hop, int pad, int frame_tile,
                                            int smem_bytes, void* stream) {
-  const bool pow2_tile =
-      frame_tile >= 1 && frame_tile <= kMixedMaxTile && (frame_tile & (frame_tile - 1)) == 0;
-  if (n_fft < 4 || n_fft % 2 != 0 || hop < 1 || !pow2_tile || B <= 0 || T <= 0 || N < 0 ||
-      pad < 0)
+  if (n_fft < 4 || n_fft % 2 != 0 || hop < 1 || !pow2_tile(frame_tile) || B <= 0 || T <= 0 ||
+      N < 0 || pad < 0)
     return (int)cudaErrorInvalidValue;
   const MixedPlan plan = mixed_plan_of(n_fft / 2);
   if (plan.n_pass == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = mixed_smem_for(n_fft, frame_tile);
   if (smem != (size_t)smem_bytes || smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (plan_is_wide(plan))
-    return (int)launch_mixed<true>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, frame_tile,
-                                   smem, plan, s);
-  return (int)launch_mixed<false>(x, window, twiddle, out, B, N, T, n_fft, hop, pad, frame_tile,
-                                  smem, plan, s);
+  return (int)by_width(plan, [&](auto w) {
+    return launch_mixed<decltype(w)::value>(false, x, window, twiddle, out, B, N, T, n_fft, hop,
+                                            pad, frame_tile, (int)smem, plan, s);
+  });
+}
+
+// The odd mixed route: an odd n_fft >= 3 with a plan (mixed_plan_of), any
+// hop >= 1; frame_tile and smem_bytes: ops/spectrogram.py::tile_plan(n_fft)
+// (two tile buffers of n_fft points).  Tables as for the FFT route.
+extern "C" int apt_spectrogram_power_odd(const float* x, const float* window,
+                                         const float* twiddle, float* out, int B, int N, int T,
+                                         int n_fft, int hop, int pad, int frame_tile,
+                                         int smem_bytes, void* stream) {
+  if (n_fft < 3 || n_fft % 2 != 1 || hop < 1 || !pow2_tile(frame_tile) || B <= 0 || T <= 0 ||
+      N < 0 || pad < 0)
+    return (int)cudaErrorInvalidValue;
+  const MixedPlan plan = mixed_plan_of(n_fft);
+  if (plan.n_pass == 0) return (int)cudaErrorInvalidValue;
+  const long long smem = 16LL * tile_elems(n_fft, frame_tile);
+  if (smem != smem_bytes || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)by_width(plan, [&](auto w) {
+    return launch_mixed<decltype(w)::value>(true, x, window, twiddle, out, B, N, T, n_fft, hop,
+                                            pad, frame_tile, (int)smem, plan, s);
+  });
+}
+
+// The chirp-z route: any n_fft >= 1 and hop >= 1, through Mc points
+// (ops/spectrogram.py::chirp_size of the complex length L, n_fft / 2 or
+// n_fft; the launcher checks chirp_size_takes); frame_tile and
+// smem_bytes: ops/spectrogram.py::tile_plan(Mc).  chirp: L pairs c_j; bt: Mc
+// pairs FFT(b) / Mc; ctab: Mc pairs e^{-2 pi i j / Mc}
+// (ops/spectrogram.py::chirpz_tables); the rest as for the FFT route.
+extern "C" int apt_spectrogram_power_chirpz(const float* x, const float* window,
+                                            const float* twiddle, const float* chirp,
+                                            const float* bt, const float* ctab, float* out, int B,
+                                            int N, int T, int n_fft, int hop, int pad, int Mc,
+                                            int frame_tile, int smem_bytes, void* stream) {
+  if (n_fft < 1 || hop < 1 || !pow2_tile(frame_tile) || B <= 0 || T <= 0 || N < 0 || pad < 0 ||
+      !chirp_size_takes(n_fft % 2 ? n_fft : n_fft / 2, Mc))
+    return (int)cudaErrorInvalidValue;
+  const MixedPlan plan = mixed_plan_of(Mc);
+  const long long smem = 16LL * tile_elems(Mc, frame_tile);
+  if (smem != smem_bytes || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  static int dev_set = -1, smem_set = 0;
+  Tiles t;
+  const cudaError_t err = tiles_for((const void*)spectrogram_power_chirpz, (int)smem, B, T,
+                                    frame_tile, dev_set, smem_set, t);
+  if (err != cudaSuccess) return (int)err;
+  auto f2 = [](const float* p) { return reinterpret_cast<const float2*>(p); };
+  spectrogram_power_chirpz<<<t.grid, kThreads, smem, (cudaStream_t)stream>>>(
+      x, window, f2(twiddle), f2(chirp), f2(bt), f2(ctab), out, N, T, n_fft, hop, pad, t.lg,
+      t.n_tiles, Mc, plan);
+  return (int)cudaGetLastError();
+}
+
+// The Rader route: n_fft whose complex length L (n_fft / 2 or n_fft) is a
+// prime with a plan for L - 1; frame_tile and smem_bytes:
+// ops/spectrogram.py::rader_launch_plan (two float2 a frame, two tile
+// buffers of L - 1 points, 16 bytes).  gin: L - 1 ints g^q mod L; qout: L ints, q with
+// g^-q = k (qout[0] unused); bt, rtab: L - 1 pairs FFT(b) / (L - 1) and
+// e^{-2 pi i j / (L - 1)} (ops/spectrogram.py::rader_tables); the rest as
+// for the FFT route.
+extern "C" int apt_spectrogram_power_rader(const float* x, const float* window,
+                                           const float* twiddle, const int* gin, const int* qout,
+                                           const float* bt, const float* rtab, float* out, int B,
+                                           int N, int T, int n_fft, int hop, int pad,
+                                           int frame_tile, int smem_bytes, void* stream) {
+  const int L = n_fft % 2 ? n_fft : n_fft / 2;
+  if (n_fft < 1 || hop < 1 || !pow2_tile(frame_tile) || B <= 0 || T <= 0 || N < 0 || pad < 0 ||
+      L < 3)
+    return (int)cudaErrorInvalidValue;
+  const MixedPlan plan = mixed_plan_of(L - 1);
+  const long long smem = 16LL * tile_elems(L - 1, frame_tile) + 16LL * frame_tile + 16;
+  if (plan.n_pass == 0 || smem != smem_bytes || smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  auto f2 = [](const float* p) { return reinterpret_cast<const float2*>(p); };
+  return (int)by_width(plan, [&](auto w) {
+    static int dev_set = -1, smem_set = 0;
+    auto kernel = spectrogram_power_rader<decltype(w)::value>;
+    Tiles t;
+    cudaError_t err = tiles_for((const void*)kernel, (int)smem, B, T, frame_tile, dev_set,
+                                smem_set, t);
+    if (err != cudaSuccess) return err;
+    kernel<<<t.grid, kThreads, smem, (cudaStream_t)stream>>>(
+        x, window, f2(twiddle), gin, qout, f2(bt), f2(rtab), out, N, T, n_fft, hop, pad, t.lg,
+        t.n_tiles, plan);
+    return cudaGetLastError();
+  });
+}
+
+// The global route: any n_fft >= 1 and hop >= 1 whose transform of NT points
+// the four-step split takes (four_step_of): NT = L, the complex length, with
+// chirp null (L has a plan), else NT a chirp-z size with the chirp-z
+// tables as for the chirp-z route.  scratch: scratch_bytes of device memory,
+// at least the two chunk buffers (16 NT chunk_frames(NT, B T) bytes).
+extern "C" int apt_spectrogram_power_global(const float* x, const float* window,
+                                            const float* twiddle, const float* chirp,
+                                            const float* bt, const float* ctab, float* out, int B,
+                                            int N, int T, int n_fft, int hop, int pad, int NT,
+                                            float* scratch, long long scratch_bytes,
+                                            void* stream) {
+  const bool even = n_fft % 2 == 0;
+  const int L = even ? n_fft / 2 : n_fft;
+  if (n_fft < 1 || hop < 1 || B <= 0 || T <= 0 || N < 0 || pad < 0 || scratch == nullptr ||
+      (chirp == nullptr ? NT != L || mixed_plan_of(L).n_pass == 0 : !chirp_size_takes(L, NT)))
+    return (int)cudaErrorInvalidValue;
+  const FourStep fs = four_step_of(NT);
+  const long long frames = (long long)B * T;
+  const long long chunk = chunk_frames(NT, frames);
+  if (!fs.ok || 16LL * NT * chunk > scratch_bytes) return (int)cudaErrorInvalidValue;
+  auto f2 = [](const float* p) { return reinterpret_cast<const float2*>(p); };
+  const float2* const table = chirp == nullptr ? f2(twiddle) : f2(ctab);
+  const int tn = chirp == nullptr ? n_fft : NT;
+  float2* const A = reinterpret_cast<float2*>(scratch);
+  float2* const Bf = A + chunk * NT;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int F = n_fft / 2 + 1, n_btiles = (F + kEpiBins - 1) / kEpiBins;
+  for (long long g0 = 0; g0 < frames; g0 += chunk) {
+    const int nf = (int)(frames - g0 < chunk ? frames - g0 : chunk);
+    const Source src{even ? Source::kEvenFrame : Source::kOddFrame, x, N, g0, T, hop, pad, window,
+                     nullptr, 0, nullptr, L};
+    cudaError_t err = transform_chunk(src, A, Bf, table, tn, f2(chirp), f2(bt), L, even, fs, nf, s);
+    if (err != cudaSuccess) return (int)err;
+    const long long grid = (long long)((nf + kEpiFrames - 1) / kEpiFrames) * n_btiles;
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    power_from_spectrum<<<(int)grid, kThreads, 0, s>>>(Bf, NT, f2(twiddle), out, T, F, L, even,
+                                                        g0, nf, n_btiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // window: n_fft floats; twiddle: n_fft (re, im) pairs, e^{-2 pi i k / n_fft};

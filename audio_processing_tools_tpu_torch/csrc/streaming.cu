@@ -27,14 +27,17 @@
 // (on an H100 the walk takes ~0.6 us a frame).  But only the gain is on
 // that chain: the forward spectrum of a frame depends on its samples alone,
 // and its inverse on the spectrum and the frame's gain.  So the work is
-// two launches on the caller's stream:
+// two launches on the caller's stream (the global pass: a few a chunk):
 //
 //  A. the walk: one block per stream, one thread per band bin (as many warps
-//     as the K band bins need; past 1,024 bins two or four a thread), walks the frames in order with the
+//     as the K band bins need; past 1,024 bins ceil(K / 1,024) a thread,
+//     walk_plan), walks the frames in order with the
 //     tracker, the SNR gate, the gain and the EMA, and writes the clipped
 //     gain G (B, K, T) and the carries.  It reads only the band power K1
 //     computed, the classes and the confidences, a round ahead.  A round
-//     is kFrames frames between two barriers: the tracker steps and the
+//     is kFrames frames between two barriers (fewer where the rows of
+//     wide bands do not fit; in a global scratch where one frame's do
+//     not): the tracker steps and the
 //     EMA go frame after frame, but the SNR trees, the raw gains and the
 //     smoothing of a round's frames are independent of each other, so their
 //     dependent chains interleave (one warp per scheduler has no other warp
@@ -57,11 +60,19 @@
 //     tile's frames frame-fastest in two shared buffers, the forward
 //     transform, the real split and band scaling, the inverse's input and
 //     the inverse transform each a block-wide step between them.
-//  B''. the DFT frame pass, for every other n_fft = 2 hop: the same tiles,
+//  B''. the DFT frame pass, which only comparisons force: the same tiles,
 //     staging and overlap-add, with K1's direct DFT (dft.cuh) in place of
 //     the FFT: the tile's windowed frames frame-fastest in shared memory,
 //     each thread one bin (forward) or one sample (inverse) of four frames,
 //     the twiddles (k m) mod n_fft from the table in shared memory.
+//  B3. the chirp-z frame pass, for every other even n_fft = 2 hop whose
+//     tile of two frames fits: the mixed pass with both transforms of n_fft
+//     / 2 points as chirp-z transforms over chirp_n points (four_step.cuh).
+//  B4. the global frame pass, for every n_fft whose two frames no block
+//     holds: the forward and inverse transforms as four-step FFTs (of n_fft
+//     / 2, or chirp-z over chirp_n) through chunk buffers in device memory,
+//     the split, scaling and overlap-add as launches between them.
+//  The pass depends on n_fft alone (models/streaming.py::k8_route).
 //
 // Arithmetic.  The walk follows the plain loop
 // (models/streaming.py::_suppressor_plain) operation for operation: every
@@ -80,6 +91,7 @@
 #include <stdint.h>
 
 #include "dft.cuh"
+#include "four_step.cuh"
 #include "mixed_fft.cuh"
 #include "stockham_fft.cuh"
 
@@ -123,6 +135,7 @@ struct SupConsts {
   float alpha_base, one_minus_alpha_base;
   // geometry: n_fft = 2 hop; band bins row0 .. row0 + K - 1
   int n_fft, hop, K, row0, n_frames, n_streams;
+  int chirp_n;  // the chirp-z transform's size (ops/spectrogram.py::chirp_size), 0 without one
 };
 
 // Mirrored field for field by models/streaming.py::_SupIO.
@@ -134,7 +147,9 @@ struct SupIO {
   const int8_t* frame_class;  // (B, T); NOISE = 0
   const float* noise_conf;    // (B, T)
   const int* frame_idx;       // (B,): the stream's frames before this chunk
-  const float* tables;        // w (n_fft) | 1 / sum w^2 (hop) | e^{-2 pi i k / n_fft} (n_fft pairs)
+  // w (n_fft) | 1 / sum w^2 (hop) | a zero where hop is odd | e^{-2 pi i k / n_fft}
+  // (n_fft pairs, 8-byte aligned: twiddle_offset)
+  const float* tables;
   const int* snr_cols;        // (n_snr,) band bins of the SNR sums
   // carry in: tracker, scale, prev_n, g_prev (B, K); wcount, rain_ema,
   // is_first (B,); ola (B, n_fft - hop)
@@ -152,7 +167,23 @@ struct SupIO {
   float *o_g_prev, *o_ola;
   float* gain;  // (B, K, T): the clipped gain per frame, from the walk to the frame pass
   const float* taps;  // (n_taps,): the frequency smoothing kernel
+  // the chirp-z passes' tables (ops/spectrogram.py::chirpz_tables): the
+  // chirp (n_fft / 2 pairs), Bt and e^{-2 pi i j / chirp_n} (chirp_n pairs)
+  const float *chirp, *chirp_bt, *chirp_tab;
+  // the walk's rows where they do not fit shared memory (walk_plan:
+  // B x scratch floats) and the global frame pass's chunk buffers and
+  // overlap-add tails (global_scratch_bytes)
+  float* walk_scratch;
+  long long walk_scratch_floats;
+  float* frame_scratch;
+  long long frame_scratch_bytes;
 };
+
+// where the twiddles start in SupIO::tables: after the window and 1 / sum
+// w^2, padded to an even count of floats so that they are 8-byte aligned
+__host__ __device__ inline int twiddle_offset(int n_fft, int hop) {
+  return n_fft + hop + (hop & 1);
+}
 
 __host__ __device__ inline int pow2_at_least(int n) {
   int m = 1;
@@ -160,27 +191,58 @@ __host__ __device__ inline int pow2_at_least(int n) {
   return m;
 }
 
-// band bins a walk thread takes: 1, 2 or 4, so that a stream's bins fit one block
+// band bins a walk thread takes: as many as put a stream's bins in one block
 __host__ __device__ inline int walk_bins_per_thread(int K) {
-  return K <= kMaxWalkThreads ? 1 : K <= 2 * kMaxWalkThreads ? 2 : 4;
+  return (K + kMaxWalkThreads - 1) / kMaxWalkThreads;
 }
 
-// The launch plan of a geometry.
+// floats of the walk's rows at F frames a round (WalkSmem): per frame the
+// padded gain row twice, P and N_eff per band bin and the two SNR trees;
+// then the taps
+inline long long walk_floats(const SupConsts& c, int F) {
+  const int pad = c.n_taps / 2;
+  return (long long)F * (2 * (c.K + 2 * pad) + 2 * c.K + 2 * pow2_at_least(c.n_snr)) + c.n_taps;
+}
+
+// The walk's launch (models/streaming.py::k8_walk_plan): suppressor_walk
+// (narrow) where K <= 1,024 and kFrames frames a round fit shared memory;
+// else suppressor_walk_wide<frames> with the most frames a round (4, 2, 1)
+// whose rows fit, or at one frame a round with the rows in a global scratch
+// of `scratch` floats a stream.
+struct WalkPlan {
+  bool narrow;
+  int frames, bpt, threads, smem;
+  long long scratch;
+};
+
+WalkPlan walk_plan(const SupConsts& c) {
+  WalkPlan w;
+  w.bpt = walk_bins_per_thread(c.K);
+  w.threads = 32 * (((c.K + w.bpt - 1) / w.bpt + 31) / 32);
+  w.narrow = c.K <= kMaxWalkThreads && 4 * walk_floats(c, kFrames) <= kSmemLimit;
+  w.scratch = 0;
+  for (int F = kFrames; F >= 1; F /= 2) {
+    if (4 * walk_floats(c, F) <= kSmemLimit) {
+      w.frames = F;
+      w.smem = (int)(4 * walk_floats(c, F));
+      return w;
+    }
+  }
+  w.frames = 1;
+  w.smem = 0;
+  w.scratch = walk_floats(c, 1);
+  return w;
+}
+
+// The FFT frame pass's launch plan.
 struct Plan {
-  int walk_threads, walk_smem, slots, frame_smem;
+  int slots, frame_smem;
 };
 
 Plan plan_for(const SupConsts& c) {
-  const int M = c.n_fft / 2, pad = c.n_taps / 2;
+  const int M = c.n_fft / 2;
   const int fpr = kFrameThreads / max(M / 8, 1);  // frames a round of the FFT frame pass
   Plan p;
-  const int bpt = walk_bins_per_thread(c.K);
-  p.walk_threads = 32 * (((c.K + bpt - 1) / bpt + 31) / 32);
-  // per frame of a round: the padded gain row twice, P and N_eff per band
-  // bin, the two SNR trees
-  // and the taps
-  p.walk_smem = 4 * kFrames * (2 * (c.K + 2 * pad) + 2 * c.K + 2 * pow2_at_least(c.n_snr)) +
-                4 * c.n_taps;
   p.slots = fpr >= kMinSlots ? fpr : kMinSlots;
   // exchange buffers | samples | frames | gains | Nyquist bins
   p.frame_smem = 4 * (2 * fpr * (M + 8) + (p.slots - 1) * c.hop + c.n_fft + p.slots * c.n_fft +
@@ -193,10 +255,10 @@ Plan plan_for(const SupConsts& c) {
 // ---------------------------------------------------------------------------
 //
 // Two kernels share every step below: suppressor_walk, one band bin a
-// thread (K <= 1,024, the main path), and suppressor_walk_wide<BPT>, band
-// bin tid + j nt the thread's j-th (j < BPT, two or four).  The steps are
-// inlined into both, so the arithmetic is written once; the kernels differ
-// only in how a thread holds its bins.
+// thread (K <= 1,024, the main path), and suppressor_walk_wide<F>, any K,
+// band bin tid + j nt the thread's j-th.  The steps are inlined into both,
+// so the arithmetic is written once; the kernels differ only in how a
+// thread holds its bins and where the round's rows live.
 
 // A walk block's shared memory.
 struct WalkSmem {
@@ -208,8 +270,8 @@ struct WalkSmem {
   int grow, pad, m;
 };
 
+template <int F>
 __device__ __forceinline__ WalkSmem walk_smem(float* sm, const SupConsts& c) {
-  constexpr int F = kFrames;
   WalkSmem w;
   w.pad = c.n_taps / 2;
   w.m = pow2_at_least(c.n_snr);
@@ -223,10 +285,11 @@ __device__ __forceinline__ WalkSmem walk_smem(float* sm, const SupConsts& c) {
 }
 
 // the taps, and the zero pads of the gain rows (before the first barrier)
+template <int F>
 __device__ __forceinline__ void walk_smem_init(const WalkSmem& w, const SupIO& io,
                                                const SupConsts& c, int tid, int nt) {
   for (int i = tid; i < c.n_taps; i += nt) w.sTaps[i] = io.taps[i];
-  for (int i = tid; i < 2 * kFrames * w.pad; i += nt) {
+  for (int i = tid; i < 2 * F * w.pad; i += nt) {
     const int r = i / w.pad, j = i - r * w.pad;
     w.sG[r * w.grow + j] = w.sG[r * w.grow + w.pad + c.K + j] = 0.f;
   }
@@ -281,10 +344,9 @@ __device__ __forceinline__ void psd_advance(const SupConsts& c, bool rain, bool 
 // The round's SNR gates, once every thread has stored its bins' P and
 // N_eff in sP and sNe: per frame the two sums as a tree, element i + h
 // onto i, the round's frames side by side.
+template <int F>
 __device__ __forceinline__ void snr_gates(const WalkSmem& w, const SupIO& io,
-                                          const SupConsts& c, int tid, int nt,
-                                          float (&gate)[kFrames]) {
-  constexpr int F = kFrames;
+                                          const SupConsts& c, int tid, int nt, float (&gate)[F]) {
   const int K = c.K, m = w.m;
   float* const red = w.red;
   __syncthreads();
@@ -318,11 +380,10 @@ __device__ __forceinline__ void snr_gates(const WalkSmem& w, const SupIO& io,
 
 // gain_freq_stage's per-frame terms: the clipped confidence, the
 // oversubtraction and the EMA's alpha, the round's frames independent
-__device__ __forceinline__ void gain_terms(const SupConsts& c, bool gated,
-                                           const float (&na)[kFrames],
-                                           const float (&gate)[kFrames], float (&ncc)[kFrames],
-                                           float (&over)[kFrames], float (&alpha)[kFrames]) {
-  constexpr int F = kFrames;
+template <int F>
+__device__ __forceinline__ void gain_terms(const SupConsts& c, bool gated, const float (&na)[F],
+                                           const float (&gate)[F], float (&ncc)[F],
+                                           float (&over)[F], float (&alpha)[F]) {
 #pragma unroll
   for (int f = 0; f < F; ++f) {
     ncc[f] = clamp(na[f], 0.f, 1.f);
@@ -340,10 +401,10 @@ __device__ __forceinline__ void gain_terms(const SupConsts& c, bool gated,
 }
 
 // one band bin's raw gains of the round (sqrt-sub or Wiener)
-__device__ __forceinline__ void raw_gains(const SupConsts& c, const float (&p)[kFrames],
-                                          const float (&n_eff)[kFrames],
-                                          const float (&over)[kFrames], float (&g)[kFrames]) {
-  constexpr int F = kFrames;
+template <int F>
+__device__ __forceinline__ void raw_gains(const SupConsts& c, const float (&p)[F],
+                                          const float (&n_eff)[F], const float (&over)[F],
+                                          float (&g)[F]) {
   if (c.wiener) {
 #pragma unroll
     for (int f = 0; f < F; ++f)
@@ -362,14 +423,12 @@ __device__ __forceinline__ void raw_gains(const SupConsts& c, const float (&p)[k
 // sGr: the smoothing over frequency (frames independent), then the EMA over
 // time frame after frame; each live frame's clipped gain goes to out[f]
 // where the thread holds the bin.
+template <int F>
 __device__ __forceinline__ void smooth_and_ema(const WalkSmem& w, const float* sGr,
                                                const SupConsts& c, int kk, bool lane, int nf,
-                                               const float (&na)[kFrames],
-                                               const float (&ncc)[kFrames],
-                                               const float (&alpha)[kFrames],
-                                               const bool (&seed)[kFrames], float& g_prev,
-                                               float* out) {
-  constexpr int F = kFrames;
+                                               const float (&na)[F], const float (&ncc)[F],
+                                               const float (&alpha)[F], const bool (&seed)[F],
+                                               float& g_prev, float* out) {
   float gf[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) gf[f] = sGr[f * w.grow + w.pad + kk];
@@ -406,10 +465,10 @@ __device__ __forceinline__ void smooth_and_ema(const WalkSmem& w, const float* s
 __global__ void __launch_bounds__(kMaxWalkThreads) suppressor_walk(SupIO io, SupConsts c) {
   extern __shared__ float sm[];
   constexpr int F = kFrames;
-  const WalkSmem w = walk_smem(sm, c);
+  const WalkSmem w = walk_smem<F>(sm, c);
   const int K = c.K, T = c.n_frames;
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  walk_smem_init(w, io, c, tid, nt);
+  walk_smem_init<F>(w, io, c, tid, nt);
 
   const bool lane = tid < K;
   const int kk = lane ? tid : 0;  // a band bin the thread may read for
@@ -520,36 +579,32 @@ __global__ void __launch_bounds__(kMaxWalkThreads) suppressor_walk(SupIO io, Sup
   }
 }
 
-template <int BPT>
-__global__ void __launch_bounds__(kMaxWalkThreads) suppressor_walk_wide(SupIO io, SupConsts c) {
+// The walk past one bin a thread (K > 1,024), or where a round of kFrames
+// frames does not fit shared memory: band bin tid + j nt is the thread's
+// j-th, j < bpt (a runtime count, ceil(K / 1,024)), F frames a round (4, 2
+// or 1, as many as fit).  A bin's carries live in the carry-out arrays,
+// which only its thread reads and writes; the round's rows (WalkSmem) in
+// shared memory or, where even one frame a round does not fit, in the
+// stream's part of SupIO::walk_scratch (L2-resident at these sizes).  The
+// stream's terms of a round's frames (the tracker's steps, the warm-up and
+// first flags) are taken frame after frame first, then each bin steps
+// through the round's frames: every bin sees the same frame sequence and
+// the same arithmetic as in suppressor_walk.
+template <int F>
+__global__ void __launch_bounds__(kMaxWalkThreads)
+suppressor_walk_wide(SupIO io, SupConsts c, int bpt, long long scratch_floats) {
   extern __shared__ float sm[];
-  constexpr int F = kFrames;
-  const WalkSmem w = walk_smem(sm, c);
   const int K = c.K, T = c.n_frames;
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  walk_smem_init(w, io, c, tid, nt);
-
-  bool lane[BPT];
-  int kk[BPT];  // a band bin the thread may read for
-  long long lk[BPT];
-  float tracker[BPT], scale[BPT], prev_n[BPT], g_prev[BPT];
-  const float* prow[BPT];
-  float* grow_out[BPT];
-#pragma unroll
-  for (int j = 0; j < BPT; ++j) {
-    const int k = tid + j * nt;
-    lane[j] = k < K;
-    kk[j] = lane[j] ? k : 0;
-    lk[j] = (long long)b * K + k;
-    tracker[j] = scale[j] = prev_n[j] = g_prev[j] = 0.f;
-    if (lane[j]) {
-      tracker[j] = io.tracker[lk[j]];
-      scale[j] = io.scale[lk[j]];
-      prev_n[j] = io.prev_n[lk[j]];
-      g_prev[j] = io.g_prev[lk[j]];
-    }
-    prow[j] = io.P + (long long)b * io.p_clip + (long long)(c.row0 + kk[j]) * io.p_row;
-    grow_out[j] = io.gain + lk[j] * T;
+  const WalkSmem w =
+      walk_smem<F>(scratch_floats > 0 ? io.walk_scratch + b * scratch_floats : sm, c);
+  walk_smem_init<F>(w, io, c, tid, nt);
+  for (int j = 0; j < bpt && tid + j * nt < K; ++j) {
+    const long long lk = (long long)b * K + tid + j * nt;
+    io.o_tracker[lk] = io.tracker[lk];
+    io.o_scale[lk] = io.scale[lk];
+    io.o_prev_n[lk] = io.prev_n[lk];
+    io.o_g_prev[lk] = io.g_prev[lk];
   }
   int wcount = io.wcount[b];
   float rain_ema = io.rain_ema[b];
@@ -560,105 +615,78 @@ __global__ void __launch_bounds__(kMaxWalkThreads) suppressor_walk_wide(SupIO io
   const float one_minus_up = __fsub_rn(1.f, c.ema_up);
   const float one_minus_down = __fsub_rn(1.f, c.ema_down);
   const bool gated = c.n_snr > 0;
-
-  // the next round's inputs are loaded while this round runs
-  float pa[BPT][F], na[F];
-  int ca[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-#pragma unroll
-    for (int j = 0; j < BPT; ++j) pa[j][f] = lane[j] && f < T ? prow[j][f] : 0.f;
-    ca[f] = f < T ? crow[f] : 0;
-    na[f] = f < T ? nrow[f] : 0.f;
-  }
   __syncthreads();
 
   for (int t0 = 0, round = 0; t0 < T; t0 += F, ++round) {
-    float pn[BPT][F], nn[F];
-    int cn[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const int t = t0 + F + f;
-#pragma unroll
-      for (int j = 0; j < BPT; ++j) pn[j][f] = lane[j] && t < T ? prow[j][t] : 0.f;
-      cn[f] = t < T ? crow[t] : 0;
-      nn[f] = t < T ? nrow[t] : 0.f;
-    }
     const int nf = min(F, T - t0);
-    float n_eff[BPT][F], gate[F];
-    bool seed[F];
+    float na[F], up[F], down[F], gate[F];
+    bool fst[F], allow[F], seed[F];
 
-    // ---- the PSD steps and N_eff, frame after frame (the thread's bins) ----
+    // ---- the stream's terms of the round's frames, frame after frame ----
 #pragma unroll
     for (int f = 0; f < F; ++f) {
-      const bool live = f < nf;
-      const bool rain = ca[f] != 0;
-      seed[f] = frame0 + t0 + f == 0;
-      const bool allow = (wcount < c.warmup_need) || !rain;
-      float up, down;
-      psd_steps(c, rain_ema, up, down);
-#pragma unroll
-      for (int j = 0; j < BPT; ++j)
-        n_eff[j][f] = psd_bin(c, pa[j][f], tracker[j], scale[j], prev_n[j], first, allow, seed[f],
-                              live, up, down, one_minus_up, one_minus_down);
-      if (live) psd_advance(c, rain, allow, wcount, rain_ema, first);
+      const int t = t0 + f;
+      const bool rain = t < T && crow[t] != 0;
+      na[f] = t < T ? nrow[t] : 0.f;
+      seed[f] = frame0 + t == 0;
+      allow[f] = (wcount < c.warmup_need) || !rain;
+      psd_steps(c, rain_ema, up[f], down[f]);
+      fst[f] = first;
+      if (f < nf) psd_advance(c, rain, allow[f], wcount, rain_ema, first);
       gate[f] = 0.f;
     }
 
-    // ---- the SNR gates ----
-    if (gated) {
+    // ---- the PSD steps and N_eff of the thread's bins, frame after frame ----
+    for (int j = 0; j < bpt && tid + j * nt < K; ++j) {
+      const int k = tid + j * nt;
+      const long long lk = (long long)b * K + k;
+      float tracker = io.o_tracker[lk], scale = io.o_scale[lk], prev_n = io.o_prev_n[lk];
+      const float* const prow =
+          io.P + (long long)b * io.p_clip + (long long)(c.row0 + k) * io.p_row;
 #pragma unroll
-      for (int j = 0; j < BPT; ++j) {
-        if (lane[j]) {
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            w.sP[f * K + kk[j]] = pa[j][f];
-            w.sNe[f * K + kk[j]] = n_eff[j][f];
-          }
-        }
+      for (int f = 0; f < F; ++f) {
+        const float pt = t0 + f < T ? prow[t0 + f] : 0.f;
+        w.sP[f * K + k] = pt;
+        w.sNe[f * K + k] = psd_bin(c, pt, tracker, scale, prev_n, fst[f], allow[f], seed[f],
+                                   f < nf, up[f], down[f], one_minus_up, one_minus_down);
       }
-      snr_gates(w, io, c, tid, nt, gate);
+      io.o_tracker[lk] = tracker;
+      io.o_scale[lk] = scale;
+      io.o_prev_n[lk] = prev_n;
     }
+
+    // ---- the SNR gates ----
+    if (gated) snr_gates(w, io, c, tid, nt, gate);
 
     // ---- gain_freq_stage: the raw gains, the round's frames independent ----
     float ncc[F], over[F], alpha[F];
     gain_terms(c, gated, na, gate, ncc, over, alpha);
     float* const sGr = w.sG + (round & 1) * F * w.grow;
+    for (int j = 0; j < bpt && tid + j * nt < K; ++j) {
+      const int k = tid + j * nt;
+      float pa[F], n_eff[F], g[F];
 #pragma unroll
-    for (int j = 0; j < BPT; ++j) {
-      float g[F];
-      raw_gains(c, pa[j], n_eff[j], over, g);
-      if (lane[j]) {
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          sGr[f * w.grow + w.pad + kk[j]] = clamp(g[f], c.gain_floor, c.gain_ceil);
+      for (int f = 0; f < F; ++f) {
+        pa[f] = w.sP[f * K + k];
+        n_eff[f] = w.sNe[f * K + k];
       }
+      raw_gains(c, pa, n_eff, over, g);
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        sGr[f * w.grow + w.pad + k] = clamp(g[f], c.gain_floor, c.gain_ceil);
     }
     __syncthreads();
 
     // ---- the smoothing over frequency, then the EMA over time ----
-#pragma unroll
-    for (int j = 0; j < BPT; ++j)
-      smooth_and_ema(w, sGr, c, kk[j], lane[j], nf, na, ncc, alpha, seed, g_prev[j],
-                     grow_out[j] + t0);
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-#pragma unroll
-      for (int j = 0; j < BPT; ++j) pa[j][f] = pn[j][f];
-      ca[f] = cn[f];
-      na[f] = nn[f];
+    for (int j = 0; j < bpt && tid + j * nt < K; ++j) {
+      const long long lk = (long long)b * K + tid + j * nt;
+      float g_prev = io.o_g_prev[lk];
+      smooth_and_ema(w, sGr, c, tid + j * nt, true, nf, na, ncc, alpha, seed, g_prev,
+                     io.gain + lk * T + t0);
+      io.o_g_prev[lk] = g_prev;
     }
   }
 
-#pragma unroll
-  for (int j = 0; j < BPT; ++j) {
-    if (lane[j]) {
-      io.o_tracker[lk[j]] = tracker[j];
-      io.o_scale[lk[j]] = scale[j];
-      io.o_prev_n[lk[j]] = prev_n[j];
-      io.o_g_prev[lk[j]] = g_prev[j];
-    }
-  }
   if (tid == 0) {
     io.o_wcount[b] = wcount;
     io.o_rain_ema[b] = rain_ema;
@@ -795,7 +823,7 @@ suppressor_frames(SupIO io, SupConsts c, int slots, int n_tiles) {
   float* const xm = gains + slots * K;   // [FPR]
   const float* const window = io.tables;
   const float* const inv_ws = io.tables + N;
-  const float2* const tw = reinterpret_cast<const float2*>(io.tables + N + hop);
+  const float2* const tw = reinterpret_cast<const float2*>(io.tables + twiddle_offset(N, hop));
   const int tid = threadIdx.x;
 
   // ---- stage the tile's samples, gains and, at frame 0, the carried tail ----
@@ -835,6 +863,47 @@ suppressor_frames(SupIO io, SupConsts c, int slots, int n_tiles) {
 // B'. the mixed frame pass
 // ---------------------------------------------------------------------------
 
+// X[k], k < M, of an even frame from its half-length transform Z: zk = Z[k],
+// zm = Z[M - k] (Z[0] at k = 0), w = e^{-2 pi i k / n_fft}
+__device__ __forceinline__ float2 split_bin(float2 zk, float2 zm, float2 w) {
+  const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
+  const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
+  return make_float2(ar + (w.x * di + w.y * dr), ai - (w.x * dr - w.y * di));
+}
+
+// The inverse's input u[k], k < M: 2 Z[k] = (X[k] + conj X[M-k]) + i (X[k] -
+// conj X[M-k]) e^{2 pi i k / N}, as conj(2 Z[k]); xk = X[k], xr = X[M - k]
+// (X[M] at k = 0), w = e^{-2 pi i k / n_fft}.  Then x[2m] + i x[2m+1] =
+// conj(FFT_M(u))[m] / N.
+__device__ __forceinline__ float2 unsplit_bin(float2 xk, float2 xr, float2 w) {
+  const float ar = xk.x + xr.x, ai = xk.y - xr.y;
+  const float dr = xk.x - xr.x, di = xk.y + xr.y;
+  const float br = dr * w.x + di * w.y, bi = di * w.x - dr * w.y;
+  return make_float2(ar - bi, -(ai + br));
+}
+
+// X[k] of bin k <= M of a frame, from Z (z(j) = Z[j]), times the frame's
+// gain where k is a band bin (gain(kb), kb = k - row0); the imaginary parts
+// of bins 0 and M are dropped, as an inverse real FFT ignores them.
+template <typename ZOf, typename GainOf>
+__device__ __forceinline__ float2 scaled_bin(ZOf z, GainOf gain, const float2* __restrict__ tw,
+                                             int k, int M, int row0, int K) {
+  float2 v;
+  if (k < M) {
+    v = split_bin(z(k), z(k == 0 ? 0 : M - k), __ldg(tw + k));
+  } else {
+    const float2 z0 = z(0);
+    v = make_float2(z0.x - z0.y, 0.f);
+  }
+  const int kb = k - row0;
+  if (kb >= 0 && kb < K) {
+    const float g = gain(kb);
+    v = make_float2(__fmul_rn(v.x, g), __fmul_rn(v.y, g));
+  }
+  if (k == 0 || k == M) v.y = 0.f;
+  return v;
+}
+
 // shared bytes of a mixed frame-pass block holding `slots` frames (a power
 // of two): two tile buffers of n_fft / 2 + 1 points (the samples are staged
 // in the second) | the gains
@@ -849,12 +918,12 @@ int mixed_slots(int n_fft, int K) {
   return 0;
 }
 
-template <bool kWide>
+template <int kW>
 __global__ void __launch_bounds__(kFrameThreads)
 suppressor_frames_mixed(SupIO io, SupConsts c, int lg, int n_tiles, MixedPlan plan) {
   extern __shared__ float4 smem4[];
   const int N = c.n_fft, hop = c.hop, M = N / 2, K = c.K, T = c.n_frames;
-  const int slots = 1 << lg, ld = slots + 1, FT = slots - 1;
+  const int slots = 1 << lg, ld = tile_ld(slots), FT = slots - 1;
   const int b = blockIdx.x / n_tiles;
   const int t0 = (blockIdx.x - b * n_tiles) * FT;
   float2* const buf_a = reinterpret_cast<float2*>(smem4);
@@ -862,7 +931,7 @@ suppressor_frames_mixed(SupIO io, SupConsts c, int lg, int n_tiles, MixedPlan pl
   float* const gains = reinterpret_cast<float*>(buf_b + tile_elems(M + 1, slots));  // [slots][K]
   const float* const window = io.tables;
   const float* const inv_ws = io.tables + N;
-  const float2* const tw = reinterpret_cast<const float2*>(io.tables + N + hop);
+  const float2* const tw = reinterpret_cast<const float2*>(io.tables + twiddle_offset(N, hop));
   const int tid = threadIdx.x;
 
   // ---- stage the tile's samples (slot s: frame t0 - 1 + s) and gains ----
@@ -880,32 +949,15 @@ suppressor_frames_mixed(SupIO io, SupConsts c, int lg, int n_tiles, MixedPlan pl
   __syncthreads();
 
   // ---- forward: Z = FFT_M(x[2m] + i x[2m+1]) of every slot ----
-  float2* const Z = mixed_fft<kWide>(buf_a, buf_b, tw, N, lg, ld, plan);
+  float2* const Z = mixed_fft<kW>(buf_a, buf_b, tw, N, M, lg, ld, plan);
   float2* const X = Z == buf_a ? buf_b : buf_a;
 
   // ---- the real split, X[k] for k <= M, the band rows scaled by the
   // frame's gain; the inverse real FFT takes the real part of bins 0 and M ----
   for (int i = tid; i < ((M + 1) << lg); i += kFrameThreads) {
     const int f = i & (slots - 1), k = i >> lg;
-    float2 v;
-    if (k < M) {
-      const float2 zk = Z[k * ld + f];
-      const float2 zm = Z[(k == 0 ? 0 : M - k) * ld + f];
-      const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
-      const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
-      const float2 w = __ldg(tw + k);
-      v = make_float2(ar + (w.x * di + w.y * dr), ai - (w.x * dr - w.y * di));
-    } else {
-      const float2 z0 = Z[f];
-      v = make_float2(z0.x - z0.y, 0.f);
-    }
-    const int kb = k - c.row0;
-    if (kb >= 0 && kb < K) {
-      const float g = gains[f * K + kb];
-      v = make_float2(__fmul_rn(v.x, g), __fmul_rn(v.y, g));
-    }
-    if (k == 0 || k == M) v.y = 0.f;
-    X[k * ld + f] = v;
+    X[k * ld + f] = scaled_bin([&](int j) { return Z[j * ld + f]; },
+                               [&](int kb) { return gains[f * K + kb]; }, tw, k, M, c.row0, K);
   }
   __syncthreads();
 
@@ -914,16 +966,10 @@ suppressor_frames_mixed(SupIO io, SupConsts c, int lg, int n_tiles, MixedPlan pl
   // = conj(FFT_M(conj 2Z))[m] / N ----
   for (int i = tid; i < (M << lg); i += kFrameThreads) {
     const int f = i & (slots - 1), k = i >> lg;
-    const float2 xk = X[k * ld + f];
-    const float2 xr = X[(M - k) * ld + f];
-    const float ar = xk.x + xr.x, ai = xk.y - xr.y;
-    const float dr = xk.x - xr.x, di = xk.y + xr.y;
-    const float2 w = __ldg(tw + k);  // e^{-2 pi i k / N}
-    const float br = dr * w.x + di * w.y, bi = di * w.x - dr * w.y;
-    Z[k * ld + f] = make_float2(ar - bi, -(ai + br));
+    Z[k * ld + f] = unsplit_bin(X[k * ld + f], X[(M - k) * ld + f], __ldg(tw + k));
   }
   __syncthreads();
-  const float2* const Y = mixed_fft<kWide>(Z, X, tw, N, lg, ld, plan);
+  const float2* const Y = mixed_fft<kW>(Z, X, tw, N, M, lg, ld, plan);
 
   // ---- the overlap-add of frames t0 .. t0 + nf - 1: one run of y; sample
   // j of slot s's windowed inverse is rec(s, j), the carried tail at frame 0 ----
@@ -945,6 +991,219 @@ suppressor_frames_mixed(SupIO io, SupConsts c, int lg, int n_tiles, MixedPlan pl
     for (int i = tid; i < N - hop; i += kFrameThreads)
       io.o_ola[(long long)b * (N - hop) + i] = rec(s, hop + i);
   }
+}
+
+// ---------------------------------------------------------------------------
+// B3. the chirp-z frame pass
+// ---------------------------------------------------------------------------
+//
+// For every n_fft = 2 hop whose half M has a prime factor above 31: the
+// mixed pass's tiles, split, scaling and overlap-add, with both transforms
+// of M points as chirp-z transforms over Mc = chirp_n points (four_step.cuh
+// states it): a tile's frames frame-fastest in two buffers of Mc points.
+
+// shared bytes of a chirp-z frame-pass block holding `slots` frames (a
+// power of two): two tile buffers of Mc points | the gains
+__host__ __device__ inline int chirpz_frame_smem(int Mc, int K, int slots) {
+  return 16 * tile_elems(Mc, slots) + 4 * slots * K;
+}
+
+// the most slots (a power of two, at most kMinSlots, at least 2) that fit
+int chirpz_slots(int Mc, int K) {
+  for (int slots = kMinSlots; slots >= 2; slots /= 2)
+    if (chirpz_frame_smem(Mc, K, slots) <= kSmemLimit) return slots;
+  return 0;
+}
+
+__global__ void __launch_bounds__(kFrameThreads)
+suppressor_frames_chirpz(SupIO io, SupConsts c, int lg, int n_tiles, MixedPlan plan) {
+  extern __shared__ float4 smem4[];
+  const int N = c.n_fft, hop = c.hop, M = N / 2, K = c.K, T = c.n_frames, Mc = c.chirp_n;
+  const int slots = 1 << lg, ld = tile_ld(slots), FT = slots - 1;
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x - b * n_tiles) * FT;
+  float2* const buf_a = reinterpret_cast<float2*>(smem4);
+  float2* const buf_b = buf_a + tile_elems(Mc, slots);
+  float* const gains = reinterpret_cast<float*>(buf_b + tile_elems(Mc, slots));  // [slots][K]
+  const float* const window = io.tables;
+  const float* const inv_ws = io.tables + N;
+  const float2* const tw = reinterpret_cast<const float2*>(io.tables + twiddle_offset(N, hop));
+  const float2* const chirp = reinterpret_cast<const float2*>(io.chirp);
+  const float2* const bt = reinterpret_cast<const float2*>(io.chirp_bt);
+  const float2* const ctab = reinterpret_cast<const float2*>(io.chirp_tab);
+  const int tid = threadIdx.x;
+
+  // ---- stage the tile's samples (slot s: frame t0 - 1 + s) and gains ----
+  const float* const slab = stage_run(io.xa + (long long)b * io.xa_len, io.xa_len,
+                                      (long long)(t0 - 1) * hop, FT * hop + N,
+                                      reinterpret_cast<float*>(buf_b));
+  const float* const grow = io.gain + (long long)b * K * T;
+  for (int i = tid; i < slots * K; i += kFrameThreads) {
+    const int k = i / slots, sl = i - k * slots;
+    const int t = t0 - 1 + sl;
+    gains[sl * K + k] = (t >= 0 && t < T) ? grow[(long long)k * T + t] : 0.f;
+  }
+  __syncthreads();
+  // the windowed, packed points times the chirp, zero-padded to Mc
+  for (int i = tid; i < slots * Mc; i += kFrameThreads) {
+    const int f = i / Mc, m = i - f * Mc;
+    float2 v = make_float2(0.f, 0.f);
+    if (m < M) {
+      const float* const sf = slab + f * hop + 2 * m;
+      v = cmul(make_float2(sf[0] * __ldg(window + 2 * m), sf[1] * __ldg(window + 2 * m + 1)),
+               __ldg(chirp + m));
+    }
+    buf_a[m * ld + f] = v;
+  }
+  __syncthreads();
+
+  // ---- forward: Z[k] = conj(W[k]) c_k, k < M; the split and scaling ----
+  float2* const W = chirp_convolve(buf_a, buf_b, ctab, bt, Mc, lg, ld, plan);
+  float2* const X = W == buf_a ? buf_b : buf_a;
+  for (int i = tid; i < ((M + 1) << lg); i += kFrameThreads) {
+    const int f = i & (slots - 1), k = i >> lg;
+    X[k * ld + f] = scaled_bin(
+        [&](int j) {
+          const float2 w = W[j * ld + f];
+          return cmul(make_float2(w.x, -w.y), __ldg(chirp + j));
+        },
+        [&](int kb) { return gains[f * K + kb]; }, tw, k, M, c.row0, K);
+  }
+  __syncthreads();
+
+  // ---- inverse: u[k] c_k, k < M, zero-padded, into W's buffer; FFT_M(u)[m]
+  // = conj(V[m]) c_m ----
+  for (int i = tid; i < (Mc << lg); i += kFrameThreads) {
+    const int f = i & (slots - 1), k = i >> lg;
+    W[k * ld + f] = k < M ? cmul(unsplit_bin(X[k * ld + f], X[(M - k) * ld + f], __ldg(tw + k)),
+                                 __ldg(chirp + k))
+                          : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  const float2* const V = chirp_convolve(W, X, ctab, bt, Mc, lg, ld, plan);
+
+  // ---- the overlap-add, as the mixed pass's ----
+  const float inv_n = 1.f / (float)N;
+  auto rec = [&](int s, int j) {
+    const float2 w = V[(j >> 1) * ld + s];
+    const float2 v = cmul(make_float2(w.x, -w.y), __ldg(chirp + (j >> 1)));
+    return (j & 1) ? (-v.y * inv_n) * __ldg(window + j) : (v.x * inv_n) * __ldg(window + j);
+  };
+  const float* const ola = io.ola + (long long)b * (N - hop);
+  const int nf = min(FT, T - t0);
+  float* const yb = io.y + (long long)b * T * hop + (long long)t0 * hop;
+  for (int i = tid; i < nf * hop; i += kFrameThreads) {
+    const int f = i / hop, n = i - f * hop;  // frame t0 + f is slot f + 1
+    const float prev = (f == 0 && t0 == 0) ? ola[n] : rec(f, hop + n);
+    yb[i] = __fmul_rn(__fadd_rn(rec(f + 1, n), prev), __ldg(inv_ws + n));
+  }
+  if (t0 + FT >= T) {  // frame T - 1 is here: its tail is the next chunk's
+    const int s = T - t0;
+    for (int i = tid; i < N - hop; i += kFrameThreads)
+      io.o_ola[(long long)b * (N - hop) + i] = rec(s, hop + i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B4. the global frame pass
+// ---------------------------------------------------------------------------
+//
+// For every n_fft whose frames no block holds two of: the frames of all
+// streams, g = b T + t, go through in chunks (four_step.cuh's chunk
+// buffers).  Per chunk: the forward transform of M points of every frame
+// into buffer B (the four-step FFT of M, or the chirp-z transform over
+// chirp_n); the split, scaling and inverse input, a thread a pair of bins
+// (k, M - k) in place (global_split_gain); the inverse transform into B;
+// the overlap-add, a thread a sample (global_overlap_add).  The frame
+// before a chunk's first lies in the previous chunk: its windowed tail is
+// kept in one of two tail buffers, by chunk parity.
+
+__global__ void __launch_bounds__(kFrameThreads)
+global_split_gain(SupIO io, SupConsts c, float2* Z, long long zs, long long g0, int n_ktiles) {
+  const int f = blockIdx.x / n_ktiles;
+  const int k = (blockIdx.x - f * n_ktiles) * kFrameThreads + threadIdx.x;
+  const int N = c.n_fft, M = N / 2, K = c.K, T = c.n_frames;
+  if (k > M / 2) return;
+  const long long g = g0 + f, b = g / T, t = g - b * T;
+  const float2* const tw = reinterpret_cast<const float2*>(io.tables + twiddle_offset(N, c.hop));
+  const float* const grow = io.gain + b * K * T + t;
+  float2* const z = Z + f * zs;
+  auto gain = [&](int kb) { return grow[(long long)kb * T]; };
+  const float2 zk = z[k], zm = z[k == 0 ? 0 : M - k];
+  auto zof = [&](int j) { return j == k ? zk : zm; };
+  const float2 xk = scaled_bin(zof, gain, tw, k, M, c.row0, K);
+  const float2 xr = scaled_bin(zof, gain, tw, k == 0 ? M : M - k, M, c.row0, K);
+  z[k] = unsplit_bin(xk, xr, __ldg(tw + k));
+  if (k > 0 && M - k != k) z[M - k] = unsplit_bin(xr, xk, __ldg(tw + M - k));
+}
+
+__global__ void __launch_bounds__(kFrameThreads)
+global_overlap_add(SupIO io, SupConsts c, const float2* Y, long long ys, long long g0, int nf,
+                   int n_itiles, const float* tail_in, float* tail_out) {
+  const int f = blockIdx.x / n_itiles;
+  const int i = (blockIdx.x - f * n_itiles) * kFrameThreads + threadIdx.x;
+  const int N = c.n_fft, hop = c.hop, T = c.n_frames;
+  if (i >= hop) return;
+  const long long g = g0 + f, b = g / T, t = g - b * T;
+  const float* const window = io.tables;
+  const float inv_n = 1.f / (float)N;
+  auto rec = [&](int s, int j) {
+    const float2 v = Y[s * ys + (j >> 1)];
+    return (j & 1) ? (-v.y * inv_n) * __ldg(window + j) : (v.x * inv_n) * __ldg(window + j);
+  };
+  const float prev =
+      t == 0 ? io.ola[b * (N - hop) + i] : f == 0 ? tail_in[i] : rec(f - 1, hop + i);
+  io.y[b * T * hop + t * hop + i] =
+      __fmul_rn(__fadd_rn(rec(f, i), prev), __ldg(io.tables + N + i));
+  if (t == T - 1) io.o_ola[b * (N - hop) + i] = rec(f, hop + i);
+  if (f == nf - 1) tail_out[i] = rec(f, hop + i);
+}
+
+// bytes of the global frame pass's scratch: the two chunk buffers of N
+// points a frame and the two overlap-add tails
+// (models/streaming.py::k8_global_scratch_bytes)
+long long global_scratch_bytes(int N, long long frames, int hop) {
+  return 16LL * N * chunk_frames(N, frames) + 8LL * hop;
+}
+
+cudaError_t launch_frames_global(const SupIO& io, const SupConsts& c, cudaStream_t s) {
+  const int M = c.n_fft / 2, hop = c.hop, N = c.chirp_n ? c.chirp_n : M;
+  const FourStep fs = four_step_of(N);
+  const long long frames = (long long)c.n_frames * c.n_streams;
+  const long long chunk = chunk_frames(N, frames);
+  if (!fs.ok || io.frame_scratch == nullptr ||
+      global_scratch_bytes(N, frames, hop) > io.frame_scratch_bytes)
+    return cudaErrorInvalidValue;
+  float2* const A = reinterpret_cast<float2*>(io.frame_scratch);
+  float2* const B = A + chunk * N;
+  float* const tails = reinterpret_cast<float*>(B + chunk * N);
+  auto f2 = [](const float* p) { return reinterpret_cast<const float2*>(p); };
+  const float2* const chirp = c.chirp_n ? f2(io.chirp) : nullptr;
+  const float2* const table =
+      c.chirp_n ? f2(io.chirp_tab) : f2(io.tables + twiddle_offset(c.n_fft, hop));
+  const int tn = c.chirp_n ? N : c.n_fft;
+  const int n_ktiles = (M / 2 + kFrameThreads) / kFrameThreads;
+  const int n_itiles = (hop + kFrameThreads - 1) / kFrameThreads;
+  int parity = 0;
+  for (long long g0 = 0; g0 < frames; g0 += chunk, parity ^= 1) {
+    const int nf = (int)(frames - g0 < chunk ? frames - g0 : chunk);
+    if ((long long)nf * (n_ktiles > n_itiles ? n_ktiles : n_itiles) > 0x7fffffffLL)
+      return cudaErrorInvalidValue;
+    const Source frame{Source::kEvenFrame, io.xa, io.xa_len, g0, c.n_frames, hop, 0, io.tables,
+                       nullptr, 0, nullptr, M};
+    cudaError_t err = transform_chunk(frame, A, B, table, tn, chirp, f2(io.chirp_bt), M, true, fs,
+                                      nf, s);
+    if (err != cudaSuccess) return err;
+    global_split_gain<<<nf * n_ktiles, kFrameThreads, 0, s>>>(io, c, B, N, g0, n_ktiles);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const Source mid{Source::kBuffer, nullptr, 0, 0, 1, 0, 0, nullptr, B, N, nullptr, M};
+    err = transform_chunk(mid, A, B, table, tn, chirp, f2(io.chirp_bt), M, true, fs, nf, s);
+    if (err != cudaSuccess) return err;
+    global_overlap_add<<<nf * n_itiles, kFrameThreads, 0, s>>>(
+        io, c, B, N, g0, nf, n_itiles, tails + (parity ^ 1) * hop, tails + parity * hop);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -981,7 +1240,7 @@ suppressor_frames_dft(SupIO io, SupConsts c, int slots, int n_tiles) {
   float* const gains = reinterpret_cast<float*>(tw + N);        // [slots][K]
   const float* const window = io.tables;
   const float* const inv_ws = io.tables + N;
-  const float2* const twg = reinterpret_cast<const float2*>(io.tables + N + hop);
+  const float2* const twg = reinterpret_cast<const float2*>(io.tables + twiddle_offset(N, hop));
   const int tid = threadIdx.x;
 
   // ---- stage the tile's windowed frames (slot s: frame t0 - 1 + s), the
@@ -1054,25 +1313,11 @@ suppressor_frames_dft(SupIO io, SupConsts c, int slots, int n_tiles) {
   }
 }
 
-// Let `kernel` take `bytes` of dynamic shared memory on the current device;
-// `dev_set` and `smem_set` remember what was set last, per kernel.
-cudaError_t allow_smem(const void* kernel, int bytes, int& dev_set, int& smem_set) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev == dev_set && bytes <= smem_set)) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) {
-    dev_set = dev;
-    smem_set = bytes;
-  }
-  return err;
-}
-
 template <int M>
 cudaError_t launch_frames(const SupIO& io, const SupConsts& c, const Plan& p, cudaStream_t s) {
   static int dev_set = -1, smem_set = 0;
   auto kernel = suppressor_frames<M>;
-  const cudaError_t err = allow_smem((const void*)kernel, p.frame_smem, dev_set, smem_set);
+  const cudaError_t err = raise_smem_to((const void*)kernel, p.frame_smem, dev_set, smem_set);
   if (err != cudaSuccess) return err;
   const int n_tiles = (c.n_frames + p.slots - 2) / (p.slots - 1);
   if ((long long)n_tiles * c.n_streams > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -1080,33 +1325,39 @@ cudaError_t launch_frames(const SupIO& io, const SupConsts& c, const Plan& p, cu
   return cudaGetLastError();
 }
 
-template <typename Kernel>
-cudaError_t launch_walk_with(Kernel kernel, const SupIO& io, const SupConsts& c, const Plan& p,
-                             cudaStream_t s, int& dev_set, int& smem_set) {
-  const cudaError_t err = allow_smem((const void*)kernel, p.walk_smem, dev_set, smem_set);
+template <typename Kernel, typename... Args>
+cudaError_t launch_walk_with(Kernel kernel, const WalkPlan& w, int n_streams, cudaStream_t s,
+                             int& dev_set, int& smem_set, Args... args) {
+  const cudaError_t err = raise_smem_to((const void*)kernel, w.smem, dev_set, smem_set);
   if (err != cudaSuccess) return err;
-  kernel<<<c.n_streams, p.walk_threads, p.walk_smem, s>>>(io, c);
+  kernel<<<n_streams, w.threads, w.smem, s>>>(args...);
   return cudaGetLastError();
 }
 
-cudaError_t launch_walk(const SupIO& io, const SupConsts& c, const Plan& p, cudaStream_t s) {
-  static int dev1 = -1, smem1 = 0, dev2 = -1, smem2 = 0, dev4 = -1, smem4 = 0;
-  switch (walk_bins_per_thread(c.K)) {
-    case 1: return launch_walk_with(suppressor_walk, io, c, p, s, dev1, smem1);
-    case 2: return launch_walk_with(suppressor_walk_wide<2>, io, c, p, s, dev2, smem2);
-    default: return launch_walk_with(suppressor_walk_wide<4>, io, c, p, s, dev4, smem4);
+cudaError_t launch_walk(const SupIO& io, const SupConsts& c, const WalkPlan& w, cudaStream_t s) {
+  static int dev1 = -1, smem1 = 0, dev4 = -1, smem4 = 0, dev2 = -1, smem2 = 0, devf = -1, smemf = 0;
+  const int B = c.n_streams;
+  if (w.narrow) return launch_walk_with(suppressor_walk, w, B, s, dev1, smem1, io, c);
+  switch (w.frames) {
+    case 4:
+      return launch_walk_with(suppressor_walk_wide<4>, w, B, s, dev4, smem4, io, c, w.bpt, 0LL);
+    case 2:
+      return launch_walk_with(suppressor_walk_wide<2>, w, B, s, dev2, smem2, io, c, w.bpt, 0LL);
+    default:
+      return launch_walk_with(suppressor_walk_wide<1>, w, B, s, devf, smemf, io, c, w.bpt,
+                              w.scratch);
   }
 }
 
-template <bool kWide>
+template <int kW>
 cudaError_t launch_frames_mixed(const SupIO& io, const SupConsts& c, const MixedPlan& plan,
                                 cudaStream_t s) {
   static int dev_set = -1, smem_set = 0;
   const int slots = mixed_slots(c.n_fft, c.K);
   if (slots == 0) return cudaErrorInvalidValue;
   const int smem = mixed_frame_smem(c.n_fft, c.K, slots);
-  auto kernel = suppressor_frames_mixed<kWide>;
-  const cudaError_t err = allow_smem((const void*)kernel, smem, dev_set, smem_set);
+  auto kernel = suppressor_frames_mixed<kW>;
+  const cudaError_t err = raise_smem_to((const void*)kernel, smem, dev_set, smem_set);
   if (err != cudaSuccess) return err;
   int lg = 0;
   while ((1 << lg) < slots) ++lg;
@@ -1121,11 +1372,30 @@ cudaError_t launch_frames_dft(const SupIO& io, const SupConsts& c, cudaStream_t 
   const int slots = dft_slots(c.n_fft, c.K);
   if (slots == 0) return cudaErrorInvalidValue;
   const int smem = dft_frame_smem(c.n_fft, c.K, slots);
-  const cudaError_t err = allow_smem((const void*)suppressor_frames_dft, smem, dev_set, smem_set);
+  const cudaError_t err =
+      raise_smem_to((const void*)suppressor_frames_dft, smem, dev_set, smem_set);
   if (err != cudaSuccess) return err;
   const int n_tiles = (c.n_frames + slots - 2) / (slots - 1);
   if ((long long)n_tiles * c.n_streams > 0x7fffffffLL) return cudaErrorInvalidValue;
   suppressor_frames_dft<<<n_tiles * c.n_streams, kFrameThreads, smem, s>>>(io, c, slots, n_tiles);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_frames_chirpz(const SupIO& io, const SupConsts& c, cudaStream_t s) {
+  static int dev_set = -1, smem_set = 0;
+  const int slots = chirpz_slots(c.chirp_n, c.K);
+  const MixedPlan plan = mixed_plan_of(c.chirp_n);
+  if (slots == 0) return cudaErrorInvalidValue;
+  const int smem = chirpz_frame_smem(c.chirp_n, c.K, slots);
+  const cudaError_t err =
+      raise_smem_to((const void*)suppressor_frames_chirpz, smem, dev_set, smem_set);
+  if (err != cudaSuccess) return err;
+  int lg = 0;
+  while ((1 << lg) < slots) ++lg;
+  const int n_tiles = (c.n_frames + slots - 2) / (slots - 1);
+  if ((long long)n_tiles * c.n_streams > 0x7fffffffLL) return cudaErrorInvalidValue;
+  suppressor_frames_chirpz<<<n_tiles * c.n_streams, kFrameThreads, smem, s>>>(io, c, lg, n_tiles,
+                                                                               plan);
   return cudaGetLastError();
 }
 
@@ -1140,38 +1410,57 @@ bool fft_route(int n_fft) {
 // pass, chosen by the caller from the geometry (models/streaming.py::
 // k8_route): 0 the FFT pass (a power-of-two n_fft from 64 to 1024), 1 the
 // mixed pass (an n_fft whose half has a plan, mixed_plan_of), 2 the DFT
-// pass (any n_fft).  Refuses what the kernels do not take
-// (models/streaming.py::k8_check_geometry says the same): a route that does
-// not take n_fft, n_fft not 2 hop, band bins outside the spectrum or more
-// than 4,096 of them (four a walk thread), more SNR columns than band bins,
-// shared memory past a block's.
+// pass (any n_fft whose tile fits; comparisons only), 3 the chirp-z pass
+// (over chirp_n points, chirp_size_takes(n_fft / 2, chirp_n)), 4 the global
+// pass (the four-step
+// transform of n_fft / 2 points, or of chirp_n with the chirp-z tables).
+// Refuses what the kernels do not take (models/streaming.py::
+// k8_check_geometry says the same): n_fft not 2 hop, band bins outside the
+// spectrum, more SNR columns than band bins, a route that does not take
+// n_fft, a tile or scratch that does not fit.
 // (The structures are passed as untyped pointers: a function whose
 // parameter types lie in an unnamed namespace gets internal linkage.)
 extern "C" int apt_streaming_suppressor(const void* io_ptr, const void* c_ptr, int route,
                                         void* stream) {
   const SupIO* io = static_cast<const SupIO*>(io_ptr);
   const SupConsts* c = static_cast<const SupConsts*>(c_ptr);
-  const int N = c->n_fft;
-  if (N < 2 || c->hop * 2 != N || c->K < 1 || c->K > 4 * kMaxWalkThreads || c->row0 < 0 ||
-      c->row0 + c->K > N / 2 + 1 ||
+  const int N = c->n_fft, M = N / 2;
+  if (N < 2 || c->hop * 2 != N || c->K < 1 || c->row0 < 0 || c->row0 + c->K > M + 1 ||
       c->n_taps < 0 || (c->n_taps > 0 && io->taps == nullptr) || c->n_snr < 0 ||
-      c->n_snr > c->K || c->n_frames < 1 || c->n_streams < 1 || io->gain == nullptr)
+      c->n_snr > c->K || c->n_frames < 1 || c->n_streams < 1 || io->gain == nullptr ||
+      c->chirp_n < 0)
     return (int)cudaErrorInvalidValue;
-  const MixedPlan mixed = mixed_plan_of(N / 2);
-  if (route < 0 || route > 2 || (route == 0 && !fft_route(N)) || (route == 1 && mixed.n_pass == 0))
-    return (int)cudaErrorInvalidValue;
-  const Plan p = plan_for(*c);
-  if (p.walk_threads > kMaxWalkThreads || p.walk_smem > kSmemLimit ||
-      (route == 0 && p.frame_smem > kSmemLimit) || (route == 1 && mixed_slots(N, c->K) == 0) ||
-      (route == 2 && dft_slots(N, c->K) == 0))
+  const MixedPlan mixed = mixed_plan_of(M);
+  const bool chirp_ok = c->chirp_n == 0 ? mixed.n_pass > 0
+                                        : chirp_size_takes(M, c->chirp_n) && io->chirp != nullptr &&
+                                              io->chirp_bt != nullptr && io->chirp_tab != nullptr;
+  bool takes = false;
+  switch (route) {
+    case 0: takes = fft_route(N) && plan_for(*c).frame_smem <= kSmemLimit; break;
+    case 1: takes = mixed.n_pass > 0 && mixed_slots(N, c->K) > 0; break;
+    case 2: takes = dft_slots(N, c->K) > 0; break;
+    case 3: takes = c->chirp_n > 0 && chirp_ok && chirpz_slots(c->chirp_n, c->K) > 0; break;
+    case 4: takes = chirp_ok; break;  // launch_frames_global checks the split and the scratch
+    default: break;
+  }
+  const WalkPlan w = walk_plan(*c);
+  if (!takes || (w.scratch > 0 && (io->walk_scratch == nullptr ||
+                                   w.scratch * c->n_streams > io->walk_scratch_floats)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_walk(*io, *c, p, s);
+  cudaError_t err = launch_walk(*io, *c, w, s);
   if (err != cudaSuccess) return (int)err;
-  if (route == 1)
-    return (int)(plan_is_wide(mixed) ? launch_frames_mixed<true>(*io, *c, mixed, s)
-                                     : launch_frames_mixed<false>(*io, *c, mixed, s));
-  if (route == 2) return (int)launch_frames_dft(*io, *c, s);
+  switch (route) {
+    case 1:
+      return (int)by_width(mixed, [&](auto w) {
+        return launch_frames_mixed<decltype(w)::value>(*io, *c, mixed, s);
+      });
+    case 2: return (int)launch_frames_dft(*io, *c, s);
+    case 3: return (int)launch_frames_chirpz(*io, *c, s);
+    case 4: return (int)launch_frames_global(*io, *c, s);
+    default: break;
+  }
+  const Plan p = plan_for(*c);
   switch (N) {
     case 64: return (int)launch_frames<32>(*io, *c, p, s);
     case 128: return (int)launch_frames<64>(*io, *c, p, s);

@@ -60,8 +60,12 @@ from audio_processing_tools_tpu_torch.ops.filters import k7_state_dtype, sosfilt
 from audio_processing_tools_tpu_torch.ops.framing import frame_signal
 from audio_processing_tools_tpu_torch.ops.spectrogram import (
     N_FFTS,
+    chirp_size,
+    chirpz_tables,
+    chunk_frames,
+    fft_shape,
+    four_step_plan,
     kernel_tables,
-    mixed_radices,
     spectrogram_power,
     tile_elems,
 )
@@ -135,9 +139,8 @@ def _kurtosis(frames: torch.Tensor) -> torch.Tensor:
 # K8: the streaming suppressor's per-frame scan
 # ---------------------------------------------------------------------------
 
-#: band bins K8 takes: up to four a walk thread of 1,024 (csrc/streaming.cu:
-#: kMaxWalkThreads, walk_bins_per_thread)
-K8_MAX_BINS = 4096
+#: threads of K8's walk block at most (csrc/streaming.cu: kMaxWalkThreads)
+_K8_WALK_THREADS = 1024
 #: shared memory a K8 block may hold (csrc/streaming.cu: kSmemLimit)
 _K8_SMEM_LIMIT = 232448
 
@@ -158,6 +161,7 @@ class _SupConsts(ctypes.Structure):
         ("n_taps", _i), ("alpha_base", _f),
         ("one_minus_alpha_base", _f),
         ("n_fft", _i), ("hop", _i), ("K", _i), ("row0", _i), ("n_frames", _i), ("n_streams", _i),
+        ("chirp_n", _i),
     ]
 
 
@@ -173,7 +177,9 @@ class _SupIO(ctypes.Structure):
         ("is_first", _p), ("g_prev", _p), ("ola", _p), ("y", _p),
         ("o_tracker", _p), ("o_scale", _p), ("o_prev_n", _p), ("o_wcount", _p),
         ("o_rain_ema", _p), ("o_is_first", _p), ("o_g_prev", _p), ("o_ola", _p), ("gain", _p),
-        ("taps", _p),
+        ("taps", _p), ("chirp", _p), ("chirp_bt", _p), ("chirp_tab", _p),
+        ("walk_scratch", _p), ("walk_scratch_floats", _l), ("frame_scratch", _p),
+        ("frame_scratch_bytes", _l),
     ]
 
 
@@ -190,13 +196,22 @@ def _freq_taps(cfg: NoiseConfig) -> np.ndarray:
 
 
 def k8_route(n_fft: int) -> str:
-    """K8's frame pass for an ``n_fft``: ``"fft"`` (K1's power-of-two
-    shared-memory FFT, 64 to 1024), ``"mixed"`` (K1's mixed-radix FFT, an
-    even n_fft whose half has a plan, :func:`mixed_radices`) or ``"dft"``
-    (the direct DFT, every other)."""
+    """K8's frame pass for an even ``n_fft`` (hop = n_fft / 2), from
+    :func:`fft_shape`'s ``(L, N)``, L = n_fft / 2: ``"fft"`` (K1's
+    power-of-two shared-memory FFT, 64 to 1024); ``"mixed"`` (K1's
+    mixed-radix FFT, N = L) or ``"chirpz"`` (the chirp-z transform over N,
+    :func:`chirp_size` of L) where a block holds two frames with all n_fft /
+    2 + 1 bins as band bins (:func:`k8_mixed_slots`,
+    :func:`k8_chirpz_slots`); else ``"global"`` (the four-step transform of
+    N through device memory).  The route depends on n_fft alone, so every
+    frame of a configuration runs the same arithmetic.  The direct DFT is a
+    pass only comparisons force."""
     if n_fft in N_FFTS:
         return "fft"
-    return "mixed" if n_fft % 2 == 0 and mixed_radices(n_fft // 2) is not None else "dft"
+    L, N = fft_shape(n_fft)
+    if N == L:
+        return "mixed" if k8_mixed_slots(n_fft, L + 1) else "global"
+    return "chirpz" if k8_chirpz_slots(n_fft, L + 1) else "global"
 
 
 def k8_mixed_slots(n_fft: int, K: int) -> int:
@@ -205,6 +220,17 @@ def k8_mixed_slots(n_fft: int, K: int) -> int:
     n_fft / 2 + 1 points and gains fit a block's shared memory, else 0."""
     for slots in (16, 8, 4, 2):
         if 16 * tile_elems(n_fft // 2 + 1, slots) + 4 * slots * K <= _K8_SMEM_LIMIT:
+            return slots
+    return 0
+
+
+def k8_chirpz_slots(n_fft: int, K: int) -> int:
+    """Frames a block of K8's chirp-z frame pass holds (``chirpz_slots``):
+    the most of 16, 8, 4, 2 whose two tile buffers of :func:`chirp_size`
+    (n_fft / 2) points and gains fit a block's shared memory, else 0."""
+    Mc = chirp_size(n_fft // 2)
+    for slots in (16, 8, 4, 2):
+        if 16 * tile_elems(Mc, slots) + 4 * slots * K <= _K8_SMEM_LIMIT:
             return slots
     return 0
 
@@ -220,51 +246,79 @@ def k8_dft_slots(n_fft: int, K: int) -> int:
     return 0
 
 
-def k8_walk_smem(K: int, n_taps: int, n_snr: int) -> int:
-    """Shared bytes of K8's walk (``plan_for`` in the kernel's source): per
-    frame of a round the padded gain row twice, P and N_eff per band bin and
-    the two SNR trees, then the taps."""
+def k8_walk_floats(K: int, n_taps: int, n_snr: int, frames: int) -> int:
+    """Floats of K8's walk rows at ``frames`` frames a round
+    (``walk_floats`` in the kernel's source): per frame the padded gain row
+    twice, P and N_eff per band bin and the two SNR trees, then the taps."""
     pad, m = n_taps // 2, 1 << max(n_snr - 1, 0).bit_length()
-    return 4 * 4 * (2 * (K + 2 * pad) + 2 * K + 2 * m) + 4 * n_taps
+    return frames * (2 * (K + 2 * pad) + 2 * K + 2 * m) + n_taps
+
+
+class WalkPlan(NamedTuple):
+    narrow: bool  # suppressor_walk: one band bin a thread
+    frames: int  # frames a round
+    bins_per_thread: int
+    threads: int
+    smem: int  # shared bytes of a block
+    scratch: int  # floats a stream of the global scratch (0: the rows are in shared memory)
+
+
+def k8_walk_plan(K: int, n_taps: int, n_snr: int) -> WalkPlan:
+    """K8's walk launch (``walk_plan`` in the kernel's source): one band bin a
+    thread at four frames a round where K <= 1,024 and the rows fit shared
+    memory (the main path); else ceil(K / 1,024) bins a thread at the most
+    of 4, 2, 1 frames a round whose rows fit, or at one frame a round with
+    the rows in a global scratch."""
+    bpt = -(-K // _K8_WALK_THREADS)
+    threads = 32 * ((-(-K // bpt) + 31) // 32)
+    fits = [F for F in (4, 2, 1) if 4 * k8_walk_floats(K, n_taps, n_snr, F) <= _K8_SMEM_LIMIT]
+    if not fits:
+        return WalkPlan(False, 1, bpt, threads, 0, k8_walk_floats(K, n_taps, n_snr, 1))
+    F = fits[0]
+    return WalkPlan(K <= _K8_WALK_THREADS and F == 4, F, bpt, threads,
+                    4 * k8_walk_floats(K, n_taps, n_snr, F), 0)
+
+
+def k8_global_scratch_bytes(n_fft: int, frames: int) -> int:
+    """Bytes of K8's global frame pass's scratch (``global_scratch_bytes``):
+    two chunk buffers of N points a frame (:func:`chunk_frames`) and two
+    overlap-add tails of hop samples."""
+    N = fft_shape(n_fft)[1]
+    return 16 * N * chunk_frames(N, frames) + 8 * (n_fft // 2)
 
 
 #: K8's frame passes as its launcher numbers them
-K8_ROUTES = {"fft": 0, "mixed": 1, "dft": 2}
+K8_ROUTES = {"fft": 0, "mixed": 1, "dft": 2, "chirpz": 3, "global": 4}
 
 
 def k8_check_geometry(n_fft: int, hop: int, K: int, n_taps: int, n_snr: int,
                       route: str | None = None) -> None:
-    """``ValueError`` for a geometry K8 does not take, as its launcher
-    refuses it: ``hop != n_fft / 2`` (the JAX package refuses it too), band
-    bins outside 1 to n_fft / 2 + 1, more SNR columns than band bins; and
-    beyond what the JAX package refuses, more than :data:`K8_MAX_BINS` band
-    bins, a walk whose block does not fit shared memory, or a frame pass
-    whose smallest tile does not: the mixed pass's two frames or the DFT
-    pass's four, whichever ``route`` names (by default :func:`k8_route`'s;
-    the FFT pass's always fit), or a route that does not take ``n_fft``.
-    Any number of taps that fits."""
+    """``ValueError`` for a geometry K8 does not take, which is what the JAX
+    package refuses too: ``hop != n_fft / 2``, band bins outside 1 to n_fft
+    / 2 + 1, more SNR columns than band bins.  Every other geometry, with any
+    number of taps, takes :func:`k8_route`'s pass.  A ``route`` forced for a
+    comparison is refused where it does not take ``n_fft``: the FFT pass
+    outside its sizes, the mixed pass without a plan or two frames a block,
+    the chirp-z pass past two frames a block, the DFT pass past four, the
+    global pass where the four-step split does not take the size."""
     if (n_fft < 2 or 2 * hop != n_fft or not 1 <= K <= n_fft // 2 + 1 or n_taps < 0
-            or not 0 <= n_snr <= K or K > K8_MAX_BINS):
+            or not 0 <= n_snr <= K):
         raise ValueError(f"streaming_suppressor: the CUDA kernel takes hop = n_fft / 2, 1 to "
-                         f"min(n_fft / 2 + 1, {K8_MAX_BINS}) band bins and at most K SNR "
-                         f"columns; got n_fft {n_fft}, hop {hop}, K {K}, {n_taps} taps, "
-                         f"{n_snr} columns")
-    if k8_walk_smem(K, n_taps, n_snr) > _K8_SMEM_LIMIT:
-        raise ValueError(f"streaming_suppressor: the walk's block over K {K} band bins, "
-                         f"{n_taps} taps and {n_snr} SNR columns needs "
-                         f"{k8_walk_smem(K, n_taps, n_snr)} bytes of shared memory, more than "
-                         f"{_K8_SMEM_LIMIT}")
-    auto = k8_route(n_fft)
-    route = auto if route is None else route
-    if route not in K8_ROUTES or (route != "dft" and route != auto):
+                         f"n_fft / 2 + 1 band bins and at most K SNR columns; got n_fft {n_fft}, "
+                         f"hop {hop}, K {K}, {n_taps} taps, {n_snr} columns")
+    if route is None or route == k8_route(n_fft):
+        return
+    L, N = fft_shape(n_fft)
+    takes = {
+        "fft": lambda: n_fft in N_FFTS,
+        "mixed": lambda: N == L and k8_mixed_slots(n_fft, K) > 0,
+        "chirpz": lambda: k8_chirpz_slots(n_fft, K) > 0,
+        "dft": lambda: k8_dft_slots(n_fft, K) > 0,
+        "global": lambda: four_step_plan(N) is not None,
+    }.get(route)
+    if takes is None or not takes():
         raise ValueError(f"streaming_suppressor: the {route} frame pass does not take n_fft "
-                         f"{n_fft}")
-    slots = {"mixed": k8_mixed_slots, "dft": k8_dft_slots}.get(route)
-    if slots is not None and slots(n_fft, K) == 0:
-        tile = {"mixed": "two frames", "dft": "four frames"}[route]
-        raise ValueError(f"streaming_suppressor: the {route} frame pass's smallest tile "
-                         f"({tile} of n_fft {n_fft} with K {K} band bins) does not fit "
-                         f"{_K8_SMEM_LIMIT} bytes of shared memory")
+                         f"{n_fft} with K {K} band bins")
 
 
 class Suppressor:
@@ -278,12 +332,15 @@ class Suppressor:
         self.taps = _freq_taps(cfg)
 
     def tables(self, device) -> torch.Tensor:
-        """K8's tables: window | 1/sum w^2 | twiddles ``e^{-2 pi i k / n_fft}``
-        as (re, im) pairs, K1's (float64, rounded)."""
-        n = self.st.n_fft
+        """K8's tables: window | 1/sum w^2 | a zero where hop is odd (the
+        twiddles start 8-byte aligned: ``twiddle_offset``) | twiddles
+        ``e^{-2 pi i k / n_fft}`` as (re, im) pairs, K1's (float64,
+        rounded)."""
+        n, hop = self.st.n_fft, self.st.hop
 
         def make():
             return np.concatenate([self.audio.window, self.audio.inv_ws,
+                                   np.zeros(hop % 2, np.float32),
                                    kernel_tables(n)[1].reshape(-1)])
 
         return device_constant(("k8_tables", n, self.st.hop), device, make)
@@ -391,11 +448,12 @@ def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
                      frame_class: torch.Tensor, noise_conf: torch.Tensor,
                      frame_idx: torch.Tensor, carry: SupCarry, want_gain: bool = False,
                      route: str | None = None):
-    """K8 on the card, its two launches (the walk, then the frame pass)
-    counted as one; returns what :func:`_suppressor_plain` returns, the
-    gain only when ``want_gain``.  ``route`` is the frame pass,
-    :func:`k8_route`'s by default (``"dft"`` takes every n_fft, for
-    comparisons)."""
+    """K8 on the card, its launches (the walk, then the frame pass: one
+    launch, or for the global pass a few a chunk of frames) counted as one;
+    returns what :func:`_suppressor_plain` returns, the gain only when
+    ``want_gain``.  ``route`` is the frame pass, :func:`k8_route`'s by
+    default; comparisons force another that takes the geometry
+    (:func:`k8_check_geometry`)."""
     st = sup.st
     B, T = frame_class.shape
     K, hop, n_fft = sup.K, st.hop, st.n_fft
@@ -419,6 +477,18 @@ def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
     c = sup.consts(B, T)
     route = k8_route(n_fft) if route is None else route
     k8_check_geometry(n_fft, hop, K, int(sup.taps.size), c.n_snr, route)
+    L, N = fft_shape(n_fft)
+    chirp = (None,) * 3
+    if route == "chirpz" or (route == "global" and N != L):
+        c.chirp_n = chirp_size(L)
+        chirp = device_constant(("chirpz_tables", n_fft), dev, lambda: chirpz_tables(n_fft))
+    walk = k8_walk_plan(K, int(sup.taps.size), c.n_snr)
+    walk_scratch = frame_scratch = None
+    if walk.scratch:
+        walk_scratch = torch.empty(B * walk.scratch, dtype=torch.float32, device=dev)
+    if route == "global":
+        frame_scratch = torch.empty(k8_global_scratch_bytes(n_fft, B * T) // 4,
+                                    dtype=torch.float32, device=dev)
     y = torch.empty((B, T * hop), dtype=torch.float32, device=dev)
     out = [torch.empty_like(v) for v in cin]
     gain = torch.empty((B, K, T), dtype=torch.float32, device=dev)  # the walk's output, scratch
@@ -442,6 +512,13 @@ def _suppressor_cuda(sup: Suppressor, xa: torch.Tensor, P: torch.Tensor,
         o_wcount=out[3].data_ptr(), o_rain_ema=out[4].data_ptr(), o_is_first=out[5].data_ptr(),
         o_g_prev=out[6].data_ptr(), o_ola=out[7].data_ptr(), gain=gain.data_ptr(),
         taps=None if taps is None else taps.data_ptr(),
+        chirp=None if chirp[0] is None else chirp[0].data_ptr(),
+        chirp_bt=None if chirp[1] is None else chirp[1].data_ptr(),
+        chirp_tab=None if chirp[2] is None else chirp[2].data_ptr(),
+        walk_scratch=None if walk_scratch is None else walk_scratch.data_ptr(),
+        walk_scratch_floats=0 if walk_scratch is None else walk_scratch.numel(),
+        frame_scratch=None if frame_scratch is None else frame_scratch.data_ptr(),
+        frame_scratch_bytes=0 if frame_scratch is None else 4 * frame_scratch.numel(),
     )
     lib = _kernels.build()
     with torch.cuda.device(dev):

@@ -7,19 +7,28 @@ window, the real DFT and the power into one pass.  Here that kernel is
 is :func:`~audio_processing_tools_tpu_torch.ops.stft.stft_power`.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the kernel or
-raises: there is no fallback.  The kernel has three routes, picked from the
-geometry alone by :func:`k1_route`: the FFT for a power-of-two ``n_fft``
-from 64 to 1024 with a ``hop`` that is a multiple of 4 (the main path's
-256/128); the mixed-radix FFT (``csrc/mixed_fft.cuh``) for every even
-``n_fft`` whose half has no odd prime factor above :data:`MIXED_MAX_PRIME`,
-at any ``hop`` (the TPU kernel's own sizes ``128 m``, ``m <= 32``, among
-them); and the direct DFT (the TPU kernel's window-and-DFT product) for
-every other ``n_fft >= 1`` and ``hop >= 1`` up to :data:`DFT_MAX_N_FFT`.
+raises: there is no fallback.  The kernel's route comes from the geometry
+alone (:func:`k1_route`): the power-of-two FFT for n_fft 64 to 1024 at a
+hop that is a multiple of 4 (the main path's 256/128); for every other
+n_fft, the transform of its complex length L (n_fft / 2 packed in pairs,
+or n_fft for an odd n_fft) by the mixed-radix FFT (``csrc/mixed_fft.cuh``)
+where L has no prime factor above :data:`MIXED_MAX_PRIME` (the mixed route
+for an even n_fft, the TPU kernel's sizes ``128 m`` among them; the odd
+mixed route for an odd one), else, for a prime L whose L - 1 has such
+factors, by Rader's convolution over L - 1 points (the Rader route), else
+by the chirp-z transform over a 7-smooth size (:func:`chirp_size`); and
+past :data:`ONE_BLOCK_POINTS` points either
+transform as a four-step FFT through device memory (the global route,
+``csrc/four_step.cuh``).  Every n_fft >= 1 and hop >= 1 takes one.  The
+direct DFT (the TPU kernel's window-and-DFT product, ``csrc/dft.cuh``) is
+a route only comparisons force.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,24 +46,39 @@ SMEM_LIMIT = 232_448
 N_FFTS = (64, 128, 256, 512, 1024)
 
 
-#: the largest n_fft of the DFT route: one frame's samples in shared memory,
-#: the last plan of ``dft_plan_for`` in the kernel's source
+class LaunchPlan(NamedTuple):
+    frame_tile: int  # frames per work item
+    smem_bytes: int  # dynamic shared memory per block
+
+
+#: the largest n_fft of the DFT route, which only comparisons force: one
+#: frame's samples in shared memory, the last plan of ``dft_plan_for`` in the
+#: kernel's source
 DFT_MAX_N_FFT = SMEM_LIMIT // 4
 
 
 #: the largest odd prime factor of n_fft / 2 the mixed route takes
 #: (``kMaxPrime`` of ``csrc/mixed_fft.cuh``)
 MIXED_MAX_PRIME = 31
+#: passes a plan holds (``kMaxPasses``)
+MIXED_MAX_PASSES = 16
 #: frames a block of the mixed route holds at most (``kMixedMaxTile``)
 MIXED_MAX_TILE = 32
+#: the largest transform a route runs in one block a frame (``kOneBlockPoints``
+#: of ``csrc/four_step.cuh``; such a block takes half the shared memory a
+#: block may use); past it the four-step split runs it through device memory
+ONE_BLOCK_POINTS = 7264
+#: bytes of the global route's two chunk buffers together (``kChunkScratch``)
+CHUNK_SCRATCH = 1 << 25
 
 
 def mixed_radices(M: int):
     """The passes of the mixed route's M-point transform, in order
     (``mixed_plan_of`` in ``csrc/mixed_fft.cuh``): radix 8 while 8 divides
     the power of two, then one radix 4 or 2, then the odd primes ascending;
-    ``None`` where ``M < 2`` or an odd prime factor passes
-    :data:`MIXED_MAX_PRIME`."""
+    ``None`` where ``M < 2``, an odd prime factor passes
+    :data:`MIXED_MAX_PRIME` or the odd primes would take the plan past
+    :data:`MIXED_MAX_PASSES`."""
     if M < 2:
         return None
     radices, q = [], M
@@ -69,6 +93,8 @@ def mixed_radices(M: int):
         q //= 2
     for f in range(3, MIXED_MAX_PRIME + 1, 2):
         while q % f == 0:
+            if len(radices) == MIXED_MAX_PASSES:
+                return None
             radices.append(f)
             q //= f
     return tuple(radices) if q == 1 else None
@@ -76,7 +102,10 @@ def mixed_radices(M: int):
 
 def tile_elems(rows: int, frame_tile: int) -> int:
     """float2 of one tile buffer (``tile_elems``): ``rows`` points of the
-    tile's frames at row stride ``frame_tile + 1``, rounded up to even."""
+    tile's frames at row stride ``frame_tile + 1`` (1 and two more points
+    for a single frame: ``tile_ld``), rounded up to even."""
+    if frame_tile == 1:
+        return (rows + 3) // 2 * 2
     return (rows * (frame_tile + 1) + 1) // 2 * 2
 
 
@@ -87,20 +116,31 @@ def _mixed_smem(n_fft: int, frame_tile: int) -> int:
     return 16 * tile_elems(n_fft // 2, frame_tile)
 
 
-def mixed_launch_plan(n_fft: int) -> LaunchPlan:
-    """The mixed route's frame tile and shared memory: the largest power of
-    two up to :data:`MIXED_MAX_TILE` frames whose block takes at most a
-    quarter of :data:`SMEM_LIMIT` (four blocks an SM), else one frame up to
-    the whole limit: the fastest tile at 384, 400, 640, 768 and 2,048 on an
-    H100 80GB HBM3 at 700 W (``tools/time_mixed_tiles.py``; at 384/192 and
-    128 x 10 s, 0.1280 ms with 16 frames a block against 0.1740 with 32).
-    Raises ``ValueError`` where even one frame does not fit."""
+def tile_plan(n: int) -> Optional[LaunchPlan]:
+    """The frame tile and shared memory of a block that transforms ``n``
+    points a frame in two tile buffers (``step_plan`` of
+    ``csrc/four_step.cuh``): the largest power of two up to
+    :data:`MIXED_MAX_TILE` frames whose block takes at most a quarter of
+    :data:`SMEM_LIMIT` (four blocks an SM), else one frame up to the whole
+    limit; ``None`` where one frame does not fit.  The mixed route's tile
+    (``n = n_fft / 2``) was the fastest at 384, 400, 640, 768 and 2,048 on
+    an H100 80GB HBM3 at 700 W (``tools/time_mixed_tiles.py``; at 384/192
+    and 128 x 10 s, 0.1280 ms with 16 frames a block against 0.1740 with
+    32)."""
     for ft in (32, 16, 8, 4, 2, 1):
-        if _mixed_smem(n_fft, ft) <= SMEM_LIMIT // 4:
-            return LaunchPlan(ft, _mixed_smem(n_fft, ft))
-    if _mixed_smem(n_fft, 1) <= SMEM_LIMIT:
-        return LaunchPlan(1, _mixed_smem(n_fft, 1))
-    raise ValueError(f"the mixed route's frame of n_fft {n_fft} does not fit shared memory")
+        smem = 16 * tile_elems(n, ft)
+        if smem <= SMEM_LIMIT // 4 or (ft == 1 and smem <= SMEM_LIMIT):
+            return LaunchPlan(ft, smem)
+    return None
+
+
+def mixed_launch_plan(n_fft: int) -> LaunchPlan:
+    """The mixed route's frame tile and shared memory, :func:`tile_plan` of
+    n_fft / 2.  Raises ``ValueError`` where even one frame does not fit."""
+    plan = tile_plan(n_fft // 2)
+    if plan is None:
+        raise ValueError(f"the mixed route's frame of n_fft {n_fft} does not fit shared memory")
+    return plan
 
 
 def mixed_route_takes(n_fft: int) -> bool:
@@ -111,28 +151,169 @@ def mixed_route_takes(n_fft: int) -> bool:
             and _mixed_smem(n_fft, 1) <= SMEM_LIMIT)
 
 
+class FourStepPlan(NamedTuple):
+    N1: int  # points of a column transform
+    N2: int  # points of a row transform
+    col: LaunchPlan  # columns a block
+    row: LaunchPlan  # rows a block
+
+
+@functools.lru_cache(maxsize=None)
+def four_step_plan(N: int) -> Optional[FourStepPlan]:
+    """The global route's split of an N-point transform (``four_step_of``
+    of ``csrc/four_step.cuh``): N1 the largest divisor of N up to sqrt(N),
+    N2 = N / N1, each transform with a plan and a tile
+    (:func:`tile_plan`); ``None`` where the split is not valid."""
+    n1 = max(d for d in range(1, math.isqrt(N) + 1) if N % d == 0) if N >= 1 else 1
+    n2 = N // max(n1, 1)
+    col, row = tile_plan(n1), tile_plan(n2)
+    if (N < 4 or n1 < 2 or mixed_radices(n1) is None or mixed_radices(n2) is None
+            or col is None or row is None):
+        return None
+    return FourStepPlan(n1, n2, col, row)
+
+
+def _seven_smooth_between(lo: int, hi: int):
+    """The numbers in [lo, hi) whose only prime factors are 2, 3, 5 and 7."""
+    out, p7 = [], 1
+    while p7 < hi:
+        p5 = p7
+        while p5 < hi:
+            p3 = p5
+            while p3 < hi:
+                m = p3
+                while m < hi:
+                    if m >= lo:
+                        out.append(m)
+                    m *= 2
+                p3 *= 3
+            p5 *= 5
+        p7 *= 7
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def chirp_size(L: int) -> int:
+    """The chirp-z transform's size for a complex length ``L``: among the
+    sizes M from max(2, 2L - 1) up to 4L whose only prime factors are 2, 3,
+    5 and 7 (the cheapest radices; a power of two always lies there), the
+    one with the fewest mixed-radix passes (:func:`mixed_radices`), the
+    smallest of those, whose transform one block holds (M <=
+    :data:`ONE_BLOCK_POINTS`) or the four-step split takes
+    (:func:`four_step_plan`).  Passes, not points, set the time: on an
+    H100 80GB HBM3 at 700 W and 128 x 10 s, 1,009/504 took 1.3379 ms over
+    the smallest such size, 2,025 (six passes), and 1.1864 over 2,048
+    (four); 296/148 0.4963 over 300 (four) and 0.4047 over 320 (three)
+    (``tools/time_chirp_sizes.py``).
+    ``csrc/four_step.cuh::chirp_size_takes`` checks the launcher's size.
+    Raises ``ValueError`` past the split's reach (M above 7,264 squared)."""
+    lo = max(2, 2 * L - 1)
+    sizes = sorted(_seven_smooth_between(lo, max(4 * L, 8)),
+                   key=lambda m: (len(mixed_radices(m)), m))
+    for m in sizes:
+        if m <= ONE_BLOCK_POINTS or (m <= ONE_BLOCK_POINTS ** 2 and four_step_plan(m) is not None):
+            return m
+    raise ValueError(f"no chirp-z size for a complex length of {L} points")
+
+
+@functools.lru_cache(maxsize=None)
+def fft_shape(n_fft: int) -> Tuple[int, int]:
+    """``(L, N)``: the complex length of an ``n_fft`` frame's transform (n_fft
+    / 2, packed in pairs, for an even n_fft; n_fft for an odd one) and the
+    size of the transform that computes it: L itself where L has a plan
+    (:func:`mixed_radices`) that one block or the four-step split takes,
+    else :func:`chirp_size` of L."""
+    L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    if mixed_radices(L) is not None and (L <= ONE_BLOCK_POINTS or four_step_plan(L) is not None):
+        return L, L
+    return L, chirp_size(L)
+
+
+def _is_prime(n: int) -> bool:
+    return n >= 2 and all(n % d for d in range(2, math.isqrt(n) + 1))
+
+
+def rader_launch_plan(L: int) -> Optional[LaunchPlan]:
+    """The Rader route's frame tile and shared memory for a prime complex
+    length L (``apt_spectrogram_power_rader``): two float2 a frame, two tile
+    buffers of L - 1 points and 16 bytes, by :func:`tile_plan`'s rule; ``None``
+    where L is not such a prime (above :data:`MIXED_MAX_PRIME`, L - 1 with a
+    plan of at most :data:`ONE_BLOCK_POINTS` points) or one frame does not
+    fit."""
+    if not (MIXED_MAX_PRIME < L <= ONE_BLOCK_POINTS + 1 and _is_prime(L)
+            and mixed_radices(L - 1) is not None):
+        return None
+    for ft in (32, 16, 8, 4, 2, 1):
+        smem = 16 * tile_elems(L - 1, ft) + 16 * ft + 16
+        if smem <= SMEM_LIMIT // 4 or (ft == 1 and smem <= SMEM_LIMIT):
+            return LaunchPlan(ft, smem)
+    return None
+
+
+def rader_tables(n_fft: int):
+    """The Rader route's host tables for an n_fft whose complex length L is a
+    prime (:func:`rader_launch_plan`), g the smallest primitive root mod L:
+    ``(gin, qout)`` int32, gin[q] = g^q mod L (q < L - 1) and qout[k] = q
+    with g^-q = k mod L (qout[0] = 0, unused); and ``(bt, rtab)`` float32
+    (re, im) pairs, built in float64: Bt = FFT(b) / (L - 1) of b_q =
+    e^{-2 pi i g^-q / L}, and e^{-2 pi i j / (L - 1)}."""
+    L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    R = L - 1
+    factors = {d for d in range(2, R + 1) if R % d == 0 and _is_prime(d)}
+    g = next(g for g in range(2, L) if all(pow(g, R // f, L) != 1 for f in factors))
+    gin = np.array([pow(g, q, L) for q in range(R)], np.int64)
+    qout = np.zeros(L, np.int64)
+    qout[gin[(-np.arange(R)) % R]] = np.arange(R)  # g^-q = gin[-q mod R]
+    b = np.exp(-2j * np.pi * gin[(-np.arange(R)) % R].astype(np.float64) / L)
+    bt = np.fft.fft(b) / R
+    ang = -2.0 * np.pi * np.arange(R, dtype=np.float64) / R
+
+    def pairs(z):
+        return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
+
+    return ((gin.astype(np.int32), qout.astype(np.int32)),
+            (pairs(bt), pairs(np.cos(ang) + 1j * np.sin(ang))))
+
+
+def chunk_frames(N: int, frames: int) -> int:
+    """Frames a chunk of the global route holds (``chunk_frames``): as many
+    as two buffers of N points each hold within :data:`CHUNK_SCRATCH`, at
+    least one, at most ``frames``."""
+    return min(max(1, CHUNK_SCRATCH // (16 * N)), frames)
+
+
 def k1_route(n_fft: int, hop: int) -> str:
-    """K1's route for a geometry: ``"fft"`` (the power-of-two shared-memory
-    FFT, whose plan is :func:`launch_plan`), ``"mixed"`` (the mixed-radix
-    FFT, :func:`mixed_launch_plan`) or ``"dft"`` (the direct DFT, whose plan
-    the kernel's source picks: ``dft_plan_for``).
-    Raises ``ValueError`` where none takes it: ``n_fft`` or ``hop`` below
-    1, or ``n_fft`` above :data:`DFT_MAX_N_FFT`."""
+    """K1's route for a geometry, from :func:`fft_shape`'s ``(L, N)``:
+
+    * ``"fft"``: a power-of-two n_fft in :data:`N_FFTS` at a hop that is a
+      multiple of 4 (the power-of-two shared-memory FFT, :func:`launch_plan`);
+    * ``"mixed"``: an even n_fft with N = L (the half-length mixed-radix FFT,
+      :func:`mixed_launch_plan`);
+    * ``"mixed_odd"``: an odd n_fft with N = L (the whole frame's mixed-radix
+      FFT, :func:`tile_plan` of n_fft);
+    * ``"rader"``: L a prime above :data:`MIXED_MAX_PRIME` whose L - 1 has
+      a plan (Rader's convolution over L - 1 points,
+      :func:`rader_launch_plan`);
+    * ``"chirpz"``: N = :func:`chirp_size` of L (L has a prime factor above
+      :data:`MIXED_MAX_PRIME`; the chirp-z transform, :func:`tile_plan` of N);
+    * ``"global"``: N above :data:`ONE_BLOCK_POINTS`, whatever the kind (the
+      four-step FFT through device memory, :func:`four_step_plan` of N).
+
+    Each of the last five takes any hop.  Raises ``ValueError`` only for
+    ``n_fft`` or ``hop`` below 1 (and past :func:`chirp_size`'s reach).
+    The direct DFT is a route only comparisons force."""
     if n_fft < 1 or hop < 1:
         raise ValueError(f"spectrogram_power needs n_fft >= 1 and hop >= 1; got {n_fft}, {hop}")
     if n_fft in N_FFTS and hop % 4 == 0:
         return "fft"
-    if mixed_route_takes(n_fft):
-        return "mixed"
-    if n_fft > DFT_MAX_N_FFT:
-        raise ValueError(f"the CUDA spectrogram kernel takes n_fft up to {DFT_MAX_N_FFT}; "
-                         f"got {n_fft}")
-    return "dft"
-
-
-class LaunchPlan(NamedTuple):
-    frame_tile: int  # frames per work item
-    smem_bytes: int  # dynamic shared memory per block
+    L, N = fft_shape(n_fft)
+    if N != L and rader_launch_plan(L) is not None:
+        return "rader"
+    if N > ONE_BLOCK_POINTS:
+        return "global"
+    if N != L:
+        return "chirpz"
+    return "mixed" if n_fft % 2 == 0 else "mixed_odd"
 
 
 def _smem_bytes(n_fft: int, hop: int, frame_tile: int) -> int:
@@ -189,21 +370,59 @@ def spectrogram_power(x: torch.Tensor, n_fft: int = 256, hop: int = 128,
     return _spectrogram_power_cuda(x, n_fft, hop, center, window, k1_route(n_fft, hop))
 
 
+def chirpz_tables(n_fft: int, M: Optional[int] = None):
+    """The chirp-z route's host tables for an n_fft, in float64 rounded to
+    float32 (no sine on the card), as (re, im) pairs: the chirp c_j =
+    e^{-i pi j^2 / L}, j < L, its angle from j^2 mod 2L in 64-bit integers;
+    Bt = FFT_M(b) / M of the padded conjugate chirp b (b_m = conj(c_m) at m
+    and M - m); and the twiddles e^{-2 pi i j / M}, j < M; L the complex
+    length, M = :func:`chirp_size` of L unless given."""
+    L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    M = chirp_size(L) if M is None else M
+    j = np.arange(L, dtype=np.int64)
+    c = np.exp(-1j * np.pi * ((j * j) % (2 * L)).astype(np.float64) / L)
+    b = np.zeros(M, np.complex128)
+    b[:L] = np.conj(c)
+    b[M - j[1:]] = np.conj(c[1:])
+    bt = np.fft.fft(b) / M
+    ang = -2.0 * np.pi * np.arange(M, dtype=np.float64) / M
+
+    def pairs(z):
+        return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
+
+    return pairs(c), pairs(bt), pairs(np.cos(ang) + 1j * np.sin(ang))
+
+
+#: the routes :func:`_spectrogram_power_cuda` takes by name
+K1_ROUTES = ("fft", "mixed", "mixed_odd", "rader", "chirpz", "global", "dft")
+
+
 def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool, window: str,
                             route: str) -> torch.Tensor:
     """K1 on the card through ``route``: :func:`k1_route`'s for the
-    geometry, or ``"dft"`` (which takes every geometry) and ``"mixed"``
-    (every size with a plan) for comparisons.  Raises where the route does
-    not take the geometry."""
+    geometry, or for comparisons another that takes it: ``"dft"`` (every
+    n_fft up to :data:`DFT_MAX_N_FFT`), ``"chirpz"`` (every n_fft whose
+    chirp-z size one block holds), ``"global"`` (every n_fft whose
+    :func:`fft_shape` size the four-step split takes) and ``"mixed"`` (every
+    even size with a plan).  Raises where the route does not take the
+    geometry."""
     analysis_window(window, 1)  # an unknown window raises here, before the launch
-    if route not in ("fft", "mixed", "dft"):
+    if route not in K1_ROUTES:
         raise ValueError(f"spectrogram_power: no route {route!r}")
-    if route == "mixed" and not mixed_route_takes(n_fft):
-        raise ValueError(f"the mixed route does not take n_fft {n_fft}")
-    if route == "dft" and not 1 <= n_fft <= DFT_MAX_N_FFT:
-        raise ValueError(f"the DFT route does not take n_fft {n_fft}")
-    plan = (launch_plan(n_fft, hop) if route == "fft"
-            else mixed_launch_plan(n_fft) if route == "mixed" else None)
+    if n_fft < 1 or hop < 1:
+        raise ValueError(f"spectrogram_power needs n_fft >= 1 and hop >= 1; got {n_fft}, {hop}")
+    L, N = fft_shape(n_fft)
+    takes = {
+        "fft": lambda: n_fft in N_FFTS and hop % 4 == 0,
+        "mixed": lambda: mixed_route_takes(n_fft),
+        "mixed_odd": lambda: n_fft % 2 == 1 and N == L <= ONE_BLOCK_POINTS,
+        "rader": lambda: rader_launch_plan(L) is not None,
+        "chirpz": lambda: chirp_size(L) <= ONE_BLOCK_POINTS,
+        "global": lambda: four_step_plan(N) is not None,
+        "dft": lambda: n_fft <= DFT_MAX_N_FFT,
+    }[route]
+    if not takes():
+        raise ValueError(f"the {route} route does not take n_fft {n_fft}, hop {hop}")
     x = x.to(torch.float32).contiguous()
     lead = x.shape[:-1]
     n = x.shape[-1]
@@ -217,16 +436,46 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
         return out.reshape(lead + (F, T))
     win, twiddle = device_constant(("spectrogram_tables", n_fft, window), x.device,
                                    lambda: kernel_tables(n_fft, window))
+    chirp = bt = ctab = None
+    if route == "chirpz" or (route == "global" and N != L):
+        chirp, bt, ctab = device_constant(("chirpz_tables", n_fft), x.device,
+                                          lambda: chirpz_tables(n_fft))
     lib = _kernels.build()
-    args = (xb.data_ptr(), win.data_ptr(), twiddle.data_ptr(), out.data_ptr(), xb.shape[0], n, T,
-            n_fft, hop, pad)
+    args = (xb.data_ptr(), win.data_ptr(), twiddle.data_ptr())
+    geo = (xb.shape[0], n, T, n_fft, hop, pad)
+    stream = _kernels.stream_of(xb)
     with torch.cuda.device(x.device):
         if route == "dft":
-            err = lib.lib.apt_spectrogram_power_dft(*args, _kernels.stream_of(xb))
+            err = lib.lib.apt_spectrogram_power_dft(*args, out.data_ptr(), *geo, stream)
+        elif route == "rader":
+            (gin, qout), (rbt, rtab) = (
+                device_constant(("rader_perms", n_fft), x.device,
+                                lambda: rader_tables(n_fft)[0], torch.int32),
+                device_constant(("rader_tables", n_fft), x.device,
+                                lambda: rader_tables(n_fft)[1]))
+            plan = rader_launch_plan(L)
+            err = lib.lib.apt_spectrogram_power_rader(
+                *args, gin.data_ptr(), qout.data_ptr(), rbt.data_ptr(), rtab.data_ptr(),
+                out.data_ptr(), *geo, plan.frame_tile, plan.smem_bytes, stream)
+        elif route == "chirpz":
+            plan = tile_plan(ctab.shape[0])
+            err = lib.lib.apt_spectrogram_power_chirpz(
+                *args, chirp.data_ptr(), bt.data_ptr(), ctab.data_ptr(), out.data_ptr(), *geo,
+                ctab.shape[0], plan.frame_tile, plan.smem_bytes, stream)
+        elif route == "global":
+            frames = chunk_frames(N, xb.shape[0] * T)
+            scratch = torch.empty(4 * N * frames, dtype=torch.float32, device=x.device)
+            err = lib.lib.apt_spectrogram_power_global(
+                *args, *(None if t is None else t.data_ptr() for t in (chirp, bt, ctab)),
+                out.data_ptr(), *geo, N, scratch.data_ptr(), 4 * scratch.numel(), stream)
         else:
-            launch = (lib.lib.apt_spectrogram_power if route == "fft"
-                      else lib.lib.apt_spectrogram_power_mixed)
-            err = launch(*args, plan.frame_tile, plan.smem_bytes, _kernels.stream_of(xb))
+            launch, plan = {
+                "fft": (lib.lib.apt_spectrogram_power, lambda: launch_plan(n_fft, hop)),
+                "mixed": (lib.lib.apt_spectrogram_power_mixed, lambda: mixed_launch_plan(n_fft)),
+                "mixed_odd": (lib.lib.apt_spectrogram_power_odd, lambda: tile_plan(n_fft)),
+            }[route]
+            plan = plan()
+            err = launch(*args, out.data_ptr(), *geo, plan.frame_tile, plan.smem_bytes, stream)
     lib.check(err, "spectrogram_power")
     _kernels.count("spectrogram_power")
     return out.reshape(lead + (F, T))

@@ -220,7 +220,20 @@ Phases, one line each:
      (bits); K10 at 14,433 and 52,322 frames and 70,000 clips (counts
      exact); K4 at 9, 10, 16 and 24 sections, K7 at 9 and 16, K6 at W 100,
      S 13, S 16, W 3 with S 4 and W 4 with S 7 (bits); each route printed
-     with its device time from a CUDA graph.
+     with its device time from a CUDA graph;
+ 45. K1's mixed-radix route at the TPU kernel's 32 sizes and four other
+     hops, timed in turns against its DFT route and ``stft_power``; K8's
+     mixed frame pass at five sizes against its plain loop and DFT pass; K7
+     at F7's designs against scipy float64;
+ 46. K1's odd mixed (385/192), Rader (1,009/504; beside it the chirp-z
+     route forced), chirp-z (296/148, 1,031/515, 2,062/1,031) and global
+     (16,384-65,537) routes at 128 x 10 s within 1e-5 of ``stft_power``'s
+     maximum and, beyond the forced DFT's own drift, of the DFT's, timed in
+     turns against both; K8's
+     chirp-z (296/148) and global passes (5,920, 10,240 over 5,027 band
+     bins, 32,768 over 16,088 gated ones: the walk past 4,096 bins, its rows
+     in a scratch) and both forced at 384/192, the plain loop's gain and
+     carries bit for bit, y within 1e-4 of its maximum, chunk invariant.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -998,10 +1011,12 @@ def main() -> int:
     surface = surface_phases(smi, pcm)
     geo = geometry_phases(smi, x, pcm)
     mixed = mixed_fft_phases(smi, x)
+    chirpz = chirpz_global_phases(smi, x)
 
     paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"],
              **surface["launches"], "configurations the JAX package runs (phase 44)": geo["launches"],
-             "the mixed-radix FFT and F7 (phase 45)": mixed["launches"]}
+             "the mixed-radix FFT and F7 (phase 45)": mixed["launches"],
+             "the odd mixed, chirp-z and global routes (phase 46)": chirpz["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
@@ -1104,7 +1119,8 @@ def main() -> int:
     for k in kernels:
         # the route the entry's own numbers are of, and phase 44's routes
         k["routes"] = ([{"route": main_route.get(k["name"], "cuda"), "geometry": "main path"}]
-                       + geo["routes"].get(k["name"], []) + mixed["routes"].get(k["name"], []))
+                       + geo["routes"].get(k["name"], []) + mixed["routes"].get(k["name"], [])
+                       + chirpz["routes"].get(k["name"], []))
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
               f"({k['bound_ms'] / k['ms']:.1%} of it)")
@@ -3415,11 +3431,11 @@ def surface_phases(smi: str, pcm: np.ndarray) -> dict:
 # main path's, each through its hand kernel
 GEO_K1 = {(384, 192): "mixed", (2048, 1024): "mixed", (256, 100): "fft", (400, 200): "mixed",
           (640, 320): "mixed", (768, 384): "mixed",
-          # the DFT route: an odd n_fft, and a half with the prime 37
-          (385, 192): "dft", (296, 148): "dft"}
+          # an odd n_fft (the odd mixed route), a half with the prime 37 (chirp-z)
+          (385, 192): "mixed_odd", (296, 148): "chirpz"}
 GEO_STREAM = {"384/192": {"n_fft": 384, "hop": 192}, "2048/1024": {"n_fft": 2048, "hop": 1024},
               "4096/2048": {"n_fft": 4096, "hop": 2048},
-              "296/148": {"n_fft": 296, "hop": 148},  # the DFT frame pass (prime 37)
+              "296/148": {"n_fft": 296, "hop": 148},  # the chirp-z frame pass (prime 37)
               "11 taps": {"gain_freq_kernel": [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 5.0, 4.0, 3.0, 2.0,
                                                1.0]}}
 GEO_K9 = ((1152, 200), (4224, 64), (30000, 16))  # row length, rows
@@ -3579,7 +3595,7 @@ def geometry_phases(smi: str, x, pcm: np.ndarray) -> dict:
             outs.append(out["y"])
             state = state_new
         route = tsm.k8_route(st.n_fft)
-        want = {"296/148": "dft", "11 taps": "fft"}.get(label, "mixed")
+        want = {"296/148": "chirpz", "11 taps": "fft"}.get(label, "mixed")
         check(route == want, f"K8 {label} takes route {route}, not {want}")
         note("streaming_suppressor", route, f"{label} ({STREAMS} x {L} samples, K {args[0].K}, "
              f"{args[0].taps.size} taps)", 2, graph_ms(lambda: tsm._suppressor_cuda(*args)), d,
@@ -3938,6 +3954,218 @@ def mixed_fft_phases(smi: str, x) -> dict:
           f"DFT pass, K7 at {len(F7_DESIGNS)} F7 "
           f"designs against scipy float64; {seconds:.1f} s")
     return {"launches": launches, "routes": routes, "seconds": seconds, "fold_256": fold}
+
+# phase 46: K1's odd mixed, Rader, chirp-z and global routes; K8's chirp-z
+# and global passes and its walk past 4,096 band bins
+CHIRP_K1 = {(385, 192): "mixed_odd", (296, 148): "chirpz", (1009, 504): "rader",
+            (1031, 515): "chirpz", (2062, 1031): "chirpz", (16384, 8192): "global",
+            (32768, 16384): "global", (60000, 30000): "global", (65537, 32768): "global"}
+WIDE_BAND = {"operating_band": (20.0, 5500.0)}
+CHIRP_K8 = {
+    "296/148": ({"n_fft": 296, "hop": 148}, "chirpz"),
+    # chirp-z over 6,000 points through device memory
+    "5920/2960": ({"n_fft": 5920, "hop": 2960}, "global"),
+    # the four-step FFT of 5,120 points; the walk at 5,027 band bins
+    "10240/5120, 20-5,500 Hz": ({"n_fft": 10240, "hop": 5120, **WIDE_BAND}, "global"),
+    # 16,088 band bins with the SNR gate over all: the walk's rows in its scratch
+    "32768/16384, 20-5,500 Hz, gated": ({"n_fft": 32768, "hop": 16384, **WIDE_BAND,
+                                         "snr_gating_enable": True,
+                                         "snr_gating_use_mode_bands": False}, "global"),
+}
+# the new passes forced at a size the mixed pass takes, held to the plain loop
+CHIRP_K8_FORCED = ("chirpz", "global")
+
+
+def chirpz_global_phases(smi: str, x) -> dict:
+    """Phase 46: K1's odd mixed, Rader, chirp-z and global routes at 128 x
+    10 s, each within 1e-5 of ``stft_power``'s maximum and, beyond the
+    forced DFT route's own drift, of the DFT's where that takes the size,
+    and timed in turns against both; K8's chirp-z and global frame passes
+    and its walk past 4,096 band bins against the plain loop (gain and
+    carries bit for bit, y within 1e-4 of its maximum) and chunk invariant;
+    the plain loop's time at 384/192 and 296/148.  ``x`` is phase 4's batch
+    on the card."""
+    import torch
+
+    from audio_processing_tools_tpu_torch import _kernels
+    from audio_processing_tools_tpu_torch.models import streaming as tsm
+    from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
+    from audio_processing_tools_tpu_torch.ops.stft import stft_power
+
+    dev = x.device
+    t_phase = time.perf_counter()
+    routes = {"spectrogram_power": [], "streaming_suppressor": []}
+    launches = {k: 0 for k in _kernels.LAUNCHES}
+
+    # ---- K1: every new route, against stft_power and the DFT, in turns ----
+    for (n_fft, hop), want in CHIRP_K1.items():
+        route = tspec.k1_route(n_fft, hop)
+        check(route == want, f"K1 {n_fft}/{hop} takes route {route}, not {want}")
+        calls = {route: lambda: tspec.spectrogram_power(x, n_fft=n_fft, hop=hop),
+                 "stft_power": lambda: stft_power(x, n_fft=n_fft, hop=hop)}
+        # the DFT's O(n_fft^2) a frame (3.65 s a call at 32,768 over the
+        # batch): past 4,096 it runs on the first 8 clips, beside the route
+        # on the same 8
+        xd = x if n_fft <= 4096 else x[:8]
+        if n_fft <= tspec.DFT_MAX_N_FFT:
+            calls["dft"] = lambda: tspec._spectrogram_power_cuda(xd, n_fft, hop, True, "hann",
+                                                                  "dft")
+            if xd is not x:
+                calls["route_8"] = lambda: tspec.spectrogram_power(xd, n_fft=n_fft, hop=hop)
+        if route == "rader":  # the chirp-z route at the same size, for comparison
+            calls["chirpz"] = lambda: tspec._spectrogram_power_cuda(x, n_fft, hop, True, "hann",
+                                                                     "chirpz")
+        got, n = through_kernel("spectrogram_power", calls[route], f"K1 {n_fft}/{hop}", 1)
+        launches["spectrogram_power"] += n
+        ref = calls["stft_power"]()
+        torch.cuda.synchronize()
+        top = float(ref.abs().max())
+        d = float((got - ref).abs().max())
+        check(got.shape == ref.shape == (x.shape[0], n_fft // 2 + 1, 1 + x.shape[1] // hop)
+              and d <= 1e-5 * top, f"K1 {route} {n_fft}/{hop}: {tuple(got.shape)}, "
+                                   f"max|d|/max {d / top:.3e} (bound 1e-5)")
+        r_dft = None
+        if "dft" in calls:
+            got_dft = calls["dft"]()
+            torch.cuda.synchronize()
+            nd = got_dft.shape[0]
+            r_dft = float((got[:nd] - got_dft).abs().max()) / top
+            r_ref = float((got_dft - ref[:nd]).abs().max()) / top
+            # the DFT's float32 sums of n_fft terms drift from stft_power as
+            # n_fft grows (1.4e-6 at 384, 2.9e-6 at 2,048, 1.0e-5 at 16,384):
+            # the route stays within 1e-5 of the DFT beyond the DFT's own drift
+            check(r_dft <= 1e-5 + r_ref, f"K1 {n_fft}/{hop}: {route} against the DFT {r_dft:.3e}, "
+                                         f"the DFT against stft_power {r_ref:.3e} (bound 1e-5 "
+                                         f"beyond the DFT's own)")
+            del got_dft
+        if "chirpz" in calls:
+            got_cz = calls["chirpz"]()
+            torch.cuda.synchronize()
+            r_cz = float((got_cz - ref).abs().max()) / top
+            check(r_cz <= 1e-5, f"K1 {n_fft}/{hop}: the chirp-z route against stft_power "
+                                f"{r_cz:.3e} (bound 1e-5)")
+            del got_cz
+        del got, ref
+        order = [route] + [k for k in ("chirpz", "route_8", "dft", "stft_power")
+                           if k in calls and k != route]
+        ms = {k: [] for k in calls}
+        for k in order + order[::-1]:
+            ms[k].append(graph_ms(calls[k], launches=2 if k == "dft" else 20,
+                                  reps=3 if k == "dft" else 7))
+        ms = {k: float(np.mean(v)) for k, v in ms.items()}
+        b_ms, b_by = bound_of(*k1_work(x, n_fft, hop))
+        routes["spectrogram_power"].append(
+            {"route": route, "geometry": f"{n_fft}/{hop} {tuple(x.shape)}", "launches": n,
+             "ms": ms[route], "max_abs_err": d, "max_rel": d / top, "dft_ms": ms.get("dft"),
+             "dft_clips": xd.shape[0], "ms_on_dft_clips": ms.get("route_8", ms[route]),
+             "chirpz_ms": ms.get("chirpz") if route != "chirpz" else None,
+             "dft_rel": r_dft, "dft_ref_rel": r_ref if "dft" in calls else None,
+             "library_ms": ms["stft_power"], "plain_ms": ms["stft_power"],
+             "bound_ms": b_ms, "bound_by": b_by, "transform": list(tspec.fft_shape(n_fft))})
+        print(f"  K1 {n_fft}/{hop} {tuple(x.shape)}, route {route} (L, N = "
+              f"{tspec.fft_shape(n_fft)}), in turns: {ms[route]:.4f} ms, stft_power "
+              f"{ms['stft_power']:.4f}"
+              + (f", DFT {ms['dft']:.4f}" if "dft" in ms and xd is x else "")
+              + (f"; on 8 clips {ms['route_8']:.4f}, DFT {ms['dft']:.4f}" if "route_8" in ms
+                 else "")
+              + (f", chirp-z {ms['chirpz']:.4f}" if "chirpz" in ms and route != "chirpz" else "")
+              + f" (bound {b_ms:.4f} by {b_by}); max|d|/max {d / top:.3e}"
+              + (f", against the DFT {r_dft:.3e}" if r_dft is not None else ""))
+
+    # ---- K8: the chirp-z and global passes, the wide walk ----
+    streams = torch.from_numpy(synth_streams(STREAMS, 12.0, seed=46)[0]).to(dev)
+    xs_all = streams.to(torch.float32) / 32767.0
+    cases = [(label, extra, want, None) for label, (extra, want) in CHIRP_K8.items()]
+    cases += [(f"384/192 forced {r}", {"n_fft": 384, "hop": 192}, r, r) for r in CHIRP_K8_FORCED]
+    plain_ms = {}
+    for label, extra, want, forced in cases:
+        det = tsm.StreamingRainDetector(device=dev)
+        det.setup({**STREAM_AUDIO, **extra})
+        st = det._static()
+        route = forced or tsm.k8_route(st.n_fft)
+        check(route == want, f"K8 {label} takes {route}, not {want}")
+        L = max(CHUNK // st.hop, 2) * st.hop
+        state = det.init_state_batch(STREAMS)
+        outs = []
+        for c in range(2):  # the stream's first chunk, then a carried one
+            xc = xs_all[:, c * L : (c + 1) * L]
+            xa = torch.cat([state["raw_tail"], xc], dim=1)
+            P = tspec.spectrogram_power(xa, n_fft=st.n_fft, hop=st.hop, center=False)
+            carry = (tsm._seed_psd(state["sup_psd"], P[:, st.rows, 0], det.cfg.eps),
+                     state["gain_prev"], state["ola_tail"])
+            (state_new, out), n = through_kernel(
+                "streaming_suppressor", lambda: det.process_chunk_batch(state, xc),
+                f"K8 {label}, chunk {c}", 1)
+            launches["streaming_suppressor"] += n
+            args = (det.suppressor(), xa, P, out["frame_class"], out["noise_conf"],
+                    state["frame_idx"], carry)
+            d = k8_holds_plain(f"{label}, chunk {c}", args, route=forced)
+            if forced is None:
+                y_k = tsm._suppressor_cuda(*args)[0]
+                torch.cuda.synchronize()
+                check(torch.equal(out["y"], y_k), f"K8 {label}: the detector's y is not K8's")
+            outs.append(out["y"])
+            state = state_new
+        det1 = tsm.StreamingRainDetector(device=dev)
+        det1.setup({**STREAM_AUDIO, **extra})
+        _, one = det1.process_chunk_batch(det1.init_state_batch(STREAMS), xs_all[:, : 2 * L])
+        torch.cuda.synchronize()
+        check(torch.equal(torch.cat(outs, dim=1), one["y"]),
+              f"K8 {label}: two chunks differ from one chunk of both")
+        sup, (B8, T8), K = args[0], args[3].shape, args[0].K
+        ms = {route: graph_ms(lambda: tsm._suppressor_cuda(*args, route=forced), launches=5,
+                              reps=5)}
+        if tsm.k8_dft_slots(st.n_fft, K):
+            ms["dft"] = graph_ms(lambda: tsm._suppressor_cuda(*args, route="dft"), launches=5,
+                                 reps=3)
+            ms[route] = (ms[route] + graph_ms(lambda: tsm._suppressor_cuda(*args, route=forced),
+                                              launches=5, reps=5)) / 2
+        parts = launch_breakdown(lambda: tsm._suppressor_cuda(*args, route=forced), calls=5)
+        walk = tsm.k8_walk_plan(K, sup.taps.size, args[0].consts(B8, T8).n_snr)
+        b_ms, b_by = bound_of(
+            4 * (xa.numel() + B8 * K * T8 + B8 * T8 + B8 * T8 * st.hop) + B8 * T8,
+            B8 * T8 * (2 * 2.5 * st.n_fft * np.log2(st.n_fft) + 40 * K))
+        if label == "296/148":
+            plain_ms[label] = float(np.median(cuda_times(lambda: tsm._suppressor_plain(*args), 2)))
+        routes["streaming_suppressor"].append(
+            {"route": route, "geometry": f"{label} ({STREAMS} x {L} samples, K {K})",
+             "launches": 1, "ms": ms[route], "max_abs_err": d, "dft_ms": ms.get("dft"),
+             "plain_ms": plain_ms.get(label), "library_ms": None, "bound_ms": b_ms,
+             "bound_by": b_by, "walk": walk._asdict(), "launches_ms": parts})
+        print(f"  K8 {label} ({STREAMS} x {L} samples, K {K}): {route} pass, walk "
+              f"{walk.bins_per_thread} bin(s) a thread at {walk.frames} frame(s) a round"
+              f"{' in its scratch' if walk.scratch else ''}; gain and carries the plain loop's "
+              f"bits, y max|d| {d:.3e}, chunk invariant; call {ms[route]:.4f} ms"
+              + (f" (DFT pass {ms['dft']:.4f})" if "dft" in ms else "")
+              + f", bound {b_ms:.4f}; per launch {parts}")
+
+    # ---- the plain loop's time at 384/192 (the mixed pass's row) ----
+    det = tsm.StreamingRainDetector(device=dev)
+    det.setup({**STREAM_AUDIO, "n_fft": 384, "hop": 192})
+    st = det._static()
+    L = CHUNK // 192 * 192
+    state = det.init_state_batch(STREAMS)
+    xc = xs_all[:, :L]
+    xa = torch.cat([state["raw_tail"], xc], dim=1)
+    P = tspec.spectrogram_power(xa, n_fft=384, hop=192, center=False)
+    _, out = det.process_chunk_batch(state, xc)
+    args = (det.suppressor(), xa, P, out["frame_class"], out["noise_conf"], state["frame_idx"],
+            (tsm._seed_psd(state["sup_psd"], P[:, st.rows, 0], det.cfg.eps), state["gain_prev"],
+             state["ola_tail"]))
+    mixed_ms, plain_ms["384/192"] = in_turns(lambda: tsm._suppressor_plain(*args),
+                                             lambda: tsm._suppressor_cuda(*args), 2, 10)
+    print(f"  K8 384/192 ({STREAMS} x {L} samples): plain loop {plain_ms['384/192']:.2f} ms, "
+          f"296/148 {plain_ms['296/148']:.2f} ms (CUDA events, n = 4 and 2); the mixed call "
+          f"{mixed_ms:.4f} ms host-launched (n = 20)")
+
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 46 the odd mixed, chirp-z and global routes on {smi}: K1 at {len(CHIRP_K1)} "
+          f"geometries within 1e-5 of stft_power (and of the DFT beyond its drift), timed in "
+          f"turns; K8 at "
+          f"{len(cases)} (the walk past 4,096 band bins, its rows in a scratch at 16,088) the "
+          f"plain loop's gain and carries, chunk invariant; {seconds:.1f} s")
+    return {"launches": launches, "routes": routes, "seconds": seconds, "plain_ms": plain_ms}
+
 
 if __name__ == "__main__":
     sys.exit(main())

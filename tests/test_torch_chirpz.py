@@ -1,0 +1,316 @@
+"""K1's odd mixed, Rader, chirp-z and global routes and K8's chirp-z and
+global frame passes, which run only on the card: NumPy float32 models of
+their plans, run as the kernels run them (the odd-length mixed-radix
+transform, Rader's and the chirp-z transform with the host's float32
+tables, the four-step split with its twiddle), held against
+``numpy.fft.rfft`` in float64; the plans' Python twins against the
+constants of the CUDA sources; the routes' reach (no geometry the JAX
+package runs is refused, none takes the direct DFT); and the JAX package's
+``spectrogram_power`` against the port's at sizes these routes take on the
+card.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audio_processing_tools_tpu.ops import spectrogram as jspec
+from audio_processing_tools_tpu_torch.models import streaming as ts
+from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
+
+CSRC = Path(tspec.__file__).resolve().parent.parent / "csrc"
+
+
+def _pairs(t):
+    return (t[:, 0] + 1j * t[:, 1]).astype(np.complex64)
+
+
+def _table(tn):
+    """e^{-2 pi i j / tn} as the host builds it: float64 rounded to float32."""
+    ang = -2.0 * np.pi * np.arange(tn, dtype=np.float64) / tn
+    return (np.cos(ang) + 1j * np.sin(ang)).astype(np.complex64)
+
+
+def _butterfly(v, R, table, tn):
+    """``butterfly<R>`` on v (rows, R, butterflies): a register DFT for 2, 4
+    and 8; for an odd R the symmetric form of ``dft_odd`` with cs[m] =
+    table[m tn / R]."""
+    if R % 2 == 0:
+        return np.fft.fft(v.astype(np.complex128), axis=1).astype(np.complex64)
+    H = R // 2
+    cs = table[np.arange(H + 1) * (tn // R)]
+    s = [None] + [v[:, j] + v[:, R - j] for j in range(1, H + 1)]
+    d = [None] + [v[:, j] - v[:, R - j] for j in range(1, H + 1)]
+    out = np.empty_like(v)
+    x0 = v[:, 0].copy()
+    for j in range(1, H + 1):
+        x0 = x0 + s[j]
+    out[:, 0] = x0
+    for k in range(1, H + 1):
+        A, B = v[:, 0].copy(), np.zeros_like(v[:, 0])
+        for j in range(1, H + 1):
+            m = j * k % R
+            c = cs[m].real if m <= H else cs[R - m].real
+            sn = -cs[m].imag if m <= H else cs[R - m].imag
+            A = A + s[j] * np.float32(c)
+            B = B + d[j] * np.float32(sn)
+        out[:, k] = A - 1j * B
+        out[:, R - k] = A + 1j * B
+    return out.astype(np.complex64)
+
+
+def mixed_fft_model(z, M, table, tn):
+    """``mixed_fft``: the M-point transform of each row of z (rows, M), pass
+    by pass, twiddles table[(tn / (NS R)) k r] of a table of tn entries."""
+    NS = 1
+    for R in tspec.mixed_radices(M):
+        nb = M // R
+        b = np.arange(nb)
+        q, k = b // NS, b % NS
+        r = np.arange(R)[:, None]
+        v = z[:, b[None, :] + r * nb]
+        tw = table[(tn // (NS * R)) * k[None, :] * r]
+        v = np.where(k[None, None, :] > 0, v * tw[None], v).astype(np.complex64)
+        v = _butterfly(v, R, table, tn)
+        out = np.empty_like(z)
+        out[:, (q * NS * R + k)[None, :] + r * NS] = v
+        z, NS = out, NS * R
+    return z
+
+
+def four_step_model(x, N, table, tn):
+    """``four_step``: the N-point transform of each row of x (frames, N) as
+    N2 column transforms of N1 points, the twiddle e^{-2 pi i n2 k1 / N},
+    N1 row transforms of N2 points, X in natural order."""
+    plan = tspec.four_step_plan(N)
+    N1, N2 = plan.N1, plan.N2
+    F = x.shape[0]
+    cols = x.reshape(F, N1, N2).transpose(0, 2, 1).reshape(F * N2, N1)
+    Y = mixed_fft_model(cols, N1, table, tn).reshape(F, N2, N1)  # Y[f, n2, k1]
+    n2, k1 = np.arange(N2)[:, None], np.arange(N1)[None, :]
+    tw = table[(tn // N) * n2 * k1]
+    Y = np.where((n2 * k1 > 0)[None], Y * tw[None], Y).astype(np.complex64)
+    rows = Y.transpose(0, 2, 1).reshape(F * N1, N2)
+    X = mixed_fft_model(rows, N2, table, tn).reshape(F, N1, N2)  # X[f, k1, k2]
+    return X.transpose(0, 2, 1).reshape(F, N)  # natural order k = k1 + N1 k2
+
+
+def transform_model(z, N, table, tn):
+    """One block's transform up to :data:`ONE_BLOCK_POINTS`, else four-step."""
+    if N <= tspec.ONE_BLOCK_POINTS:
+        return mixed_fft_model(z, N, table, tn)
+    return four_step_model(z, N, table, tn)
+
+
+def chirpz_model(z, n_fft):
+    """The chirp-z transform of each row of z (frames, L) over N points with
+    the host's float32 tables: a = z c zero-padded, the transform, conj(. Bt),
+    the transform again, conj(.) c."""
+    c, bt, ctab = (_pairs(t) for t in tspec.chirpz_tables(n_fft))
+    L, N = z.shape[1], ctab.shape[0]
+    a = np.zeros((z.shape[0], N), np.complex64)
+    a[:, :L] = z * c
+    Y = np.conj(transform_model(a, N, ctab, N) * bt).astype(np.complex64)
+    W = transform_model(Y, N, ctab, N)
+    return (np.conj(W[:, :L]) * c).astype(np.complex64)
+
+
+def rader_model(z, n_fft):
+    """Rader's transform of each row of z (frames, L), L prime, with the
+    host's tables: a_q = z[g^q], its (L - 1)-point transform A, conj(A Bt),
+    the transform again W; X_0 = z_0 + A_0, X[g^-q] = z_0 + conj(W_q)."""
+    (gin, qout), tabs = tspec.rader_tables(n_fft)
+    bt, rtab = (_pairs(t) for t in tabs)
+    R = z.shape[1] - 1
+    A = mixed_fft_model(z[:, gin].astype(np.complex64), R, rtab, R)
+    W = mixed_fft_model(np.conj(A * bt).astype(np.complex64), R, rtab, R)
+    X = (z[:, :1] + np.conj(W[:, qout])).astype(np.complex64)
+    X[:, 0] = z[:, 0] + A[:, 0]
+    return X
+
+
+def spectrum_model(frames, n_fft):
+    """X[k], k <= n_fft / 2, of windowed frames (frames, n_fft) float32 as
+    K1's route for n_fft forms it: the complex input (packed pairs for an
+    even n_fft), its transform of N = :func:`fft_shape` points (the
+    chirp-z transform where N differs from the complex length L), and for
+    an even n_fft the real split."""
+    L, N = tspec.fft_shape(n_fft)
+    even = n_fft % 2 == 0
+    z = (frames[:, 0::2] + 1j * frames[:, 1::2] if even else frames + 0j).astype(np.complex64)
+    if N == L:
+        Z = transform_model(z, L, _table(n_fft), n_fft)
+    elif tspec.k1_route(n_fft, n_fft // 2) == "rader":
+        Z = rader_model(z, n_fft)
+    else:
+        Z = chirpz_model(z, n_fft)
+    if not even:
+        return Z[:, : n_fft // 2 + 1]
+    k = np.arange(L)
+    zk, zm = Z[:, k], Z[:, np.where(k == 0, 0, L - k)]
+    w = _table(n_fft)[k]
+    X = 0.5 * (zk + np.conj(zm)) - 1j * w * (0.5 * (zk - np.conj(zm)))
+    last = (Z[:, 0].real - Z[:, 0].imag)[:, None]
+    return np.concatenate([X, last], axis=1)
+
+
+# the routes' sizes: odd mixed (385 = 5 7 11), Rader odd (1,009 prime, 1,008
+# = 2^4 3^2 7) and even (2,018), chirp-z odd (1,031 prime, 1,030 = 2 5 103)
+# and even (296: L = 4 x 37; 2,062: L = 1,031), global even mixed (16,384),
+# global odd mixed (9,075 = 3 5^2 11^2), global chirp-z even (14,530: L = 5
+# x 1,453) and odd (65,537 prime)
+MODEL_SIZES = {385: "mixed_odd", 1009: "rader", 2018: "rader", 1031: "chirpz", 296: "chirpz",
+               2062: "chirpz", 16384: "global", 9075: "global", 14530: "global",
+               65537: "global"}
+
+
+@pytest.mark.parametrize("n", list(MODEL_SIZES))
+def test_route_models_match_numpy_rfft(n):
+    """The model of each route's plan gives ``numpy.fft.rfft`` of Hann-
+    windowed frames within 1e-6 of the spectrum's maximum, a quiet frame
+    beside loud ones included."""
+    assert tspec.k1_route(n, n // 2) == MODEL_SIZES[n]
+    rng = np.random.default_rng(n)
+    frames = rng.standard_normal((3, n)).astype(np.float32)
+    frames[1] *= 1e-3
+    frames = frames * tspec.kernel_tables(n)[0][None, :]
+    got = spectrum_model(frames, n)
+    ref = np.fft.rfft(frames.astype(np.float64), axis=-1)
+    for f in range(3):
+        assert np.abs(got[f] - ref[f]).max() <= 1e-6 * np.abs(ref[f]).max(), f
+
+
+@pytest.mark.parametrize("n", [296, 2062, 14530])
+def test_k8_chirpz_inverse_model_reconstructs_the_frame(n):
+    """K8's inverse through the chirp-z transform: from X (bins 0 .. M, the
+    imaginary parts of 0 and M dropped) the un-split u[k] = conj(2 Z[k]),
+    its chirp-z transform and conj(.) / n give the frame back within 1e-6
+    of its maximum."""
+    M = n // 2
+    x = np.random.default_rng(n).standard_normal((2, n)).astype(np.float32)
+    X = spectrum_model(x, n)
+    X[:, 0] = X[:, 0].real
+    X[:, M] = X[:, M].real
+    k = np.arange(M)
+    xk, xr = X[:, k], X[:, M - k]
+    w = _table(n)[k]
+    u = np.conj((xk + np.conj(xr)) + 1j * (xk - np.conj(xr)) * np.conj(w)).astype(np.complex64)
+    y = np.conj(chirpz_model(u, n)) / np.float32(n)
+    back = np.stack([y.real, y.imag], axis=-1).reshape(2, n)
+    assert np.abs(back - x).max() <= 1e-6 * np.abs(x).max()
+
+
+def _consts(name):
+    src = (CSRC / name).read_text()
+    return src, {k: int(v) for k, v in re.findall(r"constexpr (?:int|long long) (k\w+) = (\d+)",
+                                                  src)}
+
+
+def test_plan_twins_mirror_the_sources():
+    """``tile_plan``, ``four_step_plan``, ``chirp_size``, ``chunk_frames``
+    and the routes' shared-memory layouts against ``four_step.cuh``,
+    ``spectrogram_power.cu`` and ``streaming.cu``."""
+    src, c = _consts("four_step.cuh")
+    assert c["kOneBlockPoints"] == tspec.ONE_BLOCK_POINTS
+    assert c["kBlockSmemLimit"] == tspec.SMEM_LIMIT
+    assert "kChunkScratch = 1 << 25" in src and tspec.CHUNK_SCRATCH == 1 << 25
+    assert "bytes <= kBlockSmemLimit / 4 || (lg == 0 && bytes <= kBlockSmemLimit)" in src
+    assert "for (int d = 1; (long long)d * d <= N; ++d)" in src
+    assert "(long long)M >= (L > 1 ? 2LL * L - 1 : 2) && seven_smooth(M)" in src
+    assert "(M <= kOneBlockPoints || four_step_of(M).ok)" in src
+    assert "long long c = kChunkScratch / (16LL * N);" in src
+    mixed_src, mc = _consts("mixed_fft.cuh")
+    assert mc["kMaxPasses"] == tspec.MIXED_MAX_PASSES
+    # the fewest passes, then the smallest: 320 = 8 8 5 over 300 = 4 3 5 5
+    assert [tspec.chirp_size(L) for L in (1, 2, 148, 1009, 1031, 7265, 65537)] == \
+        [2, 3, 320, 2048, 2240, 15680, 134456]
+    assert all(len(tspec.mixed_radices(m)) >= 4 for m in range(2017, 2048)
+               if tspec.mixed_radices(m) and set(tspec.mixed_radices(m)) <= {2, 3, 4, 5, 7, 8})
+    assert tspec.four_step_plan(8192)[:2] == (64, 128)
+    assert tspec.four_step_plan(134456)[:2] == (343, 392)
+    assert tspec.four_step_plan(7 * 37) is None and tspec.four_step_plan(2) is None
+    assert tspec.tile_plan(7264) == (1, 16 * 7266) and tspec.tile_plan(14527) is None
+    assert tspec.tile_plan(300) == (8, 16 * 300 * 9) and tspec.tile_plan(2025) == (1, 16 * 2028)
+    assert tspec.chunk_frames(8192, 10 ** 6) == 256 and tspec.chunk_frames(1 << 22, 5) == 1
+    k1_src, _ = _consts("spectrogram_power.cu")
+    assert "const long long smem = 16LL * tile_elems(n_fft, frame_tile);" in k1_src
+    assert "const long long smem = 16LL * tile_elems(Mc, frame_tile);" in k1_src
+    assert "!chirp_size_takes(n_fft % 2 ? n_fft : n_fft / 2, Mc)" in k1_src
+    assert "16LL * tile_elems(L - 1, frame_tile) + 16LL * frame_tile + 16;" in k1_src
+    assert tspec.rader_launch_plan(1009) == (2, 16 * tspec.tile_elems(1008, 2) + 32 + 16)
+    assert tspec.rader_launch_plan(1031) is None and tspec.rader_launch_plan(31) is None
+    (gin, qout), _ = tspec.rader_tables(1009)
+    assert sorted(gin) == list(range(1, 1009)) and sorted(qout[1:]) == list(range(1008))
+    k8_src, k8 = _consts("streaming.cu")
+    assert "return 16 * tile_elems(Mc, slots) + 4 * slots * K;" in k8_src
+    assert "return 16LL * N * chunk_frames(N, frames) + 8LL * hop;" in k8_src
+    assert "return (K + kMaxWalkThreads - 1) / kMaxWalkThreads;" in k8_src
+    assert k8["kMaxWalkThreads"] == 1024 and k8["kFrames"] == 4
+    assert "w.narrow = c.K <= kMaxWalkThreads && 4 * walk_floats(c, kFrames) <= kSmemLimit;" \
+        in k8_src
+    assert ts.k8_chirpz_slots(296, 149) == 16 and ts.k8_chirpz_slots(9000, 4501) == 0
+    assert ts.k8_global_scratch_bytes(16384, 64) == 16 * 8192 * 64 + 8 * 8192
+
+
+@pytest.mark.parametrize("K, taps, snr, want", [
+    (129, 3, 0, (True, 4, 1)), (1025, 3, 0, (False, 4, 2)), (4097, 3, 4097, (False, 1, 5)),
+    (5027, 3, 5027, (False, 1, 5)), (8193, 3, 8193, (False, 1, 9))])
+def test_k8_walk_plan(K, taps, snr, want):
+    """One bin a thread at four frames a round on the main path's widths;
+    ceil(K / 1,024) bins a thread past 1,024; fewer frames a round as the
+    rows grow, and a global scratch where one frame's rows do not fit."""
+    w = ts.k8_walk_plan(K, taps, snr)
+    assert (w.narrow, w.frames, w.bins_per_thread) == want
+    assert w.threads <= 1024 and w.threads * w.bins_per_thread >= K
+    rows = 4 * ts.k8_walk_floats(K, taps, snr, w.frames)
+    assert (w.smem, w.scratch) == ((rows, 0) if rows <= ts._K8_SMEM_LIMIT
+                                   else (0, rows // 4))
+
+
+def test_k1_route_is_total():
+    """Every n_fft from 1 to 20,000 and the routes' large sizes take a route
+    at hop n_fft / 2 and at hop 1, and none the direct DFT."""
+    routes = set()
+    for n in list(range(1, 20001)) + [32768, 60000, 65536, 65537]:
+        for hop in (max(1, n // 2), 1):
+            r = tspec.k1_route(n, hop)
+            assert r != "dft", (n, hop)
+            routes.add(r)
+        L, N = tspec.fft_shape(n)
+        assert N == L or tspec.mixed_radices(L) is None or tspec.four_step_plan(L) is None
+        assert N <= tspec.ONE_BLOCK_POINTS or tspec.four_step_plan(N) is not None
+    assert routes == {"fft", "mixed", "mixed_odd", "rader", "chirpz", "global"}
+
+
+@pytest.mark.parametrize("n_fft", [2, 4, 6, 296, 386, 2062, 4096, 8192, 10000, 10240, 16384,
+                                   30002, 65536])
+def test_k8_takes_what_the_jax_package_runs(n_fft):
+    """Any even n_fft = 2 hop with all n_fft / 2 + 1 bins as band bins, as
+    many SNR columns and taps: no refusal, a pass other than the DFT; what
+    the JAX package refuses is refused."""
+    F = n_fft // 2 + 1
+    assert ts.k8_check_geometry(n_fft, n_fft // 2, F, 9, F) is None
+    assert ts.k8_route(n_fft) in ("fft", "mixed", "chirpz", "global")
+    for bad in ((n_fft, n_fft // 2 + 1, 1, 3, 0), (n_fft, n_fft // 2, 0, 3, 0),
+                (n_fft, n_fft // 2, F + 1, 3, 0), (n_fft, n_fft // 2, F, 3, F + 1),
+                (n_fft + 1, n_fft // 2, 1, 3, 0)):
+        with pytest.raises(ValueError, match="streaming_suppressor"):
+            ts.k8_check_geometry(*bad)
+
+
+@pytest.mark.parametrize("n_fft, hop", [(296, 148), (385, 192), (1009, 504), (1031, 515)])
+def test_jax_and_port_spectrogram_agree(n_fft, hop):
+    """The JAX package's ``spectrogram_power`` (its rfft path: the Pallas
+    kernel takes only n_fft = 2 hop, n_fft % 128 = 0) against the port's on
+    the CPU, within 1e-5 of the maximum."""
+    rng = np.random.default_rng(n_fft)
+    x = rng.standard_normal((3, 6000)).astype(np.float32)
+    x[1] *= 1e-3
+    ref = np.asarray(jspec.spectrogram_power(jnp.asarray(x), n_fft=n_fft, hop=hop))
+    got = tspec.spectrogram_power(torch.from_numpy(x), n_fft=n_fft, hop=hop).numpy()
+    assert got.shape == ref.shape == (3, n_fft // 2 + 1, 1 + 6000 // hop)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()

@@ -339,25 +339,28 @@ def test_k1_route_table():
     """The FFT for the main path's sizes, the mixed-radix FFT for every even
     size whose half has no odd prime factor above 31 (the JAX Pallas set
     n_fft % 128 == 0 with hop = n_fft / 2 among them, and the power-of-two
-    sizes at a hop not a multiple of 4), the DFT for the rest; refusals
-    only below 1 or past one frame in shared memory."""
+    sizes at a hop not a multiple of 4), the odd mixed-radix FFT for an odd
+    size with such factors, the chirp-z transform for the rest, and the
+    four-step FFT in device memory past one block's frame; the DFT for
+    none; refusals only below 1."""
     from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
 
     table = {(256, 128): "fft", (256, 100): "fft", (64, 32): "fft", (1024, 512): "fft",
              (384, 192): "mixed", (640, 320): "mixed", (768, 384): "mixed",
              (2048, 1024): "mixed", (400, 200): "mixed", (256, 6): "mixed", (260, 128): "mixed",
-             (32, 16): "mixed", (4096, 2048): "mixed", (385, 192): "dft", (296, 148): "dft",
-             (16384, 8192): "dft", (2, 1): "dft", (1, 1): "dft"}
+             (32, 16): "mixed", (4096, 2048): "mixed", (385, 192): "mixed_odd",
+             (296, 148): "chirpz", (16384, 8192): "global", (2, 1): "chirpz", (1, 1): "chirpz",
+             (tspec.DFT_MAX_N_FFT + 1, 128): "global"}
     for (n_fft, hop), route in table.items():
         assert tspec.k1_route(n_fft, hop) == route, (n_fft, hop)
     for n_fft in range(128, 4097, 128):  # the JAX Pallas kernel's geometries
         assert tspec.k1_route(n_fft, n_fft // 2) in ("fft", "mixed")
     assert tspec.launch_plan(256, 128) == (32, 68_744)
-    for bad in ((256, 0), (0, 128), (tspec.DFT_MAX_N_FFT + 1, 128)):
+    for bad in ((256, 0), (0, 128)):
         with pytest.raises(ValueError):
             tspec.k1_route(*bad)
-    # the DFT route's last plan holds one frame's samples within the
-    # kernel's own shared-memory limit
+    # the DFT route, forced for comparisons, holds one frame's samples
+    # within the kernel's own shared-memory limit in its last plan
     src = (Path(tspec.__file__).parent.parent / "csrc" / "spectrogram_power.cu").read_text()
     assert f"constexpr int kSmemLimit = {tspec.SMEM_LIMIT};" in src
     assert "{1, 1, false, dft_samples_bytes(n_fft, 1)}" in src

@@ -143,7 +143,8 @@ def test_mixed_plan_twins_mirror_the_sources():
     assert consts["kMaxPrime"] == tspec.MIXED_MAX_PRIME
     assert "while (q % 8 == 0)" in src and "if (q % 4 == 0)" in src
     assert "for (int f = 3; f <= kMaxPrime && q > 1; f += 2)" in src
-    assert "return (rows * (ft + 1) + 1) & ~1;" in src
+    assert "return (rows * tile_ld(ft) + (ft == 1 ? 2 : 0) + 1) & ~1;" in src
+    assert "return ft == 1 ? 1 : ft + 1;" in src
     assert all(len(tspec.mixed_radices(n // 2)) <= consts["kMaxPasses"] for n in SIZES)
     assert [tspec.mixed_radices(M) for M in (192, 200, 250, 1024, 1984, 1, 37, 74)] == \
         [(8, 8, 3), (8, 5, 5), (2, 5, 5, 5), (8, 8, 8, 2), (8, 8, 31), None, None, None]

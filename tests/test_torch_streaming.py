@@ -288,20 +288,22 @@ def test_k8_arguments_mirror_the_source(struct):
 
 
 def test_k8_geometry_limits_mirror_the_source():
-    """``k8_check_geometry`` and ``k8_route`` mirror K8's launcher: the FFT
-    frame pass's n_fft range, the walk's thread limit, the shared memory a
-    block holds and the DFT frame pass's tile; the mixed pass takes the even
-    sizes between (the kernel runs only on the card)."""
+    """``k8_check_geometry``, ``k8_route`` and the walk's plan mirror K8's
+    launcher: the FFT frame pass's n_fft range, the walk's thread limit and
+    rows, the shared memory a block holds and the DFT frame pass's tile; the
+    mixed pass takes the even sizes between, the chirp-z pass the sizes
+    whose half has a prime above 31 (the kernel runs only on the card)."""
     src = (Path(ts.__file__).resolve().parent.parent / "csrc" / "streaming.cu").read_text()
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert (consts["kMinFft"], consts["kMaxFft"]) == (min(ts.N_FFTS), max(ts.N_FFTS))
-    assert 4 * consts["kMaxWalkThreads"] == ts.K8_MAX_BINS
+    assert consts["kMaxWalkThreads"] == ts._K8_WALK_THREADS
     assert "2 * (c.K + 2 * pad) + 2 * c.K + 2 * pow2_at_least(c.n_snr)" in src
-    assert consts["kFrames"] == 4 and ts.k8_walk_smem(71, 3, 0) == 4 * 4 * (2 * 73 + 142 + 2) + 12
+    assert consts["kFrames"] == 4 and ts.k8_walk_floats(71, 3, 0, 4) == 4 * (2 * 73 + 142 + 2) + 3
+    assert ts.k8_walk_plan(71, 3, 0).smem == 4 * 4 * (2 * 73 + 142 + 2) + 12
     assert consts["kSmemLimit"] == ts._K8_SMEM_LIMIT
     assert "4 * n_fft * slots + 8 * (n_fft / 2 + 1) * slots + 8 * n_fft + 4 * slots * K" in src
-    assert [ts.k8_route(n) for n in (32, 64, 384, 1024, 2048, 296, 385)] == \
-        ["mixed", "fft", "mixed", "fft", "mixed", "dft", "dft"]
+    assert [ts.k8_route(n) for n in (32, 64, 384, 1024, 2048, 296, 2)] == \
+        ["mixed", "fft", "mixed", "fft", "mixed", "chirpz", "chirpz"]
 
 
 @pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024])
@@ -321,15 +323,17 @@ def test_k8_check_geometry_refuses_what_the_kernel_does_not_take(n_fft, hop, K, 
         ts.k8_check_geometry(n_fft, hop, K, taps, snr)
 
 
-@pytest.mark.parametrize("n_fft, smaller, route", [(10000, 8000, "mixed"), (5920, 4736, "dft")])
+@pytest.mark.parametrize("n_fft, smaller, route", [(10000, 8000, "mixed"), (5920, 2960, "chirpz")])
 def test_k8_check_geometry_names_the_frame_pass_that_refuses(n_fft, smaller, route):
-    """A frame too large for the route K8 takes is refused with that
-    route's tile: the mixed pass's two frames (n_fft 10,000 = 2 x 8 x 5^4),
-    the DFT pass's four (n_fft 5,920 = 2 x 80 x 37); a smaller size of the
-    same route fits."""
-    assert ts.k8_route(n_fft) == ts.k8_route(smaller) == route
-    with pytest.raises(ValueError, match=f"the {route} frame pass's smallest tile"):
-        ts.k8_check_geometry(n_fft, n_fft // 2, 10, 3, 0)
+    """A frame too large for two frames a block of the mixed pass (n_fft
+    10,000 = 2 x 8 x 5^4) or the chirp-z pass (n_fft 5,920 = 2 x 80 x 37)
+    takes the global pass and is not refused; forcing the block's pass on
+    it is refused with that pass's name; a smaller size of the same kind
+    takes the block's pass."""
+    assert ts.k8_route(n_fft) == "global" and ts.k8_route(smaller) == route
+    assert ts.k8_check_geometry(n_fft, n_fft // 2, 10, 3, 0) is None
+    with pytest.raises(ValueError, match=f"the {route} frame pass does not take"):
+        ts.k8_check_geometry(n_fft, n_fft // 2, n_fft // 2 + 1, 3, 0, route=route)
     assert ts.k8_check_geometry(smaller, smaller // 2, 10, 3, 0) is None
 
 
@@ -337,8 +341,8 @@ def test_k8_check_geometry_names_the_frame_pass_that_refuses(n_fft, smaller, rou
     (2048, 1024, 71, 3, 0), (32, 16, 10, 3, 0), (4, 2, 2, 0, 0), (96, 48, 10, 3, 0),
     (2, 1, 1, 0, 0), (256, 128, 71, 10, 0)])
 def test_k8_check_geometry_takes_what_the_jax_package_runs(n_fft, hop, K, taps, snr):
-    """Any n_fft = 2 hop (the FFT frame pass, the mixed one or the DFT one)
-    and any number of taps."""
+    """Any n_fft = 2 hop (the FFT frame pass, the mixed one or the chirp-z
+    one) and any number of taps."""
     assert ts.k8_check_geometry(n_fft, hop, K, taps, snr) is None
-    assert ts.k8_route(n_fft) == ("fft" if n_fft in ts.N_FFTS else "dft" if n_fft == 2
+    assert ts.k8_route(n_fft) == ("fft" if n_fft in ts.N_FFTS else "chirpz" if n_fft == 2
                                   else "mixed")
