@@ -27,16 +27,29 @@
 // needs it (below).  Every frame runs the same code in the same order,
 // whichever chunk or launch it lies in.
 //
-// The chirp-z (Bluestein) transform of a complex length L over M points
-// (M >= 2L - 1, 7-smooth: chirp_size_takes):
+// The chirp-z (Bluestein) transform of a complex length L over M points,
+// of which the first K bins are wanted (K = L, or for an odd frame's power
+// the F = (L + 1) / 2 bins of its half spectrum; M >= L + K - 1, 7-smooth:
+// chirp_size_takes):
 //   X[k] = c_k sum_j (z_j c_j) conj(c_{k-j}),  c_j = e^{-i pi j^2 / L},
 // a circular convolution of a_j = z_j c_j (zero from L on) with b, b_m =
-// conj(c_m) at m and M - m, m < L: X = c . IFFT(FFT(a) . FFT(b)), and the
-// inverse as conj(FFT(conj(.))).  The host builds c (indexed by j^2 mod 2L
-// in 64-bit integers) and Bt = FFT(b) / M in float64 and rounds both to
+// conj(c_m) at m < K and at M - m, 0 < m < L, zero elsewhere: X = c .
+// IFFT(FFT(a) . FFT(b)) for k < K (the lags k - j of those bins span L + K
+// - 1 values, so M of them do not wrap onto each other), and the inverse
+// as conj(FFT(conj(.))).  The host builds c (indexed by j^2 mod 2L in
+// 64-bit integers) and Bt = FFT(b) / M in float64 and rounds both to
 // float32: no sine on the card.  The forward transform's Sink stores
 // conj(X Bt), the next transform's Source reads it, and its Sink stores
 // conj(X) c (or conj(X) alone where only the power is wanted: |c_k| = 1).
+//
+// Rader's transform of a prime length L over R = L - 1 points (K1's
+// Rader routes, spectrogram_power.cu): the Source reads point q of the
+// frame at index gin[q] = g^q mod L, the first transform's Sink stores
+// conj(A Bt) and keeps A_0, the second transform is plain.  For a real
+// (odd) frame the first transform may run over R / 2 points of the packed
+// pairs a_2m + i a_2m+1 (kOddPairs); its Sink keeps A_0 = Re U_0 + Im U_0,
+// and the second transform's Source (kRaderSplit) forms each A_k from U_k
+// and U_{R/2-k} by the real split before it multiplies by Bt.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -107,12 +120,14 @@ __host__ inline bool seven_smooth(long long m) {
   return m == 1;
 }
 
-// Whether M points take the chirp-z transform of a complex length L: M >=
-// max(2, 2L - 1), M's only prime factors 2, 3, 5 and 7 (mixed_fft's narrow
-// instantiation), and its transform one block holds or the four-step split
-// takes.  ops/spectrogram.py::chirp_size picks the smallest such M.
-__host__ inline bool chirp_size_takes(int L, int M) {
-  return L >= 1 && (long long)M >= (L > 1 ? 2LL * L - 1 : 2) && seven_smooth(M) &&
+// Whether M points take the chirp-z transform of a complex length L whose
+// first K bins are wanted (1 <= K <= L): M >= max(2, L + K - 1), M's only
+// prime factors 2, 3, 5 and 7 (mixed_fft's narrow instantiation), and its
+// transform one block holds or the four-step split takes.
+// ops/spectrogram.py::chirp_size picks such an M.
+__host__ inline bool chirp_size_takes(int L, int K, int M) {
+  const long long lo = (long long)L + K - 1 > 2 ? (long long)L + K - 1 : 2;
+  return L >= 1 && K >= 1 && K <= L && M >= lo && seven_smooth(M) &&
          mixed_plan_of(M).n_pass > 0 && (M <= kOneBlockPoints || four_step_of(M).ok);
 }
 
@@ -125,10 +140,13 @@ __host__ inline long long chunk_frames(int N, long long frames) {
 }
 
 struct Source {
-  enum Mode { kEvenFrame = 0, kOddFrame = 1, kBuffer = 2 };
+  enum Mode { kEvenFrame = 0, kOddFrame = 1, kBuffer = 2, kOddPairs = 3, kRaderSplit = 4 };
   int mode;
-  // kEvenFrame / kOddFrame: frame g0 + f is frame t of row b, g = b T + t,
-  // its samples x[b][t hop - pad ..] (zero outside the row), windowed
+  // kEvenFrame / kOddFrame / kOddPairs: frame g0 + f is frame t of row b,
+  // g = b T + t, its samples x[b][t hop - pad ..] (zero outside the row),
+  // windowed by point: point m's samples (2m and 2m + 1, or m) times
+  // window[2m], window[2m + 1] (or window[m]), so a permuted gather reads
+  // its window in order from a permuted table
   const float* x;
   long long row_len, g0;
   int T, hop, pad;
@@ -138,25 +156,48 @@ struct Source {
   long long stride;
   const float2* chirp;  // points times chirp[m] where given
   int L;                // points from L on are zero
+  // Rader's routes: kEvenFrame / kOddFrame take point m from the frame's
+  // complex index gin[m] where given; kOddPairs packs the real points
+  // gin[2m] and gin[2m + 1].  The window is then the permuted one
+  // (ops/spectrogram.py::rader_window).
+  const int* gin = nullptr;
+  // kRaderSplit: buf holds U, the half-length transform of a real sequence
+  // a (half points); point m is conj(A_m bt[m]), A_m = E + tw[m] O from
+  // U_{m mod half} and U_{half - m mod half}, tw[m] = e^{-2 pi i m / (2 half)}
+  const float2* bt = nullptr;
+  const float2* tw = nullptr;
+  int half = 0;
 
   __device__ __forceinline__ float2 operator()(int f, int m) const {
     if (m >= L) return make_float2(0.f, 0.f);
     float2 v;
     if (mode == kBuffer) {
       v = buf[f * stride + m];
+    } else if (mode == kRaderSplit) {
+      const float2* const u = buf + f * stride;
+      const int k = m < half ? m : m - half;
+      const float2 zk = u[k], zm = u[k == 0 ? 0 : half - k];
+      const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
+      const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
+      const float2 w = __ldg(tw + m);
+      v = cmul(make_float2(ar + (w.x * di + w.y * dr), ai - (w.x * dr - w.y * di)),
+               __ldg(bt + m));
+      v.y = -v.y;
     } else {
       const long long g = g0 + f;
       const long long b = g / T;
       const long long s = (g - b * T) * hop - pad;
       const float* const xr = x + b * row_len;
-      if (mode == kEvenFrame) {
-        const long long s0 = s + 2 * m;
-        const float a0 = s0 >= 0 && s0 < row_len ? xr[s0] : 0.f;
-        const float a1 = s0 + 1 >= 0 && s0 + 1 < row_len ? xr[s0 + 1] : 0.f;
-        v = make_float2(a0 * __ldg(window + 2 * m), a1 * __ldg(window + 2 * m + 1));
+      auto at = [&](long long j, int w) {  // the frame's sample j times window[w]
+        const long long s0 = s + j;
+        return (s0 >= 0 && s0 < row_len ? xr[s0] : 0.f) * __ldg(window + w);
+      };
+      if (mode == kOddPairs) {
+        v = make_float2(at(__ldg(gin + 2 * m), 2 * m), at(__ldg(gin + 2 * m + 1), 2 * m + 1));
       } else {
-        const long long s0 = s + m;
-        v = make_float2((s0 >= 0 && s0 < row_len ? xr[s0] : 0.f) * __ldg(window + m), 0.f);
+        const long long j = gin != nullptr ? __ldg(gin + m) : m;
+        v = mode == kEvenFrame ? make_float2(at(2 * j, 2 * m), at(2 * j + 1, 2 * m + 1))
+                               : make_float2(at(j, m), 0.f);
       }
     }
     if (chirp != nullptr) v = cmul(v, __ldg(chirp + m));
@@ -165,16 +206,27 @@ struct Source {
 };
 
 struct Sink {
-  enum Mode { kPlain = 0, kChirpForward = 1, kChirpInverse = 2 };
+  enum Mode { kPlain = 0, kChirpForward = 1, kChirpInverse = 2, kRaderForward = 3,
+              kRaderHalf = 4 };
   int mode;
   float2* buf;  // X[k] of frame f at buf[f * stride + k]
   long long stride;
-  const float2* bt;     // kChirpForward: conj(X Bt)
+  const float2* bt;     // kChirpForward, kRaderForward: conj(X Bt)
   const float2* chirp;  // kChirpInverse: conj(X) chirp[k] (conj(X) where null), k < L
   int L;
+  // kRaderForward: a0[f] = X_0 (then as kChirpForward); kRaderHalf: a0[f] =
+  // Re X_0 + Im X_0, the real sequence's sum (then as kPlain)
+  float2* a0 = nullptr;
 
   __device__ __forceinline__ void operator()(int f, int k, float2 v) const {
-    if (mode == kChirpForward) {
+    if (mode == kRaderForward || mode == kRaderHalf) {
+      if (k == 0) a0[f] = mode == kRaderHalf ? make_float2(v.x + v.y, 0.f) : v;
+      if (mode == kRaderHalf) {
+        buf[f * stride + k] = v;
+        return;
+      }
+    }
+    if (mode == kChirpForward || mode == kRaderForward) {
       v = cmul(v, __ldg(bt + k));
       v.y = -v.y;
     } else if (mode == kChirpInverse) {

@@ -149,15 +149,25 @@ __device__ __forceinline__ void butterfly(float2 (&v)[R], const float2 (&cs)[R /
   }
 }
 
+// What a pass does with its output k of frame f: store it in the other
+// buffer (this type is that store, written out in mixed_pass).  A route may
+// hand the last pass another (out(dst, k, f, ld, v)), which takes the
+// transform's outputs straight from its registers.
+struct StoreOutput {
+  __device__ __forceinline__ void operator()(float2* dst, int k, int f, int ld, float2 v) const {
+    dst[k * ld + f] = v;
+  }
+};
+
 // One Stockham pass of radix R after NS points of an M-point transform over
 // a tile of 2^lg frames: butterfly b of a frame reads points b + r M / R,
 // multiplies input r by e^{-2 pi i k r / (NS R)} (k = b mod NS) and writes
-// its outputs to (b / NS) NS R + k + r NS.  `table` holds e^{-2 pi i j / tn}
-// for a table length tn that M divides.
-template <int R>
+// its outputs to (b / NS) NS R + k + r NS through `out`.  `table` holds
+// e^{-2 pi i j / tn} for a table length tn that M divides.
+template <int R, class Out>
 __device__ __forceinline__ void mixed_pass(const float2* __restrict__ src, float2* __restrict__ dst,
                                            const float2* __restrict__ table, int tn, int M,
-                                           int NS, int lg, int ld) {
+                                           int NS, int lg, int ld, const Out& out) {
   const int nb = M / R;
   const int step = tn / (NS * R);
   float2 cs[R / 2 + 1];
@@ -178,46 +188,67 @@ __device__ __forceinline__ void mixed_pass(const float2* __restrict__ src, float
     }
     butterfly<R>(v, cs);
     const int o = q * NS * R + k;
+    if constexpr (std::is_same<Out, StoreOutput>::value) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) dst[(o + r * NS) * ld + f] = v[r];
+      for (int r = 0; r < R; ++r) dst[(o + r * NS) * ld + f] = v[r];
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) out(dst, o + r * NS, f, ld, v[r]);
+    }
+  }
+}
+
+// The pass of radix R of the plan (mixed_fft's instantiation kW).
+template <int kW, class Out>
+__device__ __forceinline__ void pass_of(int R, const float2* a, float2* b,
+                                        const float2* __restrict__ table, int tn, int M, int NS,
+                                        int lg, int ld, const Out& out) {
+  switch (R) {
+    case 2: mixed_pass<2>(a, b, table, tn, M, NS, lg, ld, out); break;
+    case 3: mixed_pass<3>(a, b, table, tn, M, NS, lg, ld, out); break;
+    case 4: mixed_pass<4>(a, b, table, tn, M, NS, lg, ld, out); break;
+    case 5: mixed_pass<5>(a, b, table, tn, M, NS, lg, ld, out); break;
+    case 7: mixed_pass<7>(a, b, table, tn, M, NS, lg, ld, out); break;
+    case 8: mixed_pass<8>(a, b, table, tn, M, NS, lg, ld, out); break;
+    default:
+      if constexpr (kW >= 13) {
+        switch (R) {
+          case 11: mixed_pass<11>(a, b, table, tn, M, NS, lg, ld, out); break;
+          case 13: mixed_pass<13>(a, b, table, tn, M, NS, lg, ld, out); break;
+          default:
+            if constexpr (kW >= 31) {
+              switch (R) {
+                case 17: mixed_pass<17>(a, b, table, tn, M, NS, lg, ld, out); break;
+                case 19: mixed_pass<19>(a, b, table, tn, M, NS, lg, ld, out); break;
+                case 23: mixed_pass<23>(a, b, table, tn, M, NS, lg, ld, out); break;
+                case 29: mixed_pass<29>(a, b, table, tn, M, NS, lg, ld, out); break;
+                default: mixed_pass<31>(a, b, table, tn, M, NS, lg, ld, out); break;
+              }
+            }
+        }
+      }
   }
 }
 
 // The M-point transform of the tile in `a` (point m of frame f at a[m * ld +
 // f]); `b` is the other buffer; `table` holds e^{-2 pi i j / tn}, M | tn.
 // Every thread of the block calls it; returns the buffer that holds the
-// result, in natural order.  kW is the plan's width (plan_width): the
-// primes above kW are not instantiated.
-template <int kW>
+// result, in natural order (where the last pass's `last` stores it, as
+// StoreOutput does).  kW is the plan's width (plan_width): the primes above
+// kW are not instantiated.
+template <int kW, class Last = StoreOutput>
 __device__ float2* mixed_fft(float2* a, float2* b, const float2* __restrict__ table, int tn,
-                             int M, int lg, int ld, const MixedPlan& plan) {
+                             int M, int lg, int ld, const MixedPlan& plan,
+                             const Last& last = Last{}) {
   int NS = 1;
   for (int p = 0; p < plan.n_pass; ++p) {
     const int R = plan.radix[p];
-    switch (R) {
-      case 2: mixed_pass<2>(a, b, table, tn, M, NS, lg, ld); break;
-      case 3: mixed_pass<3>(a, b, table, tn, M, NS, lg, ld); break;
-      case 4: mixed_pass<4>(a, b, table, tn, M, NS, lg, ld); break;
-      case 5: mixed_pass<5>(a, b, table, tn, M, NS, lg, ld); break;
-      case 7: mixed_pass<7>(a, b, table, tn, M, NS, lg, ld); break;
-      case 8: mixed_pass<8>(a, b, table, tn, M, NS, lg, ld); break;
-      default:
-        if constexpr (kW >= 13) {
-          switch (R) {
-            case 11: mixed_pass<11>(a, b, table, tn, M, NS, lg, ld); break;
-            case 13: mixed_pass<13>(a, b, table, tn, M, NS, lg, ld); break;
-            default:
-              if constexpr (kW >= 31) {
-                switch (R) {
-                  case 17: mixed_pass<17>(a, b, table, tn, M, NS, lg, ld); break;
-                  case 19: mixed_pass<19>(a, b, table, tn, M, NS, lg, ld); break;
-                  case 23: mixed_pass<23>(a, b, table, tn, M, NS, lg, ld); break;
-                  case 29: mixed_pass<29>(a, b, table, tn, M, NS, lg, ld); break;
-                  default: mixed_pass<31>(a, b, table, tn, M, NS, lg, ld); break;
-                }
-              }
-          }
-        }
+    if constexpr (std::is_same<Last, StoreOutput>::value) {
+      pass_of<kW>(R, a, b, table, tn, M, NS, lg, ld, last);
+    } else if (p + 1 < plan.n_pass) {
+      pass_of<kW>(R, a, b, table, tn, M, NS, lg, ld, StoreOutput{});
+    } else {
+      pass_of<kW>(R, a, b, table, tn, M, NS, lg, ld, last);
     }
     __syncthreads();
     float2* const t = a;

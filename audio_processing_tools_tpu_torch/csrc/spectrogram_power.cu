@@ -70,11 +70,16 @@
 //
 // The chirp-z route (apt_spectrogram_power_chirpz) takes every n_fft whose
 // complex length L (n / 2 or n) has a prime factor above 31: the same
-// tiles, two buffers of M points a frame, M a 7-smooth size >= 2L - 1
-// (ops/spectrogram.py::chirp_size); the frame times the chirp, the M-point
+// tiles (but two frames, not one, where two fit a third of a block's
+// shared memory: a single frame's row stride of 1 puts the first passes'
+// strided stores on few banks; ops/spectrogram.py::chirpz_launch_plan),
+// two buffers of M points a frame, M a 7-smooth size >= L + K - 1
+// for the K bins the power reads (K = L for an even n_fft, whose split
+// reads every bin; K = F = (n + 1) / 2 for an odd one:
+// ops/spectrogram.py::chirp_size); the frame times the chirp, the M-point
 // transform, times Bt, the transform again, the chirp (four_step.cuh
-// states it).  Two transforms of about 2L points a frame: ~4x the mixed
-// route's work at the same n_fft.
+// states it).  Two transforms of 1.5L to 2L points a frame or more: ~4x
+// the mixed route's work at the same n_fft.
 //
 // The global route (apt_spectrogram_power_global) takes every size whose
 // transform (L, or the chirp-z M) passes kOneBlockPoints: a four-step FFT
@@ -83,6 +88,19 @@
 // through shared memory.  Frames go through in chunks of at most 32 MiB of
 // buffers, which stay in the 50 MB L2.  Its bytes beyond the function's:
 // the buffers' writes and reads, ~5x the frame's points in float2 a frame.
+//
+// The global Rader route (apt_spectrogram_power_rader_global) takes a prime
+// L above 31 whose R = L - 1 passes kOneBlockPoints and has a four-step
+// split (65,537 = 2^16 + 1): Rader's convolution over R points, each of
+// its two transforms a four-step FFT through the chunk buffers, then the
+// power with the output permutation, in place of a chirp-z transform over
+// 1.5L to 4L points.  For an odd n_fft (a real frame) the first transform
+// runs over R / 2 points of packed pairs, the second one's columns
+// splitting it as they read it (four_step.cuh).  The input permutation is
+// a gather of samples from the clip (in L2: the chunk's frames overlap);
+// the window comes in the gather's order from a host table, so only the
+// samples are read out of order.  At 65,537/32,768 and 128 x 10 s each
+// chunk of 32 frames is five launches, the columns' gathers the largest.
 //
 // The DFT route (apt_spectrogram_power_dft), which only comparisons force,
 // takes any n_fft up to 58,112 and hop >= 1: the TPU kernel's own
@@ -504,8 +522,32 @@ spectrogram_power_odd(const float* __restrict__ x, const float* __restrict__ win
 // conjugated; the transform again; then, for an even n_fft, Z[k] = conj(.)
 // times the chirp and the real split, for an odd one the power of conj(.)
 // as it is (|c_k| = 1).  M's radices are 2 to 8: never the wide primes.
+// For an odd n_fft each transform's last pass does the step after it from
+// its registers (TimesConjBt, PowerOfBins): two round trips through shared
+// memory and two barriers fewer a frame, and the last pass stores only the
+// F bins the power reads.
 // ---------------------------------------------------------------------------
 
+// The forward transform's last pass: conj(X Bt) into the other buffer.
+struct TimesConjBt {
+  const float2* bt;
+  __device__ __forceinline__ void operator()(float2* dst, int k, int f, int ld, float2 v) const {
+    const float2 w = cmul(v, __ldg(bt + k));
+    dst[k * ld + f] = make_float2(w.x, -w.y);
+  }
+};
+
+// The inverse transform's last pass: the power |X_k|^2 of bins k < F of the
+// tile's frames f < nf, bin k of frame f at out[k T + f].
+struct PowerOfBins {
+  float* out;
+  int T, F, nf;
+  __device__ __forceinline__ void operator()(float2*, int k, int f, int, float2 v) const {
+    if (k < F && f < nf) out[(size_t)k * T + f] = v.x * v.x + v.y * v.y;
+  }
+};
+
+template <bool kOdd>
 __global__ void __launch_bounds__(kThreads)
 spectrogram_power_chirpz(const float* __restrict__ x, const float* __restrict__ window,
                          const float2* __restrict__ twiddle, const float2* __restrict__ chirp,
@@ -513,7 +555,7 @@ spectrogram_power_chirpz(const float* __restrict__ x, const float* __restrict__ 
                          float* __restrict__ out, int N, int T, int n_fft, int hop, int pad,
                          int lg, int n_tiles, int Mc, MixedPlan plan) {
   extern __shared__ float4 smem4[];
-  const bool even = (n_fft & 1) == 0;
+  constexpr bool even = !kOdd;
   const int L = even ? n_fft / 2 : n_fft, F = n_fft / 2 + 1, ft = 1 << lg, ld = tile_ld(ft);
   float2* const buf_a = reinterpret_cast<float2*>(smem4);
   float2* const buf_b = buf_a + tile_elems(Mc, ft);
@@ -536,23 +578,23 @@ spectrogram_power_chirpz(const float* __restrict__ x, const float* __restrict__ 
     buf_a[m * ld + f] = v;
   }
   __syncthreads();
-  const float2* const W = chirp_convolve(buf_a, buf_b, ctab, bt, Mc, lg, ld, plan);
-  for (int i = threadIdx.x; i < (F << lg); i += blockDim.x) {
-    const int f = i & (ft - 1), k = i >> lg;
-    if (t0 + f >= T) continue;
-    float p;
-    if (even) {
+  if constexpr (kOdd) {
+    float2* const Y = mixed_fft<7>(buf_a, buf_b, ctab, Mc, Mc, lg, ld, plan, TimesConjBt{bt});
+    mixed_fft<7>(Y, Y == buf_a ? buf_b : buf_a, ctab, Mc, Mc, lg, ld, plan,
+                 PowerOfBins{out + (size_t)b * F * T + t0, T, F, T - t0});
+  } else {
+    const float2* const W = chirp_convolve(buf_a, buf_b, ctab, bt, Mc, lg, ld, plan);
+    for (int i = threadIdx.x; i < (F << lg); i += blockDim.x) {
+      const int f = i & (ft - 1), k = i >> lg;
+      if (t0 + f >= T) continue;
       auto z = [&](int j) {
         const float2 w = W[j * ld + f];
         return cmul(make_float2(w.x, -w.y), __ldg(chirp + j));
       };
-      p = k == L ? nyquist_power(z(0))
+      out[((size_t)b * F + k) * T + t0 + f] =
+          k == L ? nyquist_power(z(0))
                  : split_power(z(k), z(k == 0 ? 0 : L - k), __ldg(twiddle + k));
-    } else {
-      const float2 w = W[k * ld + f];
-      p = w.x * w.x + w.y * w.y;
     }
-    out[((size_t)b * F + k) * T + t0 + f] = p;
   }
 }
 
@@ -640,6 +682,19 @@ spectrogram_power_rader(const float* __restrict__ x, const float* __restrict__ w
 
 constexpr int kEpiFrames = 32, kEpiBins = 64;
 
+// A tile's powers (bin kk, frame f at tile[kk][f]) into out, frame after
+// frame along each bin's row.
+__device__ __forceinline__ void store_power_tile(float (*tile)[kEpiFrames + 1],
+                                                 float* __restrict__ out, int T, int F,
+                                                 long long g0, int f0, int k0, int nf) {
+  for (int i = threadIdx.x; i < kEpiFrames * kEpiBins; i += blockDim.x) {
+    const int kk = i / kEpiFrames, f = i - kk * kEpiFrames, k = k0 + kk;
+    if (f0 + f >= nf || k >= F) continue;
+    const long long g = g0 + f0 + f, b = g / T;
+    out[(b * F + k) * T + (g - b * T)] = tile[kk][f];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 power_from_spectrum(const float2* __restrict__ Z, long long zs, const float2* __restrict__ twiddle,
                     float* __restrict__ out, int T, int F, int M, bool even, long long g0, int nf,
@@ -662,12 +717,45 @@ power_from_spectrum(const float2* __restrict__ Z, long long zs, const float2* __
     tile[kk][f] = p;
   }
   __syncthreads();
+  store_power_tile(tile, out, T, F, g0, f0, k0, nf);
+}
+
+// The global Rader route's power (spectrogram_power_rader_global's last
+// launch): W is the second transform's output, X_k = z_0 + conj(W[qout[k]])
+// for 0 < k < L and X_0 = z_0 + A_0 (a0), z_0 the frame's first point,
+// read through `frame` (gin null); then as power_from_spectrum.
+__global__ void __launch_bounds__(kThreads)
+power_from_rader(const float2* __restrict__ W, long long zs, const int* __restrict__ qout,
+                 const float2* __restrict__ a0, Source frame, const float2* __restrict__ twiddle,
+                 float* __restrict__ out, int T, int F, int L, bool even, long long g0, int nf,
+                 int n_btiles) {
+  __shared__ float tile[kEpiBins][kEpiFrames + 1];
+  __shared__ float2 z0[kEpiFrames];
+  const int f0 = (blockIdx.x / n_btiles) * kEpiFrames;
+  const int k0 = (blockIdx.x % n_btiles) * kEpiBins;
+  if (threadIdx.x < kEpiFrames && f0 + (int)threadIdx.x < nf)
+    z0[threadIdx.x] = frame(f0 + threadIdx.x, 0);
+  __syncthreads();
   for (int i = threadIdx.x; i < kEpiFrames * kEpiBins; i += blockDim.x) {
-    const int kk = i / kEpiFrames, f = i - kk * kEpiFrames, k = k0 + kk;
+    const int f = i / kEpiBins, kk = i - f * kEpiBins, k = k0 + kk;
     if (f0 + f >= nf || k >= F) continue;
-    const long long g = g0 + f0 + f, b = g / T;
-    out[(b * F + k) * T + (g - b * T)] = tile[kk][f];
+    const float2* const w = W + (f0 + f) * zs;
+    auto z = [&](int j) {  // X_j, j < L
+      const float2 c = j == 0 ? a0[f0 + f] : w[__ldg(qout + j)];
+      return make_float2(z0[f].x + c.x, z0[f].y + (j == 0 ? c.y : -c.y));
+    };
+    float p;
+    if (even) {
+      p = k == L ? nyquist_power(z(0))
+                 : split_power(z(k), z(k == 0 ? 0 : L - k), __ldg(twiddle + k));
+    } else {
+      const float2 v = z(k);
+      p = v.x * v.x + v.y * v.y;
+    }
+    tile[kk][f] = p;
   }
+  __syncthreads();
+  store_power_tile(tile, out, T, F, g0, f0, k0, nf);
 }
 
 // The grid of a tiled route, blocks over (clip, tile of 2^lg frames), once
@@ -774,8 +862,11 @@ extern "C" int apt_spectrogram_power_odd(const float* x, const float* window,
 
 // The chirp-z route: any n_fft >= 1 and hop >= 1, through Mc points
 // (ops/spectrogram.py::chirp_size of the complex length L, n_fft / 2 or
-// n_fft; the launcher checks chirp_size_takes); frame_tile and
-// smem_bytes: ops/spectrogram.py::tile_plan(Mc).  chirp: L pairs c_j; bt: Mc
+// n_fft, and the bins the power reads, L or n_fft / 2 + 1; the launcher
+// checks chirp_size_takes); frame_tile and
+// smem_bytes: ops/spectrogram.py::chirpz_launch_plan(Mc), two tile buffers
+// of Mc points (any power-of-two tile up to kMixedMaxTile whose block
+// fits is taken).  chirp: L pairs c_j; bt: Mc
 // pairs FFT(b) / Mc; ctab: Mc pairs e^{-2 pi i j / Mc}
 // (ops/spectrogram.py::chirpz_tables); the rest as for the FFT route.
 extern "C" int apt_spectrogram_power_chirpz(const float* x, const float* window,
@@ -784,18 +875,21 @@ extern "C" int apt_spectrogram_power_chirpz(const float* x, const float* window,
                                             int N, int T, int n_fft, int hop, int pad, int Mc,
                                             int frame_tile, int smem_bytes, void* stream) {
   if (n_fft < 1 || hop < 1 || !pow2_tile(frame_tile) || B <= 0 || T <= 0 || N < 0 || pad < 0 ||
-      !chirp_size_takes(n_fft % 2 ? n_fft : n_fft / 2, Mc))
+      !chirp_size_takes(n_fft % 2 ? n_fft : n_fft / 2, n_fft % 2 ? n_fft / 2 + 1 : n_fft / 2,
+                        Mc))
     return (int)cudaErrorInvalidValue;
   const MixedPlan plan = mixed_plan_of(Mc);
   const long long smem = 16LL * tile_elems(Mc, frame_tile);
   if (smem != smem_bytes || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  static int dev_set = -1, smem_set = 0;
+  static int dev_set[2] = {-1, -1}, smem_set[2] = {0, 0};
+  const int odd = n_fft % 2;
+  auto kernel = odd ? spectrogram_power_chirpz<true> : spectrogram_power_chirpz<false>;
   Tiles t;
-  const cudaError_t err = tiles_for((const void*)spectrogram_power_chirpz, (int)smem, B, T,
-                                    frame_tile, dev_set, smem_set, t);
+  const cudaError_t err = tiles_for((const void*)kernel, (int)smem, B, T, frame_tile,
+                                    dev_set[odd], smem_set[odd], t);
   if (err != cudaSuccess) return (int)err;
   auto f2 = [](const float* p) { return reinterpret_cast<const float2*>(p); };
-  spectrogram_power_chirpz<<<t.grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<t.grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, window, f2(twiddle), f2(chirp), f2(bt), f2(ctab), out, N, T, n_fft, hop, pad, t.lg,
       t.n_tiles, Mc, plan);
   return (int)cudaGetLastError();
@@ -850,7 +944,8 @@ extern "C" int apt_spectrogram_power_global(const float* x, const float* window,
   const bool even = n_fft % 2 == 0;
   const int L = even ? n_fft / 2 : n_fft;
   if (n_fft < 1 || hop < 1 || B <= 0 || T <= 0 || N < 0 || pad < 0 || scratch == nullptr ||
-      (chirp == nullptr ? NT != L || mixed_plan_of(L).n_pass == 0 : !chirp_size_takes(L, NT)))
+      (chirp == nullptr ? NT != L || mixed_plan_of(L).n_pass == 0
+                        : !chirp_size_takes(L, even ? L : n_fft / 2 + 1, NT)))
     return (int)cudaErrorInvalidValue;
   const FourStep fs = four_step_of(NT);
   const long long frames = (long long)B * T;
@@ -873,6 +968,66 @@ extern "C" int apt_spectrogram_power_global(const float* x, const float* window,
     if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     power_from_spectrum<<<(int)grid, kThreads, 0, s>>>(Bf, NT, f2(twiddle), out, T, F, L, even,
                                                         g0, nf, n_btiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The global Rader route: an n_fft whose complex length L (n_fft / 2 or
+// n_fft) is a prime whose R = L - 1 the four-step split takes (R / 2 too
+// where `half`, an odd n_fft only: the first transform over packed pairs);
+// gin, qout, bt, rtab: ops/spectrogram.py::rader_tables, as for the Rader
+// route; rwin: the window in the gather's order (rader_window: 2R floats
+// for an even n_fft, R for an odd one); scratch: scratch_bytes of device
+// memory, at least the two chunk buffers and A_0 (16 R + 8 bytes a frame of
+// chunk_frames(R, B T)).  Five launches a chunk.
+extern "C" int apt_spectrogram_power_rader_global(
+    const float* x, const float* window, const float* twiddle, const int* gin, const int* qout,
+    const float* bt, const float* rtab, const float* rwin, float* out, int B, int N, int T,
+    int n_fft, int hop, int pad, int half, float* scratch, long long scratch_bytes,
+    void* stream) {
+  const bool even = n_fft % 2 == 0;
+  const int L = even ? n_fft / 2 : n_fft, R = L - 1;
+  if (n_fft < 1 || hop < 1 || B <= 0 || T <= 0 || N < 0 || pad < 0 || scratch == nullptr ||
+      rwin == nullptr || L < 5 || (half && (even || R % 2 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const FourStep fs = four_step_of(R), fs1 = half ? four_step_of(R / 2) : fs;
+  const long long frames = (long long)B * T;
+  const long long chunk = chunk_frames(R, frames);
+  if (!fs.ok || !fs1.ok || (16LL * R + 8) * chunk > scratch_bytes)
+    return (int)cudaErrorInvalidValue;
+  auto f2 = [](const float* p) { return reinterpret_cast<const float2*>(p); };
+  float2* const A = reinterpret_cast<float2*>(scratch);
+  float2* const Bf = A + chunk * R;
+  float2* const a0 = Bf + chunk * R;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int F = n_fft / 2 + 1, n_btiles = (F + kEpiBins - 1) / kEpiBins;
+  const int kind = even ? Source::kEvenFrame : Source::kOddFrame;
+  for (long long g0 = 0; g0 < frames; g0 += chunk) {
+    const int nf = (int)(frames - g0 < chunk ? frames - g0 : chunk);
+    const Source frame{kind, x, N, g0, T, hop, pad, window, nullptr, 0, nullptr, L};
+    Source src = frame;
+    src.mode = half ? Source::kOddPairs : kind;
+    src.L = half ? R / 2 : R;
+    src.window = rwin;
+    src.gin = gin;
+    Sink fwd{half ? Sink::kRaderHalf : Sink::kRaderForward, Bf, R, f2(bt), nullptr, R};
+    fwd.a0 = a0;
+    cudaError_t err = four_step(src, fwd, A, f2(rtab), R, fs1, nf, s);
+    if (err != cudaSuccess) return (int)err;
+    Source mid{half ? Source::kRaderSplit : Source::kBuffer, nullptr, 0, 0, 1, 0, 0, nullptr, Bf,
+               R, nullptr, R};
+    mid.bt = f2(bt);
+    mid.tw = f2(rtab);
+    mid.half = R / 2;
+    const Sink plain{Sink::kPlain, Bf, R, nullptr, nullptr, R};
+    err = four_step(mid, plain, A, f2(rtab), R, fs, nf, s);
+    if (err != cudaSuccess) return (int)err;
+    const long long grid = (long long)((nf + kEpiFrames - 1) / kEpiFrames) * n_btiles;
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    power_from_rader<<<(int)grid, kThreads, 0, s>>>(Bf, R, qout, a0, frame, f2(twiddle), out, T,
+                                                     F, L, even, g0, nf, n_btiles);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

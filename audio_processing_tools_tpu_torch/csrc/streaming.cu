@@ -1411,8 +1411,8 @@ bool fft_route(int n_fft) {
 // k8_route): 0 the FFT pass (a power-of-two n_fft from 64 to 1024), 1 the
 // mixed pass (an n_fft whose half has a plan, mixed_plan_of), 2 the DFT
 // pass (any n_fft whose tile fits; comparisons only), 3 the chirp-z pass
-// (over chirp_n points, chirp_size_takes(n_fft / 2, chirp_n)), 4 the global
-// pass (the four-step
+// (over chirp_n points, chirp_size_takes(n_fft / 2, n_fft / 2, chirp_n):
+// every bin is wanted), 4 the global pass (the four-step
 // transform of n_fft / 2 points, or of chirp_n with the chirp-z tables).
 // Refuses what the kernels do not take (models/streaming.py::
 // k8_check_geometry says the same): n_fft not 2 hop, band bins outside the
@@ -1432,8 +1432,9 @@ extern "C" int apt_streaming_suppressor(const void* io_ptr, const void* c_ptr, i
     return (int)cudaErrorInvalidValue;
   const MixedPlan mixed = mixed_plan_of(M);
   const bool chirp_ok = c->chirp_n == 0 ? mixed.n_pass > 0
-                                        : chirp_size_takes(M, c->chirp_n) && io->chirp != nullptr &&
-                                              io->chirp_bt != nullptr && io->chirp_tab != nullptr;
+                                        : chirp_size_takes(M, M, c->chirp_n) &&
+                                              io->chirp != nullptr && io->chirp_bt != nullptr &&
+                                              io->chirp_tab != nullptr;
   bool takes = false;
   switch (route) {
     case 0: takes = fft_route(N) && plan_for(*c).frame_smem <= kSmemLimit; break;

@@ -15,7 +15,8 @@ or n_fft for an odd n_fft) by the mixed-radix FFT (``csrc/mixed_fft.cuh``)
 where L has no prime factor above :data:`MIXED_MAX_PRIME` (the mixed route
 for an even n_fft, the TPU kernel's sizes ``128 m`` among them; the odd
 mixed route for an odd one), else, for a prime L whose L - 1 has such
-factors, by Rader's convolution over L - 1 points (the Rader route), else
+factors, by Rader's convolution over L - 1 points (the Rader route; past
+one block the global Rader route, both transforms four-step FFTs), else
 by the chirp-z transform over a 7-smooth size (:func:`chirp_size`); and
 past :data:`ONE_BLOCK_POINTS` points either
 transform as a four-step FFT through device memory (the global route,
@@ -134,6 +135,21 @@ def tile_plan(n: int) -> Optional[LaunchPlan]:
     return None
 
 
+def chirpz_launch_plan(M: int) -> Optional[LaunchPlan]:
+    """The chirp-z route's frame tile and shared memory for M points a
+    transform: :func:`tile_plan` of M, except where that holds one frame and
+    two fit a third of :data:`SMEM_LIMIT` (three blocks an SM; 1,210 < M <=
+    1,614): two frames, whose odd row stride keeps the first passes'
+    strided stores free of bank conflicts (at 1,031/515 and 128 x 10 s over
+    1,568 points, 0.7814 ms against 0.8695 with one frame and 1.1004 with
+    four, ``tools/time_chirp_sizes.py --tiles``, H100 80GB HBM3, 700 W)."""
+    plan = tile_plan(M)
+    two = 16 * tile_elems(M, 2)
+    if plan is not None and plan.frame_tile == 1 and two <= SMEM_LIMIT // 3:
+        return LaunchPlan(2, two)
+    return plan
+
+
 def mixed_launch_plan(n_fft: int) -> LaunchPlan:
     """The mixed route's frame tile and shared memory, :func:`tile_plan` of
     n_fft / 2.  Raises ``ValueError`` where even one frame does not fit."""
@@ -193,13 +209,15 @@ def _seven_smooth_between(lo: int, hi: int):
 
 
 @functools.lru_cache(maxsize=None)
-def chirp_size(L: int) -> int:
-    """The chirp-z transform's size for a complex length ``L``: among the
-    sizes M from max(2, 2L - 1) up to 4L whose only prime factors are 2, 3,
-    5 and 7 (the cheapest radices; a power of two always lies there), the
-    one with the fewest mixed-radix passes (:func:`mixed_radices`), the
-    smallest of those, whose transform one block holds (M <=
-    :data:`ONE_BLOCK_POINTS`) or the four-step split takes
+def chirp_size(L: int, K: Optional[int] = None) -> int:
+    """The chirp-z transform's size for a complex length ``L`` of which the
+    first ``K`` bins are wanted (all L by default; an odd n_fft's power
+    reads F = n_fft / 2 + 1 of them): among the sizes M from max(2, L + K -
+    1), where the lags of those bins stop wrapping, up to 4L whose only
+    prime factors are 2, 3, 5 and 7 (the cheapest radices; a power of two
+    always lies there), the one with the fewest mixed-radix passes
+    (:func:`mixed_radices`), the smallest of those, whose transform one
+    block holds (M <= :data:`ONE_BLOCK_POINTS`) or the four-step split takes
     (:func:`four_step_plan`).  Passes, not points, set the time: on an
     H100 80GB HBM3 at 700 W and 128 x 10 s, 1,009/504 took 1.3379 ms over
     the smallest such size, 2,025 (six passes), and 1.1864 over 2,048
@@ -207,7 +225,8 @@ def chirp_size(L: int) -> int:
     (``tools/time_chirp_sizes.py``).
     ``csrc/four_step.cuh::chirp_size_takes`` checks the launcher's size.
     Raises ``ValueError`` past the split's reach (M above 7,264 squared)."""
-    lo = max(2, 2 * L - 1)
+    K = L if K is None else K
+    lo = max(2, L + K - 1)
     sizes = sorted(_seven_smooth_between(lo, max(4 * L, 8)),
                    key=lambda m: (len(mixed_radices(m)), m))
     for m in sizes:
@@ -222,11 +241,19 @@ def fft_shape(n_fft: int) -> Tuple[int, int]:
     / 2, packed in pairs, for an even n_fft; n_fft for an odd one) and the
     size of the transform that computes it: L itself where L has a plan
     (:func:`mixed_radices`) that one block or the four-step split takes,
-    else :func:`chirp_size` of L."""
+    else the chirp-z size (:func:`chirp_size` of L and the bins the power
+    reads, :func:`chirp_bins`)."""
     L = n_fft // 2 if n_fft % 2 == 0 else n_fft
     if mixed_radices(L) is not None and (L <= ONE_BLOCK_POINTS or four_step_plan(L) is not None):
         return L, L
-    return L, chirp_size(L)
+    return L, chirp_size(L, chirp_bins(n_fft))
+
+
+def chirp_bins(n_fft: int) -> int:
+    """The bins of the chirp-z transform K1's power reads: every one of the
+    L = n_fft / 2 of an even n_fft (its real split pairs bin k with L - k),
+    the F = n_fft / 2 + 1 of the half spectrum of an odd one."""
+    return n_fft // 2 if n_fft % 2 == 0 else n_fft // 2 + 1
 
 
 def _is_prime(n: int) -> bool:
@@ -250,6 +277,7 @@ def rader_launch_plan(L: int) -> Optional[LaunchPlan]:
     return None
 
 
+@functools.lru_cache(maxsize=8)
 def rader_tables(n_fft: int):
     """The Rader route's host tables for an n_fft whose complex length L is a
     prime (:func:`rader_launch_plan`), g the smallest primitive root mod L:
@@ -275,6 +303,32 @@ def rader_tables(n_fft: int):
             (pairs(bt), pairs(np.cos(ang) + 1j * np.sin(ang))))
 
 
+def rader_global_takes(L: int) -> bool:
+    """Whether the global Rader route takes a complex length L: a prime
+    above :data:`MIXED_MAX_PRIME` whose R = L - 1 passes
+    :data:`ONE_BLOCK_POINTS` and has a four-step split
+    (:func:`four_step_plan`; 65,537: 256 x 256)."""
+    return (L - 1 > ONE_BLOCK_POINTS and L > MIXED_MAX_PRIME and _is_prime(L)
+            and four_step_plan(L - 1) is not None)
+
+
+def rader_global_scratch_bytes(L: int, frames: int) -> int:
+    """Bytes of the global Rader route's scratch: two chunk buffers of R = L
+    - 1 points a frame and A_0 (8 bytes) a frame, :func:`chunk_frames` of
+    R."""
+    return (16 * (L - 1) + 8) * chunk_frames(L - 1, frames)
+
+
+def rader_window(n_fft: int, window: str = "hann") -> np.ndarray:
+    """The window in the global Rader route's gather order (its Source reads
+    point q's window by q): w[gin[q]] for an odd n_fft, (w[2 gin[q]], w[2
+    gin[q] + 1]) for an even one, gin of :func:`rader_tables`; float32, the
+    window's own values."""
+    w = analysis_window(window, n_fft)
+    gin = rader_tables(n_fft)[0][0].astype(np.int64)
+    return w[gin] if n_fft % 2 else np.stack([w[2 * gin], w[2 * gin + 1]], axis=-1).reshape(-1)
+
+
 def chunk_frames(N: int, frames: int) -> int:
     """Frames a chunk of the global route holds (``chunk_frames``): as many
     as two buffers of N points each hold within :data:`CHUNK_SCRATCH`, at
@@ -294,12 +348,15 @@ def k1_route(n_fft: int, hop: int) -> str:
     * ``"rader"``: L a prime above :data:`MIXED_MAX_PRIME` whose L - 1 has
       a plan (Rader's convolution over L - 1 points,
       :func:`rader_launch_plan`);
+    * ``"rader_global"``: such a prime whose L - 1 passes
+      :data:`ONE_BLOCK_POINTS` and has a four-step split (Rader's
+      convolution through device memory, :func:`rader_global_takes`);
     * ``"chirpz"``: N = :func:`chirp_size` of L (L has a prime factor above
       :data:`MIXED_MAX_PRIME`; the chirp-z transform, :func:`tile_plan` of N);
     * ``"global"``: N above :data:`ONE_BLOCK_POINTS`, whatever the kind (the
       four-step FFT through device memory, :func:`four_step_plan` of N).
 
-    Each of the last five takes any hop.  Raises ``ValueError`` only for
+    Each of the last six takes any hop.  Raises ``ValueError`` only for
     ``n_fft`` or ``hop`` below 1 (and past :func:`chirp_size`'s reach).
     The direct DFT is a route only comparisons force."""
     if n_fft < 1 or hop < 1:
@@ -309,6 +366,8 @@ def k1_route(n_fft: int, hop: int) -> str:
     L, N = fft_shape(n_fft)
     if N != L and rader_launch_plan(L) is not None:
         return "rader"
+    if N != L and rader_global_takes(L):
+        return "rader_global"
     if N > ONE_BLOCK_POINTS:
         return "global"
     if N != L:
@@ -375,14 +434,17 @@ def chirpz_tables(n_fft: int, M: Optional[int] = None):
     float32 (no sine on the card), as (re, im) pairs: the chirp c_j =
     e^{-i pi j^2 / L}, j < L, its angle from j^2 mod 2L in 64-bit integers;
     Bt = FFT_M(b) / M of the padded conjugate chirp b (b_m = conj(c_m) at m
-    and M - m); and the twiddles e^{-2 pi i j / M}, j < M; L the complex
-    length, M = :func:`chirp_size` of L unless given."""
-    L = n_fft // 2 if n_fft % 2 == 0 else n_fft
-    M = chirp_size(L) if M is None else M
+    < K, the bins wanted (:func:`chirp_bins`), and at M - m, 0 < m < L, zero
+    elsewhere); and the twiddles e^{-2 pi i j / M}, j < M; L the complex
+    length, M = :func:`fft_shape`'s chirp-z size unless given."""
+    L, K = (n_fft // 2 if n_fft % 2 == 0 else n_fft), chirp_bins(n_fft)
+    M = chirp_size(L, K) if M is None else M
+    if M < max(2, L + K - 1):
+        raise ValueError(f"a chirp-z size of {M} wraps the lags of n_fft {n_fft}")
     j = np.arange(L, dtype=np.int64)
     c = np.exp(-1j * np.pi * ((j * j) % (2 * L)).astype(np.float64) / L)
     b = np.zeros(M, np.complex128)
-    b[:L] = np.conj(c)
+    b[:K] = np.conj(c[:K])
     b[M - j[1:]] = np.conj(c[1:])
     bt = np.fft.fft(b) / M
     ang = -2.0 * np.pi * np.arange(M, dtype=np.float64) / M
@@ -394,17 +456,25 @@ def chirpz_tables(n_fft: int, M: Optional[int] = None):
 
 
 #: the routes :func:`_spectrogram_power_cuda` takes by name
-K1_ROUTES = ("fft", "mixed", "mixed_odd", "rader", "chirpz", "global", "dft")
+K1_ROUTES = ("fft", "mixed", "mixed_odd", "rader", "rader_global", "chirpz", "global", "dft")
 
 
 def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool, window: str,
-                            route: str) -> torch.Tensor:
+                            route: str, chirp_n: Optional[int] = None,
+                            rader_half: Optional[bool] = None) -> torch.Tensor:
     """K1 on the card through ``route``: :func:`k1_route`'s for the
     geometry, or for comparisons another that takes it: ``"dft"`` (every
     n_fft up to :data:`DFT_MAX_N_FFT`), ``"chirpz"`` (every n_fft whose
     chirp-z size one block holds), ``"global"`` (every n_fft whose
     :func:`fft_shape` size the four-step split takes) and ``"mixed"`` (every
-    even size with a plan).  Raises where the route does not take the
+    even size with a plan).  ``chirp_n`` forces the chirp-z size of the
+    chirp-z and global routes (a 7-smooth size from L + K - 1 on, K =
+    :func:`chirp_bins`); ``rader_half`` whether the global Rader route's
+    first transform runs over (L - 1) / 2 points of packed pairs, as it
+    does for an odd n_fft unless told otherwise (1.9122 ms against 2.4457
+    over all L - 1 points at 65,537/32,768, 128 x 10 s, H100 80GB HBM3,
+    700 W, ``chip_smoke.py`` phase 46; an even n_fft's frame is complex and
+    takes all of them).  Raises where the route does not take the
     geometry."""
     analysis_window(window, 1)  # an unknown window raises here, before the launch
     if route not in K1_ROUTES:
@@ -412,12 +482,16 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
     if n_fft < 1 or hop < 1:
         raise ValueError(f"spectrogram_power needs n_fft >= 1 and hop >= 1; got {n_fft}, {hop}")
     L, N = fft_shape(n_fft)
+    if chirp_n is not None and route in ("chirpz", "global"):
+        N = chirp_n
+    half = n_fft % 2 == 1 if rader_half is None else rader_half
     takes = {
         "fft": lambda: n_fft in N_FFTS and hop % 4 == 0,
         "mixed": lambda: mixed_route_takes(n_fft),
         "mixed_odd": lambda: n_fft % 2 == 1 and N == L <= ONE_BLOCK_POINTS,
         "rader": lambda: rader_launch_plan(L) is not None,
-        "chirpz": lambda: chirp_size(L) <= ONE_BLOCK_POINTS,
+        "rader_global": lambda: rader_global_takes(L) and (not half or n_fft % 2 == 1),
+        "chirpz": lambda: (N if chirp_n else chirp_size(L, chirp_bins(n_fft))) <= ONE_BLOCK_POINTS,
         "global": lambda: four_step_plan(N) is not None,
         "dft": lambda: n_fft <= DFT_MAX_N_FFT,
     }[route]
@@ -438,8 +512,9 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
                                    lambda: kernel_tables(n_fft, window))
     chirp = bt = ctab = None
     if route == "chirpz" or (route == "global" and N != L):
-        chirp, bt, ctab = device_constant(("chirpz_tables", n_fft), x.device,
-                                          lambda: chirpz_tables(n_fft))
+        Mc = chirp_n or chirp_size(L, chirp_bins(n_fft))
+        chirp, bt, ctab = device_constant(("chirpz_tables", n_fft, Mc), x.device,
+                                          lambda: chirpz_tables(n_fft, Mc))
     lib = _kernels.build()
     args = (xb.data_ptr(), win.data_ptr(), twiddle.data_ptr())
     geo = (xb.shape[0], n, T, n_fft, hop, pad)
@@ -447,18 +522,27 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
     with torch.cuda.device(x.device):
         if route == "dft":
             err = lib.lib.apt_spectrogram_power_dft(*args, out.data_ptr(), *geo, stream)
-        elif route == "rader":
-            (gin, qout), (rbt, rtab) = (
-                device_constant(("rader_perms", n_fft), x.device,
-                                lambda: rader_tables(n_fft)[0], torch.int32),
-                device_constant(("rader_tables", n_fft), x.device,
-                                lambda: rader_tables(n_fft)[1]))
-            plan = rader_launch_plan(L)
-            err = lib.lib.apt_spectrogram_power_rader(
-                *args, gin.data_ptr(), qout.data_ptr(), rbt.data_ptr(), rtab.data_ptr(),
-                out.data_ptr(), *geo, plan.frame_tile, plan.smem_bytes, stream)
+        elif route in ("rader", "rader_global"):
+            rader = (*(device_constant(("rader_perms", n_fft), x.device,
+                                       lambda: rader_tables(n_fft)[0], torch.int32)),
+                     *device_constant(("rader_tables", n_fft), x.device,
+                                      lambda: rader_tables(n_fft)[1]))
+            rader = tuple(t.data_ptr() for t in rader)
+            if route == "rader":
+                plan = rader_launch_plan(L)
+                err = lib.lib.apt_spectrogram_power_rader(
+                    *args, *rader, out.data_ptr(), *geo, plan.frame_tile, plan.smem_bytes,
+                    stream)
+            else:
+                rwin = device_constant(("rader_window", n_fft, window), x.device,
+                                       lambda: rader_window(n_fft, window))
+                nbytes = rader_global_scratch_bytes(L, xb.shape[0] * T)
+                scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
+                err = lib.lib.apt_spectrogram_power_rader_global(
+                    *args, *rader, rwin.data_ptr(), out.data_ptr(), *geo, int(half),
+                    scratch.data_ptr(), nbytes, stream)
         elif route == "chirpz":
-            plan = tile_plan(ctab.shape[0])
+            plan = chirpz_launch_plan(ctab.shape[0])
             err = lib.lib.apt_spectrogram_power_chirpz(
                 *args, chirp.data_ptr(), bt.data_ptr(), ctab.data_ptr(), out.data_ptr(), *geo,
                 ctab.shape[0], plan.frame_tile, plan.smem_bytes, stream)

@@ -1016,7 +1016,7 @@ def main() -> int:
     paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"],
              **surface["launches"], "configurations the JAX package runs (phase 44)": geo["launches"],
              "the mixed-radix FFT and F7 (phase 45)": mixed["launches"],
-             "the odd mixed, chirp-z and global routes (phase 46)": chirpz["launches"]}
+             "the odd mixed, Rader, chirp-z and global routes (phase 46)": chirpz["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
@@ -3955,11 +3955,12 @@ def mixed_fft_phases(smi: str, x) -> dict:
           f"designs against scipy float64; {seconds:.1f} s")
     return {"launches": launches, "routes": routes, "seconds": seconds, "fold_256": fold}
 
-# phase 46: K1's odd mixed, Rader, chirp-z and global routes; K8's chirp-z
-# and global passes and its walk past 4,096 band bins
+# phase 46: K1's odd mixed, Rader, global Rader, chirp-z and global routes;
+# K8's chirp-z and global passes and its walk past 4,096 band bins
 CHIRP_K1 = {(385, 192): "mixed_odd", (296, 148): "chirpz", (1009, 504): "rader",
             (1031, 515): "chirpz", (2062, 1031): "chirpz", (16384, 8192): "global",
-            (32768, 16384): "global", (60000, 30000): "global", (65537, 32768): "global"}
+            (32768, 16384): "global", (60000, 30000): "global",
+            (65537, 32768): "rader_global", (12289, 6144): "rader_global"}
 WIDE_BAND = {"operating_band": (20.0, 5500.0)}
 CHIRP_K8 = {
     "296/148": ({"n_fft": 296, "hop": 148}, "chirpz"),
@@ -3977,10 +3978,15 @@ CHIRP_K8_FORCED = ("chirpz", "global")
 
 
 def chirpz_global_phases(smi: str, x) -> dict:
-    """Phase 46: K1's odd mixed, Rader, chirp-z and global routes at 128 x
-    10 s, each within 1e-5 of ``stft_power``'s maximum and, beyond the
-    forced DFT route's own drift, of the DFT's where that takes the size,
-    and timed in turns against both; K8's chirp-z and global frame passes
+    """Phase 46: K1's odd mixed, Rader, global Rader, chirp-z and global
+    routes at 128 x 10 s, each within 1e-5 of ``stft_power``'s maximum and,
+    beyond the forced DFT route's own drift, of the DFT's where that takes
+    the size, and timed in turns against both and against the routes it
+    replaced, forced (the chirp-z route beside Rader's; the chirp-z global
+    route, over this size and the unpruned one, beside the global Rader
+    route, and its first transform over all L - 1 points beside the packed
+    pairs; the unpruned chirp-z size beside an odd n_fft's pruned one);
+    K8's chirp-z and global frame passes
     and its walk past 4,096 band bins against the plain loop (gain and
     carries bit for bit, y within 1e-4 of its maximum) and chunk invariant;
     the plain loop's time at 384/192 and 296/148.  ``x`` is phase 4's batch
@@ -4012,9 +4018,22 @@ def chirpz_global_phases(smi: str, x) -> dict:
                                                                   "dft")
             if xd is not x:
                 calls["route_8"] = lambda: tspec.spectrogram_power(xd, n_fft=n_fft, hop=hop)
-        if route == "rader":  # the chirp-z route at the same size, for comparison
-            calls["chirpz"] = lambda: tspec._spectrogram_power_cuda(x, n_fft, hop, True, "hann",
-                                                                     "chirpz")
+        # the routes this one replaced, forced, for comparison
+        L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+        full_n = tspec.chirp_size(L)  # the chirp-z size before the bins were pruned
+        forced = {}
+        if route == "rader":
+            forced["chirpz"] = ("chirpz", {})
+        if route == "rader_global":
+            forced["global"] = ("global", {})
+            forced[f"global over {full_n}"] = ("global", {"chirp_n": full_n})
+            if n_fft % 2:
+                forced["first transform over L - 1"] = ("rader_global", {"rader_half": False})
+        if route == "chirpz" and n_fft % 2 and full_n != tspec.fft_shape(n_fft)[1]:
+            forced[f"chirpz over {full_n}"] = ("chirpz", {"chirp_n": full_n})
+        for k, (r, kw) in forced.items():
+            calls[k] = lambda r=r, kw=kw: tspec._spectrogram_power_cuda(x, n_fft, hop, True,
+                                                                         "hann", r, **kw)
         got, n = through_kernel("spectrogram_power", calls[route], f"K1 {n_fft}/{hop}", 1)
         launches["spectrogram_power"] += n
         ref = calls["stft_power"]()
@@ -4038,37 +4057,38 @@ def chirpz_global_phases(smi: str, x) -> dict:
                                          f"the DFT against stft_power {r_ref:.3e} (bound 1e-5 "
                                          f"beyond the DFT's own)")
             del got_dft
-        if "chirpz" in calls:
-            got_cz = calls["chirpz"]()
+        for k in forced:
+            got_f = calls[k]()
             torch.cuda.synchronize()
-            r_cz = float((got_cz - ref).abs().max()) / top
-            check(r_cz <= 1e-5, f"K1 {n_fft}/{hop}: the chirp-z route against stft_power "
-                                f"{r_cz:.3e} (bound 1e-5)")
-            del got_cz
+            r_f = float((got_f - ref).abs().max()) / top
+            check(r_f <= 1e-5, f"K1 {n_fft}/{hop}: {k} against stft_power {r_f:.3e} "
+                               f"(bound 1e-5)")
+            del got_f
         del got, ref
-        order = [route] + [k for k in ("chirpz", "route_8", "dft", "stft_power")
-                           if k in calls and k != route]
+        order = [route, *forced] + [k for k in ("route_8", "dft", "stft_power") if k in calls]
         ms = {k: [] for k in calls}
         for k in order + order[::-1]:
             ms[k].append(graph_ms(calls[k], launches=2 if k == "dft" else 20,
                                   reps=3 if k == "dft" else 7))
         ms = {k: float(np.mean(v)) for k, v in ms.items()}
         b_ms, b_by = bound_of(*k1_work(x, n_fft, hop))
+        # the complex length and the transform's points (Rader's: L - 1)
+        shape = (L, L - 1) if route.startswith("rader") else tspec.fft_shape(n_fft)
         routes["spectrogram_power"].append(
             {"route": route, "geometry": f"{n_fft}/{hop} {tuple(x.shape)}", "launches": n,
              "ms": ms[route], "max_abs_err": d, "max_rel": d / top, "dft_ms": ms.get("dft"),
              "dft_clips": xd.shape[0], "ms_on_dft_clips": ms.get("route_8", ms[route]),
-             "chirpz_ms": ms.get("chirpz") if route != "chirpz" else None,
+             "forced_ms": {k: ms[k] for k in forced},
              "dft_rel": r_dft, "dft_ref_rel": r_ref if "dft" in calls else None,
              "library_ms": ms["stft_power"], "plain_ms": ms["stft_power"],
-             "bound_ms": b_ms, "bound_by": b_by, "transform": list(tspec.fft_shape(n_fft))})
+             "bound_ms": b_ms, "bound_by": b_by, "transform": list(shape)})
         print(f"  K1 {n_fft}/{hop} {tuple(x.shape)}, route {route} (L, N = "
-              f"{tspec.fft_shape(n_fft)}), in turns: {ms[route]:.4f} ms, stft_power "
+              f"{shape}), in turns: {ms[route]:.4f} ms, stft_power "
               f"{ms['stft_power']:.4f}"
               + (f", DFT {ms['dft']:.4f}" if "dft" in ms and xd is x else "")
               + (f"; on 8 clips {ms['route_8']:.4f}, DFT {ms['dft']:.4f}" if "route_8" in ms
                  else "")
-              + (f", chirp-z {ms['chirpz']:.4f}" if "chirpz" in ms and route != "chirpz" else "")
+              + "".join(f", {k} {ms[k]:.4f}" for k in forced)
               + f" (bound {b_ms:.4f} by {b_by}); max|d|/max {d / top:.3e}"
               + (f", against the DFT {r_dft:.3e}" if r_dft is not None else ""))
 
@@ -4159,7 +4179,8 @@ def chirpz_global_phases(smi: str, x) -> dict:
           f"{mixed_ms:.4f} ms host-launched (n = 20)")
 
     seconds = time.perf_counter() - t_phase
-    print(f"phase 46 the odd mixed, chirp-z and global routes on {smi}: K1 at {len(CHIRP_K1)} "
+    print(f"phase 46 the odd mixed, Rader, chirp-z and global routes on {smi}: K1 at "
+          f"{len(CHIRP_K1)} "
           f"geometries within 1e-5 of stft_power (and of the DFT beyond its drift), timed in "
           f"turns; K8 at "
           f"{len(cases)} (the walk past 4,096 band bins, its rows in a scratch at 16,088) the "

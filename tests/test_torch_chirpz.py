@@ -1,8 +1,9 @@
-"""K1's odd mixed, Rader, chirp-z and global routes and K8's chirp-z and
-global frame passes, which run only on the card: NumPy float32 models of
-their plans, run as the kernels run them (the odd-length mixed-radix
-transform, Rader's and the chirp-z transform with the host's float32
-tables, the four-step split with its twiddle), held against
+"""K1's odd mixed, Rader, global Rader, chirp-z and global routes and K8's
+chirp-z and global frame passes, which run only on the card: NumPy float32
+models of their plans, run as the kernels run them (the odd-length
+mixed-radix transform, Rader's and the chirp-z transform with the host's
+float32 tables, the four-step split with its twiddle, the real split of a
+half-length first transform), held against
 ``numpy.fft.rfft`` in float64; the plans' Python twins against the
 constants of the CUDA sources; the routes' reach (no geometry the JAX
 package runs is refused, none takes the direct DFT); and the JAX package's
@@ -106,17 +107,18 @@ def transform_model(z, N, table, tn):
     return four_step_model(z, N, table, tn)
 
 
-def chirpz_model(z, n_fft):
+def chirpz_model(z, n_fft, M=None):
     """The chirp-z transform of each row of z (frames, L) over N points with
     the host's float32 tables: a = z c zero-padded, the transform, conj(. Bt),
-    the transform again, conj(.) c."""
-    c, bt, ctab = (_pairs(t) for t in tspec.chirpz_tables(n_fft))
-    L, N = z.shape[1], ctab.shape[0]
+    the transform again, conj(.) c; the K bins the tables serve
+    (``chirp_bins``)."""
+    c, bt, ctab = (_pairs(t) for t in tspec.chirpz_tables(n_fft, M))
+    L, N, K = z.shape[1], ctab.shape[0], tspec.chirp_bins(n_fft)
     a = np.zeros((z.shape[0], N), np.complex64)
     a[:, :L] = z * c
     Y = np.conj(transform_model(a, N, ctab, N) * bt).astype(np.complex64)
     W = transform_model(Y, N, ctab, N)
-    return (np.conj(W[:, :L]) * c).astype(np.complex64)
+    return (np.conj(W[:, :K]) * c[:K]).astype(np.complex64)
 
 
 def rader_model(z, n_fft):
@@ -133,7 +135,39 @@ def rader_model(z, n_fft):
     return X
 
 
-def spectrum_model(frames, n_fft):
+def rader_global_model(z, n_fft, half):
+    """The global Rader route on each row of z (frames, L), L prime: a_q =
+    z[g^q] and both transforms of R = L - 1 points as four-step FFTs; with
+    ``half`` (a real z) the first over R / 2 points of the packed pairs
+    a_2m + i a_2m+1, then A_k = E + e^{-2 pi i k / R} O from U_k and
+    U_{R/2-k} as the second transform's columns read them, A_0 = Re U_0 +
+    Im U_0; X_0 = z_0 + A_0, X[g^-q] = z_0 + conj(W_q)."""
+    (gin, qout), tabs = tspec.rader_tables(n_fft)
+    bt, rtab = (_pairs(t) for t in tabs)
+    R = z.shape[1] - 1
+    a = z[:, gin].astype(np.complex64)
+    if half:
+        H = R // 2
+        U = four_step_model((a.real[:, 0::2] + 1j * a.real[:, 1::2]).astype(np.complex64), H,
+                            rtab, R)
+        k = np.arange(R) % H
+        zk, zm = U[:, k], U[:, np.where(k == 0, 0, H - k)]
+        f = np.float32(0.5)
+        ar, ai = f * (zk.real + zm.real), f * (zk.imag - zm.imag)
+        dr, di = f * (zk.real - zm.real), f * (zk.imag + zm.imag)
+        w = rtab[:R]
+        A = (ar + (w.real * di + w.imag * dr)) + 1j * (ai - (w.real * dr - w.imag * di))
+        a0 = (U[:, 0].real + U[:, 0].imag).astype(np.complex64)
+    else:
+        A = four_step_model(a, R, rtab, R)
+        a0 = A[:, 0]
+    W = four_step_model(np.conj(A.astype(np.complex64) * bt).astype(np.complex64), R, rtab, R)
+    X = (z[:, :1] + np.conj(W[:, qout])).astype(np.complex64)
+    X[:, 0] = z[:, 0] + a0
+    return X
+
+
+def spectrum_model(frames, n_fft, half=None):
     """X[k], k <= n_fft / 2, of windowed frames (frames, n_fft) float32 as
     K1's route for n_fft forms it: the complex input (packed pairs for an
     even n_fft), its transform of N = :func:`fft_shape` points (the
@@ -142,10 +176,13 @@ def spectrum_model(frames, n_fft):
     L, N = tspec.fft_shape(n_fft)
     even = n_fft % 2 == 0
     z = (frames[:, 0::2] + 1j * frames[:, 1::2] if even else frames + 0j).astype(np.complex64)
+    route = tspec.k1_route(n_fft, n_fft // 2)
     if N == L:
         Z = transform_model(z, L, _table(n_fft), n_fft)
-    elif tspec.k1_route(n_fft, n_fft // 2) == "rader":
+    elif route == "rader":
         Z = rader_model(z, n_fft)
+    elif route == "rader_global":
+        Z = rader_global_model(z, n_fft, not even if half is None else half)
     else:
         Z = chirpz_model(z, n_fft)
     if not even:
@@ -159,13 +196,17 @@ def spectrum_model(frames, n_fft):
 
 
 # the routes' sizes: odd mixed (385 = 5 7 11), Rader odd (1,009 prime, 1,008
-# = 2^4 3^2 7) and even (2,018), chirp-z odd (1,031 prime, 1,030 = 2 5 103)
-# and even (296: L = 4 x 37; 2,062: L = 1,031), global even mixed (16,384),
-# global odd mixed (9,075 = 3 5^2 11^2), global chirp-z even (14,530: L = 5
-# x 1,453) and odd (65,537 prime)
-MODEL_SIZES = {385: "mixed_odd", 1009: "rader", 2018: "rader", 1031: "chirpz", 296: "chirpz",
-               2062: "chirpz", 16384: "global", 9075: "global", 14530: "global",
-               65537: "global"}
+# = 2^4 3^2 7) and even (2,018), chirp-z odd (1,031 prime, 1,030 = 2 5 103;
+# 1,111 = 11 101; 2,183 = 37 59: pruned to L + F - 1 points) and even (296:
+# L = 4 x 37; 2,062: L = 1,031), global even mixed (16,384), global odd
+# mixed (9,075 = 3 5^2 11^2), global chirp-z even (14,530: L = 5 x 1,453)
+# and odd (9,999 = 3^2 11 101, pruned), global Rader odd (7,681: 7,680 =
+# 2^9 3 5; 12,289: 12,288 = 2^12 3; 65,537: 2^16) and even (15,362: L =
+# 7,681)
+MODEL_SIZES = {385: "mixed_odd", 1009: "rader", 2018: "rader", 1031: "chirpz", 1111: "chirpz",
+               2183: "chirpz", 296: "chirpz", 2062: "chirpz", 16384: "global", 9075: "global",
+               14530: "global", 9999: "global", 7681: "rader_global", 12289: "rader_global",
+               15362: "rader_global", 65537: "rader_global"}
 
 
 @pytest.mark.parametrize("n", list(MODEL_SIZES))
@@ -179,6 +220,104 @@ def test_route_models_match_numpy_rfft(n):
     frames[1] *= 1e-3
     frames = frames * tspec.kernel_tables(n)[0][None, :]
     got = spectrum_model(frames, n)
+    ref = np.fft.rfft(frames.astype(np.float64), axis=-1)
+    for f in range(3):
+        assert np.abs(got[f] - ref[f]).max() <= 1e-6 * np.abs(ref[f]).max(), f
+
+
+@pytest.mark.parametrize("n, half", [(7681, False), (12289, False)])
+def test_rader_global_full_first_transform_matches_numpy_rfft(n, half):
+    """The global Rader route with its first transform over all R points of
+    a real frame (the form an even frame takes) gives ``numpy.fft.rfft``
+    within 1e-6 of the maximum, a quiet frame beside loud ones included."""
+    rng = np.random.default_rng(n + 1)
+    frames = rng.standard_normal((3, n)).astype(np.float32)
+    frames[1] *= 1e-3
+    frames = frames * tspec.kernel_tables(n)[0][None, :]
+    got = spectrum_model(frames, n, half=half)
+    ref = np.fft.rfft(frames.astype(np.float64), axis=-1)
+    for f in range(3):
+        assert np.abs(got[f] - ref[f]).max() <= 1e-6 * np.abs(ref[f]).max(), f
+
+
+@pytest.mark.parametrize("n_fft, hop, route", [
+    (65537, 32768, "rader_global"), (12289, 6144, "rader_global"), (7681, 3840, "rader_global"),
+    (131074, 65537, "rader_global"), (15362, 7681, "rader_global"), (1009, 504, "rader"),
+    (7283, 3641, "global"), (1031, 515, "chirpz")])
+def test_k1_route_takes_rader_global(n_fft, hop, route):
+    """A prime complex length whose L - 1 passes one block and has a
+    four-step split takes the global Rader route, whatever the parity of
+    n_fft; one block's Rader route keeps its primes; a prime whose L - 1
+    has no split (7,283: 7,282 = 2 11 331) and one with no Rader plan
+    (1,031) keep the chirp-z transform."""
+    assert tspec.k1_route(n_fft, hop) == route
+    L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    assert tspec.rader_global_takes(L) == (route == "rader_global")
+    if route == "rader_global":
+        R = L - 1
+        # an odd n_fft's first transform over packed pairs has its split too
+        assert n_fft % 2 == 0 or tspec.four_step_plan(R // 2) is not None
+        frames = tspec.chunk_frames(R, 10 ** 6)
+        assert tspec.rader_global_scratch_bytes(L, 10 ** 6) == (16 * R + 8) * frames
+        assert 16 * R * frames <= tspec.CHUNK_SCRATCH
+
+
+def test_chirp_size_reaches_the_wanted_bins():
+    """The chirp-z size of an odd n_fft starts at L + F - 1, the lags of its
+    F = n_fft / 2 + 1 bins; an even n_fft's at 2L - 1 (its split reads every
+    bin); each size 7-smooth, and the tables' b zero outside those lags."""
+    for n_fft in list(range(1, 3000)) + [9999, 14530, 65537]:
+        L, K = (n_fft // 2, n_fft // 2) if n_fft % 2 == 0 else (n_fft, n_fft // 2 + 1)
+        assert tspec.chirp_bins(n_fft) == K
+        if L < 1:
+            continue
+        M = tspec.chirp_size(L, K)
+        assert M >= max(2, L + K - 1) and set(tspec.mixed_radices(M)) <= {2, 3, 4, 5, 7, 8}
+        assert M >= (max(2, 2 * L - 1) if n_fft % 2 == 0 else (3 * n_fft - 1) // 2)
+        assert M <= tspec.chirp_size(L)
+    _, bt, _ = tspec.chirpz_tables(1031)
+    b = np.fft.ifft(_pairs(bt).astype(np.complex128) * len(bt))
+    assert len(bt) == tspec.chirp_size(1031, 516) == 1568
+    assert np.abs(b[516 : 1568 - 1030]).max() < 1e-5  # zero between the lags
+    with pytest.raises(ValueError, match="wraps"):
+        tspec.chirpz_tables(1031, 1536)
+
+
+def test_chirpz_launch_plan_takes_two_frames_where_three_blocks_fit():
+    """The chirp-z route's tile: ``tile_plan``'s, except that a one-frame
+    tile becomes two frames where two fit a third of the shared memory
+    (1,210 < M <= 1,614; 1,031's 1,568 points among them)."""
+    assert tspec.chirpz_launch_plan(1568) == (2, 16 * tspec.tile_elems(1568, 2)) == (2, 75264)
+    for M in (320, 1210, 1614, 1616, 2240, 7264):
+        plan, base = tspec.chirpz_launch_plan(M), tspec.tile_plan(M)
+        two = 1210 < M <= 1614
+        assert plan == ((2, 16 * tspec.tile_elems(M, 2)) if two else base), M
+        assert plan.smem_bytes <= tspec.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n_fft", [7681, 15362])
+def test_rader_window_is_the_window_in_gather_order(n_fft):
+    """The global Rader route's window table: the window's own float32
+    values at the gathered samples, point by point (pairs for an even
+    n_fft), so the kernel reads it in order."""
+    w = tspec.analysis_window("hann", n_fft)
+    gin = tspec.rader_tables(n_fft)[0][0].astype(np.int64)
+    got = tspec.rader_window(n_fft)
+    want = w[gin] if n_fft % 2 else np.stack([w[2 * gin], w[2 * gin + 1]], -1).reshape(-1)
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    assert np.array_equal(tspec.rader_window(n_fft, "rect"), np.ones_like(want))
+
+
+@pytest.mark.parametrize("n, M", [(1031, 2240), (1031, 1600), (2183, 4096)])
+def test_pruned_chirpz_model_at_other_sizes(n, M):
+    """The odd chirp-z transform over any size from L + F - 1 on (the
+    unpruned 2,240 at 1,031 among them, which comparisons force) gives
+    ``numpy.fft.rfft`` within 1e-6 of the maximum."""
+    rng = np.random.default_rng(M)
+    frames = rng.standard_normal((3, n)).astype(np.float32)
+    frames[1] *= 1e-3
+    frames = frames * tspec.kernel_tables(n)[0][None, :]
+    got = chirpz_model(frames.astype(np.complex64), n, M)
     ref = np.fft.rfft(frames.astype(np.float64), axis=-1)
     for f in range(3):
         assert np.abs(got[f] - ref[f]).max() <= 1e-6 * np.abs(ref[f]).max(), f
@@ -220,7 +359,8 @@ def test_plan_twins_mirror_the_sources():
     assert "kChunkScratch = 1 << 25" in src and tspec.CHUNK_SCRATCH == 1 << 25
     assert "bytes <= kBlockSmemLimit / 4 || (lg == 0 && bytes <= kBlockSmemLimit)" in src
     assert "for (int d = 1; (long long)d * d <= N; ++d)" in src
-    assert "(long long)M >= (L > 1 ? 2LL * L - 1 : 2) && seven_smooth(M)" in src
+    assert "const long long lo = (long long)L + K - 1 > 2 ? (long long)L + K - 1 : 2;" in src
+    assert "K >= 1 && K <= L && M >= lo && seven_smooth(M)" in src
     assert "(M <= kOneBlockPoints || four_step_of(M).ok)" in src
     assert "long long c = kChunkScratch / (16LL * N);" in src
     mixed_src, mc = _consts("mixed_fft.cuh")
@@ -228,6 +368,9 @@ def test_plan_twins_mirror_the_sources():
     # the fewest passes, then the smallest: 320 = 8 8 5 over 300 = 4 3 5 5
     assert [tspec.chirp_size(L) for L in (1, 2, 148, 1009, 1031, 7265, 65537)] == \
         [2, 3, 320, 2048, 2240, 15680, 134456]
+    # an odd frame's F bins: from L + F - 1 on (1,546 at 1,031)
+    assert [tspec.fft_shape(n)[1] for n in (1031, 1111, 2183, 9999, 65537)] == \
+        [1568, 1715, 3584, 15680, 100352]
     assert all(len(tspec.mixed_radices(m)) >= 4 for m in range(2017, 2048)
                if tspec.mixed_radices(m) and set(tspec.mixed_radices(m)) <= {2, 3, 4, 5, 7, 8})
     assert tspec.four_step_plan(8192)[:2] == (64, 128)
@@ -239,7 +382,19 @@ def test_plan_twins_mirror_the_sources():
     k1_src, _ = _consts("spectrogram_power.cu")
     assert "const long long smem = 16LL * tile_elems(n_fft, frame_tile);" in k1_src
     assert "const long long smem = 16LL * tile_elems(Mc, frame_tile);" in k1_src
-    assert "!chirp_size_takes(n_fft % 2 ? n_fft : n_fft / 2, Mc)" in k1_src
+    assert ("!chirp_size_takes(n_fft % 2 ? n_fft : n_fft / 2, n_fft % 2 ? n_fft / 2 + 1 : "
+            "n_fft / 2,") in k1_src
+    assert "!chirp_size_takes(L, even ? L : n_fft / 2 + 1, NT)" in k1_src
+    # the global Rader route's scratch: two chunk buffers of R points and
+    # A_0 a frame (rader_global_scratch_bytes)
+    assert "const long long chunk = chunk_frames(R, frames);" in k1_src
+    assert "(16LL * R + 8) * chunk > scratch_bytes" in k1_src
+    assert "half ? four_step_of(R / 2) : fs" in k1_src
+    # the gather reads the window by point from the permuted table
+    assert "src.window = rwin;" in k1_src
+    assert "at(__ldg(gin + 2 * m), 2 * m), at(__ldg(gin + 2 * m + 1), 2 * m + 1)" in src
+    # the chirp-z launcher takes the tile it is given (chirpz_launch_plan)
+    assert "const long long smem = 16LL * tile_elems(Mc, frame_tile);" in k1_src
     assert "16LL * tile_elems(L - 1, frame_tile) + 16LL * frame_tile + 16;" in k1_src
     assert tspec.rader_launch_plan(1009) == (2, 16 * tspec.tile_elems(1008, 2) + 32 + 16)
     assert tspec.rader_launch_plan(1031) is None and tspec.rader_launch_plan(31) is None
@@ -247,6 +402,7 @@ def test_plan_twins_mirror_the_sources():
     assert sorted(gin) == list(range(1, 1009)) and sorted(qout[1:]) == list(range(1008))
     k8_src, k8 = _consts("streaming.cu")
     assert "return 16 * tile_elems(Mc, slots) + 4 * slots * K;" in k8_src
+    assert "chirp_size_takes(M, M, c->chirp_n)" in k8_src
     assert "return 16LL * N * chunk_frames(N, frames) + 8LL * hop;" in k8_src
     assert "return (K + kMaxWalkThreads - 1) / kMaxWalkThreads;" in k8_src
     assert k8["kMaxWalkThreads"] == 1024 and k8["kFrames"] == 4
@@ -273,9 +429,10 @@ def test_k8_walk_plan(K, taps, snr, want):
 
 def test_k1_route_is_total():
     """Every n_fft from 1 to 20,000 and the routes' large sizes take a route
-    at hop n_fft / 2 and at hop 1, and none the direct DFT."""
+    at hop n_fft / 2 and at hop 1, and none the direct DFT; a prime complex
+    length takes a Rader route wherever L - 1 has one."""
     routes = set()
-    for n in list(range(1, 20001)) + [32768, 60000, 65536, 65537]:
+    for n in list(range(1, 20001)) + [32768, 60000, 65536, 65537, 131074]:
         for hop in (max(1, n // 2), 1):
             r = tspec.k1_route(n, hop)
             assert r != "dft", (n, hop)
@@ -283,7 +440,10 @@ def test_k1_route_is_total():
         L, N = tspec.fft_shape(n)
         assert N == L or tspec.mixed_radices(L) is None or tspec.four_step_plan(L) is None
         assert N <= tspec.ONE_BLOCK_POINTS or tspec.four_step_plan(N) is not None
-    assert routes == {"fft", "mixed", "mixed_odd", "rader", "chirpz", "global"}
+        if tspec.rader_global_takes(L):
+            assert tspec.k1_route(n, max(1, n // 2)) == "rader_global", n
+    assert routes == {"fft", "mixed", "mixed_odd", "rader", "rader_global", "chirpz", "global"}
+    assert set(tspec.K1_ROUTES) == routes | {"dft"}
 
 
 @pytest.mark.parametrize("n_fft", [2, 4, 6, 296, 386, 2062, 4096, 8192, 10000, 10240, 16384,

@@ -3,19 +3,28 @@
 geometries whose complex length has a prime factor above 31, against
 ``stft_power``.
 
-    python3 tools/time_chirp_sizes.py [--geometries 296/148 1009/504 ...] [--out FILE]
+    python3 tools/time_chirp_sizes.py [--geometries 296/148 1009/504 ...] [--tiles] [--sizes M ...]
+                                      [--csrc DIR] [--out FILE]
 
 On chip_smoke's 128 synthetic 10 s clips: for each geometry, the chirp-z
-launcher is called over the smallest 7-smooth size M from 2L - 1 up to 4L
-and every one with at most one pass more than the fewest
-(``ops/spectrogram.py::chirp_size`` picks the fewest passes, then the
-smallest size) whose block fits, with
-the tables ``chirpz_tables(n_fft, M)``; each output is held within 1e-5 of
-``stft_power``'s maximum and its device ms per call taken from a CUDA graph
-of 20 calls (``chip_smoke.graph_ms``), the sizes in turns (forward, then
-backward, the mean of both).  Prints the card's name and power limit, a
-line per geometry, then one JSON line.  Needs a CUDA card; imports nothing
-of JAX.
+launcher (the global route's past one block) is called over the 7-smooth
+sizes M from L + K - 1 (K the bins the power reads,
+``ops/spectrogram.py::chirp_bins``) up to 4L whose block fits: the
+smallest, every one with the fewest passes, the three smallest with one
+pass more, and the size of the rule before the bins were pruned (from 2L
+- 1) (``ops/spectrogram.py::chirp_size`` picks the fewest passes, then the
+smallest size), with the tables ``chirpz_tables(n_fft, M)``, at the frame
+tile of ``ops/spectrogram.py::chirpz_launch_plan``; with ``--tiles`` the
+one-block sizes with the fewest passes also at every frame tile whose
+block fits; ``--sizes`` times only the sizes given; ``--csrc`` builds the
+kernels from another source directory (a variant of ``csrc/`` kept under
+``build/``, so that two versions of a kernel are timed one process each,
+in turns).  Each output is
+held within 1e-5 of ``stft_power``'s maximum and its device ms per call
+taken from a CUDA graph of 20 calls (``chip_smoke.graph_ms``), the sizes in
+turns (forward, then backward, the mean of both).  Prints the card's name
+and power limit, a line per geometry, then one JSON line.  Needs a CUDA
+card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +42,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--geometries", nargs="+",
                     default=["296/148", "1009/504", "1031/515", "2062/1031"])
+    ap.add_argument("--tiles", action="store_true",
+                    help="also time the fewest-pass sizes at every frame tile")
+    ap.add_argument("--sizes", nargs="+", type=int, default=None,
+                    help="time only these transform sizes")
+    ap.add_argument("--csrc", default=None, help="build the kernels from this source directory")
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
@@ -52,53 +66,82 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
+    if args.csrc:
+        _kernels.CSRC = Path(args.csrc).resolve()
     lib = _kernels.build()
     dev = torch.device("cuda", 0)
     x = torch.from_numpy(cs.synth_clips()[0]).to(dev)
     B, N = x.shape
-    result = {"card": smi, "chosen": {}, "ms": {}, "stft_power_ms": {}}
+    result = {"card": smi, "csrc": str(_kernels.CSRC), "chosen": {}, "ms": {},
+              "stft_power_ms": {}}
     for geo in args.geometries:
         n_fft, hop = (int(v) for v in geo.split("/"))
-        L = n_fft // 2 if n_fft % 2 == 0 else n_fft
-        sizes = [m for m in tspec._seven_smooth_between(max(2, 2 * L - 1), 4 * L)
-                 if tspec.tile_plan(m) is not None]
+        L, K = (n_fft // 2 if n_fft % 2 == 0 else n_fft), tspec.chirp_bins(n_fft)
+        one_block = L + K - 1 <= tspec.ONE_BLOCK_POINTS
+
+        def fits(m):
+            return tspec.tile_plan(m) is not None if one_block else (
+                tspec.four_step_plan(m) is not None)
+
+        sizes = [m for m in tspec._seven_smooth_between(max(2, L + K - 1), 4 * L) if fits(m)]
         fewest = min(len(tspec.mixed_radices(m)) for m in sizes)
-        sizes = sorted({m for m in sizes if len(tspec.mixed_radices(m)) <= fewest + 1}
-                       | {min(sizes)})
+        sizes = sorted({m for m in sizes if len(tspec.mixed_radices(m)) == fewest}
+                       | set([m for m in sizes if len(tspec.mixed_radices(m)) == fewest + 1][:3])
+                       | {min(sizes), tspec.chirp_size(L)})
+        if args.sizes:
+            sizes = [m for m in args.sizes if m >= L + K - 1 and fits(m)]
+        runs = [(m, tspec.chirpz_launch_plan(m).frame_tile if one_block else 0) for m in sizes]
+        if args.tiles and one_block:
+            runs += [(m, ft) for m in sizes if len(tspec.mixed_radices(m)) == fewest
+                     for ft in (1, 2, 4, 8, 16, 32)
+                     if ft != tspec.chirpz_launch_plan(m).frame_tile
+                     and 16 * tspec.tile_elems(m, ft) <= tspec.SMEM_LIMIT]
         win, tw = (torch.from_numpy(a).to(dev).contiguous()
                    for a in tspec.kernel_tables(n_fft))
         T = 1 + N // hop
         out = torch.empty((B, n_fft // 2 + 1, T), device=dev)
         ref = stft_power(x, n_fft=n_fft, hop=hop)
         calls = {}
-        for M in sizes:
+        for M, ft in runs:
             tabs = [torch.from_numpy(a).to(dev).contiguous()
                     for a in tspec.chirpz_tables(n_fft, M)]
-            plan = tspec.tile_plan(M)
+            ptrs = [t.data_ptr() for t in tabs]
+            if one_block:
+                smem = 16 * tspec.tile_elems(M, ft)
 
-            def call(M=M, tabs=tabs, plan=plan):
-                lib.check(lib.lib.apt_spectrogram_power_chirpz(
-                    x.data_ptr(), win.data_ptr(), tw.data_ptr(), *(t.data_ptr() for t in tabs),
-                    out.data_ptr(), B, N, T, n_fft, hop, n_fft // 2, M, plan.frame_tile,
-                    plan.smem_bytes, _kernels.stream_of(x)), "spectrogram_power")
+                def call(M=M, ft=ft, smem=smem, ptrs=ptrs):
+                    lib.check(lib.lib.apt_spectrogram_power_chirpz(
+                        x.data_ptr(), win.data_ptr(), tw.data_ptr(), *ptrs, out.data_ptr(), B,
+                        N, T, n_fft, hop, n_fft // 2, M, ft, smem, _kernels.stream_of(x)),
+                        "spectrogram_power")
+            else:
+                scratch = torch.empty(4 * M * tspec.chunk_frames(M, B * T), device=dev)
+
+                def call(M=M, ptrs=ptrs, scratch=scratch):
+                    lib.check(lib.lib.apt_spectrogram_power_global(
+                        x.data_ptr(), win.data_ptr(), tw.data_ptr(), *ptrs, out.data_ptr(), B,
+                        N, T, n_fft, hop, n_fft // 2, M, scratch.data_ptr(),
+                        4 * scratch.numel(), _kernels.stream_of(x)), "spectrogram_power")
 
             call()
             torch.cuda.synchronize()
             d = float((out - ref).abs().max())
             if d > 1e-5 * float(ref.abs().max()):
-                raise SystemExit(f"K1 chirp-z {n_fft}/{hop} over {M}: max|d| {d:.3e}")
-            calls[M] = call
-        ms = {M: [] for M in calls}
-        for M in list(calls) + list(calls)[::-1]:
-            ms[M].append(cs.graph_ms(calls[M]))
-        ms = {M: float(np.mean(v)) for M, v in ms.items()}
+                raise SystemExit(f"K1 chirp-z {n_fft}/{hop} over {M}, tile {ft}: max|d| {d:.3e}")
+            calls[(M, ft)] = call
+        ms = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            ms[k].append(cs.graph_ms(calls[k]))
+        ms = {k: float(np.mean(v)) for k, v in ms.items()}
         lib_ms = cs.graph_ms(lambda: stft_power(x, n_fft=n_fft, hop=hop))
-        result["chosen"][geo] = tspec.chirp_size(L)
-        result["ms"][geo] = {str(M): v for M, v in ms.items()}
+        chosen = tspec.fft_shape(n_fft)[1]
+        result["chosen"][geo] = chosen
+        result["ms"][geo] = {f"{M}/{ft}": v for (M, ft), v in ms.items()}
         result["stft_power_ms"][geo] = lib_ms
-        print(f"{geo} (L {L}, chosen {tspec.chirp_size(L)}): stft_power {lib_ms:.4f} ms; "
-              + ", ".join(f"{M} ({len(tspec.mixed_radices(M))} passes) {v:.4f}"
-                          for M, v in ms.items()))
+        print(f"{geo} (L {L}, K {K}, chosen {chosen}): stft_power {lib_ms:.4f} ms; "
+              + ", ".join(f"{M} ({'x'.join(map(str, tspec.mixed_radices(M)))}"
+                          + (f", tile {ft}" if ft else "") + f") {v:.4f}"
+                          for (M, ft), v in ms.items()))
     line = json.dumps(result)
     print(line)
     if args.out:

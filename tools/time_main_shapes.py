@@ -2,7 +2,7 @@
 """Device time of K1, K4, K6, K7, K8, K9 and K10 at the shapes the main
 paths give them, from one checkout's kernels.
 
-    python3 tools/time_main_shapes.py [--root DIR] [--out FILE]
+    python3 tools/time_main_shapes.py [--root DIR] [--routes] [--out FILE]
 
 K1: the spectral engine's 128 x 10 s batch at 256/128, and at 384/192 and
 2048/1024 (off the main path: the mixed-radix route).  K4: band noise's
@@ -13,7 +13,11 @@ high-pass (2 sections) and band-pass (4 sections) at 128 x 111,616, and an
 s, a carried chunk, at 256/128 and at 384/192 (the mixed frame pass).  K9: the confirmer's 871 windows of 384 samples of one
 10 s clip, cap 64.  K10: 128 clips x 873 frames of random features with
 ``chip_smoke.TUNE_GRID``'s combos.  The inputs come from
-``chip_smoke.py``'s synthetic clips and streams.
+``chip_smoke.py``'s synthetic clips and streams.  ``--routes`` adds K1's
+other routes off the main path (odd mixed 385/192, Rader 1009/504, even
+chirp-z 296/148 and 2062/1031, global 16384/8192, 32768/16384 and
+60000/30000) and K8's chirp-z and global frame passes (296/148,
+5920/2960, 10240/5120), a carried 64 x 2 s chunk each.
 
 Each: device ms per call from a CUDA graph of back-to-back calls
 (``chip_smoke.graph_ms``), and the kernel's output against its plain
@@ -220,9 +224,69 @@ def cases(dev):
     return out
 
 
+def route_cases(dev):
+    """K1's and K8's routes off the main path, as :func:`cases` gives the
+    main shapes: ``{label: (call, check)}``."""
+    import torch
+
+    import chip_smoke as cs
+    from audio_processing_tools_tpu_torch.models import streaming as tsm
+    from audio_processing_tools_tpu_torch.ops.spectrogram import k1_route, spectrogram_power
+    from audio_processing_tools_tpu_torch.ops.stft import stft_power
+
+    out = {}
+    x = torch.from_numpy(cs.synth_clips()[0]).to(dev)
+    for n_fft in (385, 1009, 296, 2062, 16384, 32768, 60000):
+        hop = n_fft // 2
+
+        def k1_check(n_fft=n_fft, hop=hop):
+            ref = stft_power(x, n_fft=n_fft, hop=hop)
+            d = float((spectrogram_power(x, n_fft=n_fft, hop=hop) - ref).abs().max())
+            if d > 1e-5 * float(ref.abs().max()):
+                raise SystemExit(f"K1 {n_fft}/{hop}: max|d| {d:.3e}")
+            return d
+
+        out[f"K1 {n_fft}/{hop} {k1_route(n_fft, hop)} 128 x 111,620"] = (
+            lambda n_fft=n_fft, hop=hop: spectrogram_power(x, n_fft=n_fft, hop=hop), k1_check)
+
+    pcm, _ = cs.synth_streams(cs.STREAMS, 2 * cs.CHUNK / cs.FS + 1.0)
+    xs_all = torch.from_numpy(pcm).to(dev).to(torch.float32) / 32767.0
+    for n_fft in (296, 5920, 10240):
+        det = tsm.StreamingRainDetector(device=dev)
+        det.setup({**cs.STREAM_AUDIO, "n_fft": n_fft, "hop": n_fft // 2})
+        st = det._static()
+        L = max(cs.CHUNK // st.hop, 2) * st.hop
+        state, _ = det.process_chunk_batch(det.init_state_batch(cs.STREAMS), xs_all[:, :L])
+        x1 = xs_all[:, L : 2 * L].contiguous()
+        xa = torch.cat([state["raw_tail"], x1], dim=1)
+        P = spectrogram_power(xa, n_fft=st.n_fft, hop=st.hop, center=False)
+        carry = (tsm._seed_psd(state["sup_psd"], P[:, st.rows, 0], det.cfg.eps),
+                 state["gain_prev"], state["ola_tail"])
+        _, o1 = det.process_chunk_batch(state, x1)
+        args = (det.suppressor(), xa, P, o1["frame_class"], o1["noise_conf"],
+                state["frame_idx"], carry)
+
+        def k8_check(args=args, n_fft=n_fft):
+            y, _, g = tsm._suppressor_cuda(*args, want_gain=True)
+            yp, _, gp = tsm._suppressor_plain(*args)
+            same, _ = cs.same_bits(g, gp)
+            if not same:
+                raise SystemExit(f"K8 {n_fft}: not the plain loop's gain")
+            d = float((y - yp).abs().max())
+            if d > 1e-4 * float(yp.abs().max()):
+                raise SystemExit(f"K8 {n_fft}: y max|d| {d:.3e}")
+            return d
+
+        label = f"K8 {n_fft}/{n_fft // 2} {tsm.k8_route(n_fft)} {cs.STREAMS} x {P.shape[-1]} frames"
+        out[label] = (lambda args=args: tsm._suppressor_cuda(*args), k8_check)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(REPO))
+    ap.add_argument("--routes", action="store_true",
+                    help="also K1's and K8's routes off the main path")
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -242,7 +306,8 @@ def main() -> int:
     _kernels.build()
     dev = torch.device("cuda", 0)
     result = {"root": args.root, "card": smi, "ms": {}, "max_abs_err": {}}
-    for label, (call, check) in cases(dev).items():
+    todo = {**cases(dev), **(route_cases(dev) if args.routes else {})}
+    for label, (call, check) in todo.items():
         result["max_abs_err"][label] = check()
         torch.cuda.synchronize()
         result["ms"][label] = cs.graph_ms(call)
