@@ -1,5 +1,5 @@
-// The four-step FFT of K1's global route (spectrogram_power.cu) and K8's
-// global frame pass (streaming.cu): an N-point transform past
+// The four-step FFT of K1's global and split routes (spectrogram_power.cu)
+// and K8's global frame pass (streaming.cu): an N-point transform past
 // kOneBlockPoints, split as N = N1 N2 and run through two chunk buffers in
 // global memory:
 //
@@ -50,6 +50,18 @@
 // pairs a_2m + i a_2m+1 (kOddPairs); its Sink keeps A_0 = Re U_0 + Im U_0,
 // and the second transform's Source (kRaderSplit) forms each A_k from U_k
 // and U_{R/2-k} by the real split before it multiplies by Bt.
+//
+// The split of a complex length L = P Q (K1's split route; split_of, P the
+// one prime factor above kMaxPrime, Q with a plan): Cooley-Tukey's step
+// with P's transform as the column transform, one block a tile of columns,
+// by Rader's convolution over P - 1 points (rader_convolve) or the chirp-z
+// transform over M points (chirp_convolve), each column read through a
+// Column source; the column step (split_columns) stores Y'[k1][n2] (the
+// twiddle e^{-2 pi i n2 k1 / L} applied, Rader's output permutation folded
+// into the store), and four_step_rows runs the rows of Q points.  An odd
+// frame is real: its columns go two as one complex column and part as they
+// are stored, and only its rows k1 <= (P - 1) / 2 are kept and transformed,
+// the others being their mirrors' conjugates.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -168,6 +180,21 @@ struct Source {
   const float2* tw = nullptr;
   int half = 0;
 
+  // frame g0 + f: its row and the row's index of its first sample
+  struct Origin {
+    const float* xr;
+    long long s;
+  };
+  __device__ __forceinline__ Origin frame_origin(long long f) const {
+    const long long g = g0 + f, b = g / T;
+    return {x + b * row_len, (g - b * T) * hop - pad};
+  }
+  // the frame's sample j times window[w], zero outside the row
+  __device__ __forceinline__ float sample(const Origin& o, long long j, int w) const {
+    const long long s0 = o.s + j;
+    return (s0 >= 0 && s0 < row_len ? o.xr[s0] : 0.f) * __ldg(window + w);
+  }
+
   __device__ __forceinline__ float2 operator()(int f, int m) const {
     if (m >= L) return make_float2(0.f, 0.f);
     float2 v;
@@ -184,14 +211,8 @@ struct Source {
                __ldg(bt + m));
       v.y = -v.y;
     } else {
-      const long long g = g0 + f;
-      const long long b = g / T;
-      const long long s = (g - b * T) * hop - pad;
-      const float* const xr = x + b * row_len;
-      auto at = [&](long long j, int w) {  // the frame's sample j times window[w]
-        const long long s0 = s + j;
-        return (s0 >= 0 && s0 < row_len ? xr[s0] : 0.f) * __ldg(window + w);
-      };
+      const Origin o = frame_origin(f);
+      auto at = [&](long long j, int w) { return sample(o, j, w); };
       if (mode == kOddPairs) {
         v = make_float2(at(__ldg(gin + 2 * m), 2 * m), at(__ldg(gin + 2 * m + 1), 2 * m + 1));
       } else {
@@ -202,6 +223,53 @@ struct Source {
     }
     if (chirp != nullptr) v = cmul(v, __ldg(chirp + m));
     return v;
+  }
+};
+
+// The split route's column source.  Column n2 of a frame holds its points
+// n = Q n1 + n2, n1 < P; an odd frame's columns are real, so with `pairs`
+// columns n2 = 2p and 2p + 1 go as one complex column p (the second zero
+// where Q is odd and 2p + 1 = Q), ceil(Q / 2) a frame.  Point m in the
+// column transform's input order: Rader's gather reads n1 = gin[m] (m < P -
+// 1), the chirp-z transform n1 = m times chirp[m], zero from P on.  A
+// thread locates its column once (Source::frame_origin) and reads its
+// points through Source::sample.
+struct Column {
+  Source frame;  // the frames' samples: mode kEvenFrame or kOddFrame, x, rows, window
+  int P, Q;
+  bool pairs;
+  const int* gin;       // Rader: g^m mod P
+  const float2* chirp;  // the chirp-z transform: c_m = e^{-i pi m^2 / P}, m < P
+
+  struct At {
+    Source::Origin o;
+    int n2;  // the column (the first of a pair)
+    bool live, second;
+  };
+
+  __device__ __forceinline__ int per_frame() const { return pairs ? (Q + 1) / 2 : Q; }
+  // column c of the chunk: frame c / per_frame(), its column c mod per_frame()
+  __device__ __forceinline__ At locate(int c, int n_cols) const {
+    At a{{frame.x, 0}, 0, c < n_cols, false};
+    if (!a.live) return a;
+    const int cq = per_frame(), f = c / cq, p = c - f * cq;
+    a.n2 = pairs ? 2 * p : p;
+    a.second = pairs && a.n2 + 1 < Q;
+    a.o = frame.frame_origin(f);
+    return a;
+  }
+  // the column's point n1 (a pair's two real points as one)
+  __device__ __forceinline__ float2 point(const At& a, int n1) const {
+    const int n = Q * n1 + a.n2;
+    if (frame.mode == Source::kEvenFrame)
+      return make_float2(frame.sample(a.o, 2 * n, 2 * n), frame.sample(a.o, 2 * n + 1, 2 * n + 1));
+    return make_float2(frame.sample(a.o, n, n), a.second ? frame.sample(a.o, n + 1, n + 1) : 0.f);
+  }
+  __device__ __forceinline__ float2 operator()(const At& a, int m) const {
+    if (!a.live) return make_float2(0.f, 0.f);
+    if (gin != nullptr) return point(a, __ldg(gin + m));
+    if (m >= P) return make_float2(0.f, 0.f);
+    return cmul(point(a, m), __ldg(chirp + m));
   }
 };
 
@@ -307,6 +375,162 @@ __device__ __forceinline__ float2* chirp_convolve(float2* a, float2* b,
   return mixed_fft<7>(Y, Y == a ? b : a, ctab, M, M, lg, ld, plan);
 }
 
+// Rader's cyclic convolution of a tile in shared memory (point q of frame f
+// at a[q * ld + f]: a_q = z[g^q], R = L - 1 points of a prime L): the
+// R-point transform, whose bin 0 goes to a0[f] (A_0), times Bt and
+// conjugated, the transform again; b is the other buffer.  Returns the
+// buffer holding W: X[g^-q] = z_0 + conj(W[q]) and X_0 = z_0 + A_0.
+template <int kW>
+__device__ __forceinline__ float2* rader_convolve(float2* a, float2* b,
+                                                  const float2* __restrict__ rtab,
+                                                  const float2* __restrict__ bt, float2* a0, int R,
+                                                  int lg, int ld, const MixedPlan& plan) {
+  float2* const Y = mixed_fft<kW>(a, b, rtab, R, R, lg, ld, plan);
+  for (int i = threadIdx.x; i < (R << lg); i += blockDim.x) {
+    const int k = i >> lg, f = i & ((1 << lg) - 1), j = k * ld + f;
+    if (k == 0) a0[f] = Y[j];
+    const float2 v = cmul(Y[j], __ldg(bt + k));
+    Y[j] = make_float2(v.x, -v.y);
+  }
+  __syncthreads();
+  return mixed_fft<kW>(Y, Y == a ? b : a, rtab, R, R, lg, ld, plan);
+}
+
+// The split route's row step: Q points a row, tiles of the largest power
+// of two up to 256 rows whose two buffers fit a quarter of a block's shared
+// memory (step_plan's rule past its 32: a block of 32 rows of few points
+// has little work), else one row up to the whole limit
+// (ops/spectrogram.py::split_row_plan).
+__host__ inline StepPlan split_row_step(int Q) {
+  StepPlan s = step_plan(Q);
+  for (int lg = 8; lg > 5; --lg) {
+    const long long bytes = 16LL * tile_elems(Q, 1 << lg);
+    if (bytes <= kBlockSmemLimit / 4) {
+      s.lg = lg;
+      s.smem = (int)bytes;
+      break;
+    }
+  }
+  return s;
+}
+
+// The split route's factors of a complex length L (ops/spectrogram.py::
+// split_plan): P its only prime factor above kMaxPrime, dividing L once;
+// Q = L / P >= 2 with a plan of at most kOneBlockPoints points; P's column
+// transform by Rader's convolution over P - 1 points where P - 1 has a
+// plan of at most kOneBlockPoints points (rader), else by the chirp-z
+// transform over a size M the launcher checks (chirp_size_takes(P, P, M),
+// M <= kOneBlockPoints).
+struct Split {
+  int P, Q;
+  bool rader, ok;
+};
+
+__host__ inline Split split_of(int L) {
+  Split s{0, 0, false, false};
+  int q = L, n_big = 0;
+  for (int d = 2; (long long)d * d <= q; ++d) {
+    while (q % d == 0) {
+      if (d > kMaxPrime) {
+        s.P = d;
+        ++n_big;
+      }
+      q /= d;
+    }
+  }
+  if (q > kMaxPrime) {
+    s.P = q;
+    ++n_big;
+  }
+  if (n_big != 1) return s;
+  s.Q = L / s.P;
+  s.rader = s.P - 1 <= kOneBlockPoints && mixed_plan_of(s.P - 1).n_pass > 0;
+  s.ok = s.Q >= 2 && s.Q <= kOneBlockPoints && mixed_plan_of(s.Q).n_pass > 0;
+  return s;
+}
+
+// The split route's column step: a block transforms a tile of 2^lg columns
+// of the chunk's n_cols (column c is column c mod per_frame() of the
+// chunk's frame c / per_frame(), so a tile spans frames where Q is small)
+// by Rader's convolution over M = P - 1 points (kRader) or the chirp-z
+// transform over M points (ftab e^{-2 pi i j / M}, bt FFT(b) / M), and
+// stores each column's outputs X[k1] as Y'[k1][n2] = X[k1] e^{-2 pi i n2 k1
+// / L} (twiddle: e^{-2 pi i j / tn}, L | tn)
+// at dst[f S + Q k1 + n2]: row k1 of the frame's rows.  A pair's two real
+// columns come apart as they are stored, X_a = (Z[k1] + conj(Z[P - k1])) / 2
+// and X_b = (Z[k1] - conj(Z[P - k1])) / 2i, and only rows k1 <= (P - 1) / 2
+// are kept (the rest are their mirrors' conjugates): S = ((P + 1) / 2) Q,
+// else S = L.
+template <int kW, bool kRader>
+__global__ void __launch_bounds__(kStepThreads)
+split_columns(Column col, float2* __restrict__ dst, const float2* __restrict__ ftab,
+              const float2* __restrict__ bt, const float2* __restrict__ twiddle, int tn, int M,
+              int lg, int n_cols, MixedPlan plan) {
+  extern __shared__ float4 smem4[];
+  const int ft = 1 << lg, ld = tile_ld(ft), P = col.P, Q = col.Q, L = P * Q;
+  const int H = col.pairs ? (P - 1) / 2 : P - 1;  // the last row kept
+  const long long S = (long long)(H + 1) * Q;     // points a frame of dst
+  float2* const z0 = reinterpret_cast<float2*>(smem4);  // Rader: [ft] each column's z_0
+  float2* const a0 = z0 + (kRader ? ft : 0);            // Rader: [ft] each column's A_0
+  float2* const buf_a = a0 + (kRader ? ft : 0);
+  float2* const buf_b = buf_a + tile_elems(M, ft);
+  const int c0 = blockIdx.x << lg;
+  {
+    // a thread's column is the same in every round: blockDim.x is a multiple of 2^lg
+    const int j = threadIdx.x & (ft - 1);
+    const Column::At at = col.locate(c0 + j, n_cols);
+    for (int i = threadIdx.x; i < (M << lg); i += blockDim.x)
+      buf_a[(i >> lg) * ld + j] = col(at, i >> lg);
+  }
+  if constexpr (kRader) {
+    for (int j = threadIdx.x; j < ft; j += blockDim.x) {
+      const Column::At at = col.locate(c0 + j, n_cols);
+      z0[j] = at.live ? col.point(at, 0) : make_float2(0.f, 0.f);
+    }
+  }
+  __syncthreads();
+  const float2* W;
+  if constexpr (kRader) {
+    W = rader_convolve<kW>(buf_a, buf_b, ftab, bt, a0, M, lg, ld, plan);
+  } else {
+    W = chirp_convolve(buf_a, buf_b, ftab, bt, M, lg, ld, plan);
+  }
+  // Z[k1] of column j from output q: Rader's X[g^-q] = z_0 + conj(W[q]) (q < M)
+  // and X_0 = z_0 + A_0 (q = M); the chirp-z transform's conj(W[q]) c_q, q < P
+  auto Z = [&](int q, int j) {
+    if constexpr (kRader) {
+      const float2 z = z0[j], w = q < M ? W[q * ld + j] : a0[j];
+      return make_float2(z.x + w.x, q < M ? z.y - w.y : z.y + w.y);
+    } else {
+      const float2 w = W[q * ld + j];
+      return cmul(make_float2(w.x, -w.y), __ldg(col.chirp + q));
+    }
+  };
+  const int step = tn / L, cq = col.per_frame();
+  for (int i = threadIdx.x; i < (P << lg); i += blockDim.x) {
+    const int q = i >> lg, j = i & (ft - 1), c = c0 + j;
+    // Rader's output q is bin g^-q, g^-q = gin[M - q]; its mirror P - g^-q
+    // is output q + M / 2 (g^(M/2) = -1)
+    const int k1 = kRader ? (q < M ? __ldg(col.gin + (q == 0 ? 0 : M - q)) : 0) : q;
+    if (c >= n_cols || k1 > H) continue;
+    const int f = c / cq, p = c - f * cq;
+    float2* const row = dst + f * S + (long long)Q * k1;
+    auto store = [&](int n2, float2 v) {
+      if (k1 > 0 && n2 > 0) v = cmul(v, __ldg(twiddle + step * n2 * k1));
+      row[n2] = v;
+    };
+    const float2 v = Z(q, j);
+    if (!col.pairs) {
+      store(p, v);
+      continue;
+    }
+    const int qm = kRader ? (q < M ? (q + M / 2) % M : M) : (k1 == 0 ? 0 : P - k1);
+    const float2 w = Z(qm, j);
+    store(2 * p, make_float2(0.5f * (v.x + w.x), 0.5f * (v.y - w.y)));
+    if (2 * p + 1 < Q) store(2 * p + 1, make_float2(0.5f * (v.y + w.y), 0.5f * (w.x - v.x)));
+  }
+}
+
 // Let `kernel` take `bytes` of dynamic shared memory on the current device;
 // `dev_set` and `smem_set` remember what was set last, per kernel.
 inline cudaError_t raise_smem_to(const void* kernel, int bytes, int& dev_set, int& smem_set) {
@@ -346,6 +570,22 @@ cudaError_t launch_rows(const float2* src, const Sink& snk, const float2* table,
   if ((long long)frames * n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   four_step_rows<kW><<<frames * n_tiles, kStepThreads, fs.row.smem, s>>>(
       src, snk, table, tn, fs.N, fs.N1, fs.N2, fs.row.lg, n_tiles, fs.row.plan);
+  return cudaGetLastError();
+}
+
+// The split route's column step over n_cols columns, 2^lg a block in smem
+// bytes (split_columns).
+template <int kW, bool kRader>
+cudaError_t launch_split_columns(const Column& col, float2* dst, const float2* ftab,
+                                 const float2* bt, const float2* twiddle, int tn, int M, int lg,
+                                 int smem, int n_cols, const MixedPlan& plan, cudaStream_t s) {
+  static int dev_set = -1, smem_set = 0;
+  const void* kernel = (const void*)split_columns<kW, kRader>;
+  const cudaError_t err = raise_smem_to(kernel, smem, dev_set, smem_set);
+  if (err != cudaSuccess) return err;
+  const int grid = (n_cols + (1 << lg) - 1) >> lg;
+  split_columns<kW, kRader><<<grid, kStepThreads, smem, s>>>(col, dst, ftab, bt, twiddle, tn, M,
+                                                             lg, n_cols, plan);
   return cudaGetLastError();
 }
 

@@ -102,6 +102,16 @@
 // samples are read out of order.  At 65,537/32,768 and 128 x 10 s each
 // chunk of 32 frames is five launches, the columns' gathers the largest.
 //
+// The split route (apt_spectrogram_power_split) takes a complex length L =
+// P Q whose chirp-z size passes kOneBlockPoints, P its one prime factor
+// above 31 (split_of: 9,999 = 101 x 99, 7,265 = 1,453 x 5): one
+// Cooley-Tukey step through the chunk buffers, P's transform in one block a
+// column (Rader's convolution over P - 1 points, or a chirp-z transform of
+// about 2P points) with the twiddle and Rader's output permutation applied
+// as the column is stored, then the rows' Q-point mixed-radix FFTs and the
+// power: three launches a chunk over L points, in place of the chirp-z
+// global route's five over 1.5L to 2L.
+//
 // The DFT route (apt_spectrogram_power_dft), which only comparisons force,
 // takes any n_fft up to 58,112 and hop >= 1: the TPU kernel's own
 // window-and-DFT product (dft.cuh), one block a tile of frames of one clip.
@@ -644,15 +654,7 @@ spectrogram_power_rader(const float* __restrict__ x, const float* __restrict__ w
   }
   for (int f = threadIdx.x; f < ft; f += blockDim.x) z0[f] = point(f, 0);
   __syncthreads();
-  float2* const Y = mixed_fft<kW>(buf_a, buf_b, rtab, R, R, lg, ld, plan);
-  for (int i = threadIdx.x; i < (R << lg); i += blockDim.x) {
-    const int k = i >> lg, f = i & (ft - 1), j = k * ld + f;
-    if (k == 0) a0[f] = Y[j];
-    const float2 v = cmul(Y[j], __ldg(bt + k));
-    Y[j] = make_float2(v.x, -v.y);
-  }
-  __syncthreads();
-  const float2* const W = mixed_fft<kW>(Y, Y == buf_a ? buf_b : buf_a, rtab, R, R, lg, ld, plan);
+  const float2* const W = rader_convolve<kW>(buf_a, buf_b, rtab, bt, a0, R, lg, ld, plan);
   for (int i = threadIdx.x; i < (F << lg); i += blockDim.x) {
     const int f = i & (ft - 1), k = i >> lg;
     if (t0 + f >= T) continue;
@@ -715,6 +717,32 @@ power_from_spectrum(const float2* __restrict__ Z, long long zs, const float2* __
       p = v.x * v.x + v.y * v.y;
     }
     tile[kk][f] = p;
+  }
+  __syncthreads();
+  store_power_tile(tile, out, T, F, g0, f0, k0, nf);
+}
+
+// The split route's power of an odd frame from its kept rows (Z: X[k1 + (H
+// + 1) k2] for k1 <= H = (P - 1) / 2, a frame every zs points): bin k = k1 +
+// P k2 reads its own row, or past H its mirror X[L - k] = conj(X[k]) at row
+// P - k1, column Q - 1 - k2 (the same power); then as power_from_spectrum.
+__global__ void __launch_bounds__(kThreads)
+power_from_half_rows(const float2* __restrict__ Z, long long zs, float* __restrict__ out, int T,
+                     int F, int P, int Q, long long g0, int nf, int n_btiles) {
+  __shared__ float tile[kEpiBins][kEpiFrames + 1];
+  const int f0 = (blockIdx.x / n_btiles) * kEpiFrames;
+  const int k0 = (blockIdx.x % n_btiles) * kEpiBins;
+  const int H = (P - 1) / 2;
+  for (int i = threadIdx.x; i < kEpiFrames * kEpiBins; i += blockDim.x) {
+    const int f = i / kEpiBins, kk = i - f * kEpiBins, k = k0 + kk;
+    if (f0 + f >= nf || k >= F) continue;
+    int k2 = k / P, k1 = k - k2 * P;
+    if (k1 > H) {
+      k1 = P - k1;
+      k2 = Q - 1 - k2;
+    }
+    const float2 v = Z[(f0 + f) * zs + k1 + (H + 1) * k2];
+    tile[kk][f] = v.x * v.x + v.y * v.y;
   }
   __syncthreads();
   store_power_tile(tile, out, T, F, g0, f0, k0, nf);
@@ -1028,6 +1056,96 @@ extern "C" int apt_spectrogram_power_rader_global(
     if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     power_from_rader<<<(int)grid, kThreads, 0, s>>>(Bf, R, qout, a0, frame, f2(twiddle), out, T,
                                                      F, L, even, g0, nf, n_btiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The split route: an n_fft whose complex length L (n_fft / 2 or n_fft)
+// splits as L = P Q (split_of; ops/spectrogram.py::split_plan).  The Q
+// columns of P points of each frame (an odd frame's real columns two as one
+// complex column) go through Rader's convolution over M = P - 1 points
+// (gin: M ints g^m mod P; chirp null) or the chirp-z transform over M points
+// (chirp: P pairs c_j; gin null; chirp_size_takes(P, P, M), M <=
+// kOneBlockPoints), bt and ftab M pairs FFT(b) / M and e^{-2 pi i j / M}
+// (ops/spectrogram.py::split_tables), col_tile columns a block in col_smem
+// bytes (ops/spectrogram.py::split_column_plan: two tile buffers of M
+// points, and 16 bytes a column for Rader), each column's outputs times the
+// twiddle e^{-2 pi i n2 k1 / L} from `twiddle`; then the rows' Q-point
+// transforms (P rows, or an odd frame's (P + 1) / 2), then the power.  scratch:
+// scratch_bytes of device memory, at least two chunk buffers of S points a
+// frame of chunk_frames(S, B T), S = L, or ((P + 1) / 2) Q for an odd
+// n_fft (ops/spectrogram.py::split_scratch_bytes).  Three launches a chunk.
+extern "C" int apt_spectrogram_power_split(const float* x, const float* window,
+                                           const float* twiddle, const int* gin,
+                                           const float* chirp, const float* bt, const float* ftab,
+                                           float* out, int B, int N, int T, int n_fft, int hop,
+                                           int pad, int M, int col_tile, int col_smem,
+                                           float* scratch, long long scratch_bytes,
+                                           void* stream) {
+  const bool even = n_fft % 2 == 0;
+  const int L = even ? n_fft / 2 : n_fft;
+  if (n_fft < 1 || hop < 1 || B <= 0 || T <= 0 || N < 0 || pad < 0 || scratch == nullptr ||
+      bt == nullptr || ftab == nullptr || !pow2_tile(col_tile))
+    return (int)cudaErrorInvalidValue;
+  const Split sp = split_of(L);
+  if (!sp.ok || (sp.rader ? gin == nullptr || M != sp.P - 1
+                          : chirp == nullptr || M > kOneBlockPoints ||
+                                !chirp_size_takes(sp.P, sp.P, M)))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = 16LL * tile_elems(M, col_tile) + (sp.rader ? 16LL * col_tile : 0);
+  const int rows = even ? sp.P : (sp.P + 1) / 2;  // the rows kept
+  FourStep fs;
+  fs.N = rows * sp.Q;  // a frame's points in the chunk buffers
+  fs.N1 = rows;
+  fs.N2 = sp.Q;
+  fs.row = split_row_step(sp.Q);
+  const long long frames = (long long)B * T;
+  const long long chunk = chunk_frames(fs.N, frames);
+  if (smem != col_smem || smem > kSmemLimit || fs.row.lg < 0 ||
+      16LL * fs.N * chunk > scratch_bytes)
+    return (int)cudaErrorInvalidValue;
+  const MixedPlan cplan = mixed_plan_of(M);
+  int lg = 0;
+  while ((1 << lg) < col_tile) ++lg;
+  auto f2 = [](const float* p) { return reinterpret_cast<const float2*>(p); };
+  float2* const A = reinterpret_cast<float2*>(scratch);
+  float2* const Bf = A + chunk * fs.N;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int F = n_fft / 2 + 1, n_btiles = (F + kEpiBins - 1) / kEpiBins;
+  for (long long g0 = 0; g0 < frames; g0 += chunk) {
+    const int nf = (int)(frames - g0 < chunk ? frames - g0 : chunk);
+    const Source frame{even ? Source::kEvenFrame : Source::kOddFrame, x, N, g0, T, hop, pad,
+                       window, nullptr, 0, nullptr, L};
+    const Column col{frame, sp.P, sp.Q, !even, sp.rader ? gin : nullptr,
+                     sp.rader ? nullptr : f2(chirp)};
+    const int n_cols = nf * (even ? sp.Q : (sp.Q + 1) / 2);
+    cudaError_t err;
+    if (sp.rader) {
+      err = by_width(cplan, [&](auto w) {
+        return launch_split_columns<decltype(w)::value, true>(
+            col, A, f2(ftab), f2(bt), f2(twiddle), n_fft, M, lg, (int)smem, n_cols, cplan, s);
+      });
+    } else {
+      err = launch_split_columns<7, false>(col, A, f2(ftab), f2(bt), f2(twiddle), n_fft, M, lg,
+                                           (int)smem, n_cols, cplan, s);
+    }
+    if (err != cudaSuccess) return (int)err;
+    const Sink snk{Sink::kPlain, Bf, fs.N, nullptr, nullptr, fs.N};
+    err = by_width(fs.row.plan, [&](auto w) {
+      return launch_rows<decltype(w)::value>(A, snk, f2(twiddle), n_fft, fs, nf, s);
+    });
+    if (err != cudaSuccess) return (int)err;
+    const long long grid = (long long)((nf + kEpiFrames - 1) / kEpiFrames) * n_btiles;
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (even) {
+      power_from_spectrum<<<(int)grid, kThreads, 0, s>>>(Bf, L, f2(twiddle), out, T, F, L, true,
+                                                          g0, nf, n_btiles);
+    } else {
+      power_from_half_rows<<<(int)grid, kThreads, 0, s>>>(Bf, fs.N, out, T, F, sp.P, sp.Q, g0, nf,
+                                                           n_btiles);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

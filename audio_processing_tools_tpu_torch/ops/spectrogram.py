@@ -20,7 +20,10 @@ one block the global Rader route, both transforms four-step FFTs), else
 by the chirp-z transform over a 7-smooth size (:func:`chirp_size`); and
 past :data:`ONE_BLOCK_POINTS` points either
 transform as a four-step FFT through device memory (the global route,
-``csrc/four_step.cuh``).  Every n_fft >= 1 and hop >= 1 takes one.  The
+``csrc/four_step.cuh``), except where L = P Q splits at its one prime
+factor P above 31 (the split route, :func:`split_plan`: P's transform by
+Rader or the chirp-z transform in one block a column, then the rows' mixed
+FFTs of Q points).  Every n_fft >= 1 and hop >= 1 takes one.  The
 direct DFT (the TPU kernel's window-and-DFT product, ``csrc/dft.cuh``) is
 a route only comparisons force.
 """
@@ -278,14 +281,8 @@ def rader_launch_plan(L: int) -> Optional[LaunchPlan]:
 
 
 @functools.lru_cache(maxsize=8)
-def rader_tables(n_fft: int):
-    """The Rader route's host tables for an n_fft whose complex length L is a
-    prime (:func:`rader_launch_plan`), g the smallest primitive root mod L:
-    ``(gin, qout)`` int32, gin[q] = g^q mod L (q < L - 1) and qout[k] = q
-    with g^-q = k mod L (qout[0] = 0, unused); and ``(bt, rtab)`` float32
-    (re, im) pairs, built in float64: Bt = FFT(b) / (L - 1) of b_q =
-    e^{-2 pi i g^-q / L}, and e^{-2 pi i j / (L - 1)}."""
-    L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+def _rader_tables_of(L: int):
+    """Rader's host tables for a prime L (:func:`rader_tables`)."""
     R = L - 1
     factors = {d for d in range(2, R + 1) if R % d == 0 and _is_prime(d)}
     g = next(g for g in range(2, L) if all(pow(g, R // f, L) != 1 for f in factors))
@@ -295,12 +292,23 @@ def rader_tables(n_fft: int):
     b = np.exp(-2j * np.pi * gin[(-np.arange(R)) % R].astype(np.float64) / L)
     bt = np.fft.fft(b) / R
     ang = -2.0 * np.pi * np.arange(R, dtype=np.float64) / R
-
-    def pairs(z):
-        return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
-
     return ((gin.astype(np.int32), qout.astype(np.int32)),
-            (pairs(bt), pairs(np.cos(ang) + 1j * np.sin(ang))))
+            (_pairs(bt), _pairs(np.cos(ang) + 1j * np.sin(ang))))
+
+
+def _pairs(z) -> np.ndarray:
+    """Complex values as float32 (re, im) pairs."""
+    return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
+
+
+def rader_tables(n_fft: int):
+    """The Rader route's host tables for an n_fft whose complex length L is a
+    prime (:func:`rader_launch_plan`), g the smallest primitive root mod L:
+    ``(gin, qout)`` int32, gin[q] = g^q mod L (q < L - 1) and qout[k] = q
+    with g^-q = k mod L (qout[0] = 0, unused); and ``(bt, rtab)`` float32
+    (re, im) pairs, built in float64: Bt = FFT(b) / (L - 1) of b_q =
+    e^{-2 pi i g^-q / L}, and e^{-2 pi i j / (L - 1)}."""
+    return _rader_tables_of(n_fft // 2 if n_fft % 2 == 0 else n_fft)
 
 
 def rader_global_takes(L: int) -> bool:
@@ -353,10 +361,14 @@ def k1_route(n_fft: int, hop: int) -> str:
       convolution through device memory, :func:`rader_global_takes`);
     * ``"chirpz"``: N = :func:`chirp_size` of L (L has a prime factor above
       :data:`MIXED_MAX_PRIME`; the chirp-z transform, :func:`tile_plan` of N);
+    * ``"split"``: such an N above :data:`ONE_BLOCK_POINTS` where L = P Q
+      splits (:func:`split_plan`: P's transform by Rader or the chirp-z
+      transform in one block a column, then the rows' mixed-radix FFTs of Q
+      points, through device memory);
     * ``"global"``: N above :data:`ONE_BLOCK_POINTS`, whatever the kind (the
       four-step FFT through device memory, :func:`four_step_plan` of N).
 
-    Each of the last six takes any hop.  Raises ``ValueError`` only for
+    Each of the last seven takes any hop.  Raises ``ValueError`` only for
     ``n_fft`` or ``hop`` below 1 (and past :func:`chirp_size`'s reach).
     The direct DFT is a route only comparisons force."""
     if n_fft < 1 or hop < 1:
@@ -368,6 +380,8 @@ def k1_route(n_fft: int, hop: int) -> str:
         return "rader"
     if N != L and rader_global_takes(L):
         return "rader_global"
+    if N != L and N > ONE_BLOCK_POINTS and split_plan(L) is not None:
+        return "split"
     if N > ONE_BLOCK_POINTS:
         return "global"
     if N != L:
@@ -441,6 +455,12 @@ def chirpz_tables(n_fft: int, M: Optional[int] = None):
     M = chirp_size(L, K) if M is None else M
     if M < max(2, L + K - 1):
         raise ValueError(f"a chirp-z size of {M} wraps the lags of n_fft {n_fft}")
+    return _chirp_tables_of(L, K, M)
+
+
+def _chirp_tables_of(L: int, K: int, M: int):
+    """The chirp-z tables of a complex length L, K bins, M points
+    (:func:`chirpz_tables`)."""
     j = np.arange(L, dtype=np.int64)
     c = np.exp(-1j * np.pi * ((j * j) % (2 * L)).astype(np.float64) / L)
     b = np.zeros(M, np.complex128)
@@ -448,15 +468,122 @@ def chirpz_tables(n_fft: int, M: Optional[int] = None):
     b[M - j[1:]] = np.conj(c[1:])
     bt = np.fft.fft(b) / M
     ang = -2.0 * np.pi * np.arange(M, dtype=np.float64) / M
+    return _pairs(c), _pairs(bt), _pairs(np.cos(ang) + 1j * np.sin(ang))
 
-    def pairs(z):
-        return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
 
-    return pairs(c), pairs(bt), pairs(np.cos(ang) + 1j * np.sin(ang))
+class SplitPlan(NamedTuple):
+    P: int  # the prime factor above MIXED_MAX_PRIME: a column's points
+    Q: int  # L / P: the columns of a frame, a row's points
+    kind: str  # the column transform: "rader" (over P - 1 points) or "chirpz"
+    M: int  # the column transform's points: P - 1, or chirp_size(P)
+    col: LaunchPlan  # columns a block
+    row: LaunchPlan  # rows a block
+
+
+def split_column_plan(kind: str, M: int) -> Optional[LaunchPlan]:
+    """The split route's column tile for an M-point column transform
+    (``apt_spectrogram_power_split``, which takes any tile whose block
+    fits): two tile buffers of M points, and for Rader each column's z_0
+    and A_0 (16 bytes); the largest power of two up to
+    :data:`MIXED_MAX_TILE` columns whose block fits an eighth of
+    :data:`SMEM_LIMIT` (eight blocks an SM), but two where that is one and
+    two fit a third (three blocks an SM), else one up to the whole limit;
+    ``None`` where one column does not fit.  At 9,999/4,999 (M = 100) 16
+    columns took 0.8674 ms against 0.9160 with 32; at 7,005/3,502 (M = 960)
+    two 0.9954 against 1.1641 with one (H100 80GB HBM3, 700 W,
+    ``tools/time_chirp_sizes.py --split``)."""
+    extra = 16 if kind == "rader" else 0
+
+    def smem(ft):
+        return 16 * tile_elems(M, ft) + extra * ft
+
+    ft = next((ft for ft in (32, 16, 8, 4, 2, 1) if smem(ft) <= SMEM_LIMIT // 8), 1)
+    if ft == 1 and smem(2) <= SMEM_LIMIT // 3:
+        ft = 2
+    return LaunchPlan(ft, smem(ft)) if smem(ft) <= SMEM_LIMIT else None
+
+
+def split_row_plan(Q: int) -> LaunchPlan:
+    """The split route's row tile (``split_row_step`` of
+    ``csrc/four_step.cuh``): :func:`tile_plan`'s rule with up to 256 rows
+    of Q points a block in place of 32 (a block of 32 rows of few points has
+    little work: at 14,530/7,265, Q = 5, the rows took 0.1286 ms a call with
+    256 rows a block against 0.3362 with 32; H100 80GB HBM3, 700 W,
+    ``tools/time_chirp_sizes.py --split``)."""
+    for ft in (256, 128, 64):
+        if 16 * tile_elems(Q, ft) <= SMEM_LIMIT // 4:
+            return LaunchPlan(ft, 16 * tile_elems(Q, ft))
+    return tile_plan(Q)
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(L: int) -> Optional[SplitPlan]:
+    """The split route's plan for a complex length L (``split_of`` of
+    ``csrc/four_step.cuh``): L = P Q with P its only prime factor above
+    :data:`MIXED_MAX_PRIME`, dividing L once; Q >= 2 with a plan
+    (:func:`mixed_radices`) of at most :data:`ONE_BLOCK_POINTS` points; P's
+    transform in one block, by Rader's convolution over P - 1 points where
+    P - 1 has a plan of at most :data:`ONE_BLOCK_POINTS` points, else by
+    the chirp-z transform over :func:`chirp_size` of P points, where that
+    is at most :data:`ONE_BLOCK_POINTS`.  ``None`` where L does not split
+    so (two primes above 31, P squared, L prime, P too large)."""
+    q, big = L, []
+    for d in range(2, math.isqrt(L) + 1):
+        while q % d == 0:
+            big.append(d)
+            q //= d
+    big = [p for p in big + ([q] if q > 1 else []) if p > MIXED_MAX_PRIME]
+    if len(big) != 1:
+        return None
+    P = big[0]
+    Q = L // P
+    if Q < 2 or Q > ONE_BLOCK_POINTS or mixed_radices(Q) is None:
+        return None
+    if P - 1 <= ONE_BLOCK_POINTS and mixed_radices(P - 1) is not None:
+        kind, M = "rader", P - 1
+    else:
+        kind, M = "chirpz", chirp_size(P)
+        if M > ONE_BLOCK_POINTS:
+            return None
+    col, row = split_column_plan(kind, M), split_row_plan(Q)
+    if col is None or row is None:
+        return None
+    return SplitPlan(P, Q, kind, M, col, row)
+
+
+@functools.lru_cache(maxsize=8)
+def split_tables(n_fft: int):
+    """The split route's host tables for its factor P (:func:`split_plan` of
+    n_fft's complex length), float64 rounded to float32: for Rader ``(gin,
+    bt, rtab)`` of :func:`rader_tables` for the prime P (gin int32); for the
+    chirp-z transform ``(chirp, bt, ctab)`` of :func:`chirpz_tables` for a
+    complex length P, all P bins, over the plan's M points."""
+    plan = split_plan(n_fft // 2 if n_fft % 2 == 0 else n_fft)
+    if plan.kind == "rader":
+        (gin, _), (bt, rtab) = _rader_tables_of(plan.P)
+        return gin, bt, rtab
+    return _chirp_tables_of(plan.P, plan.P, plan.M)
+
+
+def split_frame_points(n_fft: int) -> int:
+    """Points a frame of the split route's chunk buffers: L, or for an odd
+    n_fft (a real frame, whose rows past (P - 1) / 2 are their mirrors'
+    conjugates) the (P + 1) / 2 rows of Q points it keeps."""
+    L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    plan = split_plan(L)
+    return L if n_fft % 2 == 0 else (plan.P + 1) // 2 * plan.Q
+
+
+def split_scratch_bytes(n_fft: int, frames: int) -> int:
+    """Bytes of the split route's scratch: two chunk buffers of
+    :func:`split_frame_points` a frame, :func:`chunk_frames` of them."""
+    S = split_frame_points(n_fft)
+    return 16 * S * chunk_frames(S, frames)
 
 
 #: the routes :func:`_spectrogram_power_cuda` takes by name
-K1_ROUTES = ("fft", "mixed", "mixed_odd", "rader", "rader_global", "chirpz", "global", "dft")
+K1_ROUTES = ("fft", "mixed", "mixed_odd", "rader", "rader_global", "chirpz", "split", "global",
+             "dft")
 
 
 def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool, window: str,
@@ -492,6 +619,7 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
         "rader": lambda: rader_launch_plan(L) is not None,
         "rader_global": lambda: rader_global_takes(L) and (not half or n_fft % 2 == 1),
         "chirpz": lambda: (N if chirp_n else chirp_size(L, chirp_bins(n_fft))) <= ONE_BLOCK_POINTS,
+        "split": lambda: split_plan(L) is not None,
         "global": lambda: four_step_plan(N) is not None,
         "dft": lambda: n_fft <= DFT_MAX_N_FFT,
     }[route]
@@ -541,6 +669,23 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
                 err = lib.lib.apt_spectrogram_power_rader_global(
                     *args, *rader, rwin.data_ptr(), out.data_ptr(), *geo, int(half),
                     scratch.data_ptr(), nbytes, stream)
+        elif route == "split":
+            sp = split_plan(L)
+            tabs = device_constant(("split_tables", n_fft, sp.P), x.device,
+                                   lambda: split_tables(n_fft)[1:])
+            gin = chirp = None
+            if sp.kind == "rader":
+                gin = device_constant(("split_gin", n_fft, sp.P), x.device,
+                                      lambda: split_tables(n_fft)[0], torch.int32)
+            else:
+                chirp = device_constant(("split_chirp", n_fft, sp.P), x.device,
+                                        lambda: split_tables(n_fft)[0])
+            nbytes = split_scratch_bytes(n_fft, xb.shape[0] * T)
+            scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
+            err = lib.lib.apt_spectrogram_power_split(
+                *args, *(None if t is None else t.data_ptr() for t in (gin, chirp, *tabs)),
+                out.data_ptr(), *geo, sp.M, sp.col.frame_tile, sp.col.smem_bytes,
+                scratch.data_ptr(), nbytes, stream)
         elif route == "chirpz":
             plan = chirpz_launch_plan(ctab.shape[0])
             err = lib.lib.apt_spectrogram_power_chirpz(

@@ -1016,7 +1016,8 @@ def main() -> int:
     paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"],
              **surface["launches"], "configurations the JAX package runs (phase 44)": geo["launches"],
              "the mixed-radix FFT and F7 (phase 45)": mixed["launches"],
-             "the odd mixed, Rader, chirp-z and global routes (phase 46)": chirpz["launches"]}
+             "the odd mixed, Rader, chirp-z, split and global routes (phase 46)":
+                 chirpz["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
@@ -3955,12 +3956,16 @@ def mixed_fft_phases(smi: str, x) -> dict:
           f"designs against scipy float64; {seconds:.1f} s")
     return {"launches": launches, "routes": routes, "seconds": seconds, "fold_256": fold}
 
-# phase 46: K1's odd mixed, Rader, global Rader, chirp-z and global routes;
-# K8's chirp-z and global passes and its walk past 4,096 band bins
+# phase 46: K1's odd mixed, Rader, global Rader, chirp-z, split and global
+# routes; K8's chirp-z and global passes and its walk past 4,096 band bins.
+# The split route's L = P Q: 9,999 = 101 x 99 and 7,265 = 1,453 x 5 (P by
+# Rader), 7,005 = 467 x 15 (P by a chirp-z transform over 960 points)
 CHIRP_K1 = {(385, 192): "mixed_odd", (296, 148): "chirpz", (1009, 504): "rader",
             (1031, 515): "chirpz", (2062, 1031): "chirpz", (16384, 8192): "global",
             (32768, 16384): "global", (60000, 30000): "global",
-            (65537, 32768): "rader_global", (12289, 6144): "rader_global"}
+            (65537, 32768): "rader_global", (12289, 6144): "rader_global",
+            (9999, 4999): "split", (14530, 7265): "split", (7005, 3502): "split",
+            (14010, 7005): "split"}
 WIDE_BAND = {"operating_band": (20.0, 5500.0)}
 CHIRP_K8 = {
     "296/148": ({"n_fft": 296, "hop": 148}, "chirpz"),
@@ -3978,14 +3983,15 @@ CHIRP_K8_FORCED = ("chirpz", "global")
 
 
 def chirpz_global_phases(smi: str, x) -> dict:
-    """Phase 46: K1's odd mixed, Rader, global Rader, chirp-z and global
-    routes at 128 x 10 s, each within 1e-5 of ``stft_power``'s maximum and,
+    """Phase 46: K1's odd mixed, Rader, global Rader, chirp-z, split and
+    global routes at 128 x 10 s, each within 1e-5 of ``stft_power``'s maximum and,
     beyond the forced DFT route's own drift, of the DFT's where that takes
     the size, and timed in turns against both and against the routes it
     replaced, forced (the chirp-z route beside Rader's; the chirp-z global
     route, over this size and the unpruned one, beside the global Rader
     route, and its first transform over all L - 1 points beside the packed
-    pairs; the unpruned chirp-z size beside an odd n_fft's pruned one);
+    pairs; the chirp-z global route beside the split route; the unpruned
+    chirp-z size beside an odd n_fft's pruned one);
     K8's chirp-z and global frame passes
     and its walk past 4,096 band bins against the plain loop (gain and
     carries bit for bit, y within 1e-4 of its maximum) and chunk invariant;
@@ -4024,6 +4030,8 @@ def chirpz_global_phases(smi: str, x) -> dict:
         forced = {}
         if route == "rader":
             forced["chirpz"] = ("chirpz", {})
+        if route == "split":
+            forced["global"] = ("global", {})
         if route == "rader_global":
             forced["global"] = ("global", {})
             forced[f"global over {full_n}"] = ("global", {"chirp_n": full_n})
@@ -4072,8 +4080,11 @@ def chirpz_global_phases(smi: str, x) -> dict:
                                   reps=3 if k == "dft" else 7))
         ms = {k: float(np.mean(v)) for k, v in ms.items()}
         b_ms, b_by = bound_of(*k1_work(x, n_fft, hop))
-        # the complex length and the transform's points (Rader's: L - 1)
-        shape = (L, L - 1) if route.startswith("rader") else tspec.fft_shape(n_fft)
+        # the complex length and the transform's points (Rader's: L - 1; the
+        # split route's: L, as P x Q)
+        sp = tspec.split_plan(L) if route == "split" else None
+        shape = ((L, L - 1) if route.startswith("rader") else (L, L) if sp
+                 else tspec.fft_shape(n_fft))
         routes["spectrogram_power"].append(
             {"route": route, "geometry": f"{n_fft}/{hop} {tuple(x.shape)}", "launches": n,
              "ms": ms[route], "max_abs_err": d, "max_rel": d / top, "dft_ms": ms.get("dft"),
@@ -4081,9 +4092,11 @@ def chirpz_global_phases(smi: str, x) -> dict:
              "forced_ms": {k: ms[k] for k in forced},
              "dft_rel": r_dft, "dft_ref_rel": r_ref if "dft" in calls else None,
              "library_ms": ms["stft_power"], "plain_ms": ms["stft_power"],
-             "bound_ms": b_ms, "bound_by": b_by, "transform": list(shape)})
+             "bound_ms": b_ms, "bound_by": b_by, "transform": list(shape),
+             **({"split": {"P": sp.P, "Q": sp.Q, "kind": sp.kind, "M": sp.M}} if sp else {})})
         print(f"  K1 {n_fft}/{hop} {tuple(x.shape)}, route {route} (L, N = "
-              f"{shape}), in turns: {ms[route]:.4f} ms, stft_power "
+              f"{shape}" + (f"; {sp.P} x {sp.Q}, P by {sp.kind} over {sp.M}" if sp else "")
+              + f"), in turns: {ms[route]:.4f} ms, stft_power "
               f"{ms['stft_power']:.4f}"
               + (f", DFT {ms['dft']:.4f}" if "dft" in ms and xd is x else "")
               + (f"; on 8 clips {ms['route_8']:.4f}, DFT {ms['dft']:.4f}" if "route_8" in ms
@@ -4179,7 +4192,7 @@ def chirpz_global_phases(smi: str, x) -> dict:
           f"{mixed_ms:.4f} ms host-launched (n = 20)")
 
     seconds = time.perf_counter() - t_phase
-    print(f"phase 46 the odd mixed, Rader, chirp-z and global routes on {smi}: K1 at "
+    print(f"phase 46 the odd mixed, Rader, chirp-z, split and global routes on {smi}: K1 at "
           f"{len(CHIRP_K1)} "
           f"geometries within 1e-5 of stft_power (and of the DFT beyond its drift), timed in "
           f"turns; K8 at "

@@ -167,6 +167,71 @@ def rader_global_model(z, n_fft, half):
     return X
 
 
+def split_model(z, n_fft):
+    """The split route on each row of z (frames, L), L = P Q
+    (``split_plan``), with the host's float32 tables: column n2 (n = Q n1 +
+    n2), its P-point transform by Rader's convolution over P - 1 points or
+    the chirp-z transform over M points (an odd frame's real columns two as
+    one complex column, parted after the transform: X_a = (Z[k] + conj(Z[P - k])) / 2,
+    X_b = (Z[k] - conj(Z[P - k])) / 2i; only its rows k1 <= (P - 1) / 2
+    kept, the rest their mirrors' conjugates), X[k1] times the twiddle
+    e^{-2 pi i n2 k1 / L} of the n_fft table, then the rows' Q-point
+    transforms: X[k1 + P k2]."""
+    F_, L = z.shape
+    plan = tspec.split_plan(L)
+    P, Q, M = plan.P, plan.Q, plan.M
+    pairs = n_fft % 2 == 1
+    n1, n2 = np.arange(P)[:, None], np.arange(Q)[None, :]
+    cols = z[:, Q * n1 + n2].transpose(0, 2, 1)  # (frames, Q, P)
+    if pairs:  # columns 2p + i (2p + 1), the last alone where Q is odd
+        cols = np.concatenate([cols, np.zeros_like(cols[:, :1])], axis=1)[:, : Q + Q % 2]
+        cols = (cols[:, 0::2].real + 1j * cols[:, 1::2].real).astype(np.complex64)
+    cq = cols.shape[1]
+    cols = cols.reshape(-1, P)
+    tabs = tspec.split_tables(n_fft)
+    if plan.kind == "rader":
+        gin, bt, ftab = tabs[0].astype(np.int64), _pairs(tabs[1]), _pairs(tabs[2])
+        A = mixed_fft_model(cols[:, gin].astype(np.complex64), M, ftab, M)
+        W = mixed_fft_model(np.conj(A * bt).astype(np.complex64), M, ftab, M)
+        Y = np.empty_like(cols)
+        Y[:, gin[(-np.arange(M)) % M]] = cols[:, :1] + np.conj(W)  # X[g^-q]
+        Y[:, 0] = cols[:, 0] + A[:, 0]
+    else:
+        c, bt, ftab = (_pairs(t) for t in tabs)
+        a = np.zeros((cols.shape[0], M), np.complex64)
+        a[:, :P] = cols * c
+        W = chirpz_convolve_model(a, bt, ftab)
+        Y = (np.conj(W[:, :P]) * c).astype(np.complex64)
+    Y = Y.reshape(F_, cq, P)  # Y[f, column, k1]
+    rows = P
+    if pairs:
+        Ym = np.conj(Y[:, :, (-np.arange(P)) % P])  # conj(Z[P - k1])
+        h = np.float32(0.5)
+        ya = h * (Y.real + Ym.real) + 1j * (h * (Y.imag + Ym.imag))
+        yb = h * (Y.imag - Ym.imag) + 1j * (h * (Ym.real - Y.real))
+        Y = np.stack([ya, yb], axis=2).reshape(F_, 2 * cq, P)[:, :Q].astype(np.complex64)
+        rows = (P + 1) // 2
+        Y = Y[:, :, :rows]
+    k1 = np.arange(rows)[None, :]
+    tw = _table(n_fft)[(n_fft // L) * n2.T * k1]
+    Y = np.where((n2.T * k1 > 0)[None], Y * tw[None], Y).astype(np.complex64)
+    R = Y.transpose(0, 2, 1).reshape(-1, Q)
+    X = mixed_fft_model(R, Q, _table(n_fft), n_fft).reshape(F_, rows, Q)  # X[f, k1, k2]
+    k = np.arange(L)
+    kk1, kk2 = k % P, k // P
+    mirror = kk1 >= rows  # X[k] = conj(X[L - k]), row P - k1, column Q - 1 - k2
+    out = X[:, np.where(mirror, P - kk1, kk1), np.where(mirror, Q - 1 - kk2, kk2)]
+    return np.where(mirror[None], np.conj(out), out).astype(np.complex64)
+
+
+def chirpz_convolve_model(a, bt, ctab):
+    """``chirp_convolve``: the M-point transform, conj(. Bt), the transform
+    again; conj(W[k]) c_k is X[k]."""
+    M = ctab.shape[0]
+    Y = np.conj(mixed_fft_model(a, M, ctab, M) * bt).astype(np.complex64)
+    return mixed_fft_model(Y, M, ctab, M)
+
+
 def spectrum_model(frames, n_fft, half=None):
     """X[k], k <= n_fft / 2, of windowed frames (frames, n_fft) float32 as
     K1's route for n_fft forms it: the complex input (packed pairs for an
@@ -183,6 +248,8 @@ def spectrum_model(frames, n_fft, half=None):
         Z = rader_model(z, n_fft)
     elif route == "rader_global":
         Z = rader_global_model(z, n_fft, not even if half is None else half)
+    elif route == "split":
+        Z = split_model(z, n_fft)
     else:
         Z = chirpz_model(z, n_fft)
     if not even:
@@ -199,13 +266,16 @@ def spectrum_model(frames, n_fft, half=None):
 # = 2^4 3^2 7) and even (2,018), chirp-z odd (1,031 prime, 1,030 = 2 5 103;
 # 1,111 = 11 101; 2,183 = 37 59: pruned to L + F - 1 points) and even (296:
 # L = 4 x 37; 2,062: L = 1,031), global even mixed (16,384), global odd
-# mixed (9,075 = 3 5^2 11^2), global chirp-z even (14,530: L = 5 x 1,453)
-# and odd (9,999 = 3^2 11 101, pruned), global Rader odd (7,681: 7,680 =
-# 2^9 3 5; 12,289: 12,288 = 2^12 3; 65,537: 2^16) and even (15,362: L =
-# 7,681)
+# mixed (9,075 = 3 5^2 11^2), global chirp-z odd (7,013 prime, 7,012 = 2^2
+# 1,753; 7,003 = 47 149: two primes above 31) and even (14,026: L = 7,013),
+# split with P by Rader even (14,530: L = 1,453 x 5) and odd (9,999 = 101
+# x 99) and by a chirp-z transform even (14,010: L = 467 x 15) and odd
+# (7,005), global Rader odd (7,681: 7,680 = 2^9 3 5; 12,289: 12,288 = 2^12
+# 3; 65,537: 2^16) and even (15,362: L = 7,681)
 MODEL_SIZES = {385: "mixed_odd", 1009: "rader", 2018: "rader", 1031: "chirpz", 1111: "chirpz",
                2183: "chirpz", 296: "chirpz", 2062: "chirpz", 16384: "global", 9075: "global",
-               14530: "global", 9999: "global", 7681: "rader_global", 12289: "rader_global",
+               7013: "global", 7003: "global", 14026: "global", 14530: "split", 9999: "split", 14010: "split",
+               7005: "split", 7681: "rader_global", 12289: "rader_global",
                15362: "rader_global", 65537: "rader_global"}
 
 
@@ -238,6 +308,55 @@ def test_rader_global_full_first_transform_matches_numpy_rfft(n, half):
     ref = np.fft.rfft(frames.astype(np.float64), axis=-1)
     for f in range(3):
         assert np.abs(got[f] - ref[f]).max() <= 1e-6 * np.abs(ref[f]).max(), f
+
+
+@pytest.mark.parametrize("L, want", [
+    (9999, (101, 99, "rader", 100)), (7265, (1453, 5, "rader", 1452)),
+    (7005, (467, 15, "chirpz", 960)), (2 * 37 * 37, None), (7003, None), (7013, None),
+    (2 * 7013, None), (2 * 7681, None), (3 * 1031, (1031, 3, "chirpz", 2240)),
+    (31 * 29, None), (19998, (101, 198, "rader", 100))])
+def test_split_plan(L, want):
+    """L = P Q with P the one prime above 31, dividing L once, and Q with a
+    plan: P by Rader where P - 1 has a plan, else by the one-block chirp-z
+    transform over ``chirp_size(P)``; none for P squared (2 x 37^2), two
+    primes above 31 (7,003 = 47 x 149), a prime L (7,013), P too large for
+    one block (2 x 7,013: no Rader plan, a chirp-z size past 7,264; 2 x
+    7,681: 7,680 past 7,264) or no prime above 31 (29 x 31); an even L by
+    Rader (19,998 = 101 x 198)."""
+    plan = tspec.split_plan(L)
+    assert (None if plan is None else plan[:4]) == want
+    if plan is None:
+        return
+    assert plan.P * plan.Q == L and plan.M == (plan.P - 1 if plan.kind == "rader"
+                                                else tspec.chirp_size(plan.P))
+    extra = 16 * plan.col.frame_tile if plan.kind == "rader" else 0
+    assert plan.col.smem_bytes == 16 * tspec.tile_elems(plan.M, plan.col.frame_tile) + extra
+    assert plan.row == tspec.split_row_plan(plan.Q)
+    tabs = tspec.split_tables(L if L % 2 else 2 * L)
+    assert [t.shape[0] for t in tabs] == ([plan.M] * 3 if plan.kind == "rader"
+                                          else [plan.P, plan.M, plan.M])
+
+
+@pytest.mark.parametrize("n_fft, hop, route", [
+    (9999, 4999, "split"), (14530, 7265, "split"), (7005, 3502, "split"), (14010, 7005, "split"),
+    (7013, 3506, "global"), (7003, 3501, "global"), (296, 148, "chirpz"), (1111, 555, "chirpz"),
+    (6186, 3093, "chirpz")])
+def test_k1_route_takes_split(n_fft, hop, route):
+    """A complex length whose chirp-z size passes one block and that splits
+    takes the split route; one that does not split keeps the chirp-z global
+    route; a chirp-z size within one block keeps the chirp-z route, whether
+    or not L splits (296: 4 x 37; 6,186: L = 3 x 1,031); the split route's
+    scratch holds two chunk buffers of a frame's kept points (an odd
+    frame's (P + 1) / 2 rows)."""
+    assert tspec.k1_route(n_fft, hop) == route
+    L, N = tspec.fft_shape(n_fft)
+    assert N != L
+    if route != "split":
+        return
+    plan = tspec.split_plan(L)
+    S = tspec.split_frame_points(n_fft)
+    assert S == (L if n_fft % 2 == 0 else (plan.P + 1) // 2 * plan.Q)
+    assert tspec.split_scratch_bytes(n_fft, 10 ** 6) == 16 * S * tspec.chunk_frames(S, 10 ** 6)
 
 
 @pytest.mark.parametrize("n_fft, hop, route", [
@@ -350,9 +469,9 @@ def _consts(name):
 
 
 def test_plan_twins_mirror_the_sources():
-    """``tile_plan``, ``four_step_plan``, ``chirp_size``, ``chunk_frames``
-    and the routes' shared-memory layouts against ``four_step.cuh``,
-    ``spectrogram_power.cu`` and ``streaming.cu``."""
+    """``tile_plan``, ``four_step_plan``, ``chirp_size``, ``chunk_frames``,
+    ``split_plan`` and the routes' shared-memory layouts against
+    ``four_step.cuh``, ``spectrogram_power.cu`` and ``streaming.cu``."""
     src, c = _consts("four_step.cuh")
     assert c["kOneBlockPoints"] == tspec.ONE_BLOCK_POINTS
     assert c["kBlockSmemLimit"] == tspec.SMEM_LIMIT
@@ -400,6 +519,41 @@ def test_plan_twins_mirror_the_sources():
     assert tspec.rader_launch_plan(1031) is None and tspec.rader_launch_plan(31) is None
     (gin, qout), _ = tspec.rader_tables(1009)
     assert sorted(gin) == list(range(1, 1009)) and sorted(qout[1:]) == list(range(1008))
+    # the split route: split_of mirrors split_plan (one prime above 31,
+    # dividing L once; Q with a plan within one block; Rader where P - 1 has
+    # a plan within one block), split_row_step split_row_plan, and the
+    # launcher checks the column tile's bytes and the chirp-z size
+    assert "if (d > kMaxPrime) {" in src and "if (n_big != 1) return s;" in src
+    assert "s.rader = s.P - 1 <= kOneBlockPoints && mixed_plan_of(s.P - 1).n_pass > 0;" in src
+    assert "s.ok = s.Q >= 2 && s.Q <= kOneBlockPoints && mixed_plan_of(s.Q).n_pass > 0;" in src
+    assert "for (int lg = 8; lg > 5; --lg) {" in src and "bytes <= kBlockSmemLimit / 4" in src
+    assert ("const long long smem = 16LL * tile_elems(M, col_tile) + (sp.rader ? 16LL * col_tile "
+            ": 0);") in k1_src
+    assert "!chirp_size_takes(sp.P, sp.P, M)" in k1_src and "M != sp.P - 1" in k1_src
+    assert "const int rows = even ? sp.P : (sp.P + 1) / 2;" in k1_src
+    assert "const long long chunk = chunk_frames(fs.N, frames);" in k1_src
+    for L in list(range(2, 3000)) + [7005, 7265, 9999, 14026, 15362]:
+        q, big = L, []
+        d = 2
+        while d * d <= q:  # split_of's loop
+            while q % d == 0:
+                big += [d] if d > 31 else []
+                q //= d
+            d += 1
+        big += [q] if q > 31 else []
+        ok = len(big) == 1 and 2 <= L // big[0] <= tspec.ONE_BLOCK_POINTS and \
+            tspec.mixed_radices(L // big[0]) is not None
+        rader = ok and big[0] - 1 <= tspec.ONE_BLOCK_POINTS and \
+            tspec.mixed_radices(big[0] - 1) is not None
+        plan = tspec.split_plan(L)
+        assert (plan is not None) == (ok and (rader or tspec.chirp_size(big[0]) <=
+                                              tspec.ONE_BLOCK_POINTS)), L
+        assert plan is None or plan.kind == ("rader" if rader else "chirpz"), L
+    for Q in (2, 5, 15, 99, 1000, 7264):
+        lg = next((lg for lg in (8, 7, 6) if 16 * tspec.tile_elems(Q, 1 << lg) <=
+                   tspec.SMEM_LIMIT // 4), None)
+        assert tspec.split_row_plan(Q) == (tspec.tile_plan(Q) if lg is None else
+                                           (1 << lg, 16 * tspec.tile_elems(Q, 1 << lg)))
     k8_src, k8 = _consts("streaming.cu")
     assert "return 16 * tile_elems(Mc, slots) + 4 * slots * K;" in k8_src
     assert "chirp_size_takes(M, M, c->chirp_n)" in k8_src
@@ -430,7 +584,8 @@ def test_k8_walk_plan(K, taps, snr, want):
 def test_k1_route_is_total():
     """Every n_fft from 1 to 20,000 and the routes' large sizes take a route
     at hop n_fft / 2 and at hop 1, and none the direct DFT; a prime complex
-    length takes a Rader route wherever L - 1 has one."""
+    length takes a Rader route wherever L - 1 has one; past one block's
+    chirp-z size the rest take the split route wherever L splits."""
     routes = set()
     for n in list(range(1, 20001)) + [32768, 60000, 65536, 65537, 131074]:
         for hop in (max(1, n // 2), 1):
@@ -442,7 +597,11 @@ def test_k1_route_is_total():
         assert N <= tspec.ONE_BLOCK_POINTS or tspec.four_step_plan(N) is not None
         if tspec.rader_global_takes(L):
             assert tspec.k1_route(n, max(1, n // 2)) == "rader_global", n
-    assert routes == {"fft", "mixed", "mixed_odd", "rader", "rader_global", "chirpz", "global"}
+        elif N != L and N > tspec.ONE_BLOCK_POINTS and tspec.rader_launch_plan(L) is None:
+            split = tspec.split_plan(L) is not None
+            assert tspec.k1_route(n, max(1, n // 2)) == ("split" if split else "global"), n
+    assert routes == {"fft", "mixed", "mixed_odd", "rader", "rader_global", "chirpz", "split",
+                      "global"}
     assert set(tspec.K1_ROUTES) == routes | {"dft"}
 
 
@@ -462,11 +621,14 @@ def test_k8_takes_what_the_jax_package_runs(n_fft):
             ts.k8_check_geometry(*bad)
 
 
-@pytest.mark.parametrize("n_fft, hop", [(296, 148), (385, 192), (1009, 504), (1031, 515)])
+@pytest.mark.parametrize("n_fft, hop", [(296, 148), (385, 192), (1009, 504), (1031, 515),
+                                        (9999, 4999)])
 def test_jax_and_port_spectrogram_agree(n_fft, hop):
     """The JAX package's ``spectrogram_power`` (its rfft path: the Pallas
     kernel takes only n_fft = 2 hop, n_fft % 128 = 0) against the port's on
-    the CPU, within 1e-5 of the maximum."""
+    the CPU, within 1e-5 of the maximum (9,999/4,999: the CPU path at a size
+    the card runs on the split route, which ``split_model`` and the card's
+    own check hold against the reference)."""
     rng = np.random.default_rng(n_fft)
     x = rng.standard_normal((3, 6000)).astype(np.float32)
     x[1] *= 1e-3

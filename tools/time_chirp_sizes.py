@@ -5,6 +5,7 @@ geometries whose complex length has a prime factor above 31, against
 
     python3 tools/time_chirp_sizes.py [--geometries 296/148 1009/504 ...] [--tiles] [--sizes M ...]
                                       [--csrc DIR] [--out FILE]
+    python3 tools/time_chirp_sizes.py --split [--geometries 9999/4999 ...] [--out FILE]
 
 On chip_smoke's 128 synthetic 10 s clips: for each geometry, the chirp-z
 launcher (the global route's past one block) is called over the 7-smooth
@@ -25,6 +26,18 @@ taken from a CUDA graph of 20 calls (``chip_smoke.graph_ms``), the sizes in
 turns (forward, then backward, the mean of both).  Prints the card's name
 and power limit, a line per geometry, then one JSON line.  Needs a CUDA
 card; imports nothing of JAX.
+
+``--split`` times K1's route for each geometry instead (by default
+9,999/4,999, 14,530/7,265, 7,005/3,502 and 14,010/7,005, on the split
+route, and 7,013/3,506 and 7,003/3,501, which stay on the whole-length
+chirp-z global route): the route, for the split route also at each other
+column tile whose block fits a third of the shared memory (``split_plan``
+patched within this tool) and the chirp-z global route it replaced,
+forced; and ``stft_power``; each output held within 1e-5 of
+``stft_power``'s maximum, all in turns as above; and the route's device ms
+per launch of each CUDA kernel (``chip_smoke.launch_breakdown``,
+torch.profiler), for the split route also per call: per launch times its
+chunks, one launch of each kernel a chunk.
 """
 
 from __future__ import annotations
@@ -40,8 +53,10 @@ REPO = Path(__file__).resolve().parent.parent
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--geometries", nargs="+",
-                    default=["296/148", "1009/504", "1031/515", "2062/1031"])
+    ap.add_argument("--geometries", nargs="+", default=None)
+    ap.add_argument("--split", action="store_true",
+                    help="time K1's route (the split route's column tiles, the global route "
+                         "forced) and stft_power instead of the chirp-z sizes")
     ap.add_argument("--tiles", action="store_true",
                     help="also time the fewest-pass sizes at every frame tile")
     ap.add_argument("--sizes", nargs="+", type=int, default=None,
@@ -72,9 +87,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     x = torch.from_numpy(cs.synth_clips()[0]).to(dev)
     B, N = x.shape
+    if args.split:
+        return time_routes(args, smi, x)
     result = {"card": smi, "csrc": str(_kernels.CSRC), "chosen": {}, "ms": {},
               "stft_power_ms": {}}
-    for geo in args.geometries:
+    for geo in args.geometries or ["296/148", "1009/504", "1031/515", "2062/1031"]:
         n_fft, hop = (int(v) for v in geo.split("/"))
         L, K = (n_fft // 2 if n_fft % 2 == 0 else n_fft), tspec.chirp_bins(n_fft)
         one_block = L + K - 1 <= tspec.ONE_BLOCK_POINTS
@@ -147,6 +164,93 @@ def main() -> int:
     if args.out:
         Path(args.out).write_text(line + "\n")
     return 0
+
+
+def time_routes(args, smi: str, x) -> int:
+    """``--split``: each geometry's route and the routes it replaced, in
+    turns against ``stft_power``."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
+    from audio_processing_tools_tpu_torch.ops.stft import stft_power
+
+    geos = args.geometries or ["9999/4999", "14530/7265", "7005/3502", "14010/7005",
+                               "7013/3506", "7003/3501"]
+    result = {"card": smi, "route": {}, "split": {}, "ms": {}, "max_rel": {}, "launches_ms": {},
+              "chunks": {}, "calls_ms": {}}
+    for geo in geos:
+        n_fft, hop = (int(v) for v in geo.split("/"))
+        L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+        route = tspec.k1_route(n_fft, hop)
+
+        def forced(r, **kw):
+            return lambda: tspec._spectrogram_power_cuda(x, n_fft, hop, True, "hann", r, **kw)
+
+        calls = {route: forced(route)}
+        if route == "split":
+            sp = tspec.split_plan(L)
+            result["split"][geo] = sp._asdict()
+            for ft in (1, 2, 4, 8, 16, 32):
+                smem = 16 * tspec.tile_elems(sp.M, ft) + (16 * ft if sp.kind == "rader" else 0)
+                if ft != sp.col.frame_tile and smem <= tspec.SMEM_LIMIT // 3:
+                    calls[f"split, tile {ft}"] = with_column_tile(
+                        forced("split"), sp._replace(col=tspec.LaunchPlan(ft, smem)))
+            calls["global"] = forced("global")
+        calls["stft_power"] = lambda: stft_power(x, n_fft=n_fft, hop=hop)
+        ref = calls["stft_power"]()
+        top = float(ref.abs().max())
+        rel = {}
+        for k, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            rel[k] = float((got - ref).abs().max()) / top
+            if rel[k] > 1e-5:
+                raise SystemExit(f"K1 {geo} {k}: max|d|/max {rel[k]:.3e} (bound 1e-5)")
+            del got
+        ms = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            ms[k].append(cs.graph_ms(calls[k]))
+        ms = {k: float(np.mean(v)) for k, v in ms.items()}
+        result["route"][geo] = route
+        result["ms"][geo] = ms
+        result["max_rel"][geo] = rel
+        per_launch = cs.launch_breakdown(calls[route], calls=5)
+        result["launches_ms"][geo] = per_launch
+        per_call = ""
+        if route == "split":
+            frames = ref.numel() // (n_fft // 2 + 1)
+            chunks = -(-frames // tspec.chunk_frames(tspec.split_frame_points(n_fft), frames))
+            result["chunks"][geo] = chunks
+            result["calls_ms"][geo] = {k: round(v * chunks, 4) for k, v in per_launch.items()}
+            per_call = f"; {chunks} chunks, per call {result['calls_ms'][geo]}"
+        print(f"{geo} (L {L}, route {route}"
+              + (f", {sp.P} x {sp.Q} by {sp.kind} over {sp.M}, tile {sp.col.frame_tile}"
+                 if route == "split" else "") + "): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + " ms; per launch "
+              + str(per_launch) + per_call)
+    line = json.dumps(result)
+    print(line)
+    if args.out:
+        Path(args.out).write_text(line + "\n")
+    return 0
+
+
+def with_column_tile(call, plan):
+    """``call`` with the split route's plan replaced by ``plan`` (another
+    column tile) while it runs."""
+    from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
+
+    def run():
+        kept = tspec.split_plan
+        tspec.split_plan = lambda L: plan
+        try:
+            return call()
+        finally:
+            tspec.split_plan = kept
+
+    return run
 
 
 if __name__ == "__main__":

@@ -16,7 +16,8 @@ s, a carried chunk, at 256/128 and at 384/192 (the mixed frame pass).  K9: the c
 ``chip_smoke.py``'s synthetic clips and streams.  ``--routes`` adds K1's
 other routes off the main path (odd mixed 385/192, Rader 1009/504, even
 chirp-z 296/148 and 2062/1031, global 16384/8192, 32768/16384 and
-60000/30000) and K8's chirp-z and global frame passes (296/148,
+60000/30000, split 9999/4999 and 14530/7265, which a checkout without the
+split route runs on the chirp-z global route) and K8's chirp-z and global frame passes (296/148,
 5920/2960, 10240/5120), a carried 64 x 2 s chunk each.
 
 Each: device ms per call from a CUDA graph of back-to-back calls
@@ -236,7 +237,7 @@ def route_cases(dev):
 
     out = {}
     x = torch.from_numpy(cs.synth_clips()[0]).to(dev)
-    for n_fft in (385, 1009, 296, 2062, 16384, 32768, 60000):
+    for n_fft in (385, 1009, 296, 2062, 16384, 32768, 60000, 9999, 14530):
         hop = n_fft // 2
 
         def k1_check(n_fft=n_fft, hop=hop):
