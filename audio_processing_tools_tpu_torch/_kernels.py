@@ -72,6 +72,9 @@ _SIGNATURES = {
                                            _I, _I, _I, _P, _L, _P),
     "apt_spectrogram_power_split": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _P, _L, _P),
+    "apt_spectrogram_power_cluster": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _P),
+    "apt_cluster_max_active": (_I, _I, ctypes.POINTER(_I)),
     "apt_noise_psd_track": (_P, _P, _P, _I, _I, _I, _L, _L, *_PLAN, _F, _F, _F, _F, _I,
                             _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, *(_P,) * 11, _P),
     "apt_causal_low_quantile_baseline": (_P, _P, _I, _I, *_PLAN, _F, _F, _F, _F, _F,

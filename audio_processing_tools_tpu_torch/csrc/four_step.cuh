@@ -306,6 +306,21 @@ struct Sink {
   }
 };
 
+// K1's power of bin k < M of an even frame from its half-length transform Z:
+// zk = Z[k], zm = Z[M - k] (Z[0] at k = 0), w = e^{-2 pi i k / n_fft};
+// and of bin M from Z[0] (spectrogram_power.cu, spectrogram_cluster.cu).
+__device__ __forceinline__ float split_power(float2 zk, float2 zm, float2 w) {
+  const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
+  const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
+  const float xr = ar + (w.x * di + w.y * dr);
+  const float xi = ai - (w.x * dr - w.y * di);
+  return xr * xr + xi * xi;
+}
+__device__ __forceinline__ float nyquist_power(float2 z0) {
+  const float d = z0.x - z0.y;
+  return d * d;
+}
+
 template <int kW>
 __global__ void __launch_bounds__(kStepThreads)
 four_step_columns(Source src, float2* __restrict__ dst, const float2* __restrict__ table, int tn,

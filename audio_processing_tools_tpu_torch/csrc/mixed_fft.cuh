@@ -7,7 +7,9 @@
 // geometry set, n_fft = 128 m, m <= 32, and most sizes users type, 400,
 // 480, 500, 1,000); the whole transform of an odd frame (M = n, the odd
 // mixed route); the M-point convolutions of the chirp-z and Rader routes;
-// and the column and row transforms of the four-step FFT (four_step.cuh).
+// the column and row transforms of the four-step FFT (four_step.cuh); and
+// the cluster route's columns and rows (cluster_fft.cuh, lines_fft over
+// Lines).
 //
 // Plan (mixed_plan_of, mirrored by ops/spectrogram.py::mixed_radices):
 // radix-8 passes while 8 divides the power of two, then one radix-4 or
@@ -18,7 +20,7 @@
 //
 // Layout: a tile of ft = 2^lg frames lies frame-fastest in shared memory,
 // point m of frame f at buf[m * ld + f], ld = tile_ld(ft).  A pass's work item u
-// is (frame u & (ft - 1), butterfly u >> lg): the lanes of a warp take the
+// is (frame u mod ft, butterfly u / ft): the lanes of a warp take the
 // same butterfly of consecutive frames (one twiddle, consecutive addresses;
 // the odd row stride keeps a column walk over points free of bank
 // conflicts too).  A pass reads one buffer and writes the other (Stockham
@@ -149,80 +151,132 @@ __device__ __forceinline__ void butterfly(float2 (&v)[R], const float2 (&cs)[R /
   }
 }
 
-// What a pass does with its output k of frame f: store it in the other
+// The lines a pass transforms, point m of line f at buf[at(m, f)]: a tile
+// of 2^lg frames (Tile, m * ld + f) or any count of lines at two strides
+// (Lines, m * ps + f * fs: the cluster route's columns {N1, nc, ldc, 1} and
+// rows {N2, nr, 1, ldr}, cluster_fft.cuh, whose counts need not be powers of
+// two).
+struct Tile {
+  int n, lg, ld;
+  __device__ __forceinline__ int at(int m, int f) const { return m * ld + f; }
+};
+struct Lines {
+  int n, nf, ps, fs;
+  __device__ __forceinline__ int at(int m, int f) const { return m * ps + f * fs; }
+};
+
+// A twiddle table in shared memory (the cluster route's); a plain pointer's
+// table lies in device memory and is read through the read-only cache.
+struct SharedTable {
+  const float2* p;
+};
+__device__ __forceinline__ float2 table_at(const float2* __restrict__ t, int i) {
+  return __ldg(t + i);
+}
+__device__ __forceinline__ float2 table_at(SharedTable t, int i) { return t.p[i]; }
+
+// What a pass does with its output k of line f: store it in the other
 // buffer (this type is that store, written out in mixed_pass).  A route may
-// hand the last pass another (out(dst, k, f, ld, v)), which takes the
+// hand the last pass another (out(dst, k, f, layout, v)), which takes the
 // transform's outputs straight from its registers.
 struct StoreOutput {
-  __device__ __forceinline__ void operator()(float2* dst, int k, int f, int ld, float2 v) const {
-    dst[k * ld + f] = v;
+  template <class Lay>
+  __device__ __forceinline__ void operator()(float2* dst, int k, int f, const Lay& ln,
+                                             float2 v) const {
+    dst[ln.at(k, f)] = v;
   }
 };
 
-// One Stockham pass of radix R after NS points of an M-point transform over
-// a tile of 2^lg frames: butterfly b of a frame reads points b + r M / R,
-// multiplies input r by e^{-2 pi i k r / (NS R)} (k = b mod NS) and writes
-// its outputs to (b / NS) NS R + k + r NS through `out`.  `table` holds
-// e^{-2 pi i j / tn} for a table length tn that M divides.
-template <int R, class Out>
+// One Stockham pass of radix R after NS points of the n-point transform of
+// every line: butterfly b of a line reads points b + r n / R, multiplies
+// input r by e^{-2 pi i k r / (NS R)} (k = b mod NS) and writes its outputs
+// to (b / NS) NS R + k + r NS through `out`.  `table` holds e^{-2 pi i j /
+// tn} for a table length tn that n divides.  Work item u is (line f,
+// butterfly b), u = b nf + f: the lanes of a warp take the same butterfly of
+// consecutive lines.  A tile finds (f, b) by a mask and a shift; other
+// lines step (f, k, q), b = q NS + k, by the block's threads from (t mod
+// nf, t / nf), with no division a work item.
+template <int R, class Lay, class Table, class Out>
 __device__ __forceinline__ void mixed_pass(const float2* __restrict__ src, float2* __restrict__ dst,
-                                           const float2* __restrict__ table, int tn, int M,
-                                           int NS, int lg, int ld, const Out& out) {
-  const int nb = M / R;
+                                           Table table, int tn, const Lay& ln, int NS,
+                                           const Out& out) {
+  const int nb = ln.n / R;
   const int step = tn / (NS * R);
   float2 cs[R / 2 + 1];
   if constexpr (R % 2 == 1) {
 #pragma unroll
-    for (int m = 1; m <= R / 2; ++m) cs[m] = __ldg(table + m * (tn / R));
+    for (int m = 1; m <= R / 2; ++m) cs[m] = table_at(table, m * (tn / R));
   }
-  const int work = nb << lg, fmask = (1 << lg) - 1;
-  for (int u = threadIdx.x; u < work; u += blockDim.x) {
-    const int f = u & fmask, b = u >> lg;
-    const int q = b / NS, k = b - q * NS;
+  auto butterfly_at = [&](int f, int b, int q, int k) {
     float2 v[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = src[(b + r * nb) * ld + f];
+    for (int r = 0; r < R; ++r) v[r] = src[ln.at(b + r * nb, f)];
     if (k > 0) {
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], __ldg(table + step * k * r));
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], table_at(table, step * k * r));
     }
     butterfly<R>(v, cs);
     const int o = q * NS * R + k;
     if constexpr (std::is_same<Out, StoreOutput>::value) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) dst[(o + r * NS) * ld + f] = v[r];
+      for (int r = 0; r < R; ++r) dst[ln.at(o + r * NS, f)] = v[r];
     } else {
 #pragma unroll
-      for (int r = 0; r < R; ++r) out(dst, o + r * NS, f, ld, v[r]);
+      for (int r = 0; r < R; ++r) out(dst, o + r * NS, f, ln, v[r]);
+    }
+  };
+  if constexpr (std::is_same<Lay, Tile>::value) {
+    const int work = nb << ln.lg, fmask = (1 << ln.lg) - 1;
+    for (int u = threadIdx.x; u < work; u += blockDim.x) {
+      const int b = u >> ln.lg, q = b / NS;
+      butterfly_at(u & fmask, b, q, b - q * NS);
+    }
+  } else {
+    const int work = nb * ln.nf;
+    const int nf = ln.nf, t = threadIdx.x / nf, bt = blockDim.x / nf;
+    int f = threadIdx.x - t * nf, k = t % NS, q = t / NS;
+    const int df = blockDim.x - bt * nf, dk = bt % NS, dq = bt / NS;
+    for (int u = threadIdx.x; u < work; u += blockDim.x) {
+      butterfly_at(f, q * NS + k, q, k);
+      f += df;
+      k += dk;
+      q += dq;
+      if (f >= nf) {
+        f -= nf;
+        ++k;
+      }
+      if (k >= NS) {
+        k -= NS;
+        ++q;
+      }
     }
   }
 }
 
-// The pass of radix R of the plan (mixed_fft's instantiation kW).
-template <int kW, class Out>
-__device__ __forceinline__ void pass_of(int R, const float2* a, float2* b,
-                                        const float2* __restrict__ table, int tn, int M, int NS,
-                                        int lg, int ld, const Out& out) {
+// The pass of radix R of the plan (lines_fft's instantiation kW).
+template <int kW, class Lay, class Table, class Out>
+__device__ __forceinline__ void pass_of(int R, const float2* a, float2* b, Table table, int tn,
+                                        const Lay& ln, int NS, const Out& out) {
   switch (R) {
-    case 2: mixed_pass<2>(a, b, table, tn, M, NS, lg, ld, out); break;
-    case 3: mixed_pass<3>(a, b, table, tn, M, NS, lg, ld, out); break;
-    case 4: mixed_pass<4>(a, b, table, tn, M, NS, lg, ld, out); break;
-    case 5: mixed_pass<5>(a, b, table, tn, M, NS, lg, ld, out); break;
-    case 7: mixed_pass<7>(a, b, table, tn, M, NS, lg, ld, out); break;
-    case 8: mixed_pass<8>(a, b, table, tn, M, NS, lg, ld, out); break;
+    case 2: mixed_pass<2>(a, b, table, tn, ln, NS, out); break;
+    case 3: mixed_pass<3>(a, b, table, tn, ln, NS, out); break;
+    case 4: mixed_pass<4>(a, b, table, tn, ln, NS, out); break;
+    case 5: mixed_pass<5>(a, b, table, tn, ln, NS, out); break;
+    case 7: mixed_pass<7>(a, b, table, tn, ln, NS, out); break;
+    case 8: mixed_pass<8>(a, b, table, tn, ln, NS, out); break;
     default:
       if constexpr (kW >= 13) {
         switch (R) {
-          case 11: mixed_pass<11>(a, b, table, tn, M, NS, lg, ld, out); break;
-          case 13: mixed_pass<13>(a, b, table, tn, M, NS, lg, ld, out); break;
+          case 11: mixed_pass<11>(a, b, table, tn, ln, NS, out); break;
+          case 13: mixed_pass<13>(a, b, table, tn, ln, NS, out); break;
           default:
             if constexpr (kW >= 31) {
               switch (R) {
-                case 17: mixed_pass<17>(a, b, table, tn, M, NS, lg, ld, out); break;
-                case 19: mixed_pass<19>(a, b, table, tn, M, NS, lg, ld, out); break;
-                case 23: mixed_pass<23>(a, b, table, tn, M, NS, lg, ld, out); break;
-                case 29: mixed_pass<29>(a, b, table, tn, M, NS, lg, ld, out); break;
-                default: mixed_pass<31>(a, b, table, tn, M, NS, lg, ld, out); break;
+                case 17: mixed_pass<17>(a, b, table, tn, ln, NS, out); break;
+                case 19: mixed_pass<19>(a, b, table, tn, ln, NS, out); break;
+                case 23: mixed_pass<23>(a, b, table, tn, ln, NS, out); break;
+                case 29: mixed_pass<29>(a, b, table, tn, ln, NS, out); break;
+                default: mixed_pass<31>(a, b, table, tn, ln, NS, out); break;
               }
             }
         }
@@ -230,25 +284,23 @@ __device__ __forceinline__ void pass_of(int R, const float2* a, float2* b,
   }
 }
 
-// The M-point transform of the tile in `a` (point m of frame f at a[m * ld +
-// f]); `b` is the other buffer; `table` holds e^{-2 pi i j / tn}, M | tn.
-// Every thread of the block calls it; returns the buffer that holds the
-// result, in natural order (where the last pass's `last` stores it, as
-// StoreOutput does).  kW is the plan's width (plan_width): the primes above
-// kW are not instantiated.
-template <int kW, class Last = StoreOutput>
-__device__ float2* mixed_fft(float2* a, float2* b, const float2* __restrict__ table, int tn,
-                             int M, int lg, int ld, const MixedPlan& plan,
-                             const Last& last = Last{}) {
+// The transform of every line in `a`; `b` is the other buffer; `table`
+// holds e^{-2 pi i j / tn}, ln.n | tn.  Every thread of the block calls it;
+// returns the buffer that holds the result, in natural order (where the
+// last pass's `last` stores it, as StoreOutput does).  kW is the plan's
+// width (plan_width): the primes above kW are not instantiated.
+template <int kW, class Lay, class Last = StoreOutput, class Table = const float2*>
+__device__ float2* lines_fft(float2* a, float2* b, Table table, int tn, const Lay& ln,
+                             const MixedPlan& plan, const Last& last = Last{}) {
   int NS = 1;
   for (int p = 0; p < plan.n_pass; ++p) {
     const int R = plan.radix[p];
     if constexpr (std::is_same<Last, StoreOutput>::value) {
-      pass_of<kW>(R, a, b, table, tn, M, NS, lg, ld, last);
+      pass_of<kW>(R, a, b, table, tn, ln, NS, last);
     } else if (p + 1 < plan.n_pass) {
-      pass_of<kW>(R, a, b, table, tn, M, NS, lg, ld, StoreOutput{});
+      pass_of<kW>(R, a, b, table, tn, ln, NS, StoreOutput{});
     } else {
-      pass_of<kW>(R, a, b, table, tn, M, NS, lg, ld, last);
+      pass_of<kW>(R, a, b, table, tn, ln, NS, last);
     }
     __syncthreads();
     float2* const t = a;
@@ -257,6 +309,15 @@ __device__ float2* mixed_fft(float2* a, float2* b, const float2* __restrict__ ta
     NS *= R;
   }
   return a;
+}
+
+// The M-point transform of a tile of 2^lg frames in `a` (point m of frame f
+// at a[m * ld + f]), as lines_fft.
+template <int kW, class Last = StoreOutput>
+__device__ float2* mixed_fft(float2* a, float2* b, const float2* __restrict__ table, int tn,
+                             int M, int lg, int ld, const MixedPlan& plan,
+                             const Last& last = Last{}) {
+  return lines_fft<kW>(a, b, table, tn, Tile{M, lg, ld}, plan, last);
 }
 
 // The row stride of a tile of ft frames: ft + 1, odd, so that a column walk

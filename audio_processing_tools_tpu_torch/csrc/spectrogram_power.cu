@@ -443,21 +443,6 @@ __device__ __forceinline__ const float* stage_tile(const float* __restrict__ xb,
   return stage;
 }
 
-// The power of bin k < M of an even frame from its half-length transform Z:
-// zk = Z[k], zm = Z[M - k] (Z[0] at k = 0), w = e^{-2 pi i k / n_fft};
-// and of bin M from Z[0].
-__device__ __forceinline__ float split_power(float2 zk, float2 zm, float2 w) {
-  const float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
-  const float dr = 0.5f * (zk.x - zm.x), di = 0.5f * (zk.y + zm.y);
-  const float xr = ar + (w.x * di + w.y * dr);
-  const float xi = ai - (w.x * dr - w.y * di);
-  return xr * xr + xi * xi;
-}
-__device__ __forceinline__ float nyquist_power(float2 z0) {
-  const float d = z0.x - z0.y;
-  return d * d;
-}
-
 template <int kW>
 __global__ void __launch_bounds__(kThreads)
 spectrogram_power_mixed(const float* __restrict__ x, const float* __restrict__ window,
@@ -541,9 +526,10 @@ spectrogram_power_odd(const float* __restrict__ x, const float* __restrict__ win
 // The forward transform's last pass: conj(X Bt) into the other buffer.
 struct TimesConjBt {
   const float2* bt;
-  __device__ __forceinline__ void operator()(float2* dst, int k, int f, int ld, float2 v) const {
+  __device__ __forceinline__ void operator()(float2* dst, int k, int f, const Tile& ln,
+                                             float2 v) const {
     const float2 w = cmul(v, __ldg(bt + k));
-    dst[k * ld + f] = make_float2(w.x, -w.y);
+    dst[ln.at(k, f)] = make_float2(w.x, -w.y);
   }
 };
 
@@ -552,7 +538,8 @@ struct TimesConjBt {
 struct PowerOfBins {
   float* out;
   int T, F, nf;
-  __device__ __forceinline__ void operator()(float2*, int k, int f, int, float2 v) const {
+  __device__ __forceinline__ void operator()(float2*, int k, int f, const Tile&,
+                                             float2 v) const {
     if (k < F && f < nf) out[(size_t)k * T + f] = v.x * v.x + v.y * v.y;
   }
 };

@@ -23,7 +23,11 @@ transform as a four-step FFT through device memory (the global route,
 ``csrc/four_step.cuh``), except where L = P Q splits at its one prime
 factor P above 31 (the split route, :func:`split_plan`: P's transform by
 Rader or the chirp-z transform in one block a column, then the rows' mixed
-FFTs of Q points).  Every n_fft >= 1 and hop >= 1 takes one.  The
+FFTs of Q points), and except where a chirp-z size that does not split fits
+a thread-block cluster of up to 8 blocks (the cluster route,
+:func:`cluster_plan`, ``csrc/spectrogram_cluster.cu``: the whole chirp-z
+transform of a frame on chip, the blocks exchanging through distributed
+shared memory).  Every n_fft >= 1 and hop >= 1 takes one.  The
 direct DFT (the TPU kernel's window-and-DFT product, ``csrc/dft.cuh``) is
 a route only comparisons force.
 """
@@ -337,6 +341,91 @@ def rader_window(n_fft: int, window: str = "hann") -> np.ndarray:
     return w[gin] if n_fft % 2 else np.stack([w[2 * gin], w[2 * gin + 1]], axis=-1).reshape(-1)
 
 
+#: blocks of a thread-block cluster the cluster route takes (8 is the
+#: portable maximum; ``kMaxCluster`` of ``csrc/cluster_fft.cuh``)
+CLUSTER_SIZES = (1, 2, 4, 8)
+
+
+class ClusterPlan(NamedTuple):
+    C: int  # blocks of a cluster, one frame a cluster
+    M: int  # the chirp-z size
+    N1: int  # points of a column transform (C | N1)
+    N2: int  # points of a row transform (C | N2, N1 <= N2)
+    smem_bytes: int  # dynamic shared memory of a block: two buffers and the tables
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_split(M: int, C: int) -> Optional[Tuple[int, int, int]]:
+    """``(N1, N2, smem_bytes)``: the cluster route's split of an M-point
+    transform over C blocks (``cluster_split_of`` of ``csrc/cluster_fft.cuh``):
+    among N1 N2 = M with C | N1, C | N2 and N1 <= N2, the fewest passes of
+    the two transforms together, then the largest N1; each block holds N2 /
+    C columns of N1 points (row stride N2 / C, made odd) and N1 / C rows of
+    N2 points (row stride N2, made odd) in two buffers of the larger count,
+    rounded up to even, then its twiddle tables, N1 + N2 + 2^sh + ceil(M /
+    2^sh) float2 (4^sh >= M: the four-step twiddle as two factors).  ``None``
+    where no such split has a plan (or M N2 reaches 2^32, past the kernel's
+    division by multiplication)."""
+    best, n1 = None, 0
+    for d in range(C, math.isqrt(M) + 1, C):
+        if M % d or (M // d) % C:
+            continue
+        r1, r2 = mixed_radices(d), mixed_radices(M // d)
+        if r1 is None or r2 is None:
+            continue
+        if best is None or len(r1) + len(r2) <= best:
+            best, n1 = len(r1) + len(r2), d
+    if not n1:
+        return None
+    n2 = M // n1
+    if M * n2 >= 1 << 32:
+        return None
+    elems = max(n1 * ((n2 // C) | 1), (n1 // C) * (n2 | 1))
+    sh = 0
+    while 4 ** sh < M:
+        sh += 1
+    tables = n1 + n2 + (1 << sh) + ((M - 1) >> sh) + 1
+    return n1, n2, 16 * (elems + (elems & 1)) + 8 * tables
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(L: int, K: Optional[int] = None, C: Optional[int] = None) -> Optional[ClusterPlan]:
+    """The cluster route's plan for the chirp-z transform of a complex length
+    ``L`` whose first ``K`` bins are wanted (all L by default): C the
+    smallest of :data:`CLUSTER_SIZES` whose blocks, one an SM, hold two
+    buffers of M / C points and their tables (:func:`cluster_split`'s bytes
+    within :data:`SMEM_LIMIT`); M a 7-smooth size from max(2, L + K - 1) up to 4L
+    with C^2 | M (C divides both N1 and N2), as :func:`chirp_size` picks: the
+    fewest passes (here the two transforms' of the split the kernel runs),
+    then the smallest.  The smallest C, because every cluster size that
+    holds a geometry was slower than the next smaller one (7,013/3,506 at 128
+    x 10 s: 1.1417 ms with one block, 1.8244 / 2.7424 / 4.6420 with clusters
+    of 2 / 4 / 8; H100 80GB HBM3, 700 W, ``tools/time_chirp_sizes.py
+    --split``).  ``C`` forces a cluster size (the CPU models run small sizes
+    at every C).  ``None`` where no size fits a cluster of 8."""
+    K = L if K is None else K
+    lo = max(2, L + K - 1)
+    sizes = _seven_smooth_between(lo, max(4 * L, 8))
+    for c in CLUSTER_SIZES if C is None else (C,):
+        cap = SMEM_LIMIT // 16 * c  # M / C points a block: at most this many
+        best = None
+        for m in sorted((m for m in sizes if m % (c * c) == 0 and m <= cap),
+                        key=lambda m: (len(mixed_radices(m)), m)):
+            # a split runs at least M's own passes: stop past the best found
+            if best is not None and len(mixed_radices(m)) > best[0]:
+                break
+            sp = cluster_split(m, c)
+            if sp is None or sp[2] > SMEM_LIMIT:
+                continue
+            n1, n2 = sp[0], sp[1]
+            key = (len(mixed_radices(n1)) + len(mixed_radices(n2)), m)
+            if best is None or key < best[:2]:
+                best = (*key, ClusterPlan(c, m, n1, n2, sp[2]))
+        if best is not None:
+            return best[2]
+    return None
+
+
 def chunk_frames(N: int, frames: int) -> int:
     """Frames a chunk of the global route holds (``chunk_frames``): as many
     as two buffers of N points each hold within :data:`CHUNK_SCRATCH`, at
@@ -365,10 +454,13 @@ def k1_route(n_fft: int, hop: int) -> str:
       splits (:func:`split_plan`: P's transform by Rader or the chirp-z
       transform in one block a column, then the rows' mixed-radix FFTs of Q
       points, through device memory);
+    * ``"cluster"``: such an N above :data:`ONE_BLOCK_POINTS` where L does
+      not split and :func:`cluster_plan` has a plan (the whole chirp-z
+      transform on chip, a frame a cluster of up to 8 blocks, one an SM);
     * ``"global"``: N above :data:`ONE_BLOCK_POINTS`, whatever the kind (the
       four-step FFT through device memory, :func:`four_step_plan` of N).
 
-    Each of the last seven takes any hop.  Raises ``ValueError`` only for
+    Each of the last eight takes any hop.  Raises ``ValueError`` only for
     ``n_fft`` or ``hop`` below 1 (and past :func:`chirp_size`'s reach).
     The direct DFT is a route only comparisons force."""
     if n_fft < 1 or hop < 1:
@@ -382,6 +474,8 @@ def k1_route(n_fft: int, hop: int) -> str:
         return "rader_global"
     if N != L and N > ONE_BLOCK_POINTS and split_plan(L) is not None:
         return "split"
+    if N != L and N > ONE_BLOCK_POINTS and cluster_plan(L, chirp_bins(n_fft)) is not None:
+        return "cluster"
     if N > ONE_BLOCK_POINTS:
         return "global"
     if N != L:
@@ -582,8 +676,8 @@ def split_scratch_bytes(n_fft: int, frames: int) -> int:
 
 
 #: the routes :func:`_spectrogram_power_cuda` takes by name
-K1_ROUTES = ("fft", "mixed", "mixed_odd", "rader", "rader_global", "chirpz", "split", "global",
-             "dft")
+K1_ROUTES = ("fft", "mixed", "mixed_odd", "rader", "rader_global", "chirpz", "split", "cluster",
+             "global", "dft")
 
 
 def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool, window: str,
@@ -592,7 +686,8 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
     """K1 on the card through ``route``: :func:`k1_route`'s for the
     geometry, or for comparisons another that takes it: ``"dft"`` (every
     n_fft up to :data:`DFT_MAX_N_FFT`), ``"chirpz"`` (every n_fft whose
-    chirp-z size one block holds), ``"global"`` (every n_fft whose
+    chirp-z size one block holds), ``"cluster"`` (every n_fft with a
+    :func:`cluster_plan`), ``"global"`` (every n_fft whose
     :func:`fft_shape` size the four-step split takes) and ``"mixed"`` (every
     even size with a plan).  ``chirp_n`` forces the chirp-z size of the
     chirp-z and global routes (a 7-smooth size from L + K - 1 on, K =
@@ -620,6 +715,7 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
         "rader_global": lambda: rader_global_takes(L) and (not half or n_fft % 2 == 1),
         "chirpz": lambda: (N if chirp_n else chirp_size(L, chirp_bins(n_fft))) <= ONE_BLOCK_POINTS,
         "split": lambda: split_plan(L) is not None,
+        "cluster": lambda: cluster_plan(L, chirp_bins(n_fft)) is not None,
         "global": lambda: four_step_plan(N) is not None,
         "dft": lambda: n_fft <= DFT_MAX_N_FFT,
     }[route]
@@ -639,8 +735,9 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
     win, twiddle = device_constant(("spectrogram_tables", n_fft, window), x.device,
                                    lambda: kernel_tables(n_fft, window))
     chirp = bt = ctab = None
-    if route == "chirpz" or (route == "global" and N != L):
-        Mc = chirp_n or chirp_size(L, chirp_bins(n_fft))
+    if route in ("chirpz", "cluster") or (route == "global" and N != L):
+        Mc = (cluster_plan(L, chirp_bins(n_fft)).M if route == "cluster"
+              else chirp_n or chirp_size(L, chirp_bins(n_fft)))
         chirp, bt, ctab = device_constant(("chirpz_tables", n_fft, Mc), x.device,
                                           lambda: chirpz_tables(n_fft, Mc))
     lib = _kernels.build()
@@ -686,6 +783,11 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
                 *args, *(None if t is None else t.data_ptr() for t in (gin, chirp, *tabs)),
                 out.data_ptr(), *geo, sp.M, sp.col.frame_tile, sp.col.smem_bytes,
                 scratch.data_ptr(), nbytes, stream)
+        elif route == "cluster":
+            cp = cluster_plan(L, chirp_bins(n_fft))
+            err = lib.lib.apt_spectrogram_power_cluster(
+                *args, chirp.data_ptr(), bt.data_ptr(), ctab.data_ptr(), out.data_ptr(), *geo,
+                cp.C, cp.M, cp.N1, cp.smem_bytes, stream)
         elif route == "chirpz":
             plan = chirpz_launch_plan(ctab.shape[0])
             err = lib.lib.apt_spectrogram_power_chirpz(
@@ -708,3 +810,17 @@ def _spectrogram_power_cuda(x: torch.Tensor, n_fft: int, hop: int, center: bool,
     lib.check(err, "spectrogram_power")
     _kernels.count("spectrogram_power")
     return out.reshape(lead + (F, T))
+
+
+def cluster_max_active(C: int, smem_bytes: int) -> int:
+    """How many clusters of ``C`` blocks of ``smem_bytes`` shared memory each
+    the current card holds at once (``cudaOccupancyMaxActiveClusters`` for
+    the cluster route's kernel); 0 where the card cannot schedule one, which
+    the route's launcher refuses before it launches."""
+    import ctypes
+
+    lib = _kernels.build()
+    active = ctypes.c_int(0)
+    lib.check(lib.lib.apt_cluster_max_active(C, smem_bytes, ctypes.byref(active)),
+              "spectrogram_power")
+    return active.value

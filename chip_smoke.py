@@ -226,7 +226,11 @@ Phases, one line each:
      mixed frame pass at five sizes against its plain loop and DFT pass; K7
      at F7's designs against scipy float64;
  46. K1's odd mixed (385/192), Rader (1,009/504; beside it the chirp-z
-     route forced), chirp-z (296/148, 1,031/515, 2,062/1,031) and global
+     route forced), chirp-z (296/148, 1,031/515, 2,062/1,031), split
+     (7,005-14,530; beside it the global and cluster routes forced),
+     cluster (7,003-60,022, clusters of 1-8 blocks, odd and even frames;
+     beside it the global route forced; the clusters the card holds at
+     once printed) and global
      (16,384-65,537) routes at 128 x 10 s within 1e-5 of ``stft_power``'s
      maximum and, beyond the forced DFT's own drift, of the DFT's, timed in
      turns against both; K8's
@@ -1016,7 +1020,7 @@ def main() -> int:
     paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"],
              **surface["launches"], "configurations the JAX package runs (phase 44)": geo["launches"],
              "the mixed-radix FFT and F7 (phase 45)": mixed["launches"],
-             "the odd mixed, Rader, chirp-z, split and global routes (phase 46)":
+             "the odd mixed, Rader, chirp-z, split, cluster and global routes (phase 46)":
                  chirpz["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
@@ -3956,16 +3960,25 @@ def mixed_fft_phases(smi: str, x) -> dict:
           f"designs against scipy float64; {seconds:.1f} s")
     return {"launches": launches, "routes": routes, "seconds": seconds, "fold_256": fold}
 
-# phase 46: K1's odd mixed, Rader, global Rader, chirp-z, split and global
-# routes; K8's chirp-z and global passes and its walk past 4,096 band bins.
-# The split route's L = P Q: 9,999 = 101 x 99 and 7,265 = 1,453 x 5 (P by
-# Rader), 7,005 = 467 x 15 (P by a chirp-z transform over 960 points)
+# phase 46: K1's odd mixed, Rader, global Rader, chirp-z, split, cluster and
+# global routes; K8's chirp-z and global passes and its walk past 4,096 band
+# bins.  The split route's L = P Q: 9,999 = 101 x 99 and 7,265 = 1,453 x 5 (P
+# by Rader), 7,005 = 467 x 15 (P by a chirp-z transform over 960 points).
+# The cluster route's L, which does not split: 7,013 prime (no Rader plan),
+# 7,003 = 47 x 149, 7,396 (L = 2 x 43^2), 10,821 = 3 x 3,607 (P past one
+# block), 30,011 and 40,009 prime: clusters of 1, 1, 1, 2, 4 and 8 blocks;
+# and even frames past one block, whose real split reads bin L - k from
+# another block of the cluster: 21,642 (L = 10,821), 40,046 (L = 20,023
+# prime) and 60,022 (L = 30,011): clusters of 2, 4 and 8
 CHIRP_K1 = {(385, 192): "mixed_odd", (296, 148): "chirpz", (1009, 504): "rader",
             (1031, 515): "chirpz", (2062, 1031): "chirpz", (16384, 8192): "global",
             (32768, 16384): "global", (60000, 30000): "global",
             (65537, 32768): "rader_global", (12289, 6144): "rader_global",
             (9999, 4999): "split", (14530, 7265): "split", (7005, 3502): "split",
-            (14010, 7005): "split"}
+            (14010, 7005): "split", (7013, 3506): "cluster", (7003, 3501): "cluster",
+            (7396, 3698): "cluster", (10821, 5410): "cluster", (30011, 15005): "cluster",
+            (40009, 20004): "cluster", (21642, 10821): "cluster", (40046, 20023): "cluster",
+            (60022, 30011): "cluster"}
 WIDE_BAND = {"operating_band": (20.0, 5500.0)}
 CHIRP_K8 = {
     "296/148": ({"n_fft": 296, "hop": 148}, "chirpz"),
@@ -3983,14 +3996,18 @@ CHIRP_K8_FORCED = ("chirpz", "global")
 
 
 def chirpz_global_phases(smi: str, x) -> dict:
-    """Phase 46: K1's odd mixed, Rader, global Rader, chirp-z, split and
-    global routes at 128 x 10 s, each within 1e-5 of ``stft_power``'s maximum and,
+    """Phase 46: K1's odd mixed, Rader, global Rader, chirp-z, split,
+    cluster and global routes at 128 x 10 s, each within 1e-5 of
+    ``stft_power``'s maximum and,
     beyond the forced DFT route's own drift, of the DFT's where that takes
     the size, and timed in turns against both and against the routes it
     replaced, forced (the chirp-z route beside Rader's; the chirp-z global
     route, over this size and the unpruned one, beside the global Rader
     route, and its first transform over all L - 1 points beside the packed
-    pairs; the chirp-z global route beside the split route; the unpruned
+    pairs; the chirp-z global route and the cluster route beside the split
+    route; the chirp-z global route beside the cluster route, whose
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``) it
+    prints for each cluster size; the unpruned
     chirp-z size beside an odd n_fft's pruned one);
     K8's chirp-z and global frame passes
     and its walk past 4,096 band bins against the plain loop (gain and
@@ -4008,6 +4025,7 @@ def chirpz_global_phases(smi: str, x) -> dict:
     t_phase = time.perf_counter()
     routes = {"spectrogram_power": [], "streaming_suppressor": []}
     launches = {k: 0 for k in _kernels.LAUNCHES}
+    active = {}  # (cluster size, bytes a block): clusters the card holds at once
 
     # ---- K1: every new route, against stft_power and the DFT, in turns ----
     for (n_fft, hop), want in CHIRP_K1.items():
@@ -4031,6 +4049,9 @@ def chirpz_global_phases(smi: str, x) -> dict:
         if route == "rader":
             forced["chirpz"] = ("chirpz", {})
         if route == "split":
+            forced["global"] = ("global", {})
+            forced["cluster"] = ("cluster", {})
+        if route == "cluster":
             forced["global"] = ("global", {})
         if route == "rader_global":
             forced["global"] = ("global", {})
@@ -4081,10 +4102,15 @@ def chirpz_global_phases(smi: str, x) -> dict:
         ms = {k: float(np.mean(v)) for k, v in ms.items()}
         b_ms, b_by = bound_of(*k1_work(x, n_fft, hop))
         # the complex length and the transform's points (Rader's: L - 1; the
-        # split route's: L, as P x Q)
+        # split route's: L, as P x Q; the cluster route's: its plan's M)
         sp = tspec.split_plan(L) if route == "split" else None
+        cp = tspec.cluster_plan(L, tspec.chirp_bins(n_fft)) if route == "cluster" else None
         shape = ((L, L - 1) if route.startswith("rader") else (L, L) if sp
-                 else tspec.fft_shape(n_fft))
+                 else (L, cp.M) if cp else tspec.fft_shape(n_fft))
+        if cp:
+            active[(cp.C, cp.smem_bytes)] = tspec.cluster_max_active(cp.C, cp.smem_bytes)
+            check(active[(cp.C, cp.smem_bytes)] >= 1,
+                  f"K1 {n_fft}/{hop}: the card holds no cluster of {cp.C} blocks")
         routes["spectrogram_power"].append(
             {"route": route, "geometry": f"{n_fft}/{hop} {tuple(x.shape)}", "launches": n,
              "ms": ms[route], "max_abs_err": d, "max_rel": d / top, "dft_ms": ms.get("dft"),
@@ -4093,9 +4119,14 @@ def chirpz_global_phases(smi: str, x) -> dict:
              "dft_rel": r_dft, "dft_ref_rel": r_ref if "dft" in calls else None,
              "library_ms": ms["stft_power"], "plain_ms": ms["stft_power"],
              "bound_ms": b_ms, "bound_by": b_by, "transform": list(shape),
-             **({"split": {"P": sp.P, "Q": sp.Q, "kind": sp.kind, "M": sp.M}} if sp else {})})
+             **({"split": {"P": sp.P, "Q": sp.Q, "kind": sp.kind, "M": sp.M}} if sp else {}),
+             **({"source": "audio_processing_tools_tpu_torch/csrc/spectrogram_cluster.cu",
+                 "cluster": {**cp._asdict(), "max_active": active[(cp.C, cp.smem_bytes)]}}
+                if cp else {})})
         print(f"  K1 {n_fft}/{hop} {tuple(x.shape)}, route {route} (L, N = "
               f"{shape}" + (f"; {sp.P} x {sp.Q}, P by {sp.kind} over {sp.M}" if sp else "")
+              + (f"; a cluster of {cp.C} over {cp.N1} x {cp.N2}, {cp.smem_bytes} bytes a "
+                 f"block" if cp else "")
               + f"), in turns: {ms[route]:.4f} ms, stft_power "
               f"{ms['stft_power']:.4f}"
               + (f", DFT {ms['dft']:.4f}" if "dft" in ms and xd is x else "")
@@ -4104,6 +4135,10 @@ def chirpz_global_phases(smi: str, x) -> dict:
               + "".join(f", {k} {ms[k]:.4f}" for k in forced)
               + f" (bound {b_ms:.4f} by {b_by}); max|d|/max {d / top:.3e}"
               + (f", against the DFT {r_dft:.3e}" if r_dft is not None else ""))
+
+    print("  K1's cluster route: clusters the card holds at once "
+          "(cudaOccupancyMaxActiveClusters): "
+          + ", ".join(f"{c} blocks of {b} bytes {n}" for (c, b), n in sorted(active.items())))
 
     # ---- K8: the chirp-z and global passes, the wide walk ----
     streams = torch.from_numpy(synth_streams(STREAMS, 12.0, seed=46)[0]).to(dev)
@@ -4192,7 +4227,8 @@ def chirpz_global_phases(smi: str, x) -> dict:
           f"{mixed_ms:.4f} ms host-launched (n = 20)")
 
     seconds = time.perf_counter() - t_phase
-    print(f"phase 46 the odd mixed, Rader, chirp-z, split and global routes on {smi}: K1 at "
+    print(f"phase 46 the odd mixed, Rader, chirp-z, split, cluster and global routes on {smi}: "
+          f"K1 at "
           f"{len(CHIRP_K1)} "
           f"geometries within 1e-5 of stft_power (and of the DFT beyond its drift), timed in "
           f"turns; K8 at "

@@ -1,9 +1,10 @@
-"""K1's odd mixed, Rader, global Rader, chirp-z and global routes and K8's
-chirp-z and global frame passes, which run only on the card: NumPy float32
-models of their plans, run as the kernels run them (the odd-length
-mixed-radix transform, Rader's and the chirp-z transform with the host's
-float32 tables, the four-step split with its twiddle, the real split of a
-half-length first transform), held against
+"""K1's odd mixed, Rader, global Rader, chirp-z, split, cluster and global
+routes and K8's chirp-z and global frame passes, which run only on the
+card: NumPy float32 models of their plans, run as the kernels run them (the
+odd-length mixed-radix transform, Rader's and the chirp-z transform with
+the host's float32 tables, the four-step split with its twiddle, the real
+split of a half-length first transform, the cluster route's slices of
+columns and rows and its two exchanges), held against
 ``numpy.fft.rfft`` in float64; the plans' Python twins against the
 constants of the CUDA sources; the routes' reach (no geometry the JAX
 package runs is refused, none takes the direct DFT); and the JAX package's
@@ -11,6 +12,7 @@ package runs is refused, none takes the direct DFT); and the JAX package's
 card.
 """
 
+import math
 import re
 from pathlib import Path
 
@@ -224,6 +226,85 @@ def split_model(z, n_fft):
     return np.where(mirror[None], np.conj(out), out).astype(np.complex64)
 
 
+def lines_model(slices, n, table, tn):
+    """The n-point transform of every line of each block's slice (lines,
+    n), pass by pass as ``lines_fft`` runs it."""
+    return [mixed_fft_model(s, n, table, tn) for s in slices]
+
+
+def cluster_model(z, n_fft, C=None, spectrum=False):
+    """K1's cluster route on each row of z (frames, L) as the kernel runs it,
+    with the host's float32 tables over :func:`cluster_plan`'s M = N1 N2
+    (``C`` forces the cluster size): each of the C blocks takes N2 / C
+    columns (n = N2 n1 + n2) of a = z c, their N1-point transforms, the
+    twiddle e^{-2 pi i n2 k1 / M}; the exchange, an explicit re-slicing into
+    C slices of N1 / C rows; the rows' N2-point transforms, conj(. Bt), the
+    rows' transforms again and the twiddle e^{-2 pi i k1 m2 / M}; the
+    exchange back into slices of columns; the columns' transforms: W[m2 +
+    N2 m1].  Returns the power of the F = n_fft / 2 + 1 bins, |W_k|^2 for an
+    odd frame; for an even one the real split of Z_k = conj(W_k) c_k with
+    Z_{L-k}, read from the slice that holds it.  ``spectrum``: the complex
+    spectrum Z_k of those bins instead (for an even frame the split's X_k)."""
+    frames, L = z.shape
+    K = tspec.chirp_bins(n_fft)
+    plan = tspec.cluster_plan(L, K, C)
+    C, M, N1, N2 = plan.C, plan.M, plan.N1, plan.N2
+    nc, nr = N2 // C, N1 // C
+    c, bt, ctab = (_pairs(t) for t in tspec._chirp_tables_of(L, K, M))
+    a = np.zeros((frames, M), np.complex64)
+    a[:, :L] = z * c
+    n1, j = np.arange(N1)[:, None], np.arange(nc)[None, :]
+
+    sh = next(sh for sh in range(32) if 4 ** sh >= M)
+
+    def twiddle(v, k, g):  # v * e^{-2 pi i k g / M} where k g > 0, as hi[x >> sh] lo[x mod 2^sh]
+        x = k * g
+        w = (ctab[(x >> sh) << sh] * ctab[x & ((1 << sh) - 1)]).astype(np.complex64)
+        return np.where(x > 0, v * w, v).astype(np.complex64)
+
+    # block r: columns n2 = r nc + j, one line a column: (frames * nc, N1)
+    cols = [a[:, N2 * n1 + r * nc + j].transpose(0, 2, 1).reshape(-1, N1) for r in range(C)]
+    cols = lines_model(cols, N1, ctab, M)
+    k1 = np.arange(N1)[None, None, :]
+    Y = [twiddle(y.reshape(frames, nc, N1), k1, r * nc + np.arange(nc)[None, :, None])
+         for r, y in enumerate(cols)]  # Y[r][f, j, k1]
+    # the exchange: block r' takes rows k1 = r' nr + i, point n2 from block n2 // nc
+    rows = [np.concatenate([Y[s][:, :, q * nr : (q + 1) * nr] for s in range(C)], axis=1)
+            .transpose(0, 2, 1).reshape(-1, N2) for q in range(C)]  # (frames * nr, N2)
+    X = [x.reshape(frames, nr, N2) for x in lines_model(rows, N2, ctab, M)]
+    k1r = [q * nr + np.arange(nr)[None, :, None] for q in range(C)]
+    k2 = np.arange(N2)[None, None, :]
+    V = [np.conj(x * bt[k + N1 * k2]).astype(np.complex64).reshape(-1, N2) for x, k in zip(X, k1r)]
+    U = [twiddle(u.reshape(frames, nr, N2), k, k2)
+         for u, k in zip(lines_model(V, N2, ctab, M), k1r)]  # U[q][f, i, m2]
+    # the exchange back: block r takes columns m2 = r nc + j, point k1 from block k1 // nr
+    cols = [np.concatenate([U[s][:, :, r * nc : (r + 1) * nc] for s in range(C)], axis=1)
+            .transpose(0, 2, 1).reshape(-1, N1) for r in range(C)]
+    W = [w.reshape(frames, nc, N1) for w in lines_model(cols, N1, ctab, M)]  # W[r][f, j, m1]
+
+    def w_at(k):  # W_k from the block that holds it: m2 = k mod N2, block m2 // nc
+        m2, m1 = k % N2, k // N2
+        return np.stack([W[s][:, jj, mm] for s, jj, mm in zip(m2 // nc, m2 % nc, m1)], axis=1)
+
+    F = n_fft // 2 + 1
+    if n_fft % 2:
+        w = w_at(np.arange(F))
+        if spectrum:
+            return (np.conj(w) * c[:F]).astype(np.complex64)
+        return (w.real * w.real + w.imag * w.imag).astype(np.float32)
+    k = np.arange(L)
+    zk = np.conj(w_at(k)) * c[k]
+    zm = np.conj(w_at(np.where(k == 0, 0, L - k))) * c[np.where(k == 0, 0, L - k)]
+    h, tw = np.float32(0.5), _table(n_fft)[k]
+    ar, ai = h * (zk.real + zm.real), h * (zk.imag - zm.imag)
+    dr, di = h * (zk.real - zm.real), h * (zk.imag + zm.imag)
+    xr, xi = ar + (tw.real * di + tw.imag * dr), ai - (tw.real * dr - tw.imag * di)
+    nyq = zk[:, :1].real - zk[:, :1].imag
+    if spectrum:
+        return np.concatenate([xr + 1j * xi, nyq + 0j], axis=1).astype(np.complex64)
+    return np.concatenate([xr * xr + xi * xi, nyq * nyq], axis=1).astype(np.float32)
+
+
 def chirpz_convolve_model(a, bt, ctab):
     """``chirp_convolve``: the M-point transform, conj(. Bt), the transform
     again; conj(W[k]) c_k is X[k]."""
@@ -232,16 +313,16 @@ def chirpz_convolve_model(a, bt, ctab):
     return mixed_fft_model(Y, M, ctab, M)
 
 
-def spectrum_model(frames, n_fft, half=None):
+def spectrum_model(frames, n_fft, half=None, route=None):
     """X[k], k <= n_fft / 2, of windowed frames (frames, n_fft) float32 as
-    K1's route for n_fft forms it: the complex input (packed pairs for an
-    even n_fft), its transform of N = :func:`fft_shape` points (the
-    chirp-z transform where N differs from the complex length L), and for
-    an even n_fft the real split."""
+    K1's route for n_fft (or ``route``, forced) forms it: the complex input
+    (packed pairs for an even n_fft), its transform of N = :func:`fft_shape`
+    points (the chirp-z transform where N differs from the complex length
+    L), and for an even n_fft the real split."""
     L, N = tspec.fft_shape(n_fft)
     even = n_fft % 2 == 0
     z = (frames[:, 0::2] + 1j * frames[:, 1::2] if even else frames + 0j).astype(np.complex64)
-    route = tspec.k1_route(n_fft, n_fft // 2)
+    route = route or tspec.k1_route(n_fft, n_fft // 2)
     if N == L:
         Z = transform_model(z, L, _table(n_fft), n_fft)
     elif route == "rader":
@@ -250,6 +331,8 @@ def spectrum_model(frames, n_fft, half=None):
         Z = rader_global_model(z, n_fft, not even if half is None else half)
     elif route == "split":
         Z = split_model(z, n_fft)
+    elif route == "cluster":
+        return cluster_model(z, n_fft, spectrum=True)
     else:
         Z = chirpz_model(z, n_fft)
     if not even:
@@ -266,15 +349,18 @@ def spectrum_model(frames, n_fft, half=None):
 # = 2^4 3^2 7) and even (2,018), chirp-z odd (1,031 prime, 1,030 = 2 5 103;
 # 1,111 = 11 101; 2,183 = 37 59: pruned to L + F - 1 points) and even (296:
 # L = 4 x 37; 2,062: L = 1,031), global even mixed (16,384), global odd
-# mixed (9,075 = 3 5^2 11^2), global chirp-z odd (7,013 prime, 7,012 = 2^2
-# 1,753; 7,003 = 47 149: two primes above 31) and even (14,026: L = 7,013),
-# split with P by Rader even (14,530: L = 1,453 x 5) and odd (9,999 = 101
-# x 99) and by a chirp-z transform even (14,010: L = 467 x 15) and odd
-# (7,005), global Rader odd (7,681: 7,680 = 2^9 3 5; 12,289: 12,288 = 2^12
-# 3; 65,537: 2^16) and even (15,362: L = 7,681)
+# mixed (9,075 = 3 5^2 11^2), the whole-length chirp-z transform on chip
+# (the cluster route) odd (7,013 prime, 7,012 = 2^2 1,753; 7,003 = 47 149:
+# two primes above 31; 10,821 = 3 x 3,607, a cluster of two) and even
+# (14,026: L = 7,013; 7,396: L = 2 x 43^2), split with P by Rader even
+# (14,530: L = 1,453 x 5) and odd (9,999 = 101 x 99) and by a chirp-z
+# transform even (14,010: L = 467 x 15) and odd (7,005), global Rader odd
+# (7,681: 7,680 = 2^9 3 5; 12,289: 12,288 = 2^12 3; 65,537: 2^16) and even
+# (15,362: L = 7,681)
 MODEL_SIZES = {385: "mixed_odd", 1009: "rader", 2018: "rader", 1031: "chirpz", 1111: "chirpz",
                2183: "chirpz", 296: "chirpz", 2062: "chirpz", 16384: "global", 9075: "global",
-               7013: "global", 7003: "global", 14026: "global", 14530: "split", 9999: "split", 14010: "split",
+               7013: "cluster", 7003: "cluster", 14026: "cluster", 7396: "cluster",
+               10821: "cluster", 14530: "split", 9999: "split", 14010: "split",
                7005: "split", 7681: "rader_global", 12289: "rader_global",
                15362: "rader_global", 65537: "rader_global"}
 
@@ -290,6 +376,25 @@ def test_route_models_match_numpy_rfft(n):
     frames[1] *= 1e-3
     frames = frames * tspec.kernel_tables(n)[0][None, :]
     got = spectrum_model(frames, n)
+    ref = np.fft.rfft(frames.astype(np.float64), axis=-1)
+    for f in range(3):
+        assert np.abs(got[f] - ref[f]).max() <= 1e-6 * np.abs(ref[f]).max(), f
+
+
+@pytest.mark.parametrize("n", [7013, 14026])
+def test_chirpz_global_model_matches_numpy_rfft(n):
+    """The chirp-z global route, forced where the cluster route now takes
+    the geometry (odd 7,013 over the pruned K bins, even 14,026: L = 7,013),
+    runs the whole-length chirp-z transform through four-step transforms of
+    ``chirp_size`` points past one block and gives ``numpy.fft.rfft`` within
+    1e-6 of the maximum, a quiet frame beside loud ones included."""
+    L, N = tspec.fft_shape(n)
+    assert N != L and N > tspec.ONE_BLOCK_POINTS and tspec.four_step_plan(N) is not None
+    rng = np.random.default_rng(n + 2)
+    frames = rng.standard_normal((3, n)).astype(np.float32)
+    frames[1] *= 1e-3
+    frames = frames * tspec.kernel_tables(n)[0][None, :]
+    got = spectrum_model(frames, n, route="global")
     ref = np.fft.rfft(frames.astype(np.float64), axis=-1)
     for f in range(3):
         assert np.abs(got[f] - ref[f]).max() <= 1e-6 * np.abs(ref[f]).max(), f
@@ -337,14 +442,88 @@ def test_split_plan(L, want):
                                           else [plan.P, plan.M, plan.M])
 
 
+# the cluster route's model at small sizes, every cluster size: L prime
+# (1,031 odd; 2,062 even, L = 1,031) and two primes above 31 (1,517 = 37 x
+# 41 odd; 3,034 even, L = 1,517); the card runs the full sizes (phase 46)
+@pytest.mark.parametrize("n_fft", [1031, 2062, 1517, 3034])
+@pytest.mark.parametrize("C", [2, 4, 8])
+def test_cluster_model_matches_numpy_rfft_power(n_fft, C):
+    """The cluster route's model forced to a cluster of C blocks (slices of
+    columns, the exchange to slices of rows and back, an even frame's real
+    split across slices) gives ``numpy.fft.rfft``'s power within 1e-5 of
+    each frame's maximum, a quiet frame beside loud ones included."""
+    L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    plan = tspec.cluster_plan(L, tspec.chirp_bins(n_fft), C)
+    assert plan.C == C and plan.M % (C * C) == 0 and plan.M >= L + tspec.chirp_bins(n_fft) - 1
+    rng = np.random.default_rng(n_fft + C)
+    frames = rng.standard_normal((3, n_fft)).astype(np.float32)
+    frames[1] *= 1e-3
+    frames = frames * tspec.kernel_tables(n_fft)[0][None, :]
+    z = (frames[:, 0::2] + 1j * frames[:, 1::2] if n_fft % 2 == 0 else frames + 0j)
+    got = cluster_model(z.astype(np.complex64), n_fft, C)
+    ref = np.abs(np.fft.rfft(frames.astype(np.float64), axis=-1)) ** 2
+    assert got.shape == ref.shape
+    for f in range(3):
+        assert np.abs(got[f] - ref[f]).max() <= 1e-5 * ref[f].max(), f
+
+
+@pytest.mark.parametrize("n_fft, want", [
+    (7013, (1, 10752)), (7003, (1, 10752)), (7396, (1, 7680)), (10821, (2, 16384)),
+    (30011, (4, 47040)), (40009, (8, 61440)), (79999, None)])
+def test_cluster_plan(n_fft, want):
+    """The cluster route's plan: the smallest cluster whose blocks hold two
+    buffers of M / C points and their tables, M 7-smooth from L + K - 1 with
+    C^2 | M (C divides both N1 and N2), the fewest passes, then the
+    smallest; none past a cluster of 8 (79,999 prime: 119,998 points and
+    more)."""
+    L = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    K = tspec.chirp_bins(n_fft)
+    plan = tspec.cluster_plan(L, K)
+    assert (None if plan is None else (plan.C, plan.M)) == want
+    if plan is None:
+        assert tspec.k1_route(n_fft, n_fft // 2) == "global"
+        return
+    C, M = plan.C, plan.M
+    assert tspec.k1_route(n_fft, n_fft // 2) == "cluster"
+    assert M % (C * C) == 0 and plan.N1 % C == 0 and plan.N2 % C == 0
+    assert plan.N1 * plan.N2 == M and plan.N1 <= plan.N2 and M >= L + K - 1
+    assert set(tspec.mixed_radices(M)) <= {2, 3, 4, 5, 7, 8}
+    assert 16 * M // C < plan.smem_bytes <= tspec.SMEM_LIMIT
+    assert plan.smem_bytes == tspec.cluster_split(M, C)[2]
+    for c in tspec.CLUSTER_SIZES:
+        if c < C:
+            assert tspec.cluster_plan(L, K, c) is None, c
+
+
+def test_k1_route_takes_cluster_wherever_it_has_a_plan():
+    """Every 97th n_fft over 7,000-70,000 at hop n_fft / 2: no geometry
+    whose chirp-z size passes one block takes the chirp-z global route where
+    the cluster route has a plan; each such geometry that neither Rader's
+    routes nor the split route take takes the cluster route, at every
+    cluster size among them."""
+    sizes = set()
+    for n in range(7000, 70001, 97):
+        L, N = tspec.fft_shape(n)
+        route = tspec.k1_route(n, n // 2)
+        plan = tspec.cluster_plan(L, tspec.chirp_bins(n))
+        if N == L or N <= tspec.ONE_BLOCK_POINTS or plan is None:
+            continue
+        assert route != "global", n
+        if route not in ("rader", "rader_global", "split"):
+            assert route == "cluster", n
+            sizes.add(plan.C)
+    assert sizes == set(tspec.CLUSTER_SIZES)
+
+
 @pytest.mark.parametrize("n_fft, hop, route", [
     (9999, 4999, "split"), (14530, 7265, "split"), (7005, 3502, "split"), (14010, 7005, "split"),
-    (7013, 3506, "global"), (7003, 3501, "global"), (296, 148, "chirpz"), (1111, 555, "chirpz"),
+    (7013, 3506, "cluster"), (7003, 3501, "cluster"), (296, 148, "chirpz"), (1111, 555, "chirpz"),
     (6186, 3093, "chirpz")])
 def test_k1_route_takes_split(n_fft, hop, route):
     """A complex length whose chirp-z size passes one block and that splits
-    takes the split route; one that does not split keeps the chirp-z global
-    route; a chirp-z size within one block keeps the chirp-z route, whether
+    takes the split route; one that does not split takes the whole-length
+    chirp-z transform on chip (the cluster route, which replaced the chirp-z
+    global route there); a chirp-z size within one block keeps the chirp-z route, whether
     or not L splits (296: 4 x 37; 6,186: L = 3 x 1,031); the split route's
     scratch holds two chunk buffers of a frame's kept points (an odd
     frame's (P + 1) / 2 rows)."""
@@ -362,13 +541,13 @@ def test_k1_route_takes_split(n_fft, hop, route):
 @pytest.mark.parametrize("n_fft, hop, route", [
     (65537, 32768, "rader_global"), (12289, 6144, "rader_global"), (7681, 3840, "rader_global"),
     (131074, 65537, "rader_global"), (15362, 7681, "rader_global"), (1009, 504, "rader"),
-    (7283, 3641, "global"), (1031, 515, "chirpz")])
+    (7283, 3641, "cluster"), (1031, 515, "chirpz")])
 def test_k1_route_takes_rader_global(n_fft, hop, route):
     """A prime complex length whose L - 1 passes one block and has a
     four-step split takes the global Rader route, whatever the parity of
     n_fft; one block's Rader route keeps its primes; a prime whose L - 1
-    has no split (7,283: 7,282 = 2 11 331) and one with no Rader plan
-    (1,031) keep the chirp-z transform."""
+    has no split (7,283: 7,282 = 2 11 331, now on the cluster route) and
+    one with no Rader plan (1,031) keep the chirp-z transform."""
     assert tspec.k1_route(n_fft, hop) == route
     L = n_fft // 2 if n_fft % 2 == 0 else n_fft
     assert tspec.rader_global_takes(L) == (route == "rader_global")
@@ -470,8 +649,9 @@ def _consts(name):
 
 def test_plan_twins_mirror_the_sources():
     """``tile_plan``, ``four_step_plan``, ``chirp_size``, ``chunk_frames``,
-    ``split_plan`` and the routes' shared-memory layouts against
-    ``four_step.cuh``, ``spectrogram_power.cu`` and ``streaming.cu``."""
+    ``split_plan``, ``cluster_split`` and the routes' shared-memory layouts
+    against ``four_step.cuh``, ``cluster_fft.cuh``, ``spectrogram_power.cu``,
+    ``spectrogram_cluster.cu`` and ``streaming.cu``."""
     src, c = _consts("four_step.cuh")
     assert c["kOneBlockPoints"] == tspec.ONE_BLOCK_POINTS
     assert c["kBlockSmemLimit"] == tspec.SMEM_LIMIT
@@ -554,6 +734,38 @@ def test_plan_twins_mirror_the_sources():
                    tspec.SMEM_LIMIT // 4), None)
         assert tspec.split_row_plan(Q) == (tspec.tile_plan(Q) if lg is None else
                                            (1 << lg, 16 * tspec.tile_elems(Q, 1 << lg)))
+    # the cluster route: cluster_split_of mirrors cluster_split (C | N1, C |
+    # N2, N1 <= N2, the fewest passes, then the largest N1; the buffers'
+    # strides and the tables), the launcher checks the plan's split and bytes
+    cl_src, cl = _consts("cluster_fft.cuh")
+    assert cl["kMaxCluster"] == max(tspec.CLUSTER_SIZES) == 8
+    assert "for (int d = C; (long long)d * d <= M; d += C) {" in cl_src
+    assert "if (M % d != 0 || (M / d) % C != 0) continue;" in cl_src
+    assert "if (p1 + p2 <= best) {" in cl_src
+    assert "s.ldc = s.nc | 1;" in cl_src and "s.ldr = s.N2 | 1;" in cl_src
+    assert "const long long a = (long long)s.N1 * s.ldc, b = (long long)s.nr * s.ldr;" in cl_src
+    assert "while ((1LL << (2 * s.sh)) < M) ++s.sh;" in cl_src
+    assert "s.tw = s.N1 + s.N2 + (1 << s.sh) + ((M - 1) >> s.sh) + 1;" in cl_src
+    assert "return 16LL * s.elems + 8LL * s.tw;" in cl_src
+    assert "(long long)M * s.N2 < (1LL << 32)" in cl_src
+    k1c_src, _ = _consts("spectrogram_cluster.cu")
+    assert "s.N1 != N1 || cluster_smem(s) != smem_bytes || !seven_smooth(M)" in k1c_src
+    for M in (7680, 10752, 14112, 16384, 47040, 61440, 3136, 2560):
+        for C in tspec.CLUSTER_SIZES:
+            best, n1 = None, 0
+            for d in range(C, math.isqrt(M) + 1, C):  # cluster_split_of's loop
+                if M % d == 0 and (M // d) % C == 0 and d >= 2:
+                    p = len(tspec.mixed_radices(d)) + len(tspec.mixed_radices(M // d))
+                    if best is None or p <= best:
+                        best, n1 = p, d
+            got = tspec.cluster_split(M, C)
+            assert (got and got[0]) == (n1 or None), (M, C)
+            if got:
+                n2 = M // n1
+                elems = max(n1 * ((n2 // C) | 1), (n1 // C) * (n2 | 1))
+                sh = math.ceil(math.log2(M) / 2)
+                tw = n1 + n2 + 2 ** sh + -(-M // 2 ** sh)
+                assert got[2] == 16 * (elems + elems % 2) + 8 * tw, (M, C)
     k8_src, k8 = _consts("streaming.cu")
     assert "return 16 * tile_elems(Mc, slots) + 4 * slots * K;" in k8_src
     assert "chirp_size_takes(M, M, c->chirp_n)" in k8_src
@@ -585,7 +797,8 @@ def test_k1_route_is_total():
     """Every n_fft from 1 to 20,000 and the routes' large sizes take a route
     at hop n_fft / 2 and at hop 1, and none the direct DFT; a prime complex
     length takes a Rader route wherever L - 1 has one; past one block's
-    chirp-z size the rest take the split route wherever L splits."""
+    chirp-z size the rest take the split route wherever L splits, else the
+    cluster route wherever its plan reaches."""
     routes = set()
     for n in list(range(1, 20001)) + [32768, 60000, 65536, 65537, 131074]:
         for hop in (max(1, n // 2), 1):
@@ -599,9 +812,11 @@ def test_k1_route_is_total():
             assert tspec.k1_route(n, max(1, n // 2)) == "rader_global", n
         elif N != L and N > tspec.ONE_BLOCK_POINTS and tspec.rader_launch_plan(L) is None:
             split = tspec.split_plan(L) is not None
-            assert tspec.k1_route(n, max(1, n // 2)) == ("split" if split else "global"), n
+            cluster = tspec.cluster_plan(L, tspec.chirp_bins(n)) is not None
+            assert tspec.k1_route(n, max(1, n // 2)) == (
+                "split" if split else "cluster" if cluster else "global"), n
     assert routes == {"fft", "mixed", "mixed_odd", "rader", "rader_global", "chirpz", "split",
-                      "global"}
+                      "cluster", "global"}
     assert set(tspec.K1_ROUTES) == routes | {"dft"}
 
 

@@ -342,8 +342,9 @@ def test_k1_route_table():
     sizes at a hop not a multiple of 4), the odd mixed-radix FFT for an odd
     size with such factors, the chirp-z transform for the rest, and the
     four-step FFT in device memory past one block's frame, or the split of
-    the complex length at its one prime above 31 there (58,113 = 587 x 99;
-    7,013 is prime); the DFT for none; refusals only below 1."""
+    the complex length at its one prime above 31 there (58,113 = 587 x 99),
+    or the whole-length chirp-z transform on chip where L does not split
+    (7,013 is prime); the DFT for none; refusals only below 1."""
     from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
 
     table = {(256, 128): "fft", (256, 100): "fft", (64, 32): "fft", (1024, 512): "fft",
@@ -351,7 +352,7 @@ def test_k1_route_table():
              (2048, 1024): "mixed", (400, 200): "mixed", (256, 6): "mixed", (260, 128): "mixed",
              (32, 16): "mixed", (4096, 2048): "mixed", (385, 192): "mixed_odd",
              (296, 148): "chirpz", (16384, 8192): "global", (2, 1): "chirpz", (1, 1): "chirpz",
-             (tspec.DFT_MAX_N_FFT + 1, 128): "split", (7013, 3506): "global"}
+             (tspec.DFT_MAX_N_FFT + 1, 128): "split", (7013, 3506): "cluster"}
     for (n_fft, hop), route in table.items():
         assert tspec.k1_route(n_fft, hop) == route, (n_fft, hop)
     for n_fft in range(128, 4097, 128):  # the JAX Pallas kernel's geometries

@@ -29,15 +29,22 @@ card; imports nothing of JAX.
 
 ``--split`` times K1's route for each geometry instead (by default
 9,999/4,999, 14,530/7,265, 7,005/3,502 and 14,010/7,005, on the split
-route, and 7,013/3,506 and 7,003/3,501, which stay on the whole-length
-chirp-z global route): the route, for the split route also at each other
+route, and 7,013/3,506, 7,003/3,501, 7,396/3,698, 10,821/5,410,
+30,011/15,005 and 40,009/20,004 on the cluster route, clusters of 1, 1, 1,
+2, 4 and 8 blocks): the route, for the split route also at each other
 column tile whose block fits a third of the shared memory (``split_plan``
-patched within this tool) and the chirp-z global route it replaced,
-forced; and ``stft_power``; each output held within 1e-5 of
-``stft_power``'s maximum, all in turns as above; and the route's device ms
-per launch of each CUDA kernel (``chip_smoke.launch_breakdown``,
+patched within this tool) and the cluster route forced, for the cluster route
+also at each other cluster size that holds the transform (``cluster_plan``
+patched within this tool); the chirp-z
+global route it replaced, forced; and ``stft_power``; each output held within
+1e-5 of ``stft_power``'s maximum, all in turns as above; and the route's
+device ms per launch of each CUDA kernel (``chip_smoke.launch_breakdown``,
 torch.profiler), for the split route also per call: per launch times its
-chunks, one launch of each kernel a chunk.
+chunks, one launch of each kernel a chunk.  The cluster route is one
+launch, its columns, exchanges and rows inside one kernel, which the
+profiler times as a whole; its registers and spills (ptxas) and the
+clusters the card holds at once (``cudaOccupancyMaxActiveClusters``) are
+printed beside it.
 """
 
 from __future__ import annotations
@@ -176,10 +183,15 @@ def time_routes(args, smi: str, x) -> int:
     from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
     from audio_processing_tools_tpu_torch.ops.stft import stft_power
 
+    from audio_processing_tools_tpu_torch import _kernels
+
     geos = args.geometries or ["9999/4999", "14530/7265", "7005/3502", "14010/7005",
-                               "7013/3506", "7003/3501"]
-    result = {"card": smi, "route": {}, "split": {}, "ms": {}, "max_rel": {}, "launches_ms": {},
-              "chunks": {}, "calls_ms": {}}
+                               "7013/3506", "7003/3501", "7396/3698", "10821/5410",
+                               "30011/15005", "40009/20004"]
+    result = {"card": smi, "route": {}, "split": {}, "cluster": {}, "ms": {}, "max_rel": {},
+              "launches_ms": {}, "chunks": {}, "calls_ms": {}, "ptxas": cluster_ptxas(
+                  _kernels.build().build_log)}
+    print("ptxas, the cluster route's kernels: " + "; ".join(result["ptxas"]))
     for geo in geos:
         n_fft, hop = (int(v) for v in geo.split("/"))
         L = n_fft // 2 if n_fft % 2 == 0 else n_fft
@@ -195,8 +207,21 @@ def time_routes(args, smi: str, x) -> int:
             for ft in (1, 2, 4, 8, 16, 32):
                 smem = 16 * tspec.tile_elems(sp.M, ft) + (16 * ft if sp.kind == "rader" else 0)
                 if ft != sp.col.frame_tile and smem <= tspec.SMEM_LIMIT // 3:
-                    calls[f"split, tile {ft}"] = with_column_tile(
-                        forced("split"), sp._replace(col=tspec.LaunchPlan(ft, smem)))
+                    calls[f"split, tile {ft}"] = with_plan(
+                        forced("split"), "split_plan",
+                        lambda L, p=sp._replace(col=tspec.LaunchPlan(ft, smem)): p)
+            calls["global"] = forced("global")
+        cp = tspec.cluster_plan(L, tspec.chirp_bins(n_fft))
+        if cp is not None and route in ("split", "cluster"):
+            result["cluster"][geo] = {**cp._asdict(),
+                                      "max_active": tspec.cluster_max_active(cp.C, cp.smem_bytes)}
+            calls.setdefault("cluster", forced("cluster"))
+        if route == "cluster":
+            for c in tspec.CLUSTER_SIZES:
+                if c != cp.C and tspec.cluster_plan(L, tspec.chirp_bins(n_fft), c) is not None:
+                    calls[f"cluster of {c}"] = with_plan(
+                        forced("cluster"), "cluster_plan",
+                        lambda L, K=None, C=None, c=c, kept=tspec.cluster_plan: kept(L, K, c))
             calls["global"] = forced("global")
         calls["stft_power"] = lambda: stft_power(x, n_fft=n_fft, hop=hop)
         ref = calls["stft_power"]()
@@ -225,9 +250,13 @@ def time_routes(args, smi: str, x) -> int:
             result["chunks"][geo] = chunks
             result["calls_ms"][geo] = {k: round(v * chunks, 4) for k, v in per_launch.items()}
             per_call = f"; {chunks} chunks, per call {result['calls_ms'][geo]}"
+        cl = result["cluster"].get(geo)
         print(f"{geo} (L {L}, route {route}"
               + (f", {sp.P} x {sp.Q} by {sp.kind} over {sp.M}, tile {sp.col.frame_tile}"
-                 if route == "split" else "") + "): "
+                 if route == "split" else "")
+              + (f"; cluster of {cl['C']} over {cl['M']} = {cl['N1']} x {cl['N2']}, "
+                 f"{cl['smem_bytes']} bytes a block, {cl['max_active']} clusters at once"
+                 if cl else "") + "): "
               + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + " ms; per launch "
               + str(per_launch) + per_call)
     line = json.dumps(result)
@@ -237,18 +266,33 @@ def time_routes(args, smi: str, x) -> int:
     return 0
 
 
-def with_column_tile(call, plan):
-    """``call`` with the split route's plan replaced by ``plan`` (another
-    column tile) while it runs."""
+def cluster_ptxas(log: str):
+    """ptxas's lines (registers, spills) for the cluster route's kernels in
+    the build log."""
+    out, take = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            take = "spectrogram_power_cluster" in line
+            if take:
+                out.append(line.split("'")[1] if "'" in line else line.strip())
+        elif take and ("registers" in line or "spill" in line):
+            out.append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def with_plan(call, name, plan):
+    """``call`` with the planner ``name`` of ``ops/spectrogram.py`` replaced
+    by ``plan`` while it runs (another split column tile, another cluster
+    size)."""
     from audio_processing_tools_tpu_torch.ops import spectrogram as tspec
 
     def run():
-        kept = tspec.split_plan
-        tspec.split_plan = lambda L: plan
+        kept = getattr(tspec, name)
+        setattr(tspec, name, plan)
         try:
             return call()
         finally:
-            tspec.split_plan = kept
+            setattr(tspec, name, kept)
 
     return run
 
