@@ -50,6 +50,9 @@ LAUNCHES: Dict[str, int] = {
     "band_noise_scan": 0,
     "select_peaks_by_distance": 0,
     "decision_sweep": 0,
+    "local_maxima": 0,
+    "peak_prominences": 0,
+    "peak_widths_rel": 0,
 }
 
 _P = ctypes.c_void_p
@@ -87,6 +90,9 @@ _SIGNATURES = {
     "apt_select_peaks_by_distance": (_P, _P, _P, _I, _I, _I, _I, _P),
     "apt_select_peaks_long": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "apt_decision_sweep": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "apt_local_maxima": (_P, _P, _L, _L, _P),
+    "apt_peak_prominences": (_P, _P, _P, _L, _I, _P),
+    "apt_peak_widths_rel": (_P, _P, _P, _P, _L, _I, _F, _P),
 }
 
 

@@ -167,21 +167,23 @@ def _peak_gate_block(spec: torch.Tensor, mode_masks: np.ndarray, primary_mask: n
     }
 
 
-_PEAK_GATE_CLIPS = 16  # clips per block: bounds the (clips, T, K, K) planes
+_PEAK_GATE_CLIPS = 16  # clips per block on the CPU: bounds the (clips, T, K, K) planes
 
 
 def _peak_gate(spec: torch.Tensor, mode_masks: np.ndarray, primary_mask: np.ndarray,
                freqs_band: np.ndarray, **kw) -> Dict[str, torch.Tensor]:
     """Peak-structure gate over ``spec`` (..., K, T) detector-input dB
-    (``frame_classifier.py:106-170``), in the JAX package's masked
-    (..., T, K, K) form.  At 128 clips x 873 frames x 71 bins one such
-    float32 plane is 2.25 GB, so a batch runs in blocks of 16 clips."""
+    (``frame_classifier.py:106-170``).  On the CPU the peak ops take the
+    JAX package's masked (..., T, K, K) form; at 128 clips x 873 frames x
+    71 bins one such float32 plane is 2.25 GB, so a batch runs there in
+    blocks of 16 clips.  On the card K11-K13 make no plane, and the batch
+    is one block."""
     df_hz = float(freqs_band[1] - freqs_band[0]) if freqs_band.size > 1 else 0.0
     lead = spec.shape[:-2]
     flat = spec.reshape((-1,) + spec.shape[-2:])
-    parts = [_peak_gate_block(flat[i : i + _PEAK_GATE_CLIPS], mode_masks, primary_mask,
-                              df_hz, **kw)
-             for i in range(0, flat.shape[0], _PEAK_GATE_CLIPS)]
+    step = _PEAK_GATE_CLIPS if spec.device.type == "cpu" else max(flat.shape[0], 1)
+    parts = [_peak_gate_block(flat[i : i + step], mode_masks, primary_mask, df_hz, **kw)
+             for i in range(0, flat.shape[0], step)]
     return {k: torch.cat([p[k] for p in parts]).reshape(lead + parts[0][k].shape[1:])
             for k in parts[0]}
 

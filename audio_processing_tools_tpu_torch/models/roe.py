@@ -8,9 +8,10 @@ chunk of every clip of the batch is one row of a ``(rows, samples)``
 tensor: all full-length chunks go through the filters and the spectrogram
 together, and a shorter last chunk gets its own launches.  Per batch of
 10 s clips that is one launch of kernel K1 (the power spectrogram,
-``sqrt`` of it is the magnitude) and two of kernel K4 (the order-8
+``sqrt`` of it is the magnitude), two of kernel K4 (the order-8
 operating band-pass and the order-4 pulse band-pass, zero-state
-``sosfilt``).
+``sosfilt``) and seven of kernel K11 (the local maxima: the spectral peaks
+once, the novelty rows once a harmonic).
 
 Numerics against the JAX package:
 

@@ -6,8 +6,8 @@ Counterpart of ``audio_processing_tools_tpu/models/time_domain.py``
 clipped to the signal (``[t-128, t+256)``, 384 samples, by default) and
 zero-padded to the longest.  The Hilbert envelope is taken per group of
 equal window lengths (``torch.fft``), then smoothed; the peak mask is the
-local maxima, the distance filter (kernel K9 on the card,
-``ops/peaks.py::select_peaks_by_distance``) and the prominence gate; crest
+local maxima, the distance filter and the prominence gate (kernels K11,
+K9 and K12 on the card, one launch each a clip, ``ops/peaks.py``); crest
 factor and kurtosis come from the raw window.  The stage-1 mask is applied
 at the end (compute everywhere, mask at the end), as in JAX.
 
@@ -37,7 +37,7 @@ from audio_processing_tools_tpu_torch.ops.peaks import (
 )
 from audio_processing_tools_tpu_torch.ops.stats import tree_sum
 
-_PROMINENCE_ROWS = 256  # windows per prominence block: bounds its (rows, L, L) planes
+_PROMINENCE_ROWS = 256  # windows per prominence block on the CPU: bounds its (rows, L, L) planes
 
 
 @dataclass(frozen=True)
@@ -170,9 +170,12 @@ def _analyze_windows(env: torch.Tensor, seg: torch.Tensor, vmask: torch.Tensor,
     env_z = torch.where(vmask, env, 0.0)
     is_max = local_maxima(env_z) & vmask
     kept = select_peaks_by_distance(env_z, is_max, distance)
-    prom = torch.cat([peak_prominences(env_z[i : i + _PROMINENCE_ROWS],
-                                       kept[i : i + _PROMINENCE_ROWS])
-                      for i in range(0, env_z.shape[0], _PROMINENCE_ROWS)])
+    if dev.type == "cpu":  # the plain version's planes, in blocks
+        prom = torch.cat([peak_prominences(env_z[i : i + _PROMINENCE_ROWS],
+                                           kept[i : i + _PROMINENCE_ROWS])
+                          for i in range(0, env_z.shape[0], _PROMINENCE_ROWS)])
+    else:  # K12, one launch over all windows
+        prom = peak_prominences(env_z, kept)
     peaks = kept & (prom >= prominence_thr[:, None])
     n_peaks = torch.sum(peaks, dim=-1).to(torch.int32)
 

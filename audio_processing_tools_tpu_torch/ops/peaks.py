@@ -2,28 +2,46 @@
 
 Counterpart of ``audio_processing_tools_tpu/ops/peaks.py``:
 :func:`local_maxima` (``:27-71``), :func:`peak_prominences` (``:74-105``)
-and :func:`peak_widths_rel` (``:108-163``), in the JAX package's masked
-O(N^2) forms, and :func:`select_peaks_by_distance` (``:185-208``), the
-stage-2 confirmer's distance filter (``models/time_domain.py``), whose
-``fori_loop`` is kernel K9 on the card (``csrc/peaks.cu``).
-``torch.cummax`` takes the place of ``lax.cummax``, its ``reverse=True``
-form through ``flip``.  :func:`find_peaks` (``:166-182``) is the masked
-``find_peaks`` over the first two; nothing in the JAX package calls it.
+and :func:`peak_widths_rel` (``:108-163``), whose XLA-fused programs are
+kernels K11-K13 on the card (``csrc/peak_shape.cu``), and
+:func:`select_peaks_by_distance` (``:185-208``), the stage-2 confirmer's
+distance filter, whose ``fori_loop`` is kernel K9 (``csrc/peaks.cu``).  On
+a CPU tensor each takes its plain version, the JAX package's own form:
+``torch.cummax`` for ``lax.cummax`` (its ``reverse=True`` through
+``flip``) and the masked O(N^2) planes.  :func:`find_peaks`
+(``:166-182``) is the masked ``find_peaks`` over the first two; nothing in
+the JAX package calls it.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from audio_processing_tools_tpu_torch import _kernels
 
+PEAK_SHAPE_SHARED_MAX = 2048  # csrc/peak_shape.cu: kSharedMax, K12's and K13's rows in shared memory
 
-def local_maxima(x: torch.Tensor) -> torch.Tensor:
-    """Boolean mask of local maxima along the last axis, scipy's plateau
-    rule included: a plateau marks its midpoint; the first and last samples
-    never peak.  Each position finds the nearest strict change on each side
-    with a running max over encoded boundary indices whose low bit carries
-    the change's direction."""
+
+def peak_shape_route(n: int) -> str:
+    """Where K12 and K13 read a row of ``n`` positions: ``"shared"`` (staged
+    in shared memory) up to :data:`PEAK_SHAPE_SHARED_MAX`, ``"global"``
+    (device memory) beyond."""
+    return "shared" if n <= PEAK_SHAPE_SHARED_MAX else "global"
+
+
+def _rows(name: str, t: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``t`` as contiguous rows (R, n) on the card, checked for K11-K13."""
+    rows = t.reshape(math.prod(t.shape[:-1]), n).contiguous()
+    _kernels.require_cuda(name, rows, dtype, 2)
+    return rows
+
+
+def _local_maxima_plain(x: torch.Tensor) -> torch.Tensor:
+    """The JAX formulation on any tensor: each position finds the nearest
+    strict change on each side with a running max over encoded boundary
+    indices whose low bit carries the change's direction."""
     n = x.shape[-1]
     if n < 3:
         return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
@@ -55,11 +73,36 @@ def local_maxima(x: torch.Tensor) -> torch.Tensor:
     return left_rise & right_fall & (m == torch.div(s + e, 2, rounding_mode="floor"))
 
 
-def peak_prominences(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
-    """Prominence of every position, 0 where ``is_peak`` is false (scipy
-    semantics: each side extends to a strictly higher sample or the border,
-    its base is the side's minimum, the prominence is the peak less the
-    higher base)."""
+def _local_maxima_cuda(x: torch.Tensor) -> torch.Tensor:
+    """K11 (``csrc/peak_shape.cu``) on float32 ``x`` (..., n): one warp a
+    row, one scan of the encoded change boundaries from the left; rows
+    shorter than 3 have no maximum and launch nothing."""
+    n = x.shape[-1]
+    xr = _rows("local_maxima", x, n, torch.float32)
+    if xr.shape[0] == 0 or n < 3:
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    out = torch.empty(xr.shape, dtype=torch.bool, device=x.device)
+    lib = _kernels.build()
+    with torch.cuda.device(x.device):
+        err = lib.lib.apt_local_maxima(xr.data_ptr(), out.data_ptr(), xr.shape[0], n,
+                                       _kernels.stream_of(x))
+    lib.check(err, "local_maxima")
+    _kernels.count("local_maxima")
+    return out.reshape(x.shape)
+
+
+def local_maxima(x: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of local maxima along the last axis, scipy's plateau
+    rule included: a plateau marks its midpoint; the first and last samples
+    never peak.  Kernel K11 on a CUDA tensor (float32), the plain version on
+    a CPU tensor; both give the JAX function's mask."""
+    if x.device.type == "cpu":
+        return _local_maxima_plain(x)
+    return _local_maxima_cuda(x)
+
+
+def _peak_prominences_plain(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
+    """The JAX package's masked O(N^2) form on any tensor."""
     n = x.shape[-1]
     # int32 positions: the (..., n, n) index planes are half the bytes of int64
     i = torch.arange(n, dtype=torch.int32, device=x.device)
@@ -82,6 +125,50 @@ def peak_prominences(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
 
     prom = x - torch.maximum(left_base, right_base)
     return torch.where(is_peak, prom, 0.0)
+
+
+def _peak_walk_cuda(name: str, x: torch.Tensor, is_peak: torch.Tensor, launch) -> torch.Tensor:
+    """K12 or K13 on float32 ``x`` (..., n) and a bool ``is_peak`` that
+    broadcasts to it: ``launch(lib, x rows, peak rows, out rows)`` runs the
+    kernel; nothing is launched for an empty input."""
+    n = x.shape[-1]
+    xr = _rows(name, x, n, torch.float32)
+    pr = _rows(f"{name}(is_peak)", torch.broadcast_to(is_peak, x.shape), n, torch.bool)
+    if pr.device != xr.device:
+        raise ValueError(f"{name}: is_peak on {pr.device}, x on {xr.device}")
+    out = torch.empty(xr.shape, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out.reshape(x.shape)
+    lib = _kernels.build()
+    with torch.cuda.device(x.device):
+        err = launch(lib.lib, xr, pr, out)
+    lib.check(err, name)
+    _kernels.count(name)
+    return out.reshape(x.shape)
+
+
+def _peak_prominences_cuda(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
+    """K12 (``csrc/peak_shape.cu``): one warp a row, a lane a peak walking
+    each side to the first strictly higher sample; the row in shared memory
+    or device memory (:func:`peak_shape_route`)."""
+    return _peak_walk_cuda(
+        "peak_prominences", x, is_peak,
+        lambda lib, xr, pr, out: lib.apt_peak_prominences(
+            xr.data_ptr(), pr.data_ptr(), out.data_ptr(), xr.shape[0], xr.shape[1],
+            _kernels.stream_of(xr)))
+
+
+def peak_prominences(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
+    """Prominence of every position, 0 where ``is_peak`` is false (scipy
+    semantics: each side extends to a strictly higher sample or the border,
+    its base is the side's minimum, the prominence is the peak less the
+    higher base; NaN propagates).  Kernel K12 on a CUDA tensor (float32
+    ``x``, bool ``is_peak``), the plain version on a CPU tensor; both give
+    the JAX function's values (a zero's sign aside where the plain version's
+    minimum ties -0.0 with +0.0, ``csrc/peak_shape.cu``)."""
+    if x.device.type == "cpu":
+        return _peak_prominences_plain(x, is_peak)
+    return _peak_prominences_cuda(x, is_peak)
 
 
 def find_peaks(x: torch.Tensor, height: torch.Tensor | float | None = None,
@@ -109,10 +196,9 @@ def _pick_at(xj: torch.Tensor, jj: torch.Tensor, idx: torch.Tensor) -> torch.Ten
     return torch.sum(torch.where(jj == idx[..., :, None], xj, 0.0), dim=-1)
 
 
-def peak_widths_rel(x: torch.Tensor, is_peak: torch.Tensor,
-                    prominences: torch.Tensor, rel_height: float = 0.5) -> torch.Tensor:
-    """Width of each peak at ``x[p] - rel_height * prominence``, crossings
-    interpolated linearly (scipy ``peak_widths``); 0 where not a peak."""
+def _peak_widths_rel_plain(x: torch.Tensor, is_peak: torch.Tensor,
+                           prominences: torch.Tensor, rel_height: float = 0.5) -> torch.Tensor:
+    """The JAX package's masked O(N^2) form with one-hot picks, on any tensor."""
     n = x.shape[-1]
     j = torch.arange(n, device=x.device)
     pp = j[:, None]
@@ -150,6 +236,35 @@ def peak_widths_rel(x: torch.Tensor, is_peak: torch.Tensor,
     right_ip = torch.where(has_r, i_r_c.to(x.dtype) - interp_r, float(n - 1))
 
     return torch.where(is_peak, right_ip - left_ip, 0.0)
+
+
+def _peak_widths_rel_cuda(x: torch.Tensor, is_peak: torch.Tensor, prominences: torch.Tensor,
+                          rel_height: float = 0.5) -> torch.Tensor:
+    """K13 (``csrc/peak_shape.cu``): one warp a row, a lane a peak walking
+    each side to the first sample at or below its height, the plain
+    version's operations in its order; ``rel_height`` is taken as float32,
+    as the plain version's scalar product takes it."""
+    n = x.shape[-1]
+    pm = _rows("peak_widths_rel(prominences)", torch.broadcast_to(prominences, x.shape), n,
+               torch.float32)
+    if pm.device != x.device:
+        raise ValueError(f"peak_widths_rel: prominences on {pm.device}, x on {x.device}")
+    return _peak_walk_cuda(
+        "peak_widths_rel", x, is_peak,
+        lambda lib, xr, pr, out: lib.apt_peak_widths_rel(
+            xr.data_ptr(), pr.data_ptr(), pm.data_ptr(), out.data_ptr(), xr.shape[0],
+            xr.shape[1], float(rel_height), _kernels.stream_of(xr)))
+
+
+def peak_widths_rel(x: torch.Tensor, is_peak: torch.Tensor,
+                    prominences: torch.Tensor, rel_height: float = 0.5) -> torch.Tensor:
+    """Width of each peak at ``x[p] - rel_height * prominence``, crossings
+    interpolated linearly (scipy ``peak_widths``); 0 where not a peak.
+    Kernel K13 on a CUDA tensor (float32 ``x`` and ``prominences``, bool
+    ``is_peak``), the plain version on a CPU tensor, with the same bits."""
+    if x.device.type == "cpu":
+        return _peak_widths_rel_plain(x, is_peak, prominences, rel_height)
+    return _peak_widths_rel_cuda(x, is_peak, prominences, rel_height)
 
 
 K9_MAX_LENGTH = 1024  # csrc/peaks.cu: the warp route's rows, a 32-bit word of covered positions a lane

@@ -97,7 +97,7 @@ Phases, one line each:
      scipy in float64, with the device ms of each of K4's launches; K1 at
      (640, 22,324) against ``stft_power``;
  22. the RoE classifier at full width: 128 synthetic 10 s clips through
-     ``roe_detect_batch(x, device="cuda")``, launches K1 1 and K4 2, 16
+     ``roe_detect_batch(x, device="cuda")``, launches K1 1, K4 2, K11 7, 16
      clips against the port's CPU path (counts and ``frain_mean``
      identical, per-frame ``raining`` and ``rain_peaks`` agreement >=
      0.999), and the batch's time;
@@ -128,15 +128,15 @@ Phases, one line each:
      rain frames) on 16 clips, card against CPU (masks, counts and peak
      indices identical, crest and kurtosis within 1e-5), then the 128
      clips one by one through ``TimeDomainRainDetector.process`` on the
-     card: ms per clip, launches (K9 one a clip), CUDA kernels and peak
-     memory;
+     card: ms per clip, launches (K9, K11 and K12 one each a clip), CUDA
+     kernels and peak memory;
  28. ``dsd_minutes_device`` on 128 x 60 s on the card, 8 clips against the
      port's CPU path and the firmware emulator (bins 0-61 identical, fft
      bins within one and >= 95% equal), and the duty-cycled minutes of four
      200 s recordings bit-equal to the emulator;
  29. the transform ETL's per-minute RoE batch (16 recordings x 2 minutes;
      RoE's default 10 s check duration makes 5 chunk rows a minute, 160 in
-     all) on the card, launches K1 1 and K4 2, counts identical to the CPU
+     all) on the card, launches K1 1, K4 2, K11 7, counts identical to the CPU
      path and ``frain_mean`` within one ulp;
  30. ``NoiseProcessor`` and ``RainProcessor`` (over ``rain_detection_algo``)
      on 4 clips, card against CPU;
@@ -189,7 +189,7 @@ Phases, one line each:
      features: ms a step, CUDA kernels a step, thresholds within 0.05 of the
      same fit on the CPU and the same accuracy; the tuned profile through
      ``RainDetectorProcessor`` on the hard corpus 28/32, the default 24/32;
- 39. the RoE sweep on the corpus, 64 combos, launches K1 1 and K4 2, 4
+ 39. the RoE sweep on the corpus, 64 combos, launches K1 1, K4 2, K11 7, 4
      combos x 8 clips equal to ``rain_detection_algo``, 16 clips identical to
      the CPU, and the RoE fit from a detuned start;
  40. the native RoE library built by g++ with its version, its booleans
@@ -237,12 +237,23 @@ Phases, one line each:
      chirp-z (296/148) and global passes (5,920, 10,240 over 5,027 band
      bins, 32,768 over 16,088 gated ones: the walk past 4,096 bins, its rows
      in a scratch) and both forced at 384/192, the plain loop's gain and
-     carries bit for bit, y within 1e-4 of its maximum, chunk invariant.
+     carries bit for bit, y within 1e-4 of its maximum, chunk invariant;
+ 47. K11-K13 (local maxima, prominences, widths; ``csrc/peak_shape.cu``)
+     against their plain versions on the card, bit for bit (K12's zeros by
+     value): on RoE's spectral peaks and novelty rows of the 128 clips, the
+     confirmer's windows of clip 1 and the peak gate's (128, 873, 71) dB
+     (its transposed view), and on ``peak_edge_rows`` of 1 to 30,000
+     positions with four masks, rel_height 0.5 and 1.0, some at unaligned
+     pointers; the peak gate through the classifier-only engine at 128 x 10
+     s (launches K11, K12, K13 one each, no plain version called), 16 clips
+     against the CPU path, the batch's time with and without the gate (the
+     detector debug returned by both) and its peak memory; each kernel's graph ms at each path's shape in turns
+     with its plain version, beside its bound.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 whichever is larger, and for K1 the time of ``stft_power``, cuFFT and the
-square, as its library call; no PyTorch call computes K2-K10's
+square, as its library call; no PyTorch call computes K2-K13's
 functions), and last the device line ``{"ok": true, "device": {...}}``.
 Any failed check, a missing card or a
 missing package exits non-zero before the device line.  The script imports
@@ -1016,12 +1027,13 @@ def main() -> int:
     geo = geometry_phases(smi, x, pcm)
     mixed = mixed_fft_phases(smi, x)
     chirpz = chirpz_global_phases(smi, x)
+    peaks = peak_shape_phases(smi, x)
 
     paths = {**more["launches"], **td["launches"], **fleet["launches"], **tune["launches"],
              **surface["launches"], "configurations the JAX package runs (phase 44)": geo["launches"],
              "the mixed-radix FFT and F7 (phase 45)": mixed["launches"],
              "the odd mixed, Rader, chirp-z, split, cluster and global routes (phase 46)":
-                 chirpz["launches"]}
+                 chirpz["launches"], **peaks["launches"]}
     launches_all = {k: launches[k] + launches_def[k] + launches_audio[k] + stream["launches"][k]
                     + band["launches"][k] + sum(v[k] for v in paths.values())
                     for k in launches}
@@ -1051,6 +1063,14 @@ def main() -> int:
         "select_peaks_by_distance": td["k9"]["work"],
         "decision_sweep": tune["k10"]["work"],
     }
+    # K11-K13: each at its main path's shape (RoE's spectral peaks, the
+    # confirmer's windows, the peak gate), the other shapes beside it
+    peak_main = {"local_maxima": "RoE spectral peaks",
+                 "peak_prominences": "the confirmer peak_prominences",
+                 "peak_widths_rel": "the peak gate peak_widths_rel"}
+    peak_at = {k: next(sh for sh in peaks["shapes"][k] if sh["path"] == label)
+               for k, label in peak_main.items()}
+    work.update({k: sh["work"] for k, sh in peak_at.items()})
 
     def bound(kernel, library_ms=None):
         ms, by = bound_of(*work[kernel])
@@ -1116,11 +1136,22 @@ def main() -> int:
          **bound("decision_sweep"),
          # K10 on 4,096 combos with every threshold distinct, and on one combo
          "distinct_ms": tune["k10"]["distinct_ms"], "one_combo_ms": tune["k10"]["one_combo_ms"]},
+        # a mask and two walks: phase 47 holds every position to the plain
+        # version's bits (K12's zeros by value)
+        *({"name": k, "route": "cuda", "source": pkg + "peak_shape.cu",
+           "replaces": f"audio_processing_tools_tpu/ops/peaks.py:{line}",
+           "launches": launches_all[k], "max_abs_err": peaks["err"][k],
+           "ms": peak_at[k]["ms"], "plain_ms": peak_at[k]["plain_ms"], **bound(k),
+           "shapes": [{key: v for key, v in sh.items() if key != "work"}
+                      for sh in peaks["shapes"][k]]}
+          for k, line in (("local_maxima", 27), ("peak_prominences", 74),
+                          ("peak_widths_rel", 108))),
     ]
     main_route = {"spectrogram_power": "fft", "cascade_sosfilt": "registers",
                   "band_noise_scan": "warp", "select_peaks_by_distance": "warp",
                   "streaming_suppressor": "fft", "sosfilt_zi": "1 group",
-                  "decision_sweep": "one launch"}
+                  "decision_sweep": "one launch", "local_maxima": "warp",
+                  "peak_prominences": "shared", "peak_widths_rel": "shared"}
     for k in kernels:
         # the route the entry's own numbers are of, and phase 44's routes
         k["routes"] = ([{"route": main_route.get(k["name"], "cuda"), "geometry": "main path"}]
@@ -2015,8 +2046,8 @@ def roe_mel_alac_phases(smi: str) -> dict:
     # ---- 22. RoE at full width -----------------------------------------------------
     roe.roe_detect_batch(x[:2], device=dev)  # warm the allocator and the constants
     out, l_roe, wall = launches_of(lambda: roe.roe_detect_batch(x, device=dev))
-    check(l_roe == {**zeros, "spectrogram_power": 1, "cascade_sosfilt": 2},
-          f"RoE launches {l_roe}, expected K1 1, K4 2")
+    check(l_roe == {**zeros, "spectrogram_power": 1, "cascade_sosfilt": 2, "local_maxima": 7},
+          f"RoE launches {l_roe}, expected K1 1, K4 2, K11 7")
     T_all = sum(2 + t // cfg.hop_length for _, t in plan)  # T + 1 frames a chunk
     check(out["raining"].shape == (BATCH, T_all) and out["nov"].shape == (BATCH, 6, T_all),
           f"RoE outputs {out['raining'].shape}")
@@ -2176,6 +2207,27 @@ def device_copies(fn):
     return sum(e.count for e in copies), sum(e.self_device_time_total for e in copies) / 1e3
 
 
+def unaligned(t):
+    """A copy of ``t`` one element past an aligned allocation (4 bytes for
+    float32, 1 for bool)."""
+    import torch
+
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape).copy_(t)
+
+
+def peak_mem(fn):
+    """``(fn(), MiB allocated at the peak above the allocation at the
+    start)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
 def k9_rows(seed: int, n: int):
     """Rows that stress the distance filter: uniform noise (more than 64
     maxima), few levels (equal heights everywhere), plateaus, rows of zeros
@@ -2269,6 +2321,29 @@ def k9_edge_cases(seed: int = 26) -> list:
         out += [(f"distance {d} at n {n}", x, pk, d, cap)
                 for d in (-5, 0, 1, n - 1, n, n + 7, 10**6) for cap in (64, 5000)]
     return out
+
+
+def peak_edge_rows(n: int, seed: int = 47) -> np.ndarray:
+    """Rows of ``n`` positions that reach each branch of K11-K13, float32 on
+    the host: noise, few levels (plateaus everywhere), plateaus of 4, a
+    plateau at the top of each border, a plateau peak longer than a K11
+    chunk, a constant row, monotone rows, zeros past the middle (a window
+    past its valid length), zeros of either sign, and rows with NaN, +-inf
+    and +-0 among noise and among few levels."""
+    rng = np.random.default_rng(seed + n)
+    m = n // 3 + 1
+    left, right, wide, tail = (rng.random(n) for _ in range(4))
+    left[:m], right[n - m :], wide[n // 5 : n // 5 + n // 2], tail[n // 2 :] = 2.0, 2.0, 1.5, 0.0
+    odd = rng.random(n)
+    u = rng.random(n)
+    for lo, hi, v in ((0.0, 0.08, np.nan), (0.08, 0.1, -np.nan), (0.1, 0.15, np.inf),
+                      (0.15, 0.2, -np.inf), (0.2, 0.3, -0.0), (0.3, 0.4, 0.0)):
+        odd[(u >= lo) & (u < hi)] = v
+    with np.errstate(invalid="ignore"):
+        rows = [rng.random(n), np.round(rng.random(n) * 3), np.repeat(rng.random(n), 4)[:n],
+                left, right, wide, np.full(n, 0.5), np.arange(n), np.arange(n)[::-1], tail,
+                np.where(rng.random(n) < 0.5, -0.0, 0.0), odd, np.round(odd * 2)]
+    return np.stack(rows).astype(np.float32)
 
 
 def rain_minutes(n_clips: int, seconds: float, seed: int):
@@ -2369,9 +2444,7 @@ def confirmer_dsd_etl_phases(smi: str, pcm: np.ndarray, stage1: np.ndarray) -> d
         cases += [(f"adversarial rows of {n}", xr, pk, d, cap)
                   for d in (1, 7, 45) for cap in (64, 3, 5000)]
         if n in (384, 100):  # the same rows at a pointer 4 (x) and 1 (is_peak) bytes off
-            xu = torch.empty(xr.numel() + 1, device=dev)[1:].view(xr.shape).copy_(xr)
-            pku = torch.empty(pk.numel() + 1, dtype=torch.bool, device=dev)[1:].view(pk.shape)
-            pku.copy_(pk)
+            xu, pku = unaligned(xr), unaligned(pk)
             cases += [(f"unaligned rows of {n}", xu, pku, d, cap) for d in (7, 45)
                       for cap in (64, 5000)]
             cases += [(f"rows of {n}, only x unaligned", xu, pk, 45, 64)]
@@ -2441,8 +2514,9 @@ def confirmer_dsd_etl_phases(smi: str, pcm: np.ndarray, stage1: np.ndarray) -> d
         confirmed[i] = int(out["confirmed_counts"].sum())
     l_td = dict(_kernels.LAUNCHES)
     peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-    check(l_td == {**zeros, "select_peaks_by_distance": BATCH},
-          f"confirmer launches over {BATCH} clips {l_td}, expected K9 {BATCH}")
+    check(l_td == {**zeros, "select_peaks_by_distance": BATCH, "local_maxima": BATCH,
+                   "peak_prominences": BATCH},
+          f"confirmer launches over {BATCH} clips {l_td}, expected K9, K11 and K12 {BATCH}")
     n_kern, busy, top_td = device_kernels(lambda: det.process(clips[1], stage1_is_rain=stage1[1]))
     print(f"phase 27 confirmer ({len(td_cfg.mode_bands)} mode bands, stage 1 from phase 4): "
           f"{N_AGREE} clips card against CPU, masks, counts and peak indices identical, crest "
@@ -2496,8 +2570,8 @@ def confirmer_dsd_etl_phases(smi: str, pcm: np.ndarray, stage1: np.ndarray) -> d
     recs = roe_recordings(16, 2)
     transform._classify_minutes(recs[:1], FS, device=dev)  # warm
     res, l_etl, wall = launches_of(lambda: transform._classify_minutes(list(recs), FS, device=dev))
-    check(l_etl == {**zeros, "spectrogram_power": 1, "cascade_sosfilt": 2},
-          f"minute batch launches {l_etl}, expected K1 1, K4 2")
+    check(l_etl == {**zeros, "spectrogram_power": 1, "cascade_sosfilt": 2, "local_maxima": 7},
+          f"minute batch launches {l_etl}, expected K1 1, K4 2, K11 7")
     res_cpu = transform._classify_minutes(list(recs), FS, device="cpu")
     ulps = 0
     for (d_card, f_card), (d_cpu, f_cpu) in zip(res, res_cpu):
@@ -2756,7 +2830,7 @@ def backfill_phases(smi: str) -> dict:
         models = {"spectral": (BF_PARAMS, {"spectrogram_power": 1, "noise_psd_track": 2,
                                            "causal_low_quantile_baseline": 1}),
                   "roe": ({"sample_rate": FS, "check_duration": CLIP_SEC},
-                          {"spectrogram_power": 1, "cascade_sosfilt": 2}),
+                          {"spectrogram_power": 1, "cascade_sosfilt": 2, "local_maxima": 7}),
                   "band_noise": ({"sample_rate": FS}, {"spectrogram_power": 1,
                                                        "cascade_sosfilt": 2, "band_noise_scan": 1})}
         pick = np.arange(0, BATCH, BATCH // N_AGREE)  # every 8th key: all nine classes
@@ -3243,7 +3317,7 @@ def tuning_phases(smi: str, corpus: np.ndarray, truth: np.ndarray) -> dict:
     # ---- 39. the RoE sweep and fit ----------------------------------------------------------
     roe_res, l_roe, roe_s = launches_of(
         lambda: roe_grid_search_vmapped(x, truth, ROE_GRID, ROE_BASE, device=dev))
-    check(l_roe == {**zeros, "spectrogram_power": 1, "cascade_sosfilt": 2},
+    check(l_roe == {**zeros, "spectrogram_power": 1, "cascade_sosfilt": 2, "local_maxima": 7},
           f"RoE sweep launches {l_roe}")
     check(len(roe_res) == 64, f"{len(roe_res)} RoE results")
     x_np = x.cpu().numpy()
@@ -3465,6 +3539,8 @@ class PlainWatch:
         self.targets = [(spectrogram, "stft_power"), (trackers, "_noise_psd_track_plain"),
                         (trackers, "_baseline_plain"), (filters, "_cascade_sosfilt_plain"),
                         (filters, "_sosfilt_zi_plain"), (peaks, "_select_peaks_by_distance_plain"),
+                        (peaks, "_local_maxima_plain"), (peaks, "_peak_prominences_plain"),
+                        (peaks, "_peak_widths_rel_plain"),
                         (sweep, "_decision_counts_plain"), (band_noise, "_band_scan_plain"),
                         (streaming, "_suppressor_plain")]
         self.calls = {name: 0 for _, name in self.targets}
@@ -4235,6 +4311,266 @@ def chirpz_global_phases(smi: str, x) -> dict:
           f"{len(cases)} (the walk past 4,096 band bins, its rows in a scratch at 16,088) the "
           f"plain loop's gain and carries, chunk invariant; {seconds:.1f} s")
     return {"launches": launches, "routes": routes, "seconds": seconds, "plain_ms": plain_ms}
+
+
+PEAK_KERNELS = {"local_maxima": "K11", "peak_prominences": "K12", "peak_widths_rel": "K13"}
+PEAK_GATE = {**PARAMS, "return_detector_debug": True,
+             "detector": {**PARAMS["detector"], "peak_features_enable": True}}
+
+
+def peak_path_rows(x) -> dict:
+    """K11-K13's inputs on the three paths that call them, captured from
+    the clips ``x`` on the card: RoE's spectral peaks ((640 x 175, 129) at
+    128 x 10 s) and harmonic 0's novelty rows ((640, 176)); the confirmer's
+    windows of clip 1 (871 x 384: the local maxima, then the prominences of
+    the distance filter's peaks); the peak gate's detector dB (128, 873, 71),
+    a transposed view: the local maxima, the prominences of every maximum,
+    the widths of the peaks found at rel_height 0.5.  ``{label: (kernel,
+    args)}``."""
+    from audio_processing_tools_tpu_torch.config import build_noise_config
+    from audio_processing_tools_tpu_torch.models import frame_classifier as fc
+    from audio_processing_tools_tpu_torch.models import roe
+    from audio_processing_tools_tpu_torch.models import time_domain as ttd
+    from audio_processing_tools_tpu_torch.models.spectral_noise import SpectralNoiseEngine
+
+    captured = {}
+    names = {roe: ("RoE", ("local_maxima",)),
+             ttd: ("the confirmer", ("local_maxima", "peak_prominences")),
+             fc: ("the peak gate", ("local_maxima", "peak_prominences", "peak_widths_rel"))}
+    saved = {(mod, k): getattr(mod, k) for mod, (_, ks) in names.items() for k in ks}
+
+    def capture(mod, kernel):
+        def fn(*args):
+            label = f"{names[mod][0]} {kernel}"
+            if mod is roe:  # (rows, T + 1) novelty, then (rows, T, F) spectral peaks
+                label = "RoE spectral peaks" if args[0].dim() == 3 else "RoE novelty rows"
+            captured.setdefault(label, (kernel, tuple(a.clone() if hasattr(a, "clone") else a
+                                                      for a in args)))
+            return saved[(mod, kernel)](*args)
+        return fn
+
+    for mod, kernel in saved:
+        setattr(mod, kernel, capture(mod, kernel))
+    try:
+        roe._roe_batch(x, roe.build_roe_config(return_spectra=False))
+        clip = x[1].cpu().numpy()
+        ttd.TimeDomainRainDetector(ttd.build_time_domain_config(PARAMS),
+                                   device=x.device).process(clip)
+        SpectralNoiseEngine(build_noise_config(FS, PEAK_GATE), device=x.device).process_batch(x)
+    finally:
+        for (mod, kernel), fn in saved.items():
+            setattr(mod, kernel, fn)
+    return captured
+
+
+def walk_steps(x, is_peak, stops) -> float:
+    """Samples K12's or K13's walks read on rows ``x`` (R, n): from each
+    peak p, leftwards to the first j with ``stops(x[j], p)`` or the border,
+    the same rightwards.  ``stops(xj, xp_or_h)`` takes (B, 1, n) and (B, n,
+    1) planes; computed a block of rows at a time."""
+    import torch
+
+    x = x.reshape(-1, x.shape[-1])
+    is_peak = is_peak.reshape(x.shape)
+    n = x.shape[-1]
+    j = torch.arange(n, device=x.device)
+    pp, jj = j[:, None], j[None, :]
+    block = max(1, 2**27 // max(n * n, 1))
+    total = 0.0
+    for i in range(0, x.shape[0], block):
+        xs, ps = x[i : i + block], is_peak[i : i + block]
+        s = stops(xs[:, None, :], i, block)
+        L = torch.amax(torch.where(s & (jj < pp), jj, -1), dim=-1)
+        R = torch.amin(torch.where(s & (jj > pp), jj, n), dim=-1)
+        steps = torch.where(L >= 0, j - L, j) + torch.where(R < n, R - j, n - 1 - j)
+        total += float((steps * ps).sum())
+    return total
+
+
+def peak_work(kernel, args) -> tuple:
+    """K11-K13's work on ``args``, whatever the algorithm: the bytes read
+    once and written once (K11 4 in and 1 out a position, K12 5 and 4, K13
+    9 and 4) and the operations these inputs need: K11 about 10 integer
+    operations a position (compares, the code, the scan, the test); K12 3 a
+    sample its walks read (load, compare, minimum); K13 2 a sample walked
+    and 12 a peak (its height and the interpolations)."""
+    x = args[0]
+    if kernel == "local_maxima":
+        return 5 * x.numel(), 10 * x.numel()
+    if kernel == "peak_prominences":
+        flat = x.reshape(-1, x.shape[-1])
+        return 9 * x.numel(), 3 * walk_steps(
+            x, args[1], lambda xj, i, b: xj > flat[i : i + b, :, None])
+    prom, rel = args[2], args[3]
+    h = (x - rel * prom).reshape(-1, x.shape[-1])
+    peaks = float(args[1].sum())
+    return 13 * x.numel(), 2 * walk_steps(
+        x, args[1], lambda xj, i, b: xj <= h[i : i + b, :, None]) + 12 * peaks
+
+
+def zero_as_plus(t):
+    """``t`` with every zero +0.0: K12's plain version picks the sign of a
+    zero minimum by its reduction order (``csrc/peak_shape.cu``)."""
+    import torch
+
+    return torch.where(t == 0, torch.zeros_like(t), t)
+
+
+def peak_holds(kernel: str, args, label: str) -> dict:
+    """One of K11-K13 against its plain version on the card: K11's mask
+    equal, K13 ``same_bits``, K12 ``same_bits`` once each zero is +0.0 (and
+    the zeros whose sign differs counted).  Returns ``{"max_abs_err",
+    "zero_signs"}``."""
+    import torch
+
+    from audio_processing_tools_tpu_torch.ops import peaks as tpk
+
+    got = getattr(tpk, f"_{kernel}_cuda")(*args)
+    ref = getattr(tpk, f"_{kernel}_plain")(*args)
+    torch.cuda.synchronize()
+    shape = tuple(args[0].shape)
+    if kernel == "local_maxima":
+        check(torch.equal(got, ref), f"K11 {label} {shape}: {int((got != ref).sum())} positions "
+                                     f"differ from the plain version")
+        return {"max_abs_err": 0.0, "zero_signs": 0}
+    signs = int(((got == 0) & (torch.signbit(got) != torch.signbit(ref))).sum())
+    if kernel == "peak_prominences":
+        got, ref = zero_as_plus(got), zero_as_plus(ref)
+    ok, d = same_bits(got, ref)
+    check(ok, f"{PEAK_KERNELS[kernel]} {label} {shape}: not the plain version's bits (max|d| "
+              f"{d:.3e}, {signs} zeros of the other sign)")
+    return {"max_abs_err": d, "zero_signs": signs}
+
+
+def peak_shape_phases(smi: str, x) -> dict:
+    """Phase 47: K11-K13 (``csrc/peak_shape.cu``) against their plain
+    versions on the card, on the three paths' rows (:func:`peak_path_rows`)
+    and on ``peak_edge_rows`` at n = 1 to 30,000 with four masks, rel_height
+    0.5 and 1.0, some at unaligned pointers; the peak gate through the
+    classifier at 128 x 10 s with its launches, 16 clips against the CPU
+    path and its time; each kernel's graph ms beside its plain version's
+    and its bound.  ``x`` is phase 4's batch on the card."""
+    import torch
+
+    from audio_processing_tools_tpu_torch import _kernels
+    from audio_processing_tools_tpu_torch.config import build_noise_config
+    from audio_processing_tools_tpu_torch.models.spectral_noise import SpectralNoiseEngine
+    from audio_processing_tools_tpu_torch.ops import peaks as tpk
+
+    dev = x.device
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    paths = peak_path_rows(x)
+    err = {k: 0.0 for k in PEAK_KERNELS}
+    zero_signs, n_cases = 0, 0
+
+    def hold(kernel, args, label):
+        nonlocal zero_signs, n_cases
+        r = peak_holds(kernel, args, label)
+        err[kernel] = max(err[kernel], r["max_abs_err"])
+        zero_signs += r["zero_signs"]
+        n_cases += 1
+
+    for label, (kernel, args) in paths.items():
+        hold(kernel, args, label)
+    env, kept = paths["the confirmer peak_prominences"][1]
+    sT, found, prom, _ = paths["the peak gate peak_widths_rel"][1]
+    is_max = tpk._local_maxima_plain(sT)
+    hold("peak_prominences", (env, tpk._local_maxima_plain(env)), "the confirmer, every maximum")
+    hold("peak_widths_rel", (sT, is_max, prom, 1.0), "the peak gate, every maximum, rel 1.0")
+
+    # the edge rows; at 30,000 four rows, the plain planes a row at a time
+    rng = np.random.default_rng(47)
+    for n in (1, 2, 3, 33, 129, 384, 1025, 4097, 30000):
+        rows = torch.from_numpy(peak_edge_rows(n)).to(dev)
+        if n == 30000:
+            rows = rows[[0, 5, 9, 11]]
+        hold("local_maxima", (rows,), f"edge rows of {n}")
+        lm = tpk._local_maxima_plain(rows)
+        masks = {"local maxima": lm,
+                 "random": torch.from_numpy(rng.random(tuple(rows.shape)) < 0.3).to(dev)}
+        if n < 30000:
+            masks.update({"every position": torch.ones_like(lm),
+                          "no position": torch.zeros_like(lm)})
+        for mname, mask in masks.items():
+            for r in ([slice(None)] if n < 30000 else [slice(i, i + 1) for i in range(4)]):
+                xr, mr = rows[r], mask[r]
+                hold("peak_prominences", (xr, mr), f"edge rows of {n}, {mname}")
+                pr = tpk._peak_prominences_plain(xr, mr)
+                for rel in ((0.5, 1.0) if n < 30000 else (0.5,)):
+                    hold("peak_widths_rel", (xr, mr, pr, rel),
+                         f"edge rows of {n}, {mname}, rel {rel}")
+                if n in (384, 4097):  # x and the prominences 4 bytes, the mask 1 byte off
+                    xu, mu, pu = unaligned(xr), unaligned(mr), unaligned(pr)
+                    hold("local_maxima", (xu,), f"unaligned rows of {n}")
+                    hold("peak_prominences", (xu, mu), f"unaligned rows of {n}, {mname}")
+                    hold("peak_widths_rel", (xu, mu, pu, 0.5), f"unaligned rows of {n}, {mname}")
+    del rows, masks, lm, xr, mr, pr
+    torch.cuda.empty_cache()
+
+    # ---- the peak gate through the classifier at 128 x 10 s ------------------------
+    eng = SpectralNoiseEngine(build_noise_config(FS, PEAK_GATE), device=dev)
+    # the same configuration and debug outputs without the gate
+    debug = {**PARAMS, "return_detector_debug": True}
+    plain_eng = SpectralNoiseEngine(build_noise_config(FS, debug), device=dev)
+    eng.process_batch(x[:2])
+    with PlainWatch() as watch:
+        (out, l_gate, _), gate_mb = peak_mem(lambda: launches_of(lambda: eng.process_batch(x)))
+    check(all(l_gate[k] == 1 for k in PEAK_KERNELS) and not any(watch.calls.values()),
+          f"the peak gate's launches {l_gate}, plain calls "
+          f"{ {k: v for k, v in watch.calls.items() if v} }, expected K11, K12, K13 once each")
+    valid_count = out["det_debug"]["peak_valid_count"]
+    check(tuple(valid_count.shape) == (BATCH, out["frame_class"].shape[-1]),
+          f"peak_valid_count {tuple(valid_count.shape)}")
+    pick = np.r_[np.arange(0, BATCH, 2)[: N_AGREE // 2], np.arange(1, BATCH, 2)[: N_AGREE // 2]]
+    x16 = x[torch.as_tensor(pick, device=dev)]
+    card = to_host(eng.process_batch(x16))
+    cpu = to_host(SpectralNoiseEngine(build_noise_config(FS, PEAK_GATE), device="cpu")
+                  .process_batch(x16.cpu()))
+    check(np.array_equal(card["frame_class"], cpu["frame_class"]), "the peak gate: frame classes")
+    gate_rel = 0.0
+    for key, b in cpu["det_debug"].items():
+        if not key.startswith("peak_") or key == "peak_features_enable":
+            continue
+        a = card["det_debug"][key]
+        if b.dtype.kind in "biu":
+            check(np.array_equal(a, b), f"the peak gate, 16 clips: {key} card != CPU")
+        else:
+            gate_rel = max(gate_rel, rel_err(a, b))
+    check(gate_rel <= 1e-5, f"the peak gate, 16 clips: floats max|d|/max {gate_rel:.3e}")
+    gate_ms = float(np.median(cuda_times(lambda: eng.process_batch(x), 20)))
+    nogate_ms = float(np.median(cuda_times(lambda: plain_eng.process_batch(x), 20)))
+
+    # ---- device time at the paths' shapes ------------------------------------------
+    shapes = {k: [] for k in PEAK_KERNELS}
+    for label, (kernel, args) in paths.items():
+        cuda = getattr(tpk, f"_{kernel}_cuda")
+        plain = getattr(tpk, f"_{kernel}_plain")
+        p1 = float(np.median(cuda_times(lambda: plain(*args), 3)))
+        ms = graph_ms(lambda: cuda(*args))
+        ms2 = graph_ms(lambda: cuda(*args))
+        p2 = float(np.median(cuda_times(lambda: plain(*args), 3)))
+        work = peak_work(kernel, args)
+        b_ms, b_by = bound_of(*work)
+        shapes[kernel].append({"path": label, "shape": list(args[0].shape),
+                               "ms": float(np.median([ms, ms2])), "plain_ms": (p1 + p2) / 2,
+                               "bound_ms": b_ms, "bound_by": b_by, "work": work})
+        print(f"  {PEAK_KERNELS[kernel]} {label} {tuple(args[0].shape)}: {ms:.4f} / {ms2:.4f} ms "
+              f"in a graph of 20 (in turns with the plain version {p1:.3f} / {p2:.3f} ms, CUDA "
+              f"events, n=3), bound {b_ms:.5f} by {b_by}")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 47 K11-K13 (local maxima, prominences, widths) on {smi}: {n_cases} cases the "
+          f"plain versions' bits (the paths' rows: RoE's spectral peaks and novelty, the "
+          f"confirmer's windows, the peak gate's dB; edge rows of 1 to 30,000 with four masks, "
+          f"rel_height 0.5 and 1.0, at unaligned pointers at 384 and 4,097), K12's zeros by value: "
+          f"{zero_signs} of the other sign; the peak gate through the classifier, {BATCH} x "
+          f"{CLIP_SEC:.0f} s: launches { {k: v for k, v in l_gate.items() if v} }, no plain call, "
+          f"{N_AGREE} clips against the CPU path (integers identical, floats within "
+          f"{gate_rel:.3e}), {gate_ms:.3f} ms a batch with the gate, {nogate_ms:.3f} without "
+          f"(CUDA events, n=20), {gate_mb:.1f} MiB above the batch's start at the peak; "
+          f"{seconds:.1f} s")
+    return {"launches": {"the peak gate (phase 47)": l_gate}, "shapes": shapes, "err": err,
+            "gate_ms": gate_ms, "nogate_ms": nogate_ms, "gate_mb": gate_mb, "seconds": seconds}
 
 
 if __name__ == "__main__":
