@@ -186,8 +186,9 @@ def _spectral_peaks(mag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     booleans, and their running count along frequency (int32).  They do not
     depend on the search band, so one pair serves every harmonic's search
     (the JAX program computes them once too: XLA merges the six identical
-    computations, ``roe.py:229-235``)."""
-    is_max = local_maxima(mag.transpose(-1, -2).contiguous())
+    computations, ``roe.py:229-235``).  On the card K11 reads the
+    transposed view in place and returns the mask in its layout."""
+    is_max = local_maxima(mag.transpose(-1, -2))
     return is_max, torch.cumsum(is_max.to(torch.int32), dim=-1)
 
 

@@ -21,14 +21,61 @@ import torch
 
 from audio_processing_tools_tpu_torch import _kernels
 
-PEAK_SHAPE_SHARED_MAX = 2048  # csrc/peak_shape.cu: kSharedMax, K12's and K13's rows in shared memory
+# csrc/peak_shape.cu's route lengths: kSharedMax (K12's table route, K12's
+# and K13's walks in shared memory), kLaneMax11, kLaneMax12 (a lane a row,
+# K12's a lane a side)
+PEAK_SHAPE_SHARED_MAX = 2048
+K11_LANE_MAX = 256
+K12_LANE_MAX = 255
+_K11_ROUTES = {"lane": 0, "warp": 1}
+_K12_ROUTES = {"lane": 0, "table": 1, "walk": 2}
 
 
 def peak_shape_route(n: int) -> str:
-    """Where K12 and K13 read a row of ``n`` positions: ``"shared"`` (staged
-    in shared memory) up to :data:`PEAK_SHAPE_SHARED_MAX`, ``"global"``
-    (device memory) beyond."""
+    """Where K13 (and K12's walk route) reads a row of ``n`` positions:
+    ``"shared"`` (staged in shared memory) up to
+    :data:`PEAK_SHAPE_SHARED_MAX`, ``"global"`` (device memory) beyond."""
     return "shared" if n <= PEAK_SHAPE_SHARED_MAX else "global"
+
+
+def local_maxima_route(n: int, layout: str = "rows") -> str:
+    """K11's route for rows of ``n`` positions in ``layout``
+    (:func:`peak_layout`): ``"lane"`` (a lane scans a row, read in place)
+    for columns up to :data:`K11_LANE_MAX`, ``"warp"`` (a warp scans a
+    contiguous row in chunks) otherwise; on the card a lane a contiguous
+    row lost to the warp route at every path's shape (``PERF.md``)."""
+    return "lane" if layout == "columns" and n <= K11_LANE_MAX else "warp"
+
+
+def prominence_route(n: int) -> str:
+    """K12's route for rows of ``n`` positions: ``"lane"`` (two lanes a
+    row, one a side, jump pointers) up to :data:`K12_LANE_MAX`, ``"table"`` (a warp
+    a row, range tables in shared memory, a lane a peak) up to
+    :data:`PEAK_SHAPE_SHARED_MAX`, ``"walk"`` (a lane a peak walking from
+    device memory) beyond."""
+    if n <= K12_LANE_MAX:
+        return "lane"
+    return "table" if n <= PEAK_SHAPE_SHARED_MAX else "walk"
+
+
+def peak_layout(t: torch.Tensor) -> str:
+    """How K11's and K12's lane routes find the rows of ``t`` (..., n):
+    ``"rows"`` where ``t`` is contiguous; ``"columns"`` where its last two
+    axes are those of a contiguous (..., n, T) tensor swapped (row (b, t)
+    at ``b n T + t``, positions of stride T: the peak gate's
+    ``spec.transpose(-1, -2)``, RoE's ``mag.transpose(-1, -2)``); else
+    ``"other"``, which the wrappers copy to rows."""
+    if t.is_contiguous():
+        return "rows"
+    if t.dim() >= 2 and t.transpose(-1, -2).is_contiguous():
+        return "columns"
+    return "other"
+
+
+def _like_columns(t: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """An empty tensor of ``shape`` (..., T, n) laid out as columns."""
+    return torch.empty(tuple(shape[:-2]) + (shape[-1], shape[-2]), dtype=dtype,
+                       device=t.device).transpose(-1, -2)
 
 
 def _rows(name: str, t: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -36,6 +83,20 @@ def _rows(name: str, t: torch.Tensor, n: int, dtype) -> torch.Tensor:
     rows = t.reshape(math.prod(t.shape[:-1]), n).contiguous()
     _kernels.require_cuda(name, rows, dtype, 2)
     return rows
+
+
+def _lane_input(name: str, x: torch.Tensor, dtype, lane: bool):
+    """``(x, T)`` as K11 and K12 read ``x`` (..., n) on the card: a lane
+    route reads it in place as columns (T its rows a batch entry) or as
+    contiguous rows (T = 0); anything else, or another route, gets
+    contiguous rows."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got device {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if lane and peak_layout(x) == "columns":
+        return x, x.shape[-2]
+    return x.contiguous(), 0
 
 
 def _local_maxima_plain(x: torch.Tensor) -> torch.Tensor:
@@ -73,29 +134,36 @@ def _local_maxima_plain(x: torch.Tensor) -> torch.Tensor:
     return left_rise & right_fall & (m == torch.div(s + e, 2, rounding_mode="floor"))
 
 
-def _local_maxima_cuda(x: torch.Tensor) -> torch.Tensor:
-    """K11 (``csrc/peak_shape.cu``) on float32 ``x`` (..., n): one warp a
-    row, one scan of the encoded change boundaries from the left; rows
-    shorter than 3 have no maximum and launch nothing."""
+def _local_maxima_cuda(x: torch.Tensor, route: str | None = None) -> torch.Tensor:
+    """K11 (``csrc/peak_shape.cu``) on float32 ``x`` (..., n): a lane a row
+    for columns up to :data:`K11_LANE_MAX` positions, read in place and
+    answered in their layout; a warp a row on contiguous rows, other
+    layouts copied (:func:`local_maxima_route`; ``route`` forces one).
+    Rows shorter than 3 have no maximum and launch nothing."""
     n = x.shape[-1]
-    xr = _rows("local_maxima", x, n, torch.float32)
-    if xr.shape[0] == 0 or n < 3:
-        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    out = torch.empty(xr.shape, dtype=torch.bool, device=x.device)
+    route = route or local_maxima_route(n, peak_layout(x))
+    xr, T = _lane_input("local_maxima", x, torch.float32, route == "lane")
+    if route == "lane" and not T:
+        raise ValueError("local_maxima: the lane route reads rows as columns of a transposed view")
+    if x.numel() == 0 or n < 3:
+        return torch.zeros_like(x, dtype=torch.bool)
+    out = _like_columns(x, x.shape, torch.bool) if T else torch.empty(
+        x.shape, dtype=torch.bool, device=x.device)
     lib = _kernels.build()
     with torch.cuda.device(x.device):
-        err = lib.lib.apt_local_maxima(xr.data_ptr(), out.data_ptr(), xr.shape[0], n,
-                                       _kernels.stream_of(x))
+        err = lib.lib.apt_local_maxima(xr.data_ptr(), out.data_ptr(), x.numel() // n, n, T,
+                                       _K11_ROUTES[route], _kernels.stream_of(x))
     lib.check(err, "local_maxima")
     _kernels.count("local_maxima")
-    return out.reshape(x.shape)
+    return out
 
 
 def local_maxima(x: torch.Tensor) -> torch.Tensor:
     """Boolean mask of local maxima along the last axis, scipy's plateau
     rule included: a plateau marks its midpoint; the first and last samples
-    never peak.  Kernel K11 on a CUDA tensor (float32), the plain version on
-    a CPU tensor; both give the JAX function's mask."""
+    never peak.  Kernel K11 on a CUDA tensor (float32; a transposed view
+    is read in place and the mask comes in its layout), the plain version
+    on a CPU tensor; both give the JAX function's mask."""
     if x.device.type == "cpu":
         return _local_maxima_plain(x)
     return _local_maxima_cuda(x)
@@ -127,35 +195,39 @@ def _peak_prominences_plain(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Ten
     return torch.where(is_peak, prom, 0.0)
 
 
-def _peak_walk_cuda(name: str, x: torch.Tensor, is_peak: torch.Tensor, launch) -> torch.Tensor:
-    """K12 or K13 on float32 ``x`` (..., n) and a bool ``is_peak`` that
-    broadcasts to it: ``launch(lib, x rows, peak rows, out rows)`` runs the
-    kernel; nothing is launched for an empty input."""
+def _peak_prominences_cuda(x: torch.Tensor, is_peak: torch.Tensor,
+                           route: str | None = None) -> torch.Tensor:
+    """K12 (``csrc/peak_shape.cu``) on float32 ``x`` (..., n) and a bool
+    ``is_peak`` that broadcasts to it: two lanes a row up to
+    :data:`K12_LANE_MAX` positions, reading ``x`` as rows or columns in
+    place (the mask is copied into ``x``'s layout where it lies otherwise)
+    and writing in that layout; range tables up to
+    :data:`PEAK_SHAPE_SHARED_MAX`; walks beyond (:func:`prominence_route`;
+    ``route`` forces one).  Nothing is launched for an empty input."""
     n = x.shape[-1]
-    xr = _rows(name, x, n, torch.float32)
-    pr = _rows(f"{name}(is_peak)", torch.broadcast_to(is_peak, x.shape), n, torch.bool)
-    if pr.device != xr.device:
-        raise ValueError(f"{name}: is_peak on {pr.device}, x on {xr.device}")
-    out = torch.empty(xr.shape, dtype=torch.float32, device=x.device)
+    route = route or prominence_route(n)
+    xr, T = _lane_input("peak_prominences", x, torch.float32, route == "lane")
+    pk = torch.broadcast_to(is_peak, x.shape)
+    if pk.device != x.device:
+        raise ValueError(f"peak_prominences: is_peak on {pk.device}, x on {x.device}")
+    if pk.dtype != torch.bool:
+        raise TypeError(f"peak_prominences(is_peak): expected torch.bool, got {pk.dtype}")
+    if T and pk.stride() != xr.stride():
+        pk = _like_columns(x, x.shape, torch.bool).copy_(pk)
+    elif not T:
+        pk = pk.contiguous()
+    out = _like_columns(x, x.shape, torch.float32) if T else torch.empty(
+        x.shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
-        return out.reshape(x.shape)
+        return out
     lib = _kernels.build()
     with torch.cuda.device(x.device):
-        err = launch(lib.lib, xr, pr, out)
-    lib.check(err, name)
-    _kernels.count(name)
-    return out.reshape(x.shape)
-
-
-def _peak_prominences_cuda(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
-    """K12 (``csrc/peak_shape.cu``): one warp a row, a lane a peak walking
-    each side to the first strictly higher sample; the row in shared memory
-    or device memory (:func:`peak_shape_route`)."""
-    return _peak_walk_cuda(
-        "peak_prominences", x, is_peak,
-        lambda lib, xr, pr, out: lib.apt_peak_prominences(
-            xr.data_ptr(), pr.data_ptr(), out.data_ptr(), xr.shape[0], xr.shape[1],
-            _kernels.stream_of(xr)))
+        err = lib.lib.apt_peak_prominences(xr.data_ptr(), pk.data_ptr(), out.data_ptr(),
+                                           x.numel() // n, n, T, _K12_ROUTES[route],
+                                           _kernels.stream_of(x))
+    lib.check(err, "peak_prominences")
+    _kernels.count("peak_prominences")
+    return out
 
 
 def peak_prominences(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
@@ -163,7 +235,9 @@ def peak_prominences(x: torch.Tensor, is_peak: torch.Tensor) -> torch.Tensor:
     semantics: each side extends to a strictly higher sample or the border,
     its base is the side's minimum, the prominence is the peak less the
     higher base; NaN propagates).  Kernel K12 on a CUDA tensor (float32
-    ``x``, bool ``is_peak``), the plain version on a CPU tensor; both give
+    ``x``, bool ``is_peak``; a transposed view of a short row is read in
+    place and the result comes in its layout), the plain version on a CPU
+    tensor; both give
     the JAX function's values (a zero's sign aside where the plain version's
     minimum ties -0.0 with +0.0, ``csrc/peak_shape.cu``)."""
     if x.device.type == "cpu":
@@ -240,20 +314,32 @@ def _peak_widths_rel_plain(x: torch.Tensor, is_peak: torch.Tensor,
 
 def _peak_widths_rel_cuda(x: torch.Tensor, is_peak: torch.Tensor, prominences: torch.Tensor,
                           rel_height: float = 0.5) -> torch.Tensor:
-    """K13 (``csrc/peak_shape.cu``): one warp a row, a lane a peak walking
-    each side to the first sample at or below its height, the plain
-    version's operations in its order; ``rel_height`` is taken as float32,
-    as the plain version's scalar product takes it."""
+    """K13 (``csrc/peak_shape.cu``) on contiguous rows of float32 ``x``
+    (..., n) and a bool ``is_peak`` and the ``prominences`` that broadcast
+    to it (other layouts copied): one warp a row, a lane a peak walking each
+    side to the first sample at or below its height, the plain version's
+    operations in its order; ``rel_height`` is taken as float32, as the
+    plain version's scalar product takes it.  Nothing is launched for an
+    empty input."""
     n = x.shape[-1]
+    xr = _rows("peak_widths_rel", x, n, torch.float32)
+    pr = _rows("peak_widths_rel(is_peak)", torch.broadcast_to(is_peak, x.shape), n, torch.bool)
     pm = _rows("peak_widths_rel(prominences)", torch.broadcast_to(prominences, x.shape), n,
                torch.float32)
-    if pm.device != x.device:
-        raise ValueError(f"peak_widths_rel: prominences on {pm.device}, x on {x.device}")
-    return _peak_walk_cuda(
-        "peak_widths_rel", x, is_peak,
-        lambda lib, xr, pr, out: lib.apt_peak_widths_rel(
-            xr.data_ptr(), pr.data_ptr(), pm.data_ptr(), out.data_ptr(), xr.shape[0],
-            xr.shape[1], float(rel_height), _kernels.stream_of(xr)))
+    if pr.device != xr.device or pm.device != xr.device:
+        raise ValueError(f"peak_widths_rel: is_peak on {pr.device}, prominences on "
+                         f"{pm.device}, x on {xr.device}")
+    out = torch.empty(xr.shape, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out.reshape(x.shape)
+    lib = _kernels.build()
+    with torch.cuda.device(x.device):
+        err = lib.lib.apt_peak_widths_rel(xr.data_ptr(), pr.data_ptr(), pm.data_ptr(),
+                                          out.data_ptr(), xr.shape[0], n, float(rel_height),
+                                          _kernels.stream_of(xr))
+    lib.check(err, "peak_widths_rel")
+    _kernels.count("peak_widths_rel")
+    return out.reshape(x.shape)
 
 
 def peak_widths_rel(x: torch.Tensor, is_peak: torch.Tensor,

@@ -240,15 +240,21 @@ Phases, one line each:
      carries bit for bit, y within 1e-4 of its maximum, chunk invariant;
  47. K11-K13 (local maxima, prominences, widths; ``csrc/peak_shape.cu``)
      against their plain versions on the card, bit for bit (K12's zeros by
-     value): on RoE's spectral peaks and novelty rows of the 128 clips, the
-     confirmer's windows of clip 1 and the peak gate's (128, 873, 71) dB
-     (its transposed view), and on ``peak_edge_rows`` of 1 to 30,000
-     positions with four masks, rel_height 0.5 and 1.0, some at unaligned
-     pointers; the peak gate through the classifier-only engine at 128 x 10
-     s (launches K11, K12, K13 one each, no plain version called), 16 clips
-     against the CPU path, the batch's time with and without the gate (the
-     detector debug returned by both) and its peak memory; each kernel's graph ms at each path's shape in turns
-     with its plain version, beside its bound.
+     value), K11 and K12 by every route that takes the rows (K11 a lane or
+     a warp a row; K12 a lane a row, range tables, walks) and in both
+     layouts (contiguous rows, and rows as columns of a transposed view,
+     which the lane routes read in place and answer in): on RoE's spectral
+     peaks and novelty rows of the 128 clips, the confirmer's windows of
+     clip 1 and the peak gate's (128, 873, 71) dB (its transposed view),
+     and on ``peak_edge_rows`` of 1 to 30,000 positions with four masks,
+     rel_height 0.5 and 1.0, some at unaligned pointers; the peak gate
+     through the classifier-only engine at 128 x 10 s (launches K11, K12,
+     K13 one each, no plain version called), 16 clips against the CPU path,
+     the batch's time with and without the gate (the detector debug
+     returned by both) and its peak memory; each kernel's graph ms at each
+     path's shape in turns with its plain version, beside its bound, and
+     K11's warp scan and K12's walks forced there in turns with the routes
+     the paths take.
 
 Then one JSON line with the kernels' numbers (each with its bound at this
 run's shapes, bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -1150,8 +1156,8 @@ def main() -> int:
     main_route = {"spectrogram_power": "fft", "cascade_sosfilt": "registers",
                   "band_noise_scan": "warp", "select_peaks_by_distance": "warp",
                   "streaming_suppressor": "fft", "sosfilt_zi": "1 group",
-                  "decision_sweep": "one launch", "local_maxima": "warp",
-                  "peak_prominences": "shared", "peak_widths_rel": "shared"}
+                  "decision_sweep": "one launch", "local_maxima": "lane, columns",
+                  "peak_prominences": "table", "peak_widths_rel": "shared"}
     for k in kernels:
         # the route the entry's own numbers are of, and phase 44's routes
         k["routes"] = ([{"route": main_route.get(k["name"], "cuda"), "geometry": "main path"}]
@@ -4416,19 +4422,52 @@ def zero_as_plus(t):
     return torch.where(t == 0, torch.zeros_like(t), t)
 
 
-def peak_holds(kernel: str, args, label: str) -> dict:
-    """One of K11-K13 against its plain version on the card: K11's mask
-    equal, K13 ``same_bits``, K12 ``same_bits`` once each zero is +0.0 (and
-    the zeros whose sign differs counted).  Returns ``{"max_abs_err",
-    "zero_signs"}``."""
+def peak_routes(kernel: str, x) -> list:
+    """The routes of K11 or K12 that take ``x`` (..., n); ``[None]`` for
+    K13, which has one."""
+    from audio_processing_tools_tpu_torch.ops import peaks as tpk
+
+    n = x.shape[-1]
+    if kernel == "local_maxima":  # the lane route reads rows as columns
+        lane = n <= tpk.K11_LANE_MAX and tpk.peak_layout(x) == "columns"
+        return (["lane"] if lane else []) + ["warp"]
+    if kernel == "peak_prominences":
+        return [r for r in ("lane", "table", "walk")
+                if r == "walk" or n <= {"lane": tpk.K12_LANE_MAX,
+                                        "table": tpk.PEAK_SHAPE_SHARED_MAX}[r]]
+    return [None]
+
+
+def other_layout(t):
+    """``t`` (..., n) in K11's and K12's other layout: rows as columns of a
+    transposed view where ``t`` is contiguous, a contiguous copy where it
+    is not."""
+    if t.is_contiguous() and t.dim() >= 2:
+        return t.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return t.contiguous()
+
+
+def peak_holds(kernel: str, args, label: str, route=None, ref=None) -> dict:
+    """One of K11-K13 against its plain version on the card (``ref``, its
+    result on these values, or computed): K11's mask equal, K13
+    ``same_bits``, K12 ``same_bits`` once each zero is +0.0 (and the zeros
+    whose sign differs counted); ``route`` forces K11's or K12's route; a
+    lane route's result keeps a transposed view's layout.  Returns
+    ``{"max_abs_err", "zero_signs"}``."""
     import torch
 
     from audio_processing_tools_tpu_torch.ops import peaks as tpk
 
-    got = getattr(tpk, f"_{kernel}_cuda")(*args)
-    ref = getattr(tpk, f"_{kernel}_plain")(*args)
+    got = getattr(tpk, f"_{kernel}_cuda")(*args, **({"route": route} if route else {}))
+    if ref is None:
+        ref = getattr(tpk, f"_{kernel}_plain")(*args)
     torch.cuda.synchronize()
     shape = tuple(args[0].shape)
+    x = args[0]
+    if route == "lane" and tpk.peak_layout(x) == "columns":
+        check(got.stride() == x.stride(), f"{PEAK_KERNELS[kernel]} {label} {shape}: a lane "
+                                          f"route answered in strides {got.stride()}, the "
+                                          f"input's are {x.stride()}")
     if kernel == "local_maxima":
         check(torch.equal(got, ref), f"K11 {label} {shape}: {int((got != ref).sum())} positions "
                                      f"differ from the plain version")
@@ -4444,12 +4483,15 @@ def peak_holds(kernel: str, args, label: str) -> dict:
 
 def peak_shape_phases(smi: str, x) -> dict:
     """Phase 47: K11-K13 (``csrc/peak_shape.cu``) against their plain
-    versions on the card, on the three paths' rows (:func:`peak_path_rows`)
-    and on ``peak_edge_rows`` at n = 1 to 30,000 with four masks, rel_height
-    0.5 and 1.0, some at unaligned pointers; the peak gate through the
-    classifier at 128 x 10 s with its launches, 16 clips against the CPU
-    path and its time; each kernel's graph ms beside its plain version's
-    and its bound.  ``x`` is phase 4's batch on the card."""
+    versions on the card, K11 and K12 by every route that takes the rows
+    and in both layouts (:func:`peak_routes`, :func:`other_layout`), on the
+    three paths' rows (:func:`peak_path_rows`) and on ``peak_edge_rows`` at
+    n = 1 to 30,000 with four masks, rel_height 0.5 and 1.0, some at
+    unaligned pointers; the peak gate through the classifier at 128 x 10 s
+    with its launches, 16 clips against the CPU path and its time; each
+    kernel's graph ms beside its plain version's and its bound, and K11's
+    warp scan and K12's walks forced at the paths' shapes in turns with the
+    routes the paths take.  ``x`` is phase 4's batch on the card."""
     import torch
 
     from audio_processing_tools_tpu_torch import _kernels
@@ -4461,15 +4503,27 @@ def peak_shape_phases(smi: str, x) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     paths = peak_path_rows(x)
+    for label in ("the peak gate local_maxima", "the peak gate peak_prominences",
+                  "RoE spectral peaks"):
+        layout = tpk.peak_layout(paths[label][1][0])
+        check(layout == "columns", f"{label}: the path passes {layout}, not the transposed view")
     err = {k: 0.0 for k in PEAK_KERNELS}
     zero_signs, n_cases = 0, 0
 
     def hold(kernel, args, label):
+        """``args`` by every route that takes them, as given and in the
+        other layout, against one plain result."""
         nonlocal zero_signs, n_cases
-        r = peak_holds(kernel, args, label)
-        err[kernel] = max(err[kernel], r["max_abs_err"])
-        zero_signs += r["zero_signs"]
-        n_cases += 1
+        ref = getattr(tpk, f"_{kernel}_plain")(*args)
+        variants = [("", args)]
+        if kernel != "peak_widths_rel":
+            variants.append((", other layout", tuple(other_layout(a) for a in args)))
+        for how, a in variants:
+            for route in peak_routes(kernel, a[0]):
+                r = peak_holds(kernel, a, f"{label}{how}, {route or 'walk'}", route, ref)
+                err[kernel] = max(err[kernel], r["max_abs_err"])
+                zero_signs += r["zero_signs"]
+                n_cases += 1
 
     for label, (kernel, args) in paths.items():
         hold(kernel, args, label)
@@ -4481,7 +4535,7 @@ def peak_shape_phases(smi: str, x) -> dict:
 
     # the edge rows; at 30,000 four rows, the plain planes a row at a time
     rng = np.random.default_rng(47)
-    for n in (1, 2, 3, 33, 129, 384, 1025, 4097, 30000):
+    for n in (1, 2, 3, 33, 71, 129, 176, 384, 1025, 4097, 30000):
         rows = torch.from_numpy(peak_edge_rows(n)).to(dev)
         if n == 30000:
             rows = rows[[0, 5, 9, 11]]
@@ -4500,7 +4554,7 @@ def peak_shape_phases(smi: str, x) -> dict:
                 for rel in ((0.5, 1.0) if n < 30000 else (0.5,)):
                     hold("peak_widths_rel", (xr, mr, pr, rel),
                          f"edge rows of {n}, {mname}, rel {rel}")
-                if n in (384, 4097):  # x and the prominences 4 bytes, the mask 1 byte off
+                if n in (129, 384, 4097):  # x and the prominences 4 bytes, the mask 1 byte off
                     xu, mu, pu = unaligned(xr), unaligned(mr), unaligned(pr)
                     hold("local_maxima", (xu,), f"unaligned rows of {n}")
                     hold("peak_prominences", (xu, mu), f"unaligned rows of {n}, {mname}")
@@ -4543,26 +4597,40 @@ def peak_shape_phases(smi: str, x) -> dict:
 
     # ---- device time at the paths' shapes ------------------------------------------
     shapes = {k: [] for k in PEAK_KERNELS}
+    forced = {"local_maxima": "warp", "peak_prominences": "walk"}  # the routes they replaced
     for label, (kernel, args) in paths.items():
         cuda = getattr(tpk, f"_{kernel}_cuda")
         plain = getattr(tpk, f"_{kernel}_plain")
         p1 = float(np.median(cuda_times(lambda: plain(*args), 3)))
+        route = {"local_maxima": lambda n: tpk.local_maxima_route(n, tpk.peak_layout(args[0])),
+                 "peak_prominences": tpk.prominence_route}.get(kernel, tpk.peak_shape_route)(
+                     args[0].shape[-1])
+        old = forced.get(kernel) if forced.get(kernel) != route else None
         ms = graph_ms(lambda: cuda(*args))
+        if old:  # the paths' routes and the replaced ones, in turns
+            o1 = graph_ms(lambda: cuda(*args, route=old))
+            o2 = graph_ms(lambda: cuda(*args, route=old))
         ms2 = graph_ms(lambda: cuda(*args))
         p2 = float(np.median(cuda_times(lambda: plain(*args), 3)))
         work = peak_work(kernel, args)
         b_ms, b_by = bound_of(*work)
-        shapes[kernel].append({"path": label, "shape": list(args[0].shape),
-                               "ms": float(np.median([ms, ms2])), "plain_ms": (p1 + p2) / 2,
-                               "bound_ms": b_ms, "bound_by": b_by, "work": work})
-        print(f"  {PEAK_KERNELS[kernel]} {label} {tuple(args[0].shape)}: {ms:.4f} / {ms2:.4f} ms "
-              f"in a graph of 20 (in turns with the plain version {p1:.3f} / {p2:.3f} ms, CUDA "
-              f"events, n=3), bound {b_ms:.5f} by {b_by}")
+        rec = {"path": label, "shape": list(args[0].shape), "layout": tpk.peak_layout(args[0]),
+               "route": route, "ms": float(np.median([ms, ms2])),
+               "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms, "bound_by": b_by, "work": work}
+        if old:
+            rec.update({"forced_route": old, "forced_ms": float(np.median([o1, o2]))})
+        shapes[kernel].append(rec)
+        print(f"  {PEAK_KERNELS[kernel]} {label} {tuple(args[0].shape)} {rec['layout']}, "
+              f"{rec['route']}: {ms:.4f} / {ms2:.4f} ms in a graph of 20"
+              + (f" (forced {old} between them: {o1:.4f} / {o2:.4f})" if old else "")
+              + f" (in turns with the plain version {p1:.3f} / {p2:.3f} ms, CUDA events, n=3), "
+              f"bound {b_ms:.5f} by {b_by}")
     seconds = time.perf_counter() - t_phase
     print(f"phase 47 K11-K13 (local maxima, prominences, widths) on {smi}: {n_cases} cases the "
-          f"plain versions' bits (the paths' rows: RoE's spectral peaks and novelty, the "
-          f"confirmer's windows, the peak gate's dB; edge rows of 1 to 30,000 with four masks, "
-          f"rel_height 0.5 and 1.0, at unaligned pointers at 384 and 4,097), K12's zeros by value: "
+          f"plain versions' bits, K11 and K12 by every route that takes the rows and in both "
+          f"layouts (the paths' rows: RoE's spectral peaks and novelty, the confirmer's windows, "
+          f"the peak gate's dB; edge rows of 1 to 30,000 with four masks, rel_height 0.5 and "
+          f"1.0, at unaligned pointers at 129, 384 and 4,097), K12's zeros by value: "
           f"{zero_signs} of the other sign; the peak gate through the classifier, {BATCH} x "
           f"{CLIP_SEC:.0f} s: launches { {k: v for k, v in l_gate.items() if v} }, no plain call, "
           f"{N_AGREE} clips against the CPU path (integers identical, floats within "

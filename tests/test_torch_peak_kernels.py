@@ -3,12 +3,22 @@
 modelled in NumPy the way the CUDA source does the work, against the JAX
 package's functions and the port's plain versions on the CPU.
 
-  * K11: the change boundaries encoded ``j * 2 + up`` as the JAX function
-    encodes them, an exclusive running max scanned chunk by chunk with a
-    carry, and at each fall boundary the midpoint of the plateau its
-    entering rise opened;
-  * K12: a lane a peak walking each side to the first strictly higher
-    sample, the side's minimum and the larger base NaN-propagating;
+  * K11's lane route: a lane scans its row from the left, carrying the last
+    change boundary and its direction, writes each position 0 at its step
+    and marks a rise-to-fall plateau's midpoint, behind the step, when the
+    change that closes it comes;
+  * K11's warp route: the change boundaries encoded ``j * 2 + up`` as the
+    JAX function encodes them, an exclusive running max scanned chunk by
+    chunk with a carry, and at each fall boundary the midpoint of the
+    plateau its entering rise opened;
+  * K12's lane route: two lanes a row, one for each side, jump pointers to
+    the previous (or next) strictly higher sample, each carrying its
+    segment's NaN-propagating minimum, a NaN passing nothing;
+  * K12's table route: range tables of maxima (NaN read as lowest) and
+    NaN-propagating minima, a lane a peak descending them to each side's
+    nearest strictly higher sample, each base two overlapping entries;
+  * K12's walk route: a lane a peak walking each side to the first strictly
+    higher sample, the side's minimum and the larger base NaN-propagating;
   * K13: a lane a peak walking each side to the first sample at or below
     ``x[p] - rel_height * prom[p]`` (product, then difference, float32),
     picked samples + 0.0, IEEE division.
@@ -19,9 +29,10 @@ K13 within the 1e-6 that ``tests/test_torch_peaks.py`` allows the port's
 plain version against JAX, and every model exactly against the plain
 version (K13's bit for bit but NaN payloads).  Rows:
 ``chip_smoke.peak_edge_rows`` (plateaus at the borders and across chunks,
-constant and monotone rows, NaN, +-inf and +-0) at n = 1, 2, 3, 33, 129,
-384 and 1,025, with the local maxima, every position, no position and a
-random mask as peaks.
+constant and monotone rows, NaN, +-inf and +-0) at n = 1, 2, 3, 33, 71,
+129, 384 and 1,025, with the local maxima, every position, no position and
+a random mask as peaks.  The lane routes' two layouts (rows, and rows as
+columns of a transposed view) are checked as the kernel addresses them.
 """
 
 from pathlib import Path
@@ -40,7 +51,7 @@ from audio_processing_tools_tpu_torch import _kernels
 from audio_processing_tools_tpu_torch.ops import peaks as tpk
 
 CSRC = Path(tpk.__file__).resolve().parent.parent / "csrc"
-SIZES = (1, 2, 3, 33, 129, 384, 1025)
+SIZES = (1, 2, 3, 33, 71, 129, 384, 1025)
 K11_CHUNK = 128  # csrc/peak_shape.cu: kChunk, positions a warp scans at a time
 # the JAX functions jitted, as the JAX package's pipelines run them
 JAX_LOCAL_MAXIMA = jax.jit(jpk.local_maxima)
@@ -67,6 +78,33 @@ def k11_model(x):
         r, k = np.nonzero((b < a) & (run >= 0) & (run & 1 == 1))
         out[r, ((run[r, k] >> 1) + 1 + j[k]) >> 1] = True
         carry = np.maximum(carry, incl[:, -1])
+    return out
+
+
+def k11_lane_model(x):
+    """K11's lane route on rows ``x`` (R, n), the rows in lockstep as the
+    lanes of a warp: at each position f from the left a row writes f as 0,
+    and where the change at boundary f - 1 closes a plateau entered by a
+    rise and left by a fall (the last change boundary ``c`` rose) it marks
+    ``(c + f) >> 1``, behind the step; ``c`` and whether it rose are
+    carried."""
+    R, n = x.shape
+    out = np.zeros((R, n), bool)
+    if n == 0:
+        return out
+    rows = np.arange(R)
+    prev, c, rise = x[:, 0], np.full(R, -1), np.zeros(R, bool)
+    for f in range(1, n):
+        v = x[:, f]
+        with np.errstate(invalid="ignore"):
+            chg, up, down = v != prev, v > prev, v < prev
+        mark = chg & rise & down
+        mid = (c + f) >> 1
+        assert (mid[mark] < f).all()  # behind the step, never overwritten
+        out[rows[mark], mid[mark]] = True
+        c = np.where(chg, f - 1, c)
+        rise = np.where(chg, up, rise)
+        prev = v
     return out
 
 
@@ -111,6 +149,85 @@ def k12_model(x, is_peak):
         bases.append(base)
     with np.errstate(invalid="ignore"):
         out[r, p] = xp - _nan_max(*bases)
+    return out
+
+
+def _k12_side(xr, side):
+    """One lane of K12's lane route: the row ``xr`` settled from the left
+    (side 0) or the right (side 1) in steps that either pass the chain's
+    top j (x[i] not NaN and x[j] not strictly higher: merge j's base, go
+    to the position j points to) or settle i (its base and pointer, then
+    the next position).  Returns the bases."""
+    n = xr.size
+    d, none = (1, -1) if side == 0 else (-1, n)
+    base = np.zeros(n, np.float32)
+    ptr = np.full(n, none)
+    i = 0 if side == 0 else n - 1
+    j = none
+    cur = xr[i] if n else None
+    while 0 <= i < n:
+        if j != none and not np.isnan(xr[i]) and not xr[j] > xr[i]:
+            cur, j = _nan_min(cur, base[j]), ptr[j]
+        else:
+            base[i], ptr[i], j = cur, j, i
+            i += d
+            cur = xr[i] if 0 <= i < n else None
+    return base
+
+
+def k12_lane_model(x, is_peak):
+    """K12's lane route: two lanes a row, one for each side (:func:`_k12_side`),
+    then ``x[p] - nan_max(left, right)`` at the peaks, +0.0 elsewhere."""
+    out = np.zeros(x.shape, np.float32)
+    with np.errstate(invalid="ignore"):
+        for r in range(x.shape[0]):
+            left, right = _k12_side(x[r], 0), _k12_side(x[r], 1)
+            p = np.nonzero(is_peak[r])[0]
+            out[r, p] = x[r, p] - _nan_max(left[p], right[p])
+    return out
+
+
+def _levels(n):
+    """The table route's levels: the largest k with 2^k <= n."""
+    return max(n.bit_length() - 1, 0)
+
+
+def k12_table_model(x, is_peak):
+    """K12's table route: maxima over [i, i + 2^k) with NaN read as lowest
+    (``fmaxf``) and NaN-propagating minima, levels 1..floor(log2 n); each
+    peak descends both sides a level at a time while the next block holds
+    nothing strictly higher, and reads each base as two overlapping
+    minima."""
+    R, n = x.shape
+    K = _levels(n)
+    mx, mn = [x], [x]
+    for k in range(1, K + 1):
+        h, m = 1 << (k - 1), n - (1 << k) + 1
+        mx.append(np.fmax(mx[-1][:, :m], mx[-1][:, h : h + m]))
+        mn.append(_nan_min(mn[-1][:, :m], mn[-1][:, h : h + m]))
+    out = np.zeros(x.shape, np.float32)
+    r, p = np.nonzero(is_peak)
+    xp = x[r, p]
+    a, e = p.copy(), p.copy()
+    with np.errstate(invalid="ignore"):
+        for k in range(K, -1, -1):
+            s = 1 << k
+            ok = a - s >= 0
+            go = ok & ~(mx[k][r, np.where(ok, a - s, 0)] > xp)
+            a = np.where(go, a - s, a)
+            ok = e + s <= n - 1
+            go = ok & ~(mx[k][r, np.where(ok, e + 1, 0)] > xp)
+            e = np.where(go, e + s, e)
+
+        def range_min(lo, hi):
+            k = np.floor(np.log2(hi - lo + 1)).astype(np.int64) if lo.size else lo
+            got = np.empty(lo.shape, np.float32)
+            for kk in np.unique(k):
+                at = k == kk
+                got[at] = _nan_min(mn[kk][r[at], lo[at]], mn[kk][r[at], hi[at] - (1 << kk) + 1])
+            return got
+
+        out[r, p] = xp - _nan_max(range_min(a, p), range_min(p, e))
     return out
 
 
@@ -173,6 +290,90 @@ def test_k12_model_matches_jax_and_plain(n):
         assert not np.signbit(got[~mask]).any()  # +0.0 off the peaks
 
 
+@pytest.mark.parametrize("n", SIZES)
+def test_k11_lane_model_matches_jax_and_plain(n):
+    x = peak_edge_rows(n)
+    got = k11_lane_model(x) if n >= 3 else np.zeros(x.shape, bool)  # n < 3 launches nothing
+    np.testing.assert_array_equal(got, np.asarray(JAX_LOCAL_MAXIMA(jnp.asarray(x))))
+    np.testing.assert_array_equal(got, tpk._local_maxima_plain(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(got, k11_model(x))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("route", ("lane", "table"))
+def test_k12_route_models_match_jax_and_plain(route, n):
+    x = peak_edge_rows(n)
+    model = {"lane": k12_lane_model, "table": k12_table_model}[route]
+    for label, mask in _masks(x, n).items():
+        got = model(x, mask)
+        ref = np.asarray(JAX_PROMINENCES(jnp.asarray(x), jnp.asarray(mask)))
+        np.testing.assert_array_equal(got, ref, err_msg=f"{label}, against JAX")
+        plain = tpk._peak_prominences_plain(torch.from_numpy(x), torch.from_numpy(mask))
+        np.testing.assert_array_equal(got, plain.numpy(), err_msg=f"{label}, against plain")
+        assert not np.signbit(got[~mask]).any()  # +0.0 off the peaks
+
+
+def _lane_rows(flat, rows, n, T):
+    """The rows a lane route reads from memory ``flat`` (one dimension) as
+    the kernel addresses them (``tile_of``): warp tiles of 32 rows, in
+    columns 32 neighbouring rows of one b at ``b n T + t``, positions of
+    stride T; in rows 32 consecutive rows at ``r n``."""
+    got = np.full((rows, n), np.nan, np.float32)
+    per_b = -(-T // 32) if T else 0
+    tiles = rows // T * per_b if T else -(-rows // 32)
+    for g in range(tiles):
+        for lane in range(32):
+            if T:
+                b, t0 = divmod(g, per_b)
+                t = t0 * 32 + lane
+                if t < T:
+                    got[b * T + t] = flat[b * n * T + t + np.arange(n) * T]
+            elif g * 32 + lane < rows:
+                r = g * 32 + lane
+                got[r] = flat[r * n + np.arange(n)]
+    return got
+
+
+@pytest.mark.parametrize("shape", ((3, 71, 45), (2, 129, 33), (1, 5, 40), (40, 7)))
+def test_lane_routes_address_both_layouts(shape):
+    """A transposed view is read in place as columns (a partial last tile
+    included), a contiguous tensor as rows (K12's lane route), any other
+    layout copied; the kernel's addresses give the view's rows."""
+    base = torch.from_numpy(np.random.default_rng(len(shape)).random(shape, dtype=np.float32))
+    view = base.transpose(-1, -2)  # (..., T, n), positions of stride T
+    n, T = view.shape[-1], view.shape[-2]
+    rows = view.numel() // n
+    assert tpk.peak_layout(view) == ("columns" if T > 1 else "rows")
+    assert tpk.peak_layout(view.contiguous()) == "rows"
+    assert tpk.peak_layout(view[..., ::2]) == "other"
+    flat = base.reshape(-1).numpy()  # the view's memory
+    want = view.reshape(rows, n).numpy()
+    np.testing.assert_array_equal(_lane_rows(flat, rows, n, T), want)
+    np.testing.assert_array_equal(_lane_rows(view.contiguous().reshape(-1).numpy(), rows, n, 0),
+                                  want)
+    out = tpk._like_columns(view, view.shape, torch.bool)  # the outputs keep the view's layout
+    assert out.shape == view.shape and out.stride() == view.stride()
+
+
+@pytest.mark.parametrize("n", (3, 71, 129, 384))
+def test_strided_views_give_their_copies_results(n):
+    """On the CPU the wrappers take the plain versions; a transposed view
+    gives what its contiguous copy gives, and the NumPy models of the lane
+    routes agree."""
+    rows = peak_edge_rows(n)
+    view = torch.from_numpy(np.ascontiguousarray(rows.T)).transpose(-1, -2)
+    dense = view.contiguous()
+    mask = tpk.local_maxima(view)
+    assert torch.equal(mask, tpk.local_maxima(dense))
+    np.testing.assert_array_equal(mask.numpy(), k11_lane_model(rows))
+    prom = tpk.peak_prominences(view, mask)
+    np.testing.assert_array_equal(prom.numpy(), tpk.peak_prominences(dense, mask).numpy())
+    np.testing.assert_array_equal(prom.numpy(), k12_lane_model(rows, mask.numpy()))
+    width = tpk.peak_widths_rel(view, mask, prom, 0.5)
+    np.testing.assert_array_equal(width.numpy(),
+                                  tpk.peak_widths_rel(dense, mask, prom, 0.5).numpy())
+
+
 @pytest.mark.parametrize("n", (3, 33, 384, 1025))
 @pytest.mark.parametrize("rel_height", (0.5, 1.0))
 def test_k13_model_matches_jax_and_plain(rel_height, n):
@@ -194,10 +395,27 @@ def test_k13_model_matches_jax_and_plain(rel_height, n):
 def test_peak_shape_route_follows_the_source():
     src = (CSRC / "peak_shape.cu").read_text()
     assert f"constexpr int kSharedMax = {tpk.PEAK_SHAPE_SHARED_MAX};" in src
+    assert f"constexpr int kLaneMax11 = {tpk.K11_LANE_MAX};" in src
+    assert f"constexpr int kLaneMax12 = {tpk.K12_LANE_MAX};" in src
+    assert 32 * 16 * tpk.K12_LANE_MAX <= 227 * 1024  # a warp's records in shared memory
     assert "constexpr int kChunk = 32 * kPer;" in src and "constexpr int kPer = 4;" in src
     assert K11_CHUNK == 32 * 4
     assert tpk.peak_shape_route(71) == tpk.peak_shape_route(2048) == "shared"
     assert tpk.peak_shape_route(2049) == tpk.peak_shape_route(30000) == "global"
+    # K11's lane route reads columns in place; contiguous rows take the warp route
+    assert tpk.local_maxima_route(3, "columns") == "lane"
+    assert tpk.local_maxima_route(tpk.K11_LANE_MAX, "columns") == "lane"
+    assert tpk.local_maxima_route(tpk.K11_LANE_MAX + 1, "columns") == "warp"
+    assert tpk.local_maxima_route(71) == tpk.local_maxima_route(176, "rows") == "warp"
+    assert tpk.local_maxima_route(71, "other") == "warp"
+    assert tpk.prominence_route(1) == tpk.prominence_route(tpk.K12_LANE_MAX) == "lane"
+    assert tpk.prominence_route(256) == tpk.prominence_route(2048) == "table"
+    assert tpk.prominence_route(2049) == "walk"
+    # the route codes the entry points take, in the order their comments give
+    assert "route 0 a lane a row (rows as columns, T > 0, n <=\n// kLaneMax11), 1 a warp a row" in src
+    assert tpk._K11_ROUTES == {"lane": 0, "warp": 1}
+    assert "route 0 two lanes a row (n <= kLaneMax12), 1 the range" in src
+    assert tpk._K12_ROUTES == {"lane": 0, "table": 1, "walk": 2}
     for name in ("apt_local_maxima", "apt_peak_prominences", "apt_peak_widths_rel"):
         assert f'extern "C" int {name}(' in src and name in _kernels._SIGNATURES
     for name in ("local_maxima", "peak_prominences", "peak_widths_rel"):

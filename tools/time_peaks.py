@@ -15,11 +15,14 @@ host-launched calls, in turns with the plain version where the checkout
 has one (plain, path, path, plain), and the kernel's device ms from a
 CUDA graph of 20 (``chip_smoke.graph_ms``) where it has the kernel; the
 kernels' results against the plain versions, bit for bit (K12's zeros by
-value), else it exits non-zero.  Stages: the peak gate
-(``models/frame_classifier.py::_peak_gate`` over the 128 clips' dB), the
+value), else it exits non-zero; on a checkout with K11's and K12's routes,
+each route's graph ms at each of their inputs, as passed and in the other
+layout (``chip_smoke.other_layout``).  Stages: the peak gate
+(``models/frame_classifier.py::_peak_gate`` over the 128 clips' dB; CUDA
+events, and its kernels' device time from torch.profiler), the
 confirmer's ``TimeDomainRainDetector.process`` on clip 1 (host clock and
-CUDA kernels, each with the peak memory above its start) and RoE's
-``_roe_batch`` (CUDA events).  ``--root`` imports the port from another
+CUDA kernels) and RoE's ``_roe_batch`` (CUDA events and device time),
+each with the peak memory above its start.  ``--root`` imports the port from another
 checkout (the parent: ``git archive <parent> | tar -x -C build/parent``),
 so that two trees are compared on one card, one process each; the inputs
 and the timing helpers always come from this checkout's ``chip_smoke.py``.
@@ -94,13 +97,31 @@ def main() -> int:
         result["shapes"][label] = rec
         print(f"{rec['kernel']} {label} {tuple(fargs[0].shape)}: {rec}")
 
+    # every route of K11 and K12 at each path's input, in its layout and the other
+    if hasattr(tpk, "prominence_route"):
+        result["routes"] = {}
+        for label, (kernel, fargs) in rows.items():
+            if kernel == "peak_widths_rel":
+                continue
+            cuda = getattr(tpk, f"_{kernel}_cuda")
+            for how, a in (("as passed", fargs),
+                           ("other layout", tuple(chip_smoke.other_layout(t) for t in fargs))):
+                rec = {route: chip_smoke.graph_ms(lambda r=route: cuda(*a, route=r))
+                       for route in chip_smoke.peak_routes(kernel, a[0])}
+                key = f"{label}, {how} ({tpk.peak_layout(a[0])})"
+                result["routes"][key] = rec
+                print(f"routes {key}: {rec}")
+
     # the stages as the paths run them
     cfg = build_noise_config(chip_smoke.FS, chip_smoke.PEAK_GATE)
     geo = fc.BandGeometry(cfg)
     spec = rows["the peak gate local_maxima"][1][0].transpose(-1, -2)  # (128, 71, 873)
     gate = lambda: fc._frame_peak_gate(cfg, geo, spec)  # noqa: E731
     _, mib = peak_mem(gate)
-    result["stages"]["peak gate, 128 x 10 s"] = {"ms": events(gate, 5), "peak_mib": mib}
+    n_kern, busy, top = chip_smoke.device_kernels(gate)
+    result["stages"]["peak gate, 128 x 10 s"] = {"ms": events(gate, 5), "peak_mib": mib,
+                                                 "cuda_kernels": n_kern, "busy_ms": busy,
+                                                 "costliest": top}
     det = ttd.TimeDomainRainDetector(ttd.build_time_domain_config(chip_smoke.PARAMS), device=dev)
     clip = x[1].cpu().numpy()
     det.process(clip)
@@ -115,8 +136,10 @@ def main() -> int:
                                              "cuda_kernels": n_kern, "busy_ms": busy}
     roe_cfg = roe.build_roe_config(return_spectra=False)
     _, mib = peak_mem(lambda: roe._roe_batch(x, roe_cfg))
+    n_kern, busy, _ = chip_smoke.device_kernels(lambda: roe._roe_batch(x, roe_cfg))
     result["stages"]["RoE, 128 x 10 s"] = {"ms": events(lambda: roe._roe_batch(x, roe_cfg), 10),
-                                           "peak_mib": mib}
+                                           "peak_mib": mib, "cuda_kernels": n_kern,
+                                           "busy_ms": busy}
     for label, rec in result["stages"].items():
         print(f"{label}: {rec}")
     line = json.dumps(result)
