@@ -92,7 +92,7 @@ _SIGNATURES = {
     "apt_decision_sweep": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "apt_local_maxima": (_P, _P, _L, _L, _L, _I, _P),
     "apt_peak_prominences": (_P, _P, _P, _L, _I, _L, _I, _P),
-    "apt_peak_widths_rel": (_P, _P, _P, _P, _L, _I, _F, _P),
+    "apt_peak_widths_rel": (_P, _P, _P, _P, _L, _I, _L, _F, _I, _P),
 }
 
 

@@ -74,14 +74,27 @@
 // h left of p and the first right of p, each crossing interpolated
 // linearly, width = right - left; the JAX function's operations one by one
 // (`_rn` intrinsics: no contraction into an FMA, IEEE division), a picked
-// sample + 0.0 as the plain version's one-hot sum makes it.  The walk
-// route's queue of peaks and a lane a peak, on contiguous rows.
+// sample + 0.0 as the plain version's one-hot sum makes it (`width_of`).
+// A NaN sample never stops a walk; a NaN h walks to the border.
+//  * Lane route (rows as columns, n up to kLaneMax13): persistent warps, a
+//    tile of 32 rows at a time and the next one copied in meanwhile; x
+//    staged by cp.async a position a row, the mask as the aligned words
+//    that hold its bytes; each lane keeps its row's peaks as bits and
+//    writes +0.0 over the row, a scan of the counts across the lanes lists
+//    the tile's peaks with their prominences, and the lanes take the list
+//    32 at a time, each walking its peak's two sides in shared memory
+//    (width_lane).
+//  * Walk route (any n, contiguous rows): a warp a row read from device
+//    memory, the peaks queued 32 at a time, a lane a peak.  Staged in
+//    shared memory, as K12's walk is, it lost at 71-384 and 2,048
+//    positions and won by 5% at 1,025 (PERF.md).
 //
 // What bounds them on this card: bytes.  K11 reads 4 bytes a position and
-// writes 1; K12 reads 5 and writes 4; K13 reads 9 and writes 4 (x, the
-// mask, the prominences).  The lane routes take a row a position at a
-// time, so at the gate's rows of 71 the instructions they execute bound
-// them before the bytes do (PERF.md).
+// writes 1; K12 reads 5 and writes 4; K13 reads 5 and writes 4 (x and
+// the mask), and the prominences only at the peaks.  The lane routes take
+// a row a position at a time, so at the gate's rows of 71 the instructions
+// they execute, and for K13 the share of the SM's memory left to L1 for
+// cp.async's lines, bound them before the bytes do (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,10 +106,12 @@ constexpr int kPer = 4;              // K11 warp route: positions a lane takes i
 constexpr int kChunk = 32 * kPer;    // K11 warp route: positions a warp takes in a chunk
 constexpr int kLaneRows12 = 16;      // K12 lane route: rows a warp takes, two lanes each
 // the routes' row lengths, twinned in ops/peaks.py (K11_LANE_MAX,
-// K12_LANE_MAX, PEAK_SHAPE_SHARED_MAX)
+// K12_LANE_MAX, K13_LANE_MAX, PEAK_SHAPE_SHARED_MAX)
 constexpr int kLaneMax11 = 256;      // K11's lane route
 constexpr int kLaneMax12 = 255;      // K12's lane route (pointers in bytes)
-constexpr int kSharedMax = 2048;     // K12's table route; K12/K13 walks in shared memory
+constexpr int kLaneMax13 = 160;      // K13's lane route (a multiple of 32)
+constexpr int kPitch13 = 33;         // K13 lane route: floats a position (32 rows and a bank)
+constexpr int kSharedMax = 2048;     // K12's table route and its walks in shared memory
 constexpr int kQueue = 64;           // K12/K13: a warp's queue of peak positions
 constexpr size_t kTableSmem = 200 * 1024;  // K12's table route: shared memory a block aims for
 constexpr unsigned kFull = 0xffffffffu;
@@ -508,44 +523,167 @@ struct Prominence {
   }
 };
 
+// K13's width of the peak at p of a row whose sample j is get(j), at
+// height h: the last j < p and the first j > p with x[j] <= h, both sides
+// walked together, each crossing interpolated; the plain version's
+// operations in its order
+template <class Get>
+__device__ __forceinline__ float width_of(Get get, int n, int p, float h) {
+  int il = p - 1, ir = p + 1;  // end at the crossing samples, else at -1 and n
+  bool left = il >= 0, right = ir < n;  // the sides still walking
+  while (left || right) {
+    if (left) {
+      if (get(il) <= h) left = false;
+      else left = --il >= 0;
+    }
+    if (right) {
+      if (get(ir) <= h) right = false;
+      else right = ++ir < n;
+    }
+  }
+  float lx = 0.f, rx = (float)(n - 1);
+  if (il >= 0) {
+    const float a = __fadd_rn(get(il), 0.f);
+    const float b = __fadd_rn(get(min(il + 1, n - 1)), 0.f);
+    const float t = a < h ? __fdiv_rn(__fsub_rn(h, a), b != a ? __fsub_rn(b, a) : 1.f) : 0.f;
+    lx = __fadd_rn((float)il, t);
+  }
+  if (ir < n) {
+    const float a = __fadd_rn(get(ir), 0.f);
+    const float b = __fadd_rn(get(max(ir - 1, 0)), 0.f);
+    const float t = a < h ? __fdiv_rn(__fsub_rn(h, a), b != a ? __fsub_rn(b, a) : 1.f) : 0.f;
+    rx = __fsub_rn((float)ir, t);
+  }
+  return __fsub_rn(rx, lx);
+}
+
+// K13's height at a peak: the product rounded, then the difference
+__device__ __forceinline__ float width_height(float xp, float rel, float prom) {
+  return __fsub_rn(xp, __fmul_rn(rel, prom));
+}
+
 struct Width {
   const float* prom;  // (rows, n), row-major
   float rel;
   template <bool kShared>
   __device__ __forceinline__ float operator()(const float* xr, long long row, int n,
                                               int p) const {
-    const float xp = sample<kShared>(xr, p);
-    const float h = __fsub_rn(xp, __fmul_rn(rel, __ldg(prom + (size_t)row * n + p)));
-    int il = -1;  // the last j < p with x[j] <= h
-    for (int j = p - 1; j >= 0; --j) {
-      if (sample<kShared>(xr, j) <= h) {
-        il = j;
-        break;
-      }
-    }
-    int ir = n;  // the first j > p with x[j] <= h
-    for (int j = p + 1; j < n; ++j) {
-      if (sample<kShared>(xr, j) <= h) {
-        ir = j;
-        break;
-      }
-    }
-    float left = 0.f, right = (float)(n - 1);
-    if (il >= 0) {
-      const float a = __fadd_rn(sample<kShared>(xr, il), 0.f);
-      const float b = __fadd_rn(sample<kShared>(xr, min(il + 1, n - 1)), 0.f);
-      const float t = a < h ? __fdiv_rn(__fsub_rn(h, a), b != a ? __fsub_rn(b, a) : 1.f) : 0.f;
-      left = __fadd_rn((float)il, t);
-    }
-    if (ir < n) {
-      const float a = __fadd_rn(sample<kShared>(xr, ir), 0.f);
-      const float b = __fadd_rn(sample<kShared>(xr, max(ir - 1, 0)), 0.f);
-      const float t = a < h ? __fdiv_rn(__fsub_rn(h, a), b != a ? __fsub_rn(b, a) : 1.f) : 0.f;
-      right = __fsub_rn((float)ir, t);
-    }
-    return __fsub_rn(right, left);
+    const float h = width_height(sample<kShared>(xr, p), rel, __ldg(prom + (size_t)row * n + p));
+    return width_of([&](int j) { return sample<kShared>(xr, j); }, n, p, h);
   }
 };
+
+// K13 lane route on rows as columns: persistent warps, each taking tiles
+// of 32 neighbouring rows (tile_of) gridDim.x apart, two in shared memory
+// at once: the next tile is copied in while the lanes walk this one.  A
+// tile's mask comes by cp.async as the aligned words that hold its bytes
+// (nine a position cover its 32 bytes wherever they start), its x into
+// xs[f * 33 + r] (33 floats a position, so lanes on one row meet in no
+// bank).  Each lane reads its row's mask into bits in registers and writes
+// +0.0 over its row (whole lines across the warp, the widths landing on
+// the peaks later: zeros off the peaks alone leave partial lines, which
+// cost more), a scan of the rows' counts across the lanes places the
+// peaks in the tile's list in the mask's words, free by then: f * 32 + r,
+// its prominence copied in by cp.async beside it (a chunk at a time where
+// the list outgrows the words).  Then the lanes take the list 32 at a
+// time, each walking its peak's two sides in shared memory and writing
+// the width.  No step waits on another lane but the scan and a chunk.
+__global__ void __launch_bounds__(32)
+width_lane(const float* __restrict__ x, const uint8_t* __restrict__ is_peak,
+           const float* __restrict__ prom, float* __restrict__ out, long long rows, int n,
+           long long T, float rel, long long tiles) {
+  extern __shared__ float lane13[];
+  const int lane = threadIdx.x;
+  const int per = (kPitch13 + 9) * n;  // floats a buffer: x, then the mask's words
+  const int cap = 6 * n;               // the list in the words: cap prominences, cap codes
+  // the offset of row q's position f from a tile's base
+  auto at = [&](int q, int f) { return q + (long long)f * T; };
+  // one tile's mask and x into buffer buf, one cp.async group
+  auto stage = [&](long long g, float* buf) {
+    const Tile t = tile_of(g, rows, n, T, 0);
+    uint32_t* words = reinterpret_cast<uint32_t*>(buf + kPitch13 * n);
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(is_peak + t.base);
+    for (int e = lane; e < 9 * n; e += 32) {
+      const int f = e / 9;
+      const uintptr_t a = a0 + f * T, w = (a & ~(uintptr_t)3) + 4 * (e - 9 * f);
+      if (w < a + t.cnt) cp_async4(&words[e], reinterpret_cast<const void*>(w));
+    }
+    if (lane < t.cnt) {
+      for (int f = 0; f < n; ++f) cp_async4(&buf[f * kPitch13 + lane], x + t.base + at(lane, f));
+    }
+    cp_async_commit();
+  };
+  long long g = blockIdx.x;
+  if (g >= tiles) return;
+  stage(g, lane13);
+  for (int i = 0; g < tiles; ++i, g += gridDim.x) {
+    float* xs = lane13 + (i & 1) * per;  // x of row r at position f: xs[f * kPitch13 + r]
+    float* plist = xs + kPitch13 * n;    // the mask's words, then the list
+    uint16_t* list = reinterpret_cast<uint16_t*>(plist + cap);
+    const Tile t = tile_of(g, rows, n, T, 0);
+    const long long next = g + gridDim.x;
+    cp_async_wait<0>();  // this tile's mask and x
+    __syncwarp();
+    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(plist);
+    // a position's first byte in its words
+    const int lo = (int)(reinterpret_cast<uintptr_t>(is_peak + t.base) & 3), step = (int)(T & 3);
+    uint32_t bits[kLaneMax13 / 32];  // the row's peaks
+    int mine = 0;
+#pragma unroll
+    for (int w = 0; w < kLaneMax13 / 32; ++w) {
+      bits[w] = 0;
+      if (lane < t.cnt) {
+        for (int f = w * 32; f < min(n, w * 32 + 32); ++f) {
+          const bool pk = bytes[36 * f + ((lo + f * step) & 3) + lane] != 0;
+          bits[w] |= (uint32_t)pk << (f - w * 32);
+          out[t.base + at(lane, f)] = 0.f;
+        }
+      }
+      mine += __popc(bits[w]);
+    }
+    int incl = mine;  // an inclusive scan of the rows' counts
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const int total = __shfl_sync(kFull, incl, 31), first = incl - mine;
+    __syncwarp();  // every mask byte read, and the zeros written, before the list and widths
+    if (total == 0 && next < tiles) stage(next, lane13 + ((i + 1) & 1) * per);
+    for (int c0 = 0; c0 < total; c0 += cap) {
+      const int c1 = min(total, c0 + cap);
+      if (first < c1 && first + mine > c0) {  // this row's peaks with places in [c0, c1)
+        int k = first;
+#pragma unroll
+        for (int w = 0; w < kLaneMax13 / 32; ++w) {
+          for (uint32_t b = bits[w]; b; b &= b - 1, ++k) {
+            if (k >= c0 && k < c1) {
+              const int f = w * 32 + __ffs(b) - 1;
+              list[k - c0] = (uint16_t)(f * 32 + lane);
+              cp_async4(&plist[k - c0], prom + t.base + at(lane, f));
+            }
+          }
+        }
+      }
+      cp_async_commit();
+      if (c0 == 0 && next < tiles) {  // the next tile lands while this one is walked
+        stage(next, lane13 + ((i + 1) & 1) * per);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      for (int k = c0 + lane; k < c1; k += 32) {
+        const int code = list[k - c0], p = code >> 5, r = code & 31;
+        const float* xr = xs + r;
+        const float h = width_height(xr[p * kPitch13], rel, plist[k - c0]);
+        out[t.base + at(r, p)] = width_of([&](int j) { return xr[j * kPitch13]; }, n, p, h);
+      }
+      __syncwarp();  // the chunk read before the next one overwrites it
+    }
+  }
+  cp_async_wait<0>();
+}
 
 // K12's walk route and K13: a warp a row; +0.0 off the peaks, op(row, p) at each peak
 template <bool kShared, class Op>
@@ -569,20 +707,17 @@ peak_walk_kernel(const float* __restrict__ x, const uint8_t* __restrict__ is_pea
                 [&](int p) { return op.template operator()<kShared>(xr, row, n, p); });
 }
 
-template <class Op>
+// the walks, each row staged in shared memory (kShared, n <= kSharedMax)
+// or read from device memory
+template <bool kShared, class Op>
 int launch_walk(const float* x, const uint8_t* is_peak, float* out, long long rows, int n, Op op,
                 void* stream) {
-  if (rows <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || n <= 0 || (kShared && n > kSharedMax)) return (int)cudaErrorInvalidValue;
   const long long blocks = (rows + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (n <= kSharedMax) {
-    const size_t smem = (size_t)kWarps * n * sizeof(float);
-    peak_walk_kernel<true, Op><<<(unsigned)blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
-        x, is_peak, out, rows, n, op);
-  } else {
-    peak_walk_kernel<false, Op><<<(unsigned)blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-        x, is_peak, out, rows, n, op);
-  }
+  const size_t smem = kShared ? (size_t)kWarps * n * sizeof(float) : 0;
+  peak_walk_kernel<kShared, Op><<<(unsigned)blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
+      x, is_peak, out, rows, n, op);
   return (int)cudaGetLastError();
 }
 
@@ -640,15 +775,19 @@ extern "C" int apt_peak_prominences(const float* x, const uint8_t* is_peak, floa
     if (n > kLaneMax12 || !lane_tiles(rows, T, kLaneRows12, &tiles))
       return (int)cudaErrorInvalidValue;
     // the records of positions -2 .. n + 1, then the mask's words (five a
-    // position, or the tile's bytes and two)
-    const size_t smem = (size_t)kLaneRows12 * (n + 4) * sizeof(float4) + 20 * n + 8;
+    // position, or the tile's bytes and two); each kernel allowed the most
+    // any row takes, so that no call lowers it under another's launch
+    auto smem_of = [](int m) {
+      return (size_t)kLaneRows12 * (m + 4) * sizeof(float4) + 20 * m + 8;
+    };
+    const size_t smem = smem_of(n);
     cudaError_t err;
     if (T > 0) {
-      err = allow_smem(prominence_lane<true>, smem);
+      err = allow_smem(prominence_lane<true>, smem_of(kLaneMax12));
       if (err == cudaSuccess)
         prominence_lane<true><<<(unsigned)tiles, 32, smem, s>>>(x, is_peak, out, rows, n, T);
     } else {
-      err = allow_smem(prominence_lane<false>, smem);
+      err = allow_smem(prominence_lane<false>, smem_of(kLaneMax12));
       if (err == cudaSuccess)
         prominence_lane<false><<<(unsigned)tiles, 32, smem, s>>>(x, is_peak, out, rows, n, 0);
     }
@@ -670,12 +809,45 @@ extern "C" int apt_peak_prominences(const float* x, const uint8_t* is_peak, floa
     return (int)cudaGetLastError();
   }
   if (route != 2) return (int)cudaErrorInvalidValue;
-  return launch_walk(x, is_peak, out, rows, n, Prominence{}, stream);
+  return n <= kSharedMax ? launch_walk<true>(x, is_peak, out, rows, n, Prominence{}, stream)
+                         : launch_walk<false>(x, is_peak, out, rows, n, Prominence{}, stream);
 }
 
-// K13: out (rows, n), the width at rel_height of each peak, +0.0 elsewhere
+// K13: out (rows, n), the width at rel_height of each peak of is_peak
+// (bytes), +0.0 elsewhere, all four in one layout; route 0 a lane a peak
+// of a warp's tile of 32 rows (rows as columns, T > 0, n <= kLaneMax13), 1
+// the walks from device memory (contiguous rows, T = 0)
 extern "C" int apt_peak_widths_rel(const float* x, const uint8_t* is_peak, const float* prom,
-                                   float* out, long long rows, int n, float rel_height,
-                                   void* stream) {
-  return launch_walk(x, is_peak, out, rows, n, Width{prom, rel_height}, stream);
+                                   float* out, long long rows, int n, long long T,
+                                   float rel_height, int route, void* stream) {
+  if (rows <= 0 || n <= 0 || T < 0 || (T > 0) != (route == 0)) return (int)cudaErrorInvalidValue;
+  if (route == 0) {
+    long long tiles = 0;
+    if (n > kLaneMax13 || !lane_tiles(rows, T, 32, &tiles)) return (int)cudaErrorInvalidValue;
+    // two buffers, each x at 33 floats a position and the mask's words
+    // (nine a position), which then hold the list of peaks
+    auto smem_of = [](int m) { return 2 * (size_t)(kPitch13 + 9) * m * sizeof(float); };
+    const size_t smem = smem_of(n);
+    // the most any row takes, so that no call lowers it under another's
+    // launch; and more of the SM's unified memory left to L1, which holds
+    // the lines cp.async copies through: 7 warps an SM at the gate's rows,
+    // not 9
+    cudaError_t err = allow_smem(width_lane, smem_of(kLaneMax13));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(width_lane, cudaFuncAttributePreferredSharedMemoryCarveout, 75);
+    int device = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, width_lane, 32, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+    const long long warps = (long long)sms * per_sm;  // persistent: the card full once
+    width_lane<<<(unsigned)(tiles < warps ? tiles : warps), 32, smem, (cudaStream_t)stream>>>(
+        x, is_peak, prom, out, rows, n, T, rel_height, tiles);
+    return (int)cudaGetLastError();
+  }
+  if (route != 1) return (int)cudaErrorInvalidValue;
+  return launch_walk<false>(x, is_peak, out, rows, n, Width{prom, rel_height}, stream);
 }

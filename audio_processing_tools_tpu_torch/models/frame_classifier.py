@@ -125,7 +125,7 @@ def _peak_gate_block(spec: torch.Tensor, mode_masks: np.ndarray, primary_mask: n
     """The peak gate on ``spec`` (..., K, T); see :func:`_peak_gate`."""
     K = spec.shape[-2]
     dev = spec.device
-    sT = spec.transpose(-1, -2)  # (..., T, K), a view that K11 and K12 read in place on the card
+    sT = spec.transpose(-1, -2)  # (..., T, K), a view that K11-K13 read in place on the card
     height = quantile_linear(sT, 0.5, dim=-1) + min_db_above_floor  # per-frame median
 
     is_max = local_maxima(sT)

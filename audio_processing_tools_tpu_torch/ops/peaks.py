@@ -15,27 +15,30 @@ the JAX package calls it.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from audio_processing_tools_tpu_torch import _kernels
 
 # csrc/peak_shape.cu's route lengths: kSharedMax (K12's table route, K12's
-# and K13's walks in shared memory), kLaneMax11, kLaneMax12 (a lane a row,
-# K12's a lane a side)
+# walks in shared memory), kLaneMax11, kLaneMax12, kLaneMax13 (a lane a
+# row, K12's a lane a side, K13's a lane a peak of a 32-row tile)
 PEAK_SHAPE_SHARED_MAX = 2048
 K11_LANE_MAX = 256
 K12_LANE_MAX = 255
+K13_LANE_MAX = 160
 _K11_ROUTES = {"lane": 0, "warp": 1}
 _K12_ROUTES = {"lane": 0, "table": 1, "walk": 2}
+_K13_ROUTES = {"lane": 0, "walk": 1}
 
 
-def peak_shape_route(n: int) -> str:
-    """Where K13 (and K12's walk route) reads a row of ``n`` positions:
-    ``"shared"`` (staged in shared memory) up to
-    :data:`PEAK_SHAPE_SHARED_MAX`, ``"global"`` (device memory) beyond."""
-    return "shared" if n <= PEAK_SHAPE_SHARED_MAX else "global"
+def width_route(n: int, layout: str = "rows") -> str:
+    """K13's route for rows of ``n`` positions in ``layout``
+    (:func:`peak_layout`): ``"lane"`` (persistent warps, a tile of 32 rows
+    at a time, a lane a peak) for columns up to :data:`K13_LANE_MAX`, read
+    in place; otherwise ``"walk"``, a warp a row on contiguous rows read
+    from device memory.  On the card the lane route lost to the walk on
+    columns past 129 positions (``PERF.md``)."""
+    return "lane" if layout == "columns" and n <= K13_LANE_MAX else "walk"
 
 
 def local_maxima_route(n: int, layout: str = "rows") -> str:
@@ -59,7 +62,7 @@ def prominence_route(n: int) -> str:
 
 
 def peak_layout(t: torch.Tensor) -> str:
-    """How K11's and K12's lane routes find the rows of ``t`` (..., n):
+    """How K11-K13's lane routes find the rows of ``t`` (..., n):
     ``"rows"`` where ``t`` is contiguous; ``"columns"`` where its last two
     axes are those of a contiguous (..., n, T) tensor swapped (row (b, t)
     at ``b n T + t``, positions of stride T: the peak gate's
@@ -78,15 +81,8 @@ def _like_columns(t: torch.Tensor, shape, dtype) -> torch.Tensor:
                        device=t.device).transpose(-1, -2)
 
 
-def _rows(name: str, t: torch.Tensor, n: int, dtype) -> torch.Tensor:
-    """``t`` as contiguous rows (R, n) on the card, checked for K11-K13."""
-    rows = t.reshape(math.prod(t.shape[:-1]), n).contiguous()
-    _kernels.require_cuda(name, rows, dtype, 2)
-    return rows
-
-
 def _lane_input(name: str, x: torch.Tensor, dtype, lane: bool):
-    """``(x, T)`` as K11 and K12 read ``x`` (..., n) on the card: a lane
+    """``(x, T)`` as K11-K13 read ``x`` (..., n) on the card: a lane
     route reads it in place as columns (T its rows a batch entry) or as
     contiguous rows (T = 0); anything else, or another route, gets
     contiguous rows."""
@@ -313,33 +309,53 @@ def _peak_widths_rel_plain(x: torch.Tensor, is_peak: torch.Tensor,
 
 
 def _peak_widths_rel_cuda(x: torch.Tensor, is_peak: torch.Tensor, prominences: torch.Tensor,
-                          rel_height: float = 0.5) -> torch.Tensor:
-    """K13 (``csrc/peak_shape.cu``) on contiguous rows of float32 ``x``
-    (..., n) and a bool ``is_peak`` and the ``prominences`` that broadcast
-    to it (other layouts copied): one warp a row, a lane a peak walking each
-    side to the first sample at or below its height, the plain version's
-    operations in its order; ``rel_height`` is taken as float32, as the
-    plain version's scalar product takes it.  Nothing is launched for an
-    empty input."""
+                          rel_height: float = 0.5, route: str | None = None) -> torch.Tensor:
+    """K13 (``csrc/peak_shape.cu``) on float32 ``x`` (..., n) and a bool
+    ``is_peak`` and the ``prominences`` that broadcast to it: on columns up
+    to :data:`K13_LANE_MAX` positions a warp a tile of 32 rows and a lane a
+    peak, reading ``x`` in place (the mask and the prominences are copied
+    into ``x``'s layout where they lie otherwise) and writing in that
+    layout; otherwise the walks, a warp a row, on contiguous rows, other
+    layouts copied (:func:`width_route`; ``route`` forces one).  Each lane
+    walks its peak's sides to the first sample at or below its height, the
+    plain version's operations in its order; ``rel_height`` is taken as
+    float32, as the plain version's scalar product takes it.  Nothing is
+    launched for an empty input."""
     n = x.shape[-1]
-    xr = _rows("peak_widths_rel", x, n, torch.float32)
-    pr = _rows("peak_widths_rel(is_peak)", torch.broadcast_to(is_peak, x.shape), n, torch.bool)
-    pm = _rows("peak_widths_rel(prominences)", torch.broadcast_to(prominences, x.shape), n,
-               torch.float32)
-    if pr.device != xr.device or pm.device != xr.device:
-        raise ValueError(f"peak_widths_rel: is_peak on {pr.device}, prominences on "
-                         f"{pm.device}, x on {xr.device}")
-    out = torch.empty(xr.shape, dtype=torch.float32, device=x.device)
+    route = route or width_route(n, peak_layout(x))
+    xr, T = _lane_input("peak_widths_rel", x, torch.float32, route == "lane")
+    if route == "lane" and not T:
+        raise ValueError("peak_widths_rel: the lane route reads rows as columns of a "
+                         "transposed view")
+    pk = torch.broadcast_to(is_peak, x.shape)
+    pm = torch.broadcast_to(prominences, x.shape)
+    if pk.device != x.device or pm.device != x.device:
+        raise ValueError(f"peak_widths_rel: is_peak on {pk.device}, prominences on "
+                         f"{pm.device}, x on {x.device}")
+    if pk.dtype != torch.bool:
+        raise TypeError(f"peak_widths_rel(is_peak): expected torch.bool, got {pk.dtype}")
+    if pm.dtype != torch.float32:
+        raise TypeError(f"peak_widths_rel(prominences): expected torch.float32, got {pm.dtype}")
+    if T:
+        if pk.stride() != xr.stride():
+            pk = _like_columns(x, x.shape, torch.bool).copy_(pk)
+        if pm.stride() != xr.stride():
+            pm = _like_columns(x, x.shape, torch.float32).copy_(pm)
+    else:
+        pk, pm = pk.contiguous(), pm.contiguous()
+    out = _like_columns(x, x.shape, torch.float32) if T else torch.empty(
+        x.shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
-        return out.reshape(x.shape)
+        return out
     lib = _kernels.build()
     with torch.cuda.device(x.device):
-        err = lib.lib.apt_peak_widths_rel(xr.data_ptr(), pr.data_ptr(), pm.data_ptr(),
-                                          out.data_ptr(), xr.shape[0], n, float(rel_height),
-                                          _kernels.stream_of(xr))
+        err = lib.lib.apt_peak_widths_rel(xr.data_ptr(), pk.data_ptr(), pm.data_ptr(),
+                                          out.data_ptr(), x.numel() // n, n, T,
+                                          float(rel_height), _K13_ROUTES[route],
+                                          _kernels.stream_of(x))
     lib.check(err, "peak_widths_rel")
     _kernels.count("peak_widths_rel")
-    return out.reshape(x.shape)
+    return out
 
 
 def peak_widths_rel(x: torch.Tensor, is_peak: torch.Tensor,
@@ -347,7 +363,9 @@ def peak_widths_rel(x: torch.Tensor, is_peak: torch.Tensor,
     """Width of each peak at ``x[p] - rel_height * prominence``, crossings
     interpolated linearly (scipy ``peak_widths``); 0 where not a peak.
     Kernel K13 on a CUDA tensor (float32 ``x`` and ``prominences``, bool
-    ``is_peak``), the plain version on a CPU tensor, with the same bits."""
+    ``is_peak``; a transposed view of a short row is read in place and the
+    widths come in its layout), the plain version on a CPU tensor, with the
+    same bits."""
     if x.device.type == "cpu":
         return _peak_widths_rel_plain(x, is_peak, prominences, rel_height)
     return _peak_widths_rel_cuda(x, is_peak, prominences, rel_height)

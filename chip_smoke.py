@@ -1157,7 +1157,7 @@ def main() -> int:
                   "band_noise_scan": "warp", "select_peaks_by_distance": "warp",
                   "streaming_suppressor": "fft", "sosfilt_zi": "1 group",
                   "decision_sweep": "one launch", "local_maxima": "lane, columns",
-                  "peak_prominences": "table", "peak_widths_rel": "shared"}
+                  "peak_prominences": "table", "peak_widths_rel": "lane, columns"}
     for k in kernels:
         # the route the entry's own numbers are of, and phase 44's routes
         k["routes"] = ([{"route": main_route.get(k["name"], "cuda"), "geometry": "main path"}]
@@ -4396,10 +4396,12 @@ def walk_steps(x, is_peak, stops) -> float:
 def peak_work(kernel, args) -> tuple:
     """K11-K13's work on ``args``, whatever the algorithm: the bytes read
     once and written once (K11 4 in and 1 out a position, K12 5 and 4, K13
-    9 and 4) and the operations these inputs need: K11 about 10 integer
-    operations a position (compares, the code, the scan, the test); K12 3 a
-    sample its walks read (load, compare, minimum); K13 2 a sample walked
-    and 12 a peak (its height and the interpolations)."""
+    5 and 4, and the prominences only at the peaks: each 32-byte sector of
+    them, in their layout, that holds a peak's) and the operations these
+    inputs need: K11 about 10 integer operations a position (compares, the
+    code, the scan, the test); K12 3 a sample its walks read (load,
+    compare, minimum); K13 2 a sample walked and 12 a peak (its height and
+    the interpolations)."""
     x = args[0]
     if kernel == "local_maxima":
         return 5 * x.numel(), 10 * x.numel()
@@ -4407,11 +4409,15 @@ def peak_work(kernel, args) -> tuple:
         flat = x.reshape(-1, x.shape[-1])
         return 9 * x.numel(), 3 * walk_steps(
             x, args[1], lambda xj, i, b: xj > flat[i : i + b, :, None])
-    prom, rel = args[2], args[3]
+    import torch
+
+    prom, rel = torch.broadcast_to(args[2], x.shape), args[3]
     h = (x - rel * prom).reshape(-1, x.shape[-1])
-    peaks = float(args[1].sum())
-    return 13 * x.numel(), 2 * walk_steps(
-        x, args[1], lambda xj, i, b: xj <= h[i : i + b, :, None]) + 12 * peaks
+    at = torch.broadcast_to(args[1], x.shape).nonzero()
+    offsets = (at * torch.tensor(prom.stride(), device=at.device)).sum(-1)
+    sectors = torch.unique((prom.data_ptr() + 4 * offsets) // 32).numel()
+    return 9 * x.numel() + 32 * sectors, 2 * walk_steps(
+        x, args[1], lambda xj, i, b: xj <= h[i : i + b, :, None]) + 12 * at.shape[0]
 
 
 def zero_as_plus(t):
@@ -4423,8 +4429,7 @@ def zero_as_plus(t):
 
 
 def peak_routes(kernel: str, x) -> list:
-    """The routes of K11 or K12 that take ``x`` (..., n); ``[None]`` for
-    K13, which has one."""
+    """The routes of K11, K12 or K13 that take ``x`` (..., n)."""
     from audio_processing_tools_tpu_torch.ops import peaks as tpk
 
     n = x.shape[-1]
@@ -4435,13 +4440,17 @@ def peak_routes(kernel: str, x) -> list:
         return [r for r in ("lane", "table", "walk")
                 if r == "walk" or n <= {"lane": tpk.K12_LANE_MAX,
                                         "table": tpk.PEAK_SHAPE_SHARED_MAX}[r]]
-    return [None]
+    # K13's lane route reads rows as columns
+    lane = n <= tpk.K13_LANE_MAX and tpk.peak_layout(x) == "columns"
+    return (["lane"] if lane else []) + ["walk"]
 
 
 def other_layout(t):
-    """``t`` (..., n) in K11's and K12's other layout: rows as columns of a
+    """``t`` (..., n) in K11-K13's other layout: rows as columns of a
     transposed view where ``t`` is contiguous, a contiguous copy where it
-    is not."""
+    is not; ``t`` itself where it is not a tensor (K13's rel_height)."""
+    if not hasattr(t, "is_contiguous"):
+        return t
     if t.is_contiguous() and t.dim() >= 2:
         return t.transpose(-1, -2).contiguous().transpose(-1, -2)
     return t.contiguous()
@@ -4451,8 +4460,8 @@ def peak_holds(kernel: str, args, label: str, route=None, ref=None) -> dict:
     """One of K11-K13 against its plain version on the card (``ref``, its
     result on these values, or computed): K11's mask equal, K13
     ``same_bits``, K12 ``same_bits`` once each zero is +0.0 (and the zeros
-    whose sign differs counted); ``route`` forces K11's or K12's route; a
-    lane route's result keeps a transposed view's layout.  Returns
+    whose sign differs counted); ``route`` forces a route; a lane route's
+    result keeps a transposed view's layout.  Returns
     ``{"max_abs_err", "zero_signs"}``."""
     import torch
 
@@ -4483,15 +4492,16 @@ def peak_holds(kernel: str, args, label: str, route=None, ref=None) -> dict:
 
 def peak_shape_phases(smi: str, x) -> dict:
     """Phase 47: K11-K13 (``csrc/peak_shape.cu``) against their plain
-    versions on the card, K11 and K12 by every route that takes the rows
-    and in both layouts (:func:`peak_routes`, :func:`other_layout`), on the
+    versions on the card, each by every route that takes the rows and in
+    both layouts (:func:`peak_routes`, :func:`other_layout`), on the
     three paths' rows (:func:`peak_path_rows`) and on ``peak_edge_rows`` at
     n = 1 to 30,000 with four masks, rel_height 0.5 and 1.0, some at
     unaligned pointers; the peak gate through the classifier at 128 x 10 s
     with its launches, 16 clips against the CPU path and its time; each
     kernel's graph ms beside its plain version's and its bound, and K11's
-    warp scan and K12's walks forced at the paths' shapes in turns with the
-    routes the paths take.  ``x`` is phase 4's batch on the card."""
+    warp scan, K12's walks and K13's walk forced at the paths' shapes in
+    turns with the routes the paths take.  ``x`` is phase 4's batch on the
+    card."""
     import torch
 
     from audio_processing_tools_tpu_torch import _kernels
@@ -4504,9 +4514,13 @@ def peak_shape_phases(smi: str, x) -> dict:
     torch.cuda.empty_cache()
     paths = peak_path_rows(x)
     for label in ("the peak gate local_maxima", "the peak gate peak_prominences",
-                  "RoE spectral peaks"):
+                  "the peak gate peak_widths_rel", "RoE spectral peaks"):
         layout = tpk.peak_layout(paths[label][1][0])
         check(layout == "columns", f"{label}: the path passes {layout}, not the transposed view")
+    # K13's mask and prominences in x's layout, so its call copies nothing
+    strides = [tuple(a.stride()) for a in paths["the peak gate peak_widths_rel"][1][:3]]
+    check(len(set(strides)) == 1, f"the peak gate peak_widths_rel: x, found and prom in strides "
+                                  f"{strides}, not one layout")
     err = {k: 0.0 for k in PEAK_KERNELS}
     zero_signs, n_cases = 0, 0
 
@@ -4515,12 +4529,10 @@ def peak_shape_phases(smi: str, x) -> dict:
         other layout, against one plain result."""
         nonlocal zero_signs, n_cases
         ref = getattr(tpk, f"_{kernel}_plain")(*args)
-        variants = [("", args)]
-        if kernel != "peak_widths_rel":
-            variants.append((", other layout", tuple(other_layout(a) for a in args)))
+        variants = [("", args), (", other layout", tuple(other_layout(a) for a in args))]
         for how, a in variants:
             for route in peak_routes(kernel, a[0]):
-                r = peak_holds(kernel, a, f"{label}{how}, {route or 'walk'}", route, ref)
+                r = peak_holds(kernel, a, f"{label}{how}, {route}", route, ref)
                 err[kernel] = max(err[kernel], r["max_abs_err"])
                 zero_signs += r["zero_signs"]
                 n_cases += 1
@@ -4532,6 +4544,10 @@ def peak_shape_phases(smi: str, x) -> dict:
     is_max = tpk._local_maxima_plain(sT)
     hold("peak_prominences", (env, tpk._local_maxima_plain(env)), "the confirmer, every maximum")
     hold("peak_widths_rel", (sT, is_max, prom, 1.0), "the peak gate, every maximum, rel 1.0")
+    # every position of two clips: K13's lane route takes a tile's list in chunks
+    every = torch.ones_like(is_max[:2])
+    hold("peak_widths_rel", (sT[:2], every, tpk._peak_prominences_plain(sT[:2], every), 0.5),
+         "the peak gate's first two clips, every position")
 
     # the edge rows; at 30,000 four rows, the plain planes a row at a time
     rng = np.random.default_rng(47)
@@ -4597,13 +4613,16 @@ def peak_shape_phases(smi: str, x) -> dict:
 
     # ---- device time at the paths' shapes ------------------------------------------
     shapes = {k: [] for k in PEAK_KERNELS}
-    forced = {"local_maxima": "warp", "peak_prominences": "walk"}  # the routes they replaced
+    # the routes they replaced
+    forced = {"local_maxima": "warp", "peak_prominences": "walk", "peak_widths_rel": "walk"}
     for label, (kernel, args) in paths.items():
         cuda = getattr(tpk, f"_{kernel}_cuda")
         plain = getattr(tpk, f"_{kernel}_plain")
         p1 = float(np.median(cuda_times(lambda: plain(*args), 3)))
-        route = {"local_maxima": lambda n: tpk.local_maxima_route(n, tpk.peak_layout(args[0])),
-                 "peak_prominences": tpk.prominence_route}.get(kernel, tpk.peak_shape_route)(
+        layout = tpk.peak_layout(args[0])
+        route = {"local_maxima": lambda n: tpk.local_maxima_route(n, layout),
+                 "peak_prominences": tpk.prominence_route,
+                 "peak_widths_rel": lambda n: tpk.width_route(n, layout)}[kernel](
                      args[0].shape[-1])
         old = forced.get(kernel) if forced.get(kernel) != route else None
         ms = graph_ms(lambda: cuda(*args))
@@ -4627,7 +4646,7 @@ def peak_shape_phases(smi: str, x) -> dict:
               f"bound {b_ms:.5f} by {b_by}")
     seconds = time.perf_counter() - t_phase
     print(f"phase 47 K11-K13 (local maxima, prominences, widths) on {smi}: {n_cases} cases the "
-          f"plain versions' bits, K11 and K12 by every route that takes the rows and in both "
+          f"plain versions' bits, each kernel by every route that takes the rows and in both "
           f"layouts (the paths' rows: RoE's spectral peaks and novelty, the confirmer's windows, "
           f"the peak gate's dB; edge rows of 1 to 30,000 with four masks, rel_height 0.5 and "
           f"1.0, at unaligned pointers at 129, 384 and 4,097), K12's zeros by value: "

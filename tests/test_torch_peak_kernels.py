@@ -21,7 +21,9 @@ package's functions and the port's plain versions on the CPU.
     higher sample, the side's minimum and the larger base NaN-propagating;
   * K13: a lane a peak walking each side to the first sample at or below
     ``x[p] - rel_height * prom[p]`` (product, then difference, float32),
-    picked samples + 0.0, IEEE division.
+    picked samples + 0.0, IEEE division; the walk route takes a row's peaks
+    32 at a time, the lane route a tile of 32 rows' peaks, queued by one
+    ballot a position across the tile.
 
 Tolerances: K11 and K12 exactly (``assert_array_equal``: values, NaN in the
 same places; a zero's sign is not compared, csrc/peak_shape.cu says why),
@@ -32,9 +34,11 @@ version (K13's bit for bit but NaN payloads).  Rows:
 constant and monotone rows, NaN, +-inf and +-0) at n = 1, 2, 3, 33, 71,
 129, 384 and 1,025, with the local maxima, every position, no position and
 a random mask as peaks.  The lane routes' two layouts (rows, and rows as
-columns of a transposed view) are checked as the kernel addresses them.
+columns of a transposed view) are checked as the kernel addresses them,
+K13's mask as the aligned words that hold its bytes.
 """
 
+import functools
 from pathlib import Path
 
 import jax
@@ -53,6 +57,7 @@ from audio_processing_tools_tpu_torch.ops import peaks as tpk
 CSRC = Path(tpk.__file__).resolve().parent.parent / "csrc"
 SIZES = (1, 2, 3, 33, 71, 129, 384, 1025)
 K11_CHUNK = 128  # csrc/peak_shape.cu: kChunk, positions a warp scans at a time
+K13_TILE = 32  # csrc/peak_shape.cu: rows of a warp's tile in K13's lane route
 # the JAX functions jitted, as the JAX package's pipelines run them
 JAX_LOCAL_MAXIMA = jax.jit(jpk.local_maxima)
 JAX_PROMINENCES = jax.jit(jpk.peak_prominences)
@@ -231,23 +236,14 @@ def k12_table_model(x, is_peak):
     return out
 
 
-def k13_model(x, is_peak, prom, rel_height):
-    """K13: ``h = x[p] - rel * prom[p]`` in float32, the last sample at or
-    below h left of p and the first right of p found by walks, each
-    crossing interpolated in the plain version's order; +0.0 elsewhere."""
+def _k13_crossings(x, r, il, ir, h):
+    """K13's widths of the peaks on rows ``r`` at heights ``h`` whose walks
+    ended at ``il`` (the last j < p with x[j] <= h, else -1) and ``ir`` (the
+    first j > p, else n): each crossing interpolated in the plain version's
+    order, picked samples + 0.0."""
     n = x.shape[1]
-    out = np.zeros(x.shape, np.float32)
-    r, p = np.nonzero(is_peak)
     zero = np.float32(0.0)
     with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
-        h = x[r, p] - np.float32(rel_height) * prom[r, p]
-        found = {}
-        for side in (-1, 1):
-            at = np.full(r.size, -1 if side < 0 else n)
-            for _, hit, _, j in _walk(x, r, p, side, lambda v: v <= h):
-                at[hit] = j[hit]
-            found[side] = at
-        il, ir = found[-1], found[1]
         a = x[r, np.maximum(il, 0)] + zero
         b = x[r, np.minimum(il + 1, n - 1)] + zero
         t = np.where(a < h, (h - a) / np.where(b != a, b - a, np.float32(1.0)), zero)
@@ -256,7 +252,81 @@ def k13_model(x, is_peak, prom, rel_height):
         b = x[r, np.maximum(ir - 1, 0)] + zero
         t = np.where(a < h, (h - a) / np.where(b != a, b - a, np.float32(1.0)), zero)
         right = np.where(ir < n, ir.astype(np.float32) - t, np.float32(n - 1))
-        out[r, p] = right - left
+        return right - left
+
+
+def k13_model(x, is_peak, prom, rel_height):
+    """K13's walk route: ``h = x[p] - rel * prom[p]`` in float32, the last
+    sample at or below h left of p and the first right of p found by walks,
+    each crossing interpolated in the plain version's order; +0.0
+    elsewhere."""
+    n = x.shape[1]
+    out = np.zeros(x.shape, np.float32)
+    r, p = np.nonzero(is_peak)
+    with np.errstate(invalid="ignore", over="ignore"):
+        h = x[r, p] - np.float32(rel_height) * prom[r, p]
+        found = {}
+        for side in (-1, 1):
+            at = np.full(r.size, -1 if side < 0 else n)
+            for _, hit, _, j in _walk(x, r, p, side, lambda v: v <= h):
+                at[hit] = j[hit]
+            found[side] = at
+    out[r, p] = _k13_crossings(x, r, found[-1], found[1], h)
+    return out
+
+
+def _lane_side(x, r, j, step, h):
+    """The lanes' walks from ``j`` in direction ``step`` while ``x[r, j] <=
+    h`` does not hold (a NaN sample or a NaN h never stops one), each to
+    its first stop or one past the border."""
+    n = x.shape[1]
+    j = j.copy()
+    live = (j >= 0) & (j < n)
+    while live.any():
+        with np.errstate(invalid="ignore"):
+            go = live & ~(x[r, np.clip(j, 0, n - 1)] <= h)
+        j[go] += step
+        live = go & (j >= 0) & (j < n)
+    return j
+
+
+def k13_lane_model(x, is_peak, prom, rel_height):
+    """K13's lane route on rows ``x`` (R, n), the columns of one batch
+    entry (T = R): tiles of 32 neighbouring rows; in each, every row's
+    peaks counted, an exclusive scan of the counts across the tile placing
+    row q's peaks (``f * 32 + q``, positions in order) in the tile's list,
+    which is taken a chunk of ``6 n`` entries at a time (the mask's words
+    hold it), the
+    lanes taking entries ``c0 + lane``, ``c0 + lane + 32``, ...  A lane's
+    peak: ``h = x[p] - rel * prom[p]``, both sides walked together to the
+    last j < p and the first j > p with x[j] <= h, each crossing
+    interpolated (the lanes are modelled together: a peak's width reads
+    nothing another lane writes).  Every peak is taken once; +0.0
+    elsewhere."""
+    R, n = x.shape
+    out = np.zeros(x.shape, np.float32)
+    cap = 6 * n
+    taken = []
+    for g in range(0, R, K13_TILE):
+        tile = is_peak[g : g + K13_TILE]
+        counts = tile.sum(axis=1)
+        first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        codes = np.empty(int(counts.sum()), np.int64)
+        for q in range(tile.shape[0]):
+            codes[first[q] : first[q] + counts[q]] = np.nonzero(tile[q])[0] * 32 + q
+        for c0 in range(0, codes.size, cap):
+            chunk = codes[c0 : c0 + cap]
+            for lane in range(32):
+                taken += [(g + (c & 31), c >> 5) for c in chunk[lane::32]]
+    r, p = (np.asarray(v, np.int64) for v in zip(*taken)) if taken else (np.zeros(0, np.int64),) * 2
+    count = np.zeros(x.shape, np.int64)
+    np.add.at(count, (r, p), 1)
+    np.testing.assert_array_equal(count, is_peak.astype(np.int64))  # each peak once
+    with np.errstate(invalid="ignore", over="ignore"):
+        h = x[r, p] - np.float32(rel_height) * prom[r, p]
+    il = _lane_side(x, r, p - 1, -1, h)
+    ir = _lane_side(x, r, p + 1, 1, h)
+    out[r, p] = _k13_crossings(x, r, il, ir, h)
     return out
 
 
@@ -334,11 +404,37 @@ def _lane_rows(flat, rows, n, T):
     return got
 
 
+def _k13_mask(mem, off, rows, n, T):
+    """The mask K13's lane route reads from bytes ``mem`` (an aligned
+    allocation, the mask's element 0 at byte ``off``) of rows as columns:
+    a warp tile's aligned 4-byte words that hold its bytes, nine a position
+    (its 32 rows' bytes wherever they start), and each row's byte at its
+    place in them (``width_lane``)."""
+    got = np.zeros((rows, n), bool)
+    per_b = -(-T // K13_TILE)
+    for g in range(rows // T * per_b):
+        b, t0 = divmod(g, per_b)
+        base, cnt, row0 = b * n * T + t0 * 32, min(32, T - t0 * 32), b * T + t0 * 32
+        smem = np.zeros(36 * n, np.uint8)  # the launcher's bytes for the words
+        a0 = off + base
+        for e in range(9 * n):
+            f = e // 9
+            a = a0 + f * T
+            w = (a & ~3) + 4 * (e - 9 * f)
+            if w < a + cnt:
+                smem[4 * e : 4 * e + 4] = mem[w : w + 4]
+        for q in range(cnt):
+            for f in range(n):
+                got[row0 + q, f] = smem[36 * f + ((a0 + f * T) & 3) + q] != 0
+    return got
+
+
 @pytest.mark.parametrize("shape", ((3, 71, 45), (2, 129, 33), (1, 5, 40), (40, 7)))
 def test_lane_routes_address_both_layouts(shape):
     """A transposed view is read in place as columns (a partial last tile
     included), a contiguous tensor as rows (K12's lane route), any other
-    layout copied; the kernel's addresses give the view's rows."""
+    layout copied; the kernel's addresses give the view's rows, K13's mask
+    too from the words that hold its bytes at every offset."""
     base = torch.from_numpy(np.random.default_rng(len(shape)).random(shape, dtype=np.float32))
     view = base.transpose(-1, -2)  # (..., T, n), positions of stride T
     n, T = view.shape[-1], view.shape[-2]
@@ -353,13 +449,20 @@ def test_lane_routes_address_both_layouts(shape):
                                   want)
     out = tpk._like_columns(view, view.shape, torch.bool)  # the outputs keep the view's layout
     assert out.shape == view.shape and out.stride() == view.stride()
+    mask = np.random.default_rng(n).random(shape) < 0.3  # K13's mask, in the view's memory
+    want = mask.swapaxes(-1, -2).reshape(rows, n)
+    for off in range(4):
+        mem = np.zeros(off + mask.size + 4, np.uint8)  # 4 bytes past: a word's tail
+        mem[off : off + mask.size] = mask.reshape(-1)
+        np.testing.assert_array_equal(_k13_mask(mem, off, rows, n, T), want)
 
 
 @pytest.mark.parametrize("n", (3, 71, 129, 384))
 def test_strided_views_give_their_copies_results(n):
     """On the CPU the wrappers take the plain versions; a transposed view
     gives what its contiguous copy gives, and the NumPy models of the lane
-    routes agree."""
+    routes agree; K13 with the mask and prominences in the view's layout,
+    as the peak gate passes them."""
     rows = peak_edge_rows(n)
     view = torch.from_numpy(np.ascontiguousarray(rows.T)).transpose(-1, -2)
     dense = view.contiguous()
@@ -369,27 +472,64 @@ def test_strided_views_give_their_copies_results(n):
     prom = tpk.peak_prominences(view, mask)
     np.testing.assert_array_equal(prom.numpy(), tpk.peak_prominences(dense, mask).numpy())
     np.testing.assert_array_equal(prom.numpy(), k12_lane_model(rows, mask.numpy()))
-    width = tpk.peak_widths_rel(view, mask, prom, 0.5)
-    np.testing.assert_array_equal(width.numpy(),
-                                  tpk.peak_widths_rel(dense, mask, prom, 0.5).numpy())
+    mask_c = tpk._like_columns(view, view.shape, torch.bool).copy_(mask)
+    prom_c = tpk._like_columns(view, view.shape, torch.float32).copy_(prom)
+    assert {tpk.peak_layout(t) for t in (view, mask_c, prom_c)} == {"columns"}
+    width = tpk.peak_widths_rel(view, mask_c, prom_c, 0.5)
+    dense_width = tpk.peak_widths_rel(dense, mask.contiguous(), prom.contiguous(), 0.5).numpy()
+    np.testing.assert_array_equal(width.numpy().view(np.int32), dense_width.view(np.int32))
+    lane = k13_lane_model(rows, mask.numpy(), prom.numpy(), 0.5)
+    nan = np.isnan(lane)
+    np.testing.assert_array_equal(nan, np.isnan(dense_width))
+    np.testing.assert_array_equal(lane.view(np.int32)[~nan], dense_width.view(np.int32)[~nan])
 
 
-@pytest.mark.parametrize("n", (3, 33, 384, 1025))
-@pytest.mark.parametrize("rel_height", (0.5, 1.0))
-def test_k13_model_matches_jax_and_plain(rel_height, n):
+@functools.lru_cache(maxsize=None)
+def _k13_cases(n, rel_height):
+    """K13's cases on the edge rows of ``n``: ``{mask label: (mask,
+    prominences, the jitted JAX function's widths, the plain version's)}``,
+    computed once for both routes' models."""
     x = peak_edge_rows(n)
+    cases = {}
     for label, mask in _masks(x, n + 1).items():
         prom = k12_model(x, mask)
-        got = k13_model(x, mask, prom, rel_height)
         ref = np.asarray(JAX_WIDTHS(jnp.asarray(x), jnp.asarray(mask), jnp.asarray(prom),
                                     rel_height))
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6, err_msg=f"{label}, JAX")
         plain = tpk._peak_widths_rel_plain(torch.from_numpy(x), torch.from_numpy(mask),
                                            torch.from_numpy(prom), rel_height).numpy()
+        cases[label] = (mask, prom, ref, plain)
+    return cases
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("rel_height", (0.5, 1.0))
+@pytest.mark.parametrize("route", ("walk", "lane"))
+def test_k13_model_matches_jax_and_plain(route, rel_height, n):
+    x = peak_edge_rows(n)
+    model = {"walk": k13_model, "lane": k13_lane_model}[route]
+    for label, (mask, prom, ref, plain) in _k13_cases(n, rel_height).items():
+        got = model(x, mask, prom, rel_height)
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6, err_msg=f"{label}, JAX")
         nan = np.isnan(got)  # NaN in the same places, every other value's bits
         np.testing.assert_array_equal(nan, np.isnan(plain), err_msg=f"{label}, NaN")
         np.testing.assert_array_equal(got.view(np.int32)[~nan], plain.view(np.int32)[~nan],
                                       err_msg=f"{label}, against plain, bit for bit")
+
+
+@pytest.mark.parametrize("n", (3, 33, 71))
+def test_k13_lane_model_takes_a_long_list_in_chunks(n):
+    """A tile whose peaks outgrow the mask's words (every position of 40
+    rows: 32 n peaks in the first tile, more than ``6 n``) is taken a chunk
+    at a time and still gives the plain version's bits."""
+    rows = np.random.default_rng(n).standard_normal((40, n)).astype(np.float32)
+    rows[3, ::4] = rows[3, 0]  # ties
+    mask = np.ones(rows.shape, bool)
+    assert 32 * n > 6 * n
+    prom = k12_model(rows, mask)
+    got = k13_lane_model(rows, mask, prom, 0.5)
+    plain = tpk._peak_widths_rel_plain(torch.from_numpy(rows), torch.from_numpy(mask),
+                                       torch.from_numpy(prom), 0.5).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), plain.view(np.int32))
 
 
 def test_peak_shape_route_follows_the_source():
@@ -397,11 +537,27 @@ def test_peak_shape_route_follows_the_source():
     assert f"constexpr int kSharedMax = {tpk.PEAK_SHAPE_SHARED_MAX};" in src
     assert f"constexpr int kLaneMax11 = {tpk.K11_LANE_MAX};" in src
     assert f"constexpr int kLaneMax12 = {tpk.K12_LANE_MAX};" in src
+    assert f"constexpr int kLaneMax13 = {tpk.K13_LANE_MAX};" in src
+    # K13's lane route: two buffers, each x at 33 floats a position, then
+    # the mask's words (the list of peaks after them), a warp's shared
+    # memory within the card's 227 KB; a row's peaks as bits in 32-bit words
+    assert "constexpr int kPitch13 = 33;" in src
+    assert ("return 2 * (size_t)(kPitch13 + 9) * m * sizeof(float);" in src
+            and "const size_t smem = smem_of(n);" in src)
+    assert "const int per = (kPitch13 + 9) * n;" in src  # the same buffer, in floats
+    assert "const int cap = 6 * n;" in src  # k13_lane_model's chunk: 4 + 2 bytes an entry
+    assert 2 * (33 + 9) * 4 * tpk.K13_LANE_MAX <= 227 * 1024
+    assert tpk.K13_LANE_MAX % 32 == 0 and "uint32_t bits[kLaneMax13 / 32];" in src
     assert 32 * 16 * tpk.K12_LANE_MAX <= 227 * 1024  # a warp's records in shared memory
     assert "constexpr int kChunk = 32 * kPer;" in src and "constexpr int kPer = 4;" in src
     assert K11_CHUNK == 32 * 4
-    assert tpk.peak_shape_route(71) == tpk.peak_shape_route(2048) == "shared"
-    assert tpk.peak_shape_route(2049) == tpk.peak_shape_route(30000) == "global"
+    # K13's lane route reads columns in place; contiguous rows, and columns
+    # past it, take the walk from device memory
+    assert tpk.width_route(71, "columns") == tpk.width_route(1, "columns") == "lane"
+    assert tpk.width_route(tpk.K13_LANE_MAX, "columns") == "lane"
+    assert tpk.width_route(tpk.K13_LANE_MAX + 1, "columns") == tpk.width_route(2048) == "walk"
+    assert tpk.width_route(71) == tpk.width_route(71, "other") == "walk"
+    assert tpk.width_route(2049, "columns") == tpk.width_route(30000) == "walk"
     # K11's lane route reads columns in place; contiguous rows take the warp route
     assert tpk.local_maxima_route(3, "columns") == "lane"
     assert tpk.local_maxima_route(tpk.K11_LANE_MAX, "columns") == "lane"
@@ -416,6 +572,9 @@ def test_peak_shape_route_follows_the_source():
     assert tpk._K11_ROUTES == {"lane": 0, "warp": 1}
     assert "route 0 two lanes a row (n <= kLaneMax12), 1 the range" in src
     assert tpk._K12_ROUTES == {"lane": 0, "table": 1, "walk": 2}
+    assert ("route 0 a lane a peak\n// of a warp's tile of 32 rows (rows as columns, T > 0, n "
+            "<= kLaneMax13), 1\n// the walks from device memory (contiguous rows, T = 0)") in src
+    assert tpk._K13_ROUTES == {"lane": 0, "walk": 1}
     for name in ("apt_local_maxima", "apt_peak_prominences", "apt_peak_widths_rel"):
         assert f'extern "C" int {name}(' in src and name in _kernels._SIGNATURES
     for name in ("local_maxima", "peak_prominences", "peak_widths_rel"):

@@ -17,7 +17,10 @@ CUDA graph of 20 (``chip_smoke.graph_ms``) where it has the kernel; the
 kernels' results against the plain versions, bit for bit (K12's zeros by
 value), else it exits non-zero; on a checkout with K11's and K12's routes,
 each route's graph ms at each of their inputs, as passed and in the other
-layout (``chip_smoke.other_layout``).  Stages: the peak gate
+layout (``chip_smoke.other_layout``), and K13's where it has routes
+(``width_route``), there also on the gate's rows extended to 129, 176
+and 256 positions in both layouts and to 384, 1,025 and 2,048 as
+contiguous rows, every local maximum a peak.  Stages: the peak gate
 (``models/frame_classifier.py::_peak_gate`` over the 128 clips' dB; CUDA
 events, and its kernels' device time from torch.profiler), the
 confirmer's ``TimeDomainRainDetector.process`` on clip 1 (host clock and
@@ -42,7 +45,6 @@ from time_k6_k7 import smi_query
 from time_k9 import load_chip_smoke
 
 REPO = Path(__file__).resolve().parent.parent
-
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -97,11 +99,11 @@ def main() -> int:
         result["shapes"][label] = rec
         print(f"{rec['kernel']} {label} {tuple(fargs[0].shape)}: {rec}")
 
-    # every route of K11 and K12 at each path's input, in its layout and the other
+    # every route of K11-K13 at each path's input, in its layout and the other
     if hasattr(tpk, "prominence_route"):
         result["routes"] = {}
         for label, (kernel, fargs) in rows.items():
-            if kernel == "peak_widths_rel":
+            if kernel == "peak_widths_rel" and not hasattr(tpk, "width_route"):
                 continue
             cuda = getattr(tpk, f"_{kernel}_cuda")
             for how, a in (("as passed", fargs),
@@ -111,6 +113,38 @@ def main() -> int:
                 key = f"{label}, {how} ({tpk.peak_layout(a[0])})"
                 result["routes"][key] = rec
                 print(f"routes {key}: {rec}")
+
+    # K13's routes on wider rows: the gate's dB rows extended to n positions
+    # (itself, mirrored, and again), every local maximum a peak, its
+    # prominences from K12, rel_height 0.5; each route against the walk bit
+    # for bit
+    if hasattr(tpk, "width_route"):
+        result["k13_widths"] = {}
+        sT = rows["the peak gate peak_widths_rel"][1][0]
+        for n in (71, 129, 176, 256, 384, 1025, 2048):
+            xw = torch.cat([sT, sT.flip(-1)] * -(-n // (2 * sT.shape[-1])), -1)[..., :n]
+            xw = xw.contiguous()
+            mask = tpk._local_maxima_cuda(xw, route="warp")
+            rowwise = (xw, mask, tpk._peak_prominences_cuda(xw, mask), 0.5)
+            layouts = [("rows", rowwise)]
+            if n <= 256:
+                layouts.append(("columns", tuple(chip_smoke.other_layout(t) for t in rowwise)))
+            for how, fargs in layouts:
+                a = fargs[0]
+                routes = chip_smoke.peak_routes("peak_widths_rel", a)
+                ref = tpk._peak_widths_rel_cuda(*fargs, route="walk")
+                for route in routes:
+                    ok, _ = chip_smoke.same_bits(
+                        tpk._peak_widths_rel_cuda(*fargs, route=route), ref)
+                    chip_smoke.check(ok, f"K13 at {n} {how}: the {route} route's bits differ")
+                rec = {route: chip_smoke.graph_ms(
+                           lambda r=route: tpk._peak_widths_rel_cuda(*fargs, route=r))
+                       for route in routes}
+                rec["chosen"] = tpk.width_route(n, tpk.peak_layout(a))
+                result["k13_widths"][f"{n} {how}"] = rec
+                print(f"K13 {tuple(a.shape)} {how}, every maximum: {rec}")
+            del xw, a, mask, rowwise, layouts, fargs, ref
+            torch.cuda.empty_cache()
 
     # the stages as the paths run them
     cfg = build_noise_config(chip_smoke.FS, chip_smoke.PEAK_GATE)
