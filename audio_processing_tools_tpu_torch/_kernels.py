@@ -16,7 +16,8 @@ changed source gets a new directory, so a stale library is never loaded.
 Each entry point takes raw device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after the launch;
 :func:`check` raises on anything but success.  The wrappers in ``ops/``
-count every launch in :data:`LAUNCHES`.
+count every launch in :data:`LAUNCHES` and in the tracer's open span
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+from audio_processing_tools_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "apt_torch_kernels"
@@ -182,7 +185,10 @@ def build() -> KernelLibrary:
 
 
 def count(kernel: str) -> None:
+    """One launch of ``kernel``: in :data:`LAUNCHES`, and as ``launches``
+    in the tracer's innermost open span."""
     LAUNCHES[kernel] += 1
+    profiling.count("launches")
 
 
 def reset_launches() -> None:

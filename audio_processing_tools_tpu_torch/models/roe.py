@@ -49,6 +49,7 @@ from audio_processing_tools_tpu_torch.ops.framing import frame_signal
 from audio_processing_tools_tpu_torch.ops.peaks import local_maxima
 from audio_processing_tools_tpu_torch.ops.spectrogram import spectrogram_power
 from audio_processing_tools_tpu_torch.ops.stats import tree_sum
+from audio_processing_tools_tpu_torch.utils.profiling import span
 
 MAX_DURATION_FW = 2  # firmware chunk seconds (``dsp_rain_detection.py:2601``)
 
@@ -343,108 +344,115 @@ def _analyse_rows(chunks: torch.Tensor, cfg: RoeConfig,
             "nf != 0 requires estimate_noise_lpf, which is undefined in the "
             "reference (dsp_rain_detection.py:2318 latent bug); not supported."
         )
-    Fs = cfg.sample_rate
-    N, H = cfg.frame_length, cfg.hop_length
-    op_lo, op_hi = cfg.op_freq_range
-    dev = chunks.device
+    with span("roe.rows"):
+        Fs = cfg.sample_rate
+        N, H = cfg.frame_length, cfg.hop_length
+        op_lo, op_hi = cfg.op_freq_range
+        dev = chunks.device
 
-    # operating-band causal band-pass, order 8 (K4)
-    nyq = 0.5 * Fs
-    audio = sosfilt(butter_sos(8, [op_lo / nyq, op_hi / nyq], "bandpass"),
-                    chunks.to(torch.float32))
-    # only |S| is read downstream: the square root of K1's power
-    mag = torch.sqrt(spectrogram_power(audio, n_fft=N, hop=H, center=True))
-    F, T = mag.shape[-2], mag.shape[-1]
+        # operating-band causal band-pass, order 8 (K4)
+        nyq = 0.5 * Fs
+        with span("roe.bandpass"):
+            audio = sosfilt(butter_sos(8, [op_lo / nyq, op_hi / nyq], "bandpass"),
+                            chunks.to(torch.float32))
+        # only |S| is read downstream: the square root of K1's power
+        with span("roe.spectrogram"):
+            mag = torch.sqrt(spectrogram_power(audio, n_fft=N, hop=H, center=True))
+        F, T = mag.shape[-2], mag.shape[-1]
 
-    t_res = _pulse_characteristics(audio, T, cfg)
+        with span("roe.pulse"):
+            t_res = _pulse_characteristics(audio, T, cfg)
 
-    Y = mag if cfg.log_factor == 0 else torch.log(1 + cfg.log_factor * mag)
-    M = cfg.min_average_len
-    thrs = cfg.harmonic_threshold
+        Y = mag if cfg.log_factor == 0 else torch.log(1 + cfg.log_factor * mag)
+        M = cfg.min_average_len
+        thrs = cfg.harmonic_threshold
 
-    # ---- harmonic 0: fixed band [fn, fn + 300] ----
-    f0_lo, f0_hi = f32(cfg.fn, dev), f32(cfg.fn + 300.0, dev)
-    mask0 = _band_mask_bins(f0_lo, f0_hi, Fs, N, F)
-    novk, novt = _novelty_spectrum(torch.where(mask0[:, None], Y, 0.0), M, thrs[0])
-    peaks = _spectral_peaks(mag)
-    peaks0, fpeak0 = _find_first_peak_in_range(
-        mag, f32(op_lo, dev), f32(op_hi, dev), f0_lo, f0_hi, Fs, cfg.max_peaks, peaks)
-    # novelty rows are T + 1 long (trailing zero); only the first T are gated
-    raw_nov1 = [novt]
-    raw_nopeak = [tnf.pad(peaks0 == 0, (0, 1))]
-    gate0 = tnf.pad((novk[:, :T] != 0) & (peaks0 == 0), (0, 1))
-    novk = torch.where(gate0, 0.0, novk)
-    novt = torch.where(gate0, 0.0, novt)
+        # ---- harmonic 0: fixed band [fn, fn + 300] ----
+        with span("roe.harmonic0"):
+            f0_lo, f0_hi = f32(cfg.fn, dev), f32(cfg.fn + 300.0, dev)
+            mask0 = _band_mask_bins(f0_lo, f0_hi, Fs, N, F)
+            novk, novt = _novelty_spectrum(torch.where(mask0[:, None], Y, 0.0), M, thrs[0])
+            peaks = _spectral_peaks(mag)
+            peaks0, fpeak0 = _find_first_peak_in_range(
+                mag, f32(op_lo, dev), f32(op_hi, dev), f0_lo, f0_hi, Fs, cfg.max_peaks, peaks)
+            # novelty rows are T + 1 long (trailing zero); only the first T are gated
+            raw_nov1 = [novt]
+            raw_nopeak = [tnf.pad(peaks0 == 0, (0, 1))]
+            gate0 = tnf.pad((novk[:, :T] != 0) & (peaks0 == 0), (0, 1))
+            novk = torch.where(gate0, 0.0, novk)
+            novt = torch.where(gate0, 0.0, novt)
 
-    frain_mean = _nonzero_mean(fpeak0)
+            frain_mean = _nonzero_mean(fpeak0)
 
-    # ---- harmonics 1..n-1 in bands centred on multiples of frain_mean ----
-    n_lo, n_hi = cfg.n_freq_range
-    in_natural = (frain_mean >= n_lo) & (frain_mean <= n_hi)
-    # the last harmonic is dropped when its search range overflows the band
-    overflow_last = (frain_mean * cfg.num_harmonics + 300.0) > (op_hi + 100.0)
+        # ---- harmonics 1..n-1 in bands centred on multiples of frain_mean ----
+        with span("roe.harmonics"):
+            n_lo, n_hi = cfg.n_freq_range
+            in_natural = (frain_mean >= n_lo) & (frain_mean <= n_hi)
+            # the last harmonic is dropped when its search range overflows the band
+            overflow_last = (frain_mean * cfg.num_harmonics + 300.0) > (op_hi + 100.0)
 
-    nov_list = [novk]
-    n_harm = cfg.num_harmonics - 1
-    for hn in range(1, n_harm + 1):
-        centre = frain_mean * (hn + 1)
-        b_lo = centre - 100.0
-        b_hi = b_lo + 300.0
-        maskh = _band_mask_bins(b_lo, b_hi, Fs, N, F)
-        novx, nov1_h = _novelty_spectrum(torch.where(maskh[..., None], Y, 0.0), M,
-                                         _harmonic_threshold(thrs, hn))
-        # search range re-centred (``update_search_freq_range``)
-        s_lo = torch.clamp_min(centre - 200.0, op_lo)
-        s_hi = torch.clamp_max(centre + 300.0, op_hi)
-        _, fpeak_h = _find_first_peak_in_range(mag, s_lo, s_hi, b_lo, b_hi, Fs, cfg.max_peaks,
-                                               peaks)
-        gate_h = tnf.pad((novx[:, :T] != 0) & (fpeak_h == 0), (0, 1))
-        novx = torch.where(gate_h, 0.0, novx)
+            nov_list = [novk]
+            n_harm = cfg.num_harmonics - 1
+            for hn in range(1, n_harm + 1):
+                centre = frain_mean * (hn + 1)
+                b_lo = centre - 100.0
+                b_hi = b_lo + 300.0
+                maskh = _band_mask_bins(b_lo, b_hi, Fs, N, F)
+                novx, nov1_h = _novelty_spectrum(torch.where(maskh[..., None], Y, 0.0), M,
+                                                 _harmonic_threshold(thrs, hn))
+                # search range re-centred (``update_search_freq_range``)
+                s_lo = torch.clamp_min(centre - 200.0, op_lo)
+                s_hi = torch.clamp_max(centre + 300.0, op_hi)
+                _, fpeak_h = _find_first_peak_in_range(mag, s_lo, s_hi, b_lo, b_hi, Fs,
+                                                       cfg.max_peaks, peaks)
+                gate_h = tnf.pad((novx[:, :T] != 0) & (fpeak_h == 0), (0, 1))
+                novx = torch.where(gate_h, 0.0, novx)
 
-        active = in_natural if hn < n_harm else in_natural & ~overflow_last
-        raw_nov1.append(torch.where(active[:, None], nov1_h, 0.0))
-        raw_nopeak.append(tnf.pad(fpeak_h == 0, (0, 1)))
-        nov_list.append(torch.where(active[:, None], novx, 0.0))
+                active = in_natural if hn < n_harm else in_natural & ~overflow_last
+                raw_nov1.append(torch.where(active[:, None], nov1_h, 0.0))
+                raw_nopeak.append(tnf.pad(fpeak_h == 0, (0, 1)))
+                nov_list.append(torch.where(active[:, None], novx, 0.0))
 
-    nov = torch.stack(nov_list, dim=1)  # (R, n_harmonics, T + 1)
-    # harmonics count only where harmonic 0 has novelty
-    nov = torch.cat([nov[:, :1], torch.where(nov[:, :1] == 0.0, 0.0, nov[:, 1:])], dim=1)
+        with span("roe.decision"):
+            nov = torch.stack(nov_list, dim=1)  # (R, n_harmonics, T + 1)
+            # harmonics count only where harmonic 0 has novelty
+            nov = torch.cat([nov[:, :1], torch.where(nov[:, :1] == 0.0, 0.0, nov[:, 1:])], dim=1)
 
-    thr_hn = f32(cfg.rain_thr_hn, dev)
-    nov_hn = _sum_harmonics(nov)
-    # the reference clamps > thr to thr, then zeroes < thr: thr survives at >= thr
-    raining = torch.where(nov_hn >= thr_hn, thr_hn, 0.0)
-    rain_drops = torch.sum(raining >= 1.0, dim=-1).to(torch.int32)
+            thr_hn = f32(cfg.rain_thr_hn, dev)
+            nov_hn = _sum_harmonics(nov)
+            # the reference clamps > thr to thr, then zeroes < thr: thr survives at >= thr
+            raining = torch.where(nov_hn >= thr_hn, thr_hn, 0.0)
+            rain_drops = torch.sum(raining >= 1.0, dim=-1).to(torch.int32)
 
-    # the ``detect_rain_from_novelty`` variant, kept as state
-    clipped = []
-    for hn in range(nov.shape[1]):
-        thr_h = _harmonic_threshold(thrs, hn)
-        v = nov[:, hn]
-        clipped.append(torch.where(v > f32(1.6 * thr_h, dev), f32(1.5 * thr_h, dev),
-                                   torch.where(v > f32(thr_h, dev), v, 0.0)))
-    rain_status_new = _sum_harmonics(torch.stack(clipped, dim=1)) > thr_hn
+            # the ``detect_rain_from_novelty`` variant, kept as state
+            clipped = []
+            for hn in range(nov.shape[1]):
+                thr_h = _harmonic_threshold(thrs, hn)
+                v = nov[:, hn]
+                clipped.append(torch.where(v > f32(1.6 * thr_h, dev), f32(1.5 * thr_h, dev),
+                                           torch.where(v > f32(thr_h, dev), v, 0.0)))
+            rain_status_new = _sum_harmonics(torch.stack(clipped, dim=1)) > thr_hn
 
-    out = {
-        "rain_drops": rain_drops,
-        "frain_mean": frain_mean,
-        "raining": raining,
-        "nov": nov,
-        "novt": novt,
-        "novk": novk,
-        "Nov0": nov[:, 0],
-        "filtered": audio,
-        "rain_status_new": rain_status_new,
-        **t_res,
-    }
-    if cfg.return_spectra:
-        # db0 is the post-noise-suppression spectrum, db the raw one; with
-        # the supported nf == 0 both are the dB of Y
-        out["spectrum_db0"] = out["spectrum_db"] = _amplitude_to_db_refmax(Y)
-    if collect_raw:
-        out["raw_nov1"] = torch.stack(raw_nov1, dim=1)
-        out["raw_nopeak"] = torch.stack(raw_nopeak, dim=1)
-    return out
+        out = {
+            "rain_drops": rain_drops,
+            "frain_mean": frain_mean,
+            "raining": raining,
+            "nov": nov,
+            "novt": novt,
+            "novk": novk,
+            "Nov0": nov[:, 0],
+            "filtered": audio,
+            "rain_status_new": rain_status_new,
+            **t_res,
+        }
+        if cfg.return_spectra:
+            # db0 is the post-noise-suppression spectrum, db the raw one; with
+            # the supported nf == 0 both are the dB of Y
+            out["spectrum_db0"] = out["spectrum_db"] = _amplitude_to_db_refmax(Y)
+        if collect_raw:
+            out["raw_nov1"] = torch.stack(raw_nov1, dim=1)
+            out["raw_nopeak"] = torch.stack(raw_nopeak, dim=1)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -500,36 +508,37 @@ def _roe_batch(x: torch.Tensor, cfg: RoeConfig) -> Dict[str, torch.Tensor]:
     the chunk arrays concatenated over time, the TD gate and the FP/FN
     combiner.  Tensors on ``x``'s device, a leading clip axis."""
     chunks = _analyse_chunks(x, cfg, collect_raw=False)
-    merged = {k: torch.cat([c[k] for c in chunks], dim=-1) for k in _CONCAT_KEYS}
-    if cfg.return_spectra:
-        for k in ("spectrum_db0", "spectrum_db"):
-            merged[k] = torch.cat([c[k] for c in chunks], dim=-1)
-    rdc = chunks[0]["rain_drops"]
-    for c in chunks[1:]:
-        rdc = rdc + c["rain_drops"]
-    frain_mean = chunks[-1]["frain_mean"]
+    with span("roe.combine"):
+        merged = {k: torch.cat([c[k] for c in chunks], dim=-1) for k in _CONCAT_KEYS}
+        if cfg.return_spectra:
+            for k in ("spectrum_db0", "spectrum_db"):
+                merged[k] = torch.cat([c[k] for c in chunks], dim=-1)
+        rdc = chunks[0]["rain_drops"]
+        for c in chunks[1:]:
+            rdc = rdc + c["rain_drops"]
+        frain_mean = chunks[-1]["frain_mean"]
 
-    duration = cfg.check_duration
-    rain_drop_threshold = math.ceil(cfg.min_drop_count * duration)
-    raining_flag = rdc > rain_drop_threshold
+        duration = cfg.check_duration
+        rain_drop_threshold = math.ceil(cfg.min_drop_count * duration)
+        raining_flag = rdc > rain_drop_threshold
 
-    # TD gate and FP/FN combiner
-    peaks = ((merged["kurtosis"] > cfg.kurtosis_thr)
-             & (merged["crest_factor"] > cfg.crest_thr)
-             & (merged["diff_energy"] > cfg.diff_energy_thr))
-    rain_peaks_count = torch.sum(peaks, dim=-1).to(torch.int32)
-    merged["rain_peaks"] = peaks
-    final_count, final_mod, rain_peaks_count = _combine(
-        rdc, rain_peaks_count, raining_flag, rain_drop_threshold, cfg,
-        cfg.rain_drop_max_thr, cfg.rain_peaks_max_thr, cfg.rain_peaks_min_thr)
+        # TD gate and FP/FN combiner
+        peaks = ((merged["kurtosis"] > cfg.kurtosis_thr)
+                 & (merged["crest_factor"] > cfg.crest_thr)
+                 & (merged["diff_energy"] > cfg.diff_energy_thr))
+        rain_peaks_count = torch.sum(peaks, dim=-1).to(torch.int32)
+        merged["rain_peaks"] = peaks
+        final_count, final_mod, rain_peaks_count = _combine(
+            rdc, rain_peaks_count, raining_flag, rain_drop_threshold, cfg,
+            cfg.rain_drop_max_thr, cfg.rain_peaks_max_thr, cfg.rain_peaks_min_thr)
 
-    merged["duration"] = torch.full_like(frain_mean, float(duration))
-    merged["rain_drop_count"] = final_count
-    merged["rain_drop_count_raw"] = rdc
-    merged["rain_peaks_count"] = rain_peaks_count
-    merged["rain_drop_count_mod"] = final_mod
-    merged["frain_mean"] = frain_mean
-    return merged
+        merged["duration"] = torch.full_like(frain_mean, float(duration))
+        merged["rain_drop_count"] = final_count
+        merged["rain_drop_count_raw"] = rdc
+        merged["rain_peaks_count"] = rain_peaks_count
+        merged["rain_drop_count_mod"] = final_mod
+        merged["frain_mean"] = frain_mean
+        return merged
 
 
 def _combine(rdc, rain_peaks_count, raining_flag, rain_drop_threshold, cfg: RoeConfig,

@@ -58,6 +58,7 @@ from audio_processing_tools_tpu_torch.ops.trackers import (
     make_psd_params,
     noise_psd_track,
 )
+from audio_processing_tools_tpu_torch.utils.profiling import span
 
 
 def _mode_union_mask(freqs_band: np.ndarray, mode_bands) -> np.ndarray:
@@ -285,7 +286,8 @@ class SpectralNoiseEngine:
 
         geo = BandGeometry(cfg)
         td_sos = td_prefilter_sos(cfg)
-        x_td = sosfiltfilt(td_sos, x) if td_sos is not None else x
+        with span("spectral.td_prefilter"):
+            x_td = sosfiltfilt(td_sos, x) if td_sos is not None else x
 
         needs_audio = bool(cfg.return_filtered_audio or cfg.compute_output_audio)
         x_proc = x
@@ -300,12 +302,13 @@ class SpectralNoiseEngine:
                 x_proc = sosfiltfilt(sos, x)
 
         needs_complex = bool(cfg.return_spectra or needs_audio)
-        if needs_complex:
-            S = stft(x, n_fft=cfg.n_fft, hop=cfg.hop, center=True)
-            P = (S.real * S.real + S.imag * S.imag).contiguous()
-        else:
-            S = None
-            P = spectrogram_power(x, n_fft=cfg.n_fft, hop=cfg.hop, center=True)
+        with span("spectral.spectrogram"):
+            if needs_complex:
+                S = stft(x, n_fft=cfg.n_fft, hop=cfg.hop, center=True)
+                P = (S.real * S.real + S.imag * S.imag).contiguous()
+            else:
+                S = None
+                P = spectrogram_power(x, n_fft=cfg.n_fft, hop=cfg.hop, center=True)
         T = P.shape[-1]
 
         freqs = fft_frequencies(sr, cfg.n_fft)
@@ -329,10 +332,12 @@ class SpectralNoiseEngine:
                          "noise_conf": noise_conf}
             feature_dump: Dict[str, Any] = {}
         else:
-            P_det, det_noise = self._detector_input(P_band, sr)
-            frame_class, rain_conf, det_debug, feature_dump = detect_from_band(
-                cfg, geo, P_det, x_td, P,
-                debug=keep_det_debug)
+            with span("spectral.detector_input"):
+                P_det, det_noise = self._detector_input(P_band, sr)
+            with span("spectral.detect"):
+                frame_class, rain_conf, det_debug, feature_dump = detect_from_band(
+                    cfg, geo, P_det, x_td, P,
+                    debug=keep_det_debug)
             noise_conf = det_debug["noise_conf"]
 
         # frames_to_time in float64 on the device: no host copy per batch
@@ -382,7 +387,8 @@ class SpectralNoiseEngine:
             if cfg.compute_output_audio:
                 y = x_proc
         else:
-            N_band = self._noise_psd_band(P_band, is_rain_for_psd, sr)
+            with span("spectral.noise_psd"):
+                N_band = self._noise_psd_band(P_band, is_rain_for_psd, sr)
             S_hat = None
             if needs_gain:
                 N_lag = _lagged(N_band) if bool(cfg.use_lagged_noise_psd) and T > 1 else N_band
@@ -397,9 +403,10 @@ class SpectralNoiseEngine:
                     y = istft(S_hat, n_fft=cfg.n_fft, hop=cfg.hop, length=x.shape[-1],
                               center=True)
 
-        noise_db = 10.0 * torch.log10(N_band + eps)
-        out["mean_noise_floor_db"] = torch.mean(noise_db, dim=(-2, -1))
-        out["median_noise_floor_db"] = quantile_linear(noise_db.reshape(B, -1), 0.5)
+        with span("spectral.noise_floor"):
+            noise_db = 10.0 * torch.log10(N_band + eps)
+            out["mean_noise_floor_db"] = torch.mean(noise_db, dim=(-2, -1))
+            out["median_noise_floor_db"] = quantile_linear(noise_db.reshape(B, -1), 0.5)
 
         if cfg.return_noise_psd or cfg.debug_enable or want_debug:
             noise_psd = _full_rows(N_band, F, rows)

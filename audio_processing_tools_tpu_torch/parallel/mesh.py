@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from audio_processing_tools_tpu_torch.ops._device import f32, f32_recip
+from audio_processing_tools_tpu_torch.utils.profiling import span
 
 
 class Mesh:
@@ -331,23 +332,31 @@ class ShardedRainPipeline:
         pad rows count in ``total_clips`` and the means; per-clip outputs
         are this process's rows (:func:`local_rows`), aggregates are global.
         """
-        n_pad_to = self.mesh.shape[self.axis]
-        B = xb.shape[0]
-        if B % n_pad_to != 0:
-            pad = n_pad_to - (B % n_pad_to)
-            xb = np.concatenate([xb, np.zeros((pad,) + xb.shape[1:], xb.dtype)])
-        shards = shard_batch(xb, self.mesh, self.axis)
-        blocks: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(shards.blocks)
-        for _, idx in _device_groups(shards.blocks):
-            rows = [shards.blocks[i].shape[0] for i in idx]
-            x = shards.blocks[idx[0]] if len(idx) == 1 else torch.cat(
-                [shards.blocks[i] for i in idx])
-            out = self._per_clip(x)
-            parts = {k: torch.split(v, rows) for k, v in out.items()}
-            for j, i in enumerate(idx):
-                blocks[i] = {k: v[j] for k, v in parts.items()}
-        per_clip = {k: ShardedRows([b[k] for b in blocks]) for k in blocks[0]}
-        return {"per_clip": per_clip, "aggregates": self._aggregates(per_clip, xb.shape[0])}
+        with span("mesh.step"):
+            with span("mesh.shard"):
+                n_pad_to = self.mesh.shape[self.axis]
+                B = xb.shape[0]
+                if B % n_pad_to != 0:
+                    pad = n_pad_to - (B % n_pad_to)
+                    xb = np.concatenate([xb, np.zeros((pad,) + xb.shape[1:], xb.dtype)])
+                shards = shard_batch(xb, self.mesh, self.axis)
+            outs = []
+            for _, idx in _device_groups(shards.blocks):
+                with span("mesh.engine"):
+                    x = shards.blocks[idx[0]] if len(idx) == 1 else torch.cat(
+                        [shards.blocks[i] for i in idx])
+                    outs.append((idx, self._per_clip(x)))
+            with span("mesh.split"):
+                blocks: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(shards.blocks)
+                for idx, out in outs:
+                    rows = [shards.blocks[i].shape[0] for i in idx]
+                    parts = {k: torch.split(v, rows) for k, v in out.items()}
+                    for j, i in enumerate(idx):
+                        blocks[i] = {k: v[j] for k, v in parts.items()}
+                per_clip = {k: ShardedRows([b[k] for b in blocks]) for k in blocks[0]}
+            with span("mesh.aggregates"):
+                aggregates = self._aggregates(per_clip, xb.shape[0])
+        return {"per_clip": per_clip, "aggregates": aggregates}
 
     def run_corpus(self, clips: np.ndarray, batch: int = 32) -> Dict[str, Any]:
         """Process a corpus in sharded batches and fold aggregates."""

@@ -214,19 +214,26 @@ def test_viz_plots_render():
 
 
 def test_timer_timed_and_device_trace(tmp_path):
+    """The exporter: ``device_trace`` writes the Chrome trace and, beside
+    it, the block's span table (``Timer`` and ``timed`` are gone; ``span``
+    does what ``Timer.section`` did)."""
     import torch
 
-    timer = tutils.Timer()
-    for _ in range(3):
-        with timer.section("a"):
-            pass
-    rep = timer.report()
-    assert rep["a"]["count"] == 3 and rep["a"]["total_s"] >= 0
-    assert rep["a"]["mean_s"] == pytest.approx(rep["a"]["total_s"] / 3)
-    assert tutils.timed(lambda a, b=0: a + b, 2, b=3)[0] == 5
+    assert not hasattr(tutils, "Timer") and not hasattr(tutils, "timed")
     with tutils.device_trace(str(tmp_path / "trace")):
-        torch.fft.rfft(torch.ones(1024)).abs().sum()
-    traces = list((tmp_path / "trace").glob("*.json"))
-    assert len(traces) == 1
+        for _ in range(2):
+            with tutils.span("mesh.step"):
+                with tutils.span("mesh.engine"):
+                    torch.fft.rfft(torch.ones(1024)).abs().sum()
+    traces = sorted((tmp_path / "trace").glob("trace_*.json"))
+    tables = sorted((tmp_path / "trace").glob("spans_*.json"))
+    assert len(traces) == 1 and len(tables) == 1
+    assert traces[0].name[len("trace_"):] == tables[0].name[len("spans_"):]
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("fft" in str(e.get("name", "")) for e in events)
+    assert sum(str(e.get("name", "")).startswith("apt>") for e in events) == 4
+    table = json.loads(tables[0].read_text())
+    assert table["batches"] == 2 and table["records"] == 4
+    assert table["spans"]["mesh.step"]["calls"] == 2
+    assert table["spans"]["mesh.engine"]["per_batch"]["calls"] == 1
+    assert tutils.span("mesh.step") is tutils.span("other")  # off again after the block
